@@ -1,0 +1,546 @@
+#!/usr/bin/env python3
+"""Chip check of plonky_tpu_torch on one NVIDIA GPU (written for the H100).
+
+Builds the CUDA kernels from plonky_tpu_torch/csrc, holds every kernel
+against its plain PyTorch version on the card at the main path's shapes
+(exact equality: all of it is integer arithmetic), reproduces the committed
+fixture proofs byte for byte, then builds, proves (twice) and verifies the
+2^14-gate BufferGate circuit and shows that the steady prove launched every
+kernel.
+
+    python3 chip_smoke.py
+
+Every phase prints one JSON line.  The line before the last is the card's
+`nvidia-smi --query-gpu=name,power.limit` line; the last line is
+{"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
+and the ok line is not printed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
+
+# name -> (source, the TPU kernel it replaces, its CUDA function's name)
+_CSRC = "plonky_tpu_torch/csrc/"
+_PK = "plonky_tpu/fields/pallas_kernels.py"
+KERNELS = {
+    "field_add": (_CSRC + "field_kernels.cu", _PK + ":110",
+                  "field_binary_kernel<0>"),
+    "field_sub": (_CSRC + "field_kernels.cu", _PK + ":110",
+                  "field_binary_kernel<1>"),
+    "field_mul": (_CSRC + "field_kernels.cu", _PK + ":197",
+                  "field_binary_kernel<2>"),
+    "field_product_sum": (_CSRC + "field_kernels.cu", _PK + ":68",
+                          "field_product_sum_kernel"),
+    "curve_add": (_CSRC + "curve_kernels.cu", "plonky_tpu/curves/ops.py:93",
+                  "curve_add_kernel"),
+    "curve_double": (_CSRC + "curve_kernels.cu", "plonky_tpu/curves/ops.py:93",
+                     "curve_double_kernel"),
+    "ntt_stage": (_CSRC + "ntt_kernels.cu", "plonky_tpu/poly/fft.py:124",
+                  "ntt_stage_kernel"),
+    "msm_bucket_accumulate": (_CSRC + "msm_kernels.cu",
+                              "plonky_tpu/curves/msm.py:95",
+                              "msm_bucket_accumulate_kernel"),
+    "msm_bucket_reduce": (_CSRC + "msm_kernels.cu",
+                          "plonky_tpu/curves/msm.py:376",
+                          "msm_bucket_reduce_kernel"),
+}
+
+# The operations bound counts the multiplies a function needs at least, in
+# 32-bit IMAD issue slots (64 per SM per clock): a 32 x 32 -> 64-bit
+# product is two of them (its low and its high half).  An 8-limb product is
+# 64 wide products; a square 36 (8 squares, 28 doubled cross products); one
+# Montgomery reduction is 8 rounds of a low-half quotient digit and 8 wide
+# products.  Additions, and multiplies by the small constants 3 and
+# b3 = 3b (15 or 21), are not counted: the bound is a floor.
+WIDE = 2
+REDC_OPS = 8 * (1 + 8 * WIDE)                   # 136
+PRODUCT_OPS = 64 * WIDE                         # 128
+MUL_OPS = PRODUCT_OPS + REDC_OPS                # 264
+SQR_OPS = 36 * WIDE + REDC_OPS                  # 208
+ADD_OPS = 12 * MUL_OPS          # RCB15 Alg. 7 (a = 0): 12 M + 2 by b3
+DBL_OPS = 6 * MUL_OPS + 2 * SQR_OPS             # Alg. 9: 6 M + 2 S + 1 by b3
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Checker:
+    """Times kernels with CUDA events and compares them with their plain
+    versions; collects one record per kernel."""
+
+    def __init__(self, torch, clock_hz: float, int_ops_per_s: float):
+        self.torch = torch
+        self.clock_hz = clock_hz
+        self.rate = int_ops_per_s
+        self.flush = torch.empty(1 << 25, dtype=torch.int32, device="cuda")
+        self.records = {}
+        self.errors = {}
+
+    def time_ms(self, fn, reps: int) -> float:
+        """Mean time per call of `reps` calls in a row, host work included
+        wherever the host is slower than the card."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def queued_ms(self, fn, reps: int) -> float:
+        """Mean device time per call of `reps` calls enqueued while the card
+        sleeps, so that the events time the card alone and not the host's
+        enqueue; retried with a longer sleep if the host fell behind."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        sleep_s = 2e-3
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(sleep_s * self.clock_hz))
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host_s = time.perf_counter() - t0
+            end.record()
+            torch.cuda.synchronize()
+            if host_s < sleep_s:
+                return start.elapsed_time(end) / reps
+            sleep_s = 2 * host_s + 1e-3
+        raise AssertionError("the host could not enqueue ahead of the card")
+
+    def measure(self, kernel_fn, plain_fn, bytes_, ops, reps=20,
+                plain_reps=2) -> dict:
+        """ms: device time per launch with the L2 cache warm; cold_ms: the
+        same with the 50 MB L2 flushed before each launch (the flush's own
+        time taken off); call_ms: a wrapper call timed back to back, host
+        included; plain_ms: the plain version's call."""
+        flush = self.flush.zero_
+        cold = self.queued_ms(lambda: (flush(), kernel_fn()), reps)
+        t_bytes = bytes_ / HBM_BYTES_PER_S
+        t_ops = ops / self.rate
+        return {"ms": self.queued_ms(kernel_fn, reps),
+                "cold_ms": cold - self.queued_ms(flush, reps),
+                "call_ms": self.time_ms(kernel_fn, reps),
+                "plain_ms": self.time_ms(plain_fn, plain_reps),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    def compare(self, name: str, got, want) -> None:
+        """Exact equality of a kernel's output with its plain version's;
+        keeps the largest limb difference seen per kernel."""
+        torch = self.torch
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0
+        for g, w in zip(got, want):
+            if tuple(g.shape) != tuple(w.shape):
+                raise AssertionError(f"{name}: shape {tuple(g.shape)} vs "
+                                     f"plain {tuple(w.shape)}")
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max().item()))
+        torch.cuda.synchronize()
+        self.errors[name] = max(self.errors.get(name, 0), err)
+        if err:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max abs limb error {err})")
+
+    def record(self, name, shapes, kernel_fn, plain_fn, bytes_, ops,
+               reps=20, plain_reps=2, by_shape=None):
+        source, replaces, _symbol = KERNELS[name]
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": None,
+               "max_abs_err": self.errors[name],
+               **self.measure(kernel_fn, plain_fn, bytes_, ops, reps,
+                              plain_reps),
+               "library_ms": None, "checked": True, "shapes": shapes}
+        if by_shape is not None:
+            rec["by_shape"] = by_shape
+        self.records[name] = rec
+        emit({"phase": f"kernel:{name}", **rec})
+
+
+def rand_field(np, torch, rng, shape, device):
+    """Canonical random elements (< 2^254 < p) with 0, 1, p-1, p-2 first."""
+    limbs = rng.integers(0, 1 << 32, size=(8,) + tuple(shape),
+                         dtype=np.uint64).astype(np.uint32)
+    limbs[7] &= 0x3FFFFFFF
+    return torch.from_numpy(limbs.view(np.int32).copy()).to(device)
+
+
+def with_edges(fops, spec, x):
+    flat = x.reshape(8, -1)
+    edges = fops.from_ints(spec, [0, 1, spec.p - 1, spec.p - 2], x.device)
+    k = min(4, flat.shape[1])
+    flat[:, :k] = edges[:, :k]
+    return x
+
+
+def check_horner(ck: Checker, cops, curve, ws, c):
+    """msm's Horner steps (curves/msm.py) through K2 on window sums ws
+    [LIMBS, K, W], each step held against the plain version on the same
+    inputs, with the non-contiguous window slices that msm passes.
+    Returns the last step's operands."""
+    n_windows = ws[0].shape[-1]
+    acc = tuple(t[..., n_windows - 1].contiguous() for t in ws)
+    for w in range(n_windows - 2, -1, -1):
+        for _ in range(c):
+            nxt = cops.double(curve, acc)
+            ck.compare("curve_double", nxt, cops.double_plain(curve, acc))
+            acc = nxt
+        win = tuple(t[..., w] for t in ws)
+        nxt = cops.add(curve, acc, win)
+        ck.compare("curve_add", nxt, cops.add_plain(curve, acc, win))
+        acc = nxt
+    return acc, win
+
+
+def phase_kernels(ck: Checker, torch, np, dev) -> None:
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.curves import ops as cops
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.poly import fft as pfft
+    from plonky_tpu_torch.protocol.circuit import (pedersen_bases,
+                                                   points_to_device)
+
+    rng = np.random.default_rng(2024)
+    sf = TWEEDLEDEE.scalar
+
+    # K1 at the wire batch 9 n and one past it (a ragged grid)
+    n1 = 9 << 14
+    for n in (n1 + 1, n1):
+        a, b, c = (with_edges(fops, sf, rand_field(np, torch, rng, (n,), dev))
+                   for _ in range(3))
+        col = rand_field(np, torch, rng, (1,), dev)
+        for name, fn, plain in (("field_add", fops.add, fops.add_plain),
+                                ("field_sub", fops.sub, fops.sub_plain),
+                                ("field_mul", fops.mul, fops.mul_plain)):
+            ck.compare(name, fn(sf, a, b), plain(sf, a, b))
+            ck.compare(name, fn(sf, col, b), plain(sf, col, b))
+            ck.compare(name, fn(sf, b, b), plain(sf, b, b))
+        terms = [(col, a, 1), (b, c, -1), (a, None, 1), (c, None, -1)]
+        ck.compare("field_product_sum", fops.product_sum(sf, terms),
+                   fops.product_sum_plain(sf, terms))
+    shapes = {"N": n1, "ragged_N": n1 + 1}
+    for name, fn, plain in (("field_add", fops.add, fops.add_plain),
+                            ("field_sub", fops.sub, fops.sub_plain)):
+        ck.record(name, shapes, lambda fn=fn: fn(sf, a, b),
+                  lambda plain=plain: plain(sf, a, b), 3 * 32 * n1, 0)
+    ck.record("field_mul", shapes, lambda: fops.mul(sf, a, b),
+              lambda: fops.mul_plain(sf, a, b), 3 * 32 * n1, MUL_OPS * n1)
+    ck.record("field_product_sum", {**shapes, "terms": "col*a - b*c + a - c"},
+              lambda: fops.product_sum(sf, terms),
+              lambda: fops.product_sum_plain(sf, terms),
+              32 * (4 * n1 + 1), (2 * PRODUCT_OPS + REDC_OPS) * n1)
+
+    # the Pedersen basis of the 2^14 circuit: real points for K2 and K4
+    g_pts, _h, _u = pedersen_bases(TWEEDLEDEE, 1 << 14)
+    basis = cmsm.precompute_base(TWEEDLEDEE, points_to_device(
+        TWEEDLEDEE, g_pts, dev))
+
+    # K2 on a ragged grid, 2^14 + 3: basis points plus the identity, P + P
+    # and P + (-P)
+    n2 = (1 << 14) + 3
+    ident = cops.identity(TWEEDLEDEE, (1,), dev)
+    g0 = tuple(t[:, :1] for t in (basis.x, basis.y, basis.z))
+    g0_neg = cops.neg(TWEEDLEDEE, g0)
+    p1 = tuple(torch.cat([t, i, g, g], dim=1).contiguous() for t, i, g in
+               zip((basis.x, basis.y, basis.z), ident, g0))
+    p2 = tuple(torch.cat([torch.roll(t, 1, dims=1), g, g, gn], dim=1)
+               .contiguous() for t, g, gn in
+               zip((basis.x, basis.y, basis.z), g0, g0_neg))
+    assert p1[0].shape[1] == n2
+    ck.compare("curve_add", cops.add(TWEEDLEDEE, p1, p2),
+               cops.add_plain(TWEEDLEDEE, p1, p2))
+    dbl_in = cops.add(TWEEDLEDEE, p1, p2)       # projective, Z != 1
+    ck.compare("curve_double", cops.double(TWEEDLEDEE, dbl_in),
+               cops.double_plain(TWEEDLEDEE, dbl_in))
+
+    # K3 over every layer of [9, 2^14] and [6, 2^17]
+    for batch, lg in ((9, 14), (6, 17)):
+        n = 1 << lg
+        pre = pfft.FftPrecomputation(sf, n)
+        tw, _rev = pre.tables(dev, inverse=False)
+        x = rand_field(np, torch, rng, (batch, n), dev)
+        for ell in range(lg):
+            y = pfft.ntt_stage(sf, x, tw, 1 << ell)
+            ck.compare("ntt_stage", y, pfft.ntt_stage_plain(sf, x, tw, 1 << ell))
+            x = y
+    m_mid = 1 << (lg - 1)
+    ck.record("ntt_stage", {"B": 6, "n": 1 << 17, "m": m_mid},
+              lambda: pfft.ntt_stage(sf, x, tw, m_mid),
+              lambda: pfft.ntt_stage_plain(sf, x, tw, m_mid),
+              2 * 32 * 6 * (1 << 17) + 32 * m_mid,
+              MUL_OPS * 3 * (1 << 17))
+
+    # K4 at N = 2^14, K = 9, c = 8, and at a ragged N = 1000, K = 2; the
+    # window sums feed the Horner check of K2
+    window_sums = {}
+    for n, k, c in ((1000, 2, 8), (1 << 14, 9, 8)):
+        sub = cmsm.precompute_base(TWEEDLEDEE, (basis.x[:, :n], basis.y[:, :n],
+                                                basis.z[:, :n]))
+        scal = rand_field(np, torch, rng, (k, n), dev)
+        scal[:, 0, :7] = 0                       # a few empty buckets' worth
+        digits = cmsm.scalar_window_digits(sf, scal, c)
+        w = digits.shape[0]
+        rows = digits.reshape(w, k, n).transpose(0, 1).reshape(k * w, n)
+        sorted_digits, order = torch.sort(rows, dim=-1, stable=True)
+        order = order.to(torch.int32).contiguous()
+        starts = cmsm._run_starts(sorted_digits, 1 << c)
+        buckets = cmsm.bucket_accumulate(TWEEDLEDEE, sub, order, starts)
+        ck.compare("msm_bucket_accumulate", buckets,
+                   cmsm.bucket_accumulate_plain(TWEEDLEDEE, sub, order, starts))
+        ws = cmsm.bucket_reduce(TWEEDLEDEE, buckets)
+        ck.compare("msm_bucket_reduce", ws,
+                   cmsm.bucket_reduce_plain(TWEEDLEDEE, buckets))
+        window_sums[k] = tuple(t.reshape(8, k, w) for t in ws)
+        live = int((rows != 0).sum().item())
+        nonempty = int(((starts[:, 2:] - starts[:, 1:-1]) > 0).sum().item())
+    nb = 1 << c
+    r = k * w
+    shapes = {"N": n, "K": 9, "c": 8, "ragged": {"N": 1000, "K": 2}}
+    # bucket j's run of L points needs L - 1 adds; the running sums of the
+    # reduction need 2 (nb - 2) adds per row
+    ck.record("msm_bucket_accumulate", shapes,
+              lambda: cmsm.bucket_accumulate(TWEEDLEDEE, sub, order, starts),
+              lambda: cmsm.bucket_accumulate_plain(TWEEDLEDEE, sub, order,
+                                                   starts),
+              96 * n + 4 * r * n + 4 * r * (nb + 1) + 96 * r * nb,
+              ADD_OPS * (live - nonempty), reps=5, plain_reps=1)
+    ck.record("msm_bucket_reduce", shapes,
+              lambda: cmsm.bucket_reduce(TWEEDLEDEE, buckets),
+              lambda: cmsm.bucket_reduce_plain(TWEEDLEDEE, buckets),
+              96 * r * nb + 96 * r, ADD_OPS * 2 * (nb - 2) * r,
+              reps=5, plain_reps=1)
+
+    # K2 at the shapes the MSM gives it: Horner on [LIMBS, K] for the
+    # commitments' K = 9 (wires), 7 (t), 1 (z, pi, halo_g) and the IPA
+    # rounds' K = 2
+    add_by, dbl_by = [], []
+    timed = {}
+    for k in (9, 7, 2, 1):
+        src = window_sums[9 if k in (9, 7) else 2]
+        ws = tuple(t[:, :k] for t in src)
+        acc, win = check_horner(ck, cops, TWEEDLEDEE, ws, c)
+        timed[k] = (acc, win)
+        add_by.append({"shape": [8, k], **ck.measure(
+            lambda acc=acc, win=win: cops.add(TWEEDLEDEE, acc, win),
+            lambda acc=acc, win=win: cops.add_plain(TWEEDLEDEE, acc, win),
+            9 * 32 * k, ADD_OPS * k)})
+        dbl_by.append({"shape": [8, k], **ck.measure(
+            lambda acc=acc: cops.double(TWEEDLEDEE, acc),
+            lambda acc=acc: cops.double_plain(TWEEDLEDEE, acc),
+            6 * 32 * k, DBL_OPS * k)})
+    add_by.append({"shape": [8, n2], **ck.measure(
+        lambda: cops.add(TWEEDLEDEE, p1, p2),
+        lambda: cops.add_plain(TWEEDLEDEE, p1, p2), 9 * 32 * n2,
+        ADD_OPS * n2)})
+    dbl_by.append({"shape": [8, n2], **ck.measure(
+        lambda: cops.double(TWEEDLEDEE, dbl_in),
+        lambda: cops.double_plain(TWEEDLEDEE, dbl_in), 6 * 32 * n2,
+        DBL_OPS * n2)})
+    # the headline numbers are at [8, 2], the shape of 14 of the 19 MSMs
+    # of a steady prove (the IPA rounds)
+    acc, win = timed[2]
+    shapes = {"main": [8, 2], "horner_checked": [[8, k] for k in timed],
+              "ragged_N": n2}
+    ck.record("curve_add", shapes,
+              lambda: cops.add(TWEEDLEDEE, acc, win),
+              lambda: cops.add_plain(TWEEDLEDEE, acc, win), 9 * 32 * 2,
+              ADD_OPS * 2, by_shape=add_by)
+    ck.record("curve_double", shapes,
+              lambda: cops.double(TWEEDLEDEE, acc),
+              lambda: cops.double_plain(TWEEDLEDEE, acc), 6 * 32 * 2,
+              DBL_OPS * 2, by_shape=dbl_by)
+
+
+def pinned_random():
+    import numpy as np
+    rng = np.random.default_rng(1337)
+    return lambda p: int.from_bytes(rng.bytes(40), "little") % p
+
+
+def phase_fixtures() -> None:
+    import plonky_tpu_torch.circuit.builder as builder_mod
+    import plonky_tpu_torch.protocol.halo as halo_mod
+    from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
+    from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
+    from plonky_tpu_torch.protocol import generate_proof, verify_proof
+    from plonky_tpu_torch.protocol.serialization import (proof_to_bytes,
+                                                         vk_to_bytes)
+
+    def trivial():
+        b = CircuitBuilder(TWEEDLEDEE, security_bits=128)
+        t = b.constant_wire(42)
+        b.assert_zero(b.sub(t, b.constant_wire(42)))
+        return b, PartialWitness()
+
+    def sum_pi():
+        b = CircuitBuilder(TWEEDLEDEE, security_bits=128)
+        x, y = b.add_public_input(), b.add_public_input()
+        z = b.add(x, y)
+        out = b.add_public_input()
+        b.copy(z, out)
+        w = PartialWitness()
+        w.set_target(x, 3)
+        w.set_target(y, 39)
+        w.set_target(out, 42)
+        return b, w
+
+    saved = (builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE)
+    result = {"phase": "fixtures"}
+    try:
+        for name, make in (("trivial", trivial), ("sum_pi", sum_pi)):
+            source = pinned_random()
+            builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = source
+            t0 = time.perf_counter()
+            builder, inputs = make()
+            circuit = builder.build()
+            witness = circuit.generate_witness(inputs)
+            proof = generate_proof(circuit, witness, old_proofs=[],
+                                   blinding=True)
+            prove_s = time.perf_counter() - t0
+            with open(os.path.join(FIXTURES, f"proof_{name}.hex")) as f:
+                want_proof = f.read().strip()
+            with open(os.path.join(FIXTURES, f"vk_{name}.hex")) as f:
+                want_vk = f.read().strip()
+            if proof_to_bytes(TWEEDLEDEE, proof).hex() != want_proof:
+                raise AssertionError(f"{name}: proof bytes differ from the fixture")
+            if vk_to_bytes(circuit.to_vk()).hex() != want_vk:
+                raise AssertionError(f"{name}: vk bytes differ from the fixture")
+            t0 = time.perf_counter()
+            verify_proof(circuit.get_public_inputs(witness), proof, [],
+                         circuit.to_vk(), TWEEDLEDUM, verify_g=True)
+            result[name] = {"bytes_equal": True, "verified": True,
+                            "build_prove_s": prove_s,
+                            "verify_s": time.perf_counter() - t0}
+    finally:
+        builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
+    emit(result)
+
+
+def buffer_circuit(lg: int):
+    """The reference workload: a 2^lg-gate BufferGate circuit on Tweedledee
+    (as bench.py builds it) and its witness."""
+    from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
+    from plonky_tpu_torch.circuit.gates import BufferGate
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    builder = CircuitBuilder(TWEEDLEDEE, security_bits=128)
+    while builder.num_gates() < (1 << lg) - 3:
+        builder.add_gate_no_constants(BufferGate(builder.num_gates()))
+    return builder.build(), PartialWitness()
+
+
+def phase_prove(torch, lg: int = 14) -> dict:
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.curves import TWEEDLEDUM
+    from plonky_tpu_torch.protocol import generate_proof, verify_proof
+    from plonky_tpu_torch.utils.timing import record_phases
+
+    out = {"phase": f"prove_2e{lg}"}
+    t0 = time.perf_counter()
+    circuit, inputs = buffer_circuit(lg)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    witness = circuit.generate_witness(inputs)
+    out["witness_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generate_proof(circuit, witness, old_proofs=[], blinding=True)
+    torch.cuda.synchronize()
+    out["first_prove_s"] = time.perf_counter() - t0
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with record_phases() as phases:
+        proof = generate_proof(circuit, witness, old_proofs=[], blinding=True)
+    torch.cuda.synchronize()
+    out["steady_prove_s"] = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    out["phases_s"] = phases
+    out["launches"] = launches
+    t0 = time.perf_counter()
+    verify_proof(circuit.get_public_inputs(witness), proof, [],
+                 circuit.to_vk(), TWEEDLEDUM, verify_g=True)
+    out["verify_s"] = time.perf_counter() - t0
+    out["verified"] = True
+    out["degree"] = circuit.degree()
+    emit(out)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"the steady prove launched no {missing}")
+    return launches
+
+
+def card(torch):
+    """The card's nvidia-smi name/power line, its max SM clock in Hz, and
+    its 32-bit IMAD issue rate (64 per SM per clock)."""
+    name_power = smi("name,power.limit")
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return name_power, clock_hz, sms, 64.0 * sms * clock_hz
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    import numpy as np
+    from plonky_tpu_torch import _cuda
+
+    dev = torch.device("cuda")
+    name_power, clock_hz, sms, int_rate = card(torch)
+    t0 = time.perf_counter()
+    _cuda.library()
+    build_s = time.perf_counter() - t0
+    ptxas = []
+    if os.path.exists(_cuda.BUILD_LOG):
+        with open(_cuda.BUILD_LOG) as f:
+            ptxas = [ln.strip() for ln in f if "registers" in ln
+                     or "spill" in ln]
+    emit({"phase": "env", "nvidia_smi": name_power,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "sms": sms, "max_sm_clock_mhz": clock_hz / 1e6,
+          "int32_imad_per_s": int_rate, "build_s": build_s,
+          "built_now": _cuda.BUILD_SECONDS[0] is not None, "ptxas": ptxas})
+
+    ck = Checker(torch, clock_hz, int_rate)
+    phase_kernels(ck, torch, np, dev)
+    phase_fixtures()
+    launches = phase_prove(torch)
+    for name, rec in ck.records.items():
+        rec["launches"] = launches[name]
+    emit({"kernels": list(ck.records.values())})
+    print(name_power, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,172 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+The kernels live in ``csrc/*.cu`` with a plain C interface.  At first use
+on a CUDA tensor each source is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a``, the objects are linked into one shared
+library under ``_build/``, and the library is loaded with ctypes.  Every C
+entry launches one kernel on the stream it is given and returns
+``cudaGetLastError()``; `launch` raises when that is not 0 and counts the
+launch under the kernel's name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+SOURCES = ("field_kernels.cu", "curve_kernels.cu", "ntt_kernels.cu",
+           "msm_kernels.cu")
+HEADERS = ("field.cuh", "curve.cuh")
+LIB_NAME = "libplonky_kernels.so"
+ARCH = "arch=compute_90a,code=sm_90a"
+
+# Launches per kernel, counted by the wrappers (reset with reset_launches).
+LAUNCHES = {name: 0 for name in (
+    "field_add", "field_sub", "field_mul", "field_product_sum",
+    "curve_add", "curve_double", "ntt_stage",
+    "msm_bucket_accumulate", "msm_bucket_reduce")}
+
+# Seconds the last build took (None: the library was up to date).
+BUILD_SECONDS = [None]
+BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
+
+_LIB = [None]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+
+# C entry points and their argument types (pointers and the stream are
+# c_void_p: ctypes would pass a plain int as 32 bits and cut it).
+_SIGNATURES = {
+    "pt_field_add": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
+    "pt_field_sub": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
+    "pt_field_mul": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
+    "pt_field_product_sum": [_P, _P, _P, _P, _P, _P, _I32, _I64, _P, _P],
+    "pt_curve_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    "pt_curve_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    "pt_ntt_stage": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P],
+    "pt_msm_bucket_accumulate": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I64, _I64, _I64, _P, _P],
+    "pt_msm_bucket_reduce": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P],
+}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _stale(lib_path: str) -> bool:
+    if not os.path.exists(lib_path):
+        return True
+    built = os.path.getmtime(lib_path)
+    return any(os.path.getmtime(os.path.join(CSRC, f)) > built
+               for f in SOURCES + HEADERS)
+
+
+def build() -> str:
+    """Compile every source in parallel and link the shared library (only
+    when a source is newer than it).  Returns the library path."""
+    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    if not _stale(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    common = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+    procs = []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, src.replace(".cu", ".o"))
+        procs.append((src, obj, subprocess.Popen(
+            common + ["-c", os.path.join(CSRC, src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = []
+    for src, _obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src} (rc={proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    if not failed:
+        tmp = lib_path + f".tmp{os.getpid()}"
+        link = subprocess.run(
+            [nvcc, "-gencode", ARCH, "-shared", "-o", tmp]
+            + [obj for _s, obj, _p in procs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link (rc={link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append("link")
+        else:
+            os.replace(tmp, lib_path)
+    with open(BUILD_LOG, "w") as f:
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError(f"kernel build failed ({', '.join(failed)}):\n"
+                           + "\n".join(log))
+    BUILD_SECONDS[0] = time.perf_counter() - t0
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    if _LIB[0] is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB[0] = lib
+    return _LIB[0]
+
+
+def launch(name: str, entry: str, *args) -> None:
+    """Call one C entry (which launches one kernel on the current stream),
+    raise on a CUDA error, and count the launch."""
+    rc = getattr(library(), entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def host_array(values, dtype) -> np.ndarray:
+    """A C-contiguous host buffer for an argument that the C entry copies
+    into the kernel's parameters (kept alive by the caller for the call)."""
+    return np.ascontiguousarray(np.asarray(values, dtype=dtype))
+
+
+def check(name: str, t: torch.Tensor, rows: int | None = None) -> None:
+    """The checks every wrapper makes on a tensor it hands to a kernel."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected int32 limbs, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if rows is not None and t.shape[0] != rows:
+        raise ValueError(f"{name}: expected {rows} limb rows, got "
+                         f"{tuple(t.shape)}")

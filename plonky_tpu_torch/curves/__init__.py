@@ -1,0 +1,4 @@
+from .spec import CurveSpec
+from .instances import ALL_CURVES, TWEEDLEDEE, TWEEDLEDUM
+from . import host, msm, ops
+from .host import AffinePoint, generator, zero_point

@@ -1,0 +1,417 @@
+"""Batched prime-field arithmetic on canonical limb tensors.
+
+A value is an int32 tensor ``[LIMBS, *batch]`` of canonical elements (see
+spec.py).  Operands broadcast over the batch like torch tensors; an
+``[LIMBS, 1]`` column (a challenge, a constant) is read with a zero batch
+stride by the kernels.
+
+K1, the field kernel (csrc/field_kernels.cu), computes `add`, `sub`, `mul`
+and `product_sum` on CUDA tensors.  Beside each sits its plain PyTorch
+version (`add_plain`, ...), which computes the same canonical result with
+16-bit digits in int64 so that every partial product stays exact: the CPU
+runs it, and the chip check compares the kernel with it.  A wrapper takes
+the plain version only for a CPU tensor; for a CUDA tensor it launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import _cuda
+from ..device import resolve
+from .spec import LIMBS, MAX_TERMS, FieldSpec, int_to_limbs
+
+_M16 = 0xFFFF
+
+
+# ---------------------------------------------------------------------------
+# Conversions
+# ---------------------------------------------------------------------------
+
+def _limb_matrix(spec: FieldSpec, values) -> np.ndarray:
+    """Python ints -> canonical limbs as int32 [LIMBS, len(values)]."""
+    p = spec.p
+    flat = b"".join((int(v) % p).to_bytes(4 * LIMBS, "little") for v in values)
+    arr = np.frombuffer(flat, dtype="<u4").reshape(len(values), LIMBS)
+    return np.array(arr.T, order="C").view(np.int32)
+
+
+def from_ints(spec: FieldSpec, values, device=None) -> torch.Tensor:
+    """Python ints -> [LIMBS, len(values)] tensor (reduced mod p)."""
+    return torch.from_numpy(_limb_matrix(spec, values)).to(resolve(device))
+
+
+def to_ints(spec: FieldSpec, x: torch.Tensor):
+    """[LIMBS, *batch] -> canonical python ints: an object array shaped like
+    the batch, or an int when there is no batch."""
+    arr = x.detach().cpu().contiguous().numpy().view(np.uint32)
+    flat = np.ascontiguousarray(arr.reshape(LIMBS, -1).T)
+    vals = [int.from_bytes(row.tobytes(), "little") for row in flat]
+    shape = tuple(x.shape[1:])
+    if not shape:
+        return vals[0]
+    out = np.empty(len(vals), dtype=object)
+    out[:] = vals
+    return out.reshape(shape)
+
+
+def constant(spec: FieldSpec, v: int, batch=(), device=None) -> torch.Tensor:
+    """A python int as a [LIMBS, *batch] tensor (an expanded view)."""
+    col = torch.from_numpy(
+        int_to_limbs(v % spec.p).view(np.int32).copy()).to(resolve(device))
+    return col.reshape((LIMBS,) + (1,) * len(batch)).expand(LIMBS, *batch)
+
+
+def zeros(spec: FieldSpec, batch=(), device=None) -> torch.Tensor:
+    return torch.zeros((LIMBS, *batch), dtype=torch.int32,
+                       device=resolve(device))
+
+
+def column(spec: FieldSpec, v: int, device) -> torch.Tensor:
+    """A python int as a contiguous [LIMBS, 1] column."""
+    return constant(spec, v, (1,), device).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: 16-bit digits in int64
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _plain_tables(spec: FieldSpec, device: torch.device):
+    """p, the Barrett factor mu = floor(2^544 / p) and 2p as 16-bit
+    digits."""
+    def digits(v, n):
+        return torch.tensor([(v >> (16 * k)) & _M16 for k in range(n)],
+                            dtype=torch.int64, device=device)
+    p16 = digits(spec.p, 18)
+    mu = digits((1 << 544) // spec.p, 19)
+    return p16, mu, digits(2 * spec.p, 17)
+
+
+@functools.lru_cache(maxsize=None)
+def _diag(la: int, lb: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor([i + j for i in range(la) for j in range(lb)],
+                        dtype=torch.int64, device=device)
+
+
+def _split16(x: torch.Tensor) -> torch.Tensor:
+    """[LIMBS, N] int32 -> [2 LIMBS, N] int64 16-bit digits."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([v & _M16, v >> 16], dim=1).reshape(2 * LIMBS, -1)
+
+
+def _join16(d: torch.Tensor) -> torch.Tensor:
+    """[2 LIMBS, N] digits in [0, 2^16) -> [LIMBS, N] int32."""
+    v = d[0::2] | (d[1::2] << 16)
+    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def _carry(cols: torch.Tensor, rounds: int = 1) -> torch.Tensor:
+    """Propagate carries (in place) until every column but the last is in
+    [0, 2^16).  Columns may be negative; the last keeps the signed top.
+    The first `rounds` rounds run without a check (columns below 2^48
+    settle in three)."""
+    body = cols[:-1]
+    for i in range(4 * cols.shape[0] + 4):
+        hi = body >> 16
+        body.bitwise_and_(_M16)
+        cols[1:] += hi
+        if i + 1 >= rounds and not bool((body >> 16).any()):
+            return cols
+    raise AssertionError("carry propagation did not settle")
+
+
+def batch_shape(*xs) -> torch.Size:
+    """The broadcast batch shape of [LIMBS, *batch] operands."""
+    shapes = [x.shape[1:] for x in xs]
+    if all(s == shapes[0] for s in shapes[1:]):
+        return shapes[0]
+    return torch.broadcast_shapes(*shapes)
+
+
+def _conv16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Schoolbook product columns of digit vectors [la, N] x [lb, N] (or a
+    [lb, 1] constant) -> [la + lb - 1, N]."""
+    la, lb, n = a.shape[0], b.shape[0], a.shape[1]
+    prod = (a[:, None, :] * b[None, :, :]).reshape(la * lb, n)
+    out = torch.zeros((la + lb - 1, n), dtype=torch.int64, device=a.device)
+    return out.index_add_(0, _diag(la, lb, a.device), prod)
+
+
+@functools.lru_cache(maxsize=None)
+def _pow2(n: int, device: torch.device) -> torch.Tensor:
+    return (torch.ones((n, 1), dtype=torch.int64, device=device)
+            << torch.arange(n, device=device)[:, None])
+
+
+def _geq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x >= y for normalized digit vectors [L, N] (y may be [L, 1]): the
+    sign of the most significant nonzero digit difference, read as the sign
+    of sum_k sign(x_k - y_k) 2^k."""
+    d = torch.sign(x - y)
+    return (d * _pow2(x.shape[0], x.device)).sum(0) >= 0
+
+
+def _sub_multiple(x: torch.Tensor, k: torch.Tensor, p16) -> torch.Tensor:
+    """x - k p for normalized digits x >= k p (k a [N] count): borrows
+    settle in a round or two, as the result is not negative."""
+    d = torch.cat([x - k[None] * p16[:x.shape[0], None],
+                   torch.zeros_like(x[:1])])
+    return _carry(d)[:-1]
+
+
+def _reduce_columns(spec: FieldSpec, s: torch.Tensor) -> torch.Tensor:
+    """Columns of an integer 0 <= S < 2^544 at 16-bit positions (any values
+    that keep int64 exact) -> S mod p as 16 normalized digits, by Barrett
+    reduction: q = floor(floor(S / 2^240) mu / 2^304) with
+    mu = floor(2^544 / p) is at most 2 below floor(S / p) (as 2^240 < p),
+    so S - q p < 3p."""
+    p16, mu, _p2 = _plain_tables(spec, s.device)
+    n = s.shape[1]
+    x = _carry(torch.cat([s, s.new_zeros((35 - s.shape[0], n))]), 3)
+    q2 = _conv16(x[15:34], mu[:, None])                  # 37 columns
+    q2 = _carry(torch.cat([q2, q2.new_zeros((1, n))]), 3)
+    r2 = _conv16(q2[19:38], p16[:16, None])[:17]         # q p mod 2^272
+    r = _carry(torch.cat([x[:17] - r2, x.new_zeros((1, n))]), 3)[:17]
+    p2 = _plain_tables(spec, s.device)[2]
+    k = _geq(r, p16[:17, None]).long() + _geq(r, p2[:, None]).long()
+    return _sub_multiple(r, k, p16)[:16]
+
+
+def _expand(x: torch.Tensor, batch) -> torch.Tensor:
+    """Broadcast [LIMBS, *b] to [LIMBS, *batch] (batch axes align right)."""
+    pad = len(batch) - (x.dim() - 1)
+    if pad:
+        x = x.reshape((LIMBS,) + (1,) * pad + tuple(x.shape[1:]))
+    return x.expand(LIMBS, *batch)
+
+
+def _flat(x: torch.Tensor, batch) -> torch.Tensor:
+    return _expand(x, batch).reshape(LIMBS, -1)
+
+
+def add_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    batch = batch_shape(a, b)
+    p16 = _plain_tables(spec, a.device)[0][:16]
+    s = _split16(_flat(a, batch)) + _split16(_flat(b, batch))
+    s = _carry(torch.cat([s, torch.zeros_like(s[:1])]))[:-1]
+    s = _sub_multiple(s, _geq(s, p16[:, None]).long(), p16)
+    return _join16(s).reshape(LIMBS, *batch)
+
+
+def sub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    batch = batch_shape(a, b)
+    p16 = _plain_tables(spec, a.device)[0][:16]
+    a16, b16 = _split16(_flat(a, batch)), _split16(_flat(b, batch))
+    wrap = (~_geq(a16, b16)).long()             # a < b: add p
+    d = torch.cat([a16 - b16 + wrap[None] * p16[:, None],
+                   torch.zeros_like(a16[:1])])
+    return _join16(_carry(d)[:-1]).reshape(LIMBS, *batch)
+
+
+def product_sum_plain(spec: FieldSpec, terms) -> torch.Tensor:
+    """sum_i sign_i a_i b_i mod p; terms: (a, b or None, sign)."""
+    batch = batch_shape(*[a for a, _b, _s in terms],
+                        *[b for _a, b, _s in terms if b is not None])
+    dev = terms[0][0].device
+    p16 = _plain_tables(spec, dev)[0][:16]
+    n = int(np.prod(batch)) if batch else 1
+    s = torch.zeros((33, n), dtype=torch.int64, device=dev)
+    for a, b, sign in terms:
+        a16 = _split16(_flat(a, batch))
+        if b is None:
+            if sign >= 0:
+                s[:16] += a16
+            else:
+                s[:16] += p16[:, None] - a16
+        else:
+            c = _conv16(a16, _split16(_flat(b, batch)))
+            if sign >= 0:
+                s[:31] += c
+            else:
+                s[16:32] += p16[:, None]
+                s[:31] -= c
+    return _join16(_reduce_columns(spec, s)).reshape(LIMBS, *batch)
+
+
+def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return product_sum_plain(spec, [(a, b, 1)])
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (K1)
+# ---------------------------------------------------------------------------
+
+def _operand(x: torch.Tensor, batch) -> tuple:
+    """(contiguous tensor, zero-stride flag) for one kernel operand."""
+    if x[0].numel() == 1:
+        return x.reshape(LIMBS, 1).contiguous(), 1
+    return _expand(x, batch).contiguous(), 0
+
+
+def _launch_binary(name: str, entry: str, spec: FieldSpec, a, b):
+    batch = batch_shape(a, b)
+    out = torch.empty((LIMBS, *batch), dtype=torch.int32, device=a.device)
+    n = out[0].numel()
+    if n == 0:
+        return out
+    (ta, fa), (tb, fb) = _operand(a, batch), _operand(b, batch)
+    for t in (ta, tb):
+        _cuda.check(name, t, LIMBS)
+    consts = spec.kernel_consts
+    _cuda.launch(name, entry, out.data_ptr(), ta.data_ptr(), fa, tb.data_ptr(),
+                 fb, n, consts.ctypes.data, _cuda.stream())
+    return out
+
+
+def _dispatch(a: torch.Tensor) -> bool:
+    """True for the kernel, False for the plain version (CPU tensors)."""
+    if a.device.type == "cpu":
+        return False
+    if a.device.type == "cuda":
+        return True
+    raise ValueError(f"unsupported device {a.device}")
+
+
+def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if not _dispatch(a):
+        return add_plain(spec, a, b)
+    return _launch_binary("field_add", "pt_field_add", spec, a, b)
+
+
+def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if not _dispatch(a):
+        return sub_plain(spec, a, b)
+    return _launch_binary("field_sub", "pt_field_sub", spec, a, b)
+
+
+def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if not _dispatch(a):
+        return mul_plain(spec, a, b)
+    return _launch_binary("field_mul", "pt_field_mul", spec, a, b)
+
+
+def _product_sum_launch(spec: FieldSpec, terms) -> torch.Tensor:
+    batch = batch_shape(*[a for a, _b, _s in terms],
+                        *[b for _a, b, _s in terms if b is not None])
+    dev = terms[0][0].device
+    out = torch.empty((LIMBS, *batch), dtype=torch.int32, device=dev)
+    n = out[0].numel()
+    if n == 0:
+        return out
+    keep, a_ptrs, b_ptrs, a_bc, b_bc, signs = [], [], [], [], [], []
+    for a, b, sign in terms:
+        ta, fa = _operand(a, batch)
+        _cuda.check("field_product_sum", ta, LIMBS)
+        keep.append(ta)
+        a_ptrs.append(ta.data_ptr())
+        a_bc.append(fa)
+        if b is None:
+            b_ptrs.append(0)
+            b_bc.append(0)
+        else:
+            tb, fb = _operand(b, batch)
+            _cuda.check("field_product_sum", tb, LIMBS)
+            keep.append(tb)
+            b_ptrs.append(tb.data_ptr())
+            b_bc.append(fb)
+        signs.append(1 if sign >= 0 else -1)
+    bufs = [_cuda.host_array(a_ptrs, np.uint64),
+            _cuda.host_array(b_ptrs, np.uint64),
+            _cuda.host_array(a_bc, np.int32), _cuda.host_array(b_bc, np.int32),
+            _cuda.host_array(signs, np.int32)]
+    _cuda.launch("field_product_sum", "pt_field_product_sum", out.data_ptr(),
+                 *[buf.ctypes.data for buf in bufs], len(terms), n,
+                 spec.kernel_consts.ctypes.data, _cuda.stream())
+    return out
+
+
+def product_sum(spec: FieldSpec, terms) -> torch.Tensor:
+    """sum_i sign_i a_i b_i  (b None: the term is sign_i a_i), mod p, with
+    one reduction per MAX_TERMS terms.  terms: list of (a, b, sign)."""
+    terms = list(terms)
+    if not _dispatch(terms[0][0]):
+        return product_sum_plain(spec, terms)
+    out = None
+    for i in range(0, len(terms), MAX_TERMS):
+        part = _product_sum_launch(spec, terms[i:i + MAX_TERMS])
+        out = part if out is None else add(spec, out, part)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Composite ops
+# ---------------------------------------------------------------------------
+
+def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((LIMBS,) + (1,) * (a.dim() - 1), dtype=a.dtype,
+                       device=a.device)
+    return sub(spec, zero, a)
+
+
+def square(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return mul(spec, a, a)
+
+
+def mul_small(spec: FieldSpec, a: torch.Tensor, c: int) -> torch.Tensor:
+    return mul(spec, a, column(spec, c, a.device))
+
+
+def sum_reduce(spec: FieldSpec, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Sum along a batch axis (axis 0 is the first batch axis) by a halving
+    tree of adds."""
+    dim = axis + 1
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        half = n // 2
+        lo = x.narrow(dim, 0, half)
+        hi = x.narrow(dim, half, half)
+        s = add(spec, lo, hi)
+        if n % 2:
+            s = torch.cat([s, x.narrow(dim, n - 1, 1)], dim=dim)
+        x = s
+    return x.squeeze(dim)
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise select over the batch (mask shaped like the batch)."""
+    return torch.where(mask.to(torch.bool)[None], a, b)
+
+
+def exp_const(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e for a python-int exponent, left-to-right square and multiply
+    (reference semantics: src/field/field.rs:309-331 `exp`)."""
+    assert e >= 0
+    if e == 0:
+        return constant(spec, 1, x.shape[1:], x.device).contiguous()
+    acc = x
+    for bit in bin(e)[3:]:
+        acc = square(spec, acc)
+        if bit == "1":
+            acc = mul(spec, acc, x)
+    return acc
+
+
+def inverse(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """x^(p-2) (Fermat); inverse(0) = 0, which the prover relies on."""
+    return exp_const(spec, x, spec.p - 2)
+
+
+def is_zero(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    return (x == 0).all(dim=0)
+
+
+def eq(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(dim=0)
+
+
+def to_bits(spec: FieldSpec, x: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Little-endian bits [n_bits, *batch] (int64 0/1) of x."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    idx = torch.arange(n_bits, device=x.device)
+    shifts = (idx % 32).reshape((n_bits,) + (1,) * (x.dim() - 1))
+    return (v[idx // 32] >> shifts) & 1

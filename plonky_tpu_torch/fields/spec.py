@@ -1,0 +1,94 @@
+"""Field specification: the prime's constants and the tables the device
+arithmetic needs.
+
+A device field element is CANONICAL (an integer in [0, p)) and stored as
+little-endian 32-bit limbs in an int32 tensor of shape ``[LIMBS, *batch]``.
+The batch axes come last so that, on the card, thread i reads limb k at
+``k * N + i`` (coalesced).  The CUDA kernels read the limbs as uint32; the
+plain PyTorch versions split them into 16-bit halves held in int64 so that
+every partial product and column sum stays exact.
+
+Multiplication is a 512-bit schoolbook product followed by Montgomery's
+REDC over 9 limbs (R' = 2^288) and one Montgomery multiply by
+``2^(288+256) mod p``, which cancels both scalings: the result is the
+canonical product, with no Montgomery form visible outside a kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+
+LIMBS = 8                 # 32-bit limbs per element (fields below 2^255)
+LIMB_BITS = 32
+REDC_LIMBS = 9            # the wide reduction divides by 2^(32 * 9)
+ACC_LIMBS = 17            # accumulator of a product sum: 544 bits
+MAX_TERMS = 32            # terms of one product-sum launch (bound: < 2^516)
+
+
+def int_to_limbs(v: int, n: int = LIMBS) -> np.ndarray:
+    """Little-endian 32-bit limbs of v as uint32[n]."""
+    assert 0 <= v < (1 << (LIMB_BITS * n)), (v, n)
+    return np.frombuffer(v.to_bytes(4 * n, "little"), dtype="<u4").copy()
+
+
+@dataclass(frozen=True)
+class FieldSpec:
+    """Static description of a prime field (the constants of the
+    reference's src/field/*.rs, as canonical integers)."""
+
+    name: str
+    p: int                      # field order
+    generator: int              # MULTIPLICATIVE_SUBGROUP_GENERATOR (canonical)
+    alpha: int                  # smallest a with x^a a permutation
+    two_adicity: int
+
+    @property
+    def bits(self) -> int:
+        return self.p.bit_length()
+
+    @property
+    def bytes_(self) -> int:
+        return -(-self.bits // 8)
+
+    @property
+    def t(self) -> int:
+        """T = (p - 1) / 2^two_adicity (reference: src/field/field.rs:53)."""
+        return (self.p - 1) >> self.two_adicity
+
+    # Montgomery radix of the *reference* implementation: R = 2^(64*ceil)
+    # Used only to replicate `rand_from_rng` (which fills the Montgomery
+    # limbs with uniform bits; reference: src/field/tweedledee_base.rs:203).
+    @property
+    def ref_monty_r(self) -> int:
+        n_u64 = -(-self.bits // 64)
+        return pow(2, 64 * n_u64, self.p)
+
+    # ------------------------------------------------------------------
+    # Kernel constants
+    # ------------------------------------------------------------------
+    @functools.cached_property
+    def final_factor(self) -> int:
+        """2^(32*(REDC_LIMBS + LIMBS)) mod p: one Montgomery multiply by it
+        turns the REDC output S * 2^-288 back into S mod p."""
+        return pow(2, LIMB_BITS * (REDC_LIMBS + LIMBS), self.p)
+
+    @functools.cached_property
+    def p_inv_neg(self) -> int:
+        """-p^-1 mod 2^32, the REDC multiplier."""
+        return (-pow(self.p, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
+
+    @functools.cached_property
+    def kernel_consts(self) -> np.ndarray:
+        """The constant buffer the CUDA kernels take by value:
+        [p (8 limbs), final_factor (8 limbs), -p^-1 mod 2^32] as uint32."""
+        assert self.bits <= LIMB_BITS * LIMBS - 1, (
+            f"{self.name}: {self.bits}-bit fields need more than {LIMBS} limbs")
+        return np.concatenate([
+            int_to_limbs(self.p), int_to_limbs(self.final_factor),
+            np.array([self.p_inv_neg], dtype=np.uint32)])
+
+    def __hash__(self):
+        return hash((self.name, self.p))

@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Diagnostics of plonky_tpu_torch's 2^14 prove on one NVIDIA GPU.
+
+    python3 profile_prove.py
+
+Not part of the chip check (chip_smoke.py); run it when PERF.md's
+breakdown needs renewing.  It prints JSON lines:
+
+  timing     per-launch device time of a few kernels four ways: CUDA events
+             over launches queued behind a sleep (chip_smoke.py's `ms` and
+             `cold_ms`) and torch.profiler's kernel time, each with the L2
+             cache warm and flushed before every launch, beside the size of
+             each kernel's machine code;
+  profile    one steady 2^14 prove under torch.profiler: device seconds of
+             each kernel and of everything else, and the share of the wall
+             clock the card was busy;
+  host       one steady prove under cProfile: the functions with the most
+             own time (cProfile slows Python code: read the shares).
+"""
+
+from __future__ import annotations
+
+import cProfile
+import os
+import pstats
+import re
+import subprocess
+import sys
+import time
+
+from chip_smoke import KERNELS, Checker, buffer_circuit, card, emit, rand_field
+
+
+def _device_us(evt) -> float:
+    for attr in ("device_time_total", "cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def profiled_ms(torch, fn, reps: int, symbol: str, flush=None):
+    """Mean profiler device time per launch of the kernel `symbol` over
+    `reps` calls (`flush` run before each); None if the trace kept none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if symbol in e.key]
+    count = sum(e.count for e in events)
+    total_us = sum(_device_us(e) for e in events)
+    return total_us / 1e3 / count if count and total_us > 0 else None
+
+
+def sass_bytes(lib_path: str) -> dict:
+    """Machine code bytes of each kernel (16 bytes per sm_90 instruction),
+    from cuobjdump's SASS listing; empty where the toolkit has no
+    cuobjdump."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return {}
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    sizes, current = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            sizes[current] = 0
+        elif current and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            sizes[current] += 16
+    return sizes
+
+
+def phase_timing(ck: Checker, torch, np) -> None:
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    from plonky_tpu_torch.curves import ops as cops
+    from plonky_tpu_torch.fields import ops as fops
+
+    rng = np.random.default_rng(7)
+    sf = TWEEDLEDEE.scalar
+    dev = torch.device("cuda")
+    n1, n2 = 9 << 14, (1 << 14) + 3
+    a, b = (rand_field(np, torch, rng, (n1,), dev) for _ in range(2))
+    pts = [tuple(rand_field(np, torch, rng, (n,), dev) for _ in range(3))
+           for n in (n2, n2, 2, 2)]
+    cases = [
+        ("field_mul", [8, n1], lambda: fops.mul(sf, a, b)),
+        ("curve_add", [8, n2], lambda: cops.add(TWEEDLEDEE, pts[0], pts[1])),
+        ("curve_double", [8, n2], lambda: cops.double(TWEEDLEDEE, pts[0])),
+        ("curve_add", [8, 2], lambda: cops.add(TWEEDLEDEE, pts[2], pts[3])),
+        ("curve_double", [8, 2], lambda: cops.double(TWEEDLEDEE, pts[2])),
+    ]
+    flush = ck.flush.zero_
+    sizes = sass_bytes(_cuda.build())
+    rows = []
+    for name, shape, fn in cases:
+        symbol = KERNELS[name][2]
+        reps = 50
+        rows.append({
+            "name": name, "shape": shape,
+            "events_warm_ms": ck.queued_ms(fn, reps),
+            "events_cold_ms": ck.queued_ms(lambda: (flush(), fn()), reps)
+            - ck.queued_ms(flush, reps),
+            "call_ms": ck.time_ms(fn, reps),
+            "profiler_warm_ms": profiled_ms(torch, fn, reps, symbol),
+            "profiler_cold_ms": profiled_ms(torch, fn, reps, symbol, flush),
+            "sass_bytes": {k: v for k, v in sizes.items()
+                           if symbol.split("<")[0] in k}})
+    emit({"phase": "timing", "rows": rows})
+
+
+def phase_profile(torch) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from plonky_tpu_torch.protocol import generate_proof
+
+    circuit, inputs = buffer_circuit(14)
+    witness = circuit.generate_witness(inputs)
+
+    def prove():
+        generate_proof(circuit, witness, old_proofs=[], blinding=True)
+
+    prove()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prove()
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ours, other = {}, 0.0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        for name, (_src, _rep, symbol) in KERNELS.items():
+            if symbol in evt.key:
+                ours[name] = ours.get(name, 0.0) + us / 1e6
+                break
+        else:
+            other += us / 1e6
+    busy = sum(ours.values()) + other
+    emit({"phase": "profile", "wall_s_profiled": wall_s, "kernel_s": ours,
+          "other_device_s": other, "device_busy_share": busy / wall_s})
+
+    host = cProfile.Profile()
+    host.runcall(prove)
+    stats = pstats.Stats(host).stats
+    top = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:12]
+    emit({"phase": "host", "top_own_time": [
+        [f"{os.path.basename(f)}:{line}({fn})", calls, tt, ct]
+        for (f, line, fn), (_cc, calls, tt, ct, _cl) in top]})
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_prove: CUDA is not available", file=sys.stderr)
+        return 2
+    name_power, clock_hz, _sms, int_rate = card(torch)
+    emit({"phase": "env", "nvidia_smi": name_power})
+    ck = Checker(torch, clock_hz, int_rate)
+    phase_timing(ck, torch, np)
+    phase_profile(torch)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
