@@ -5,7 +5,8 @@ Builds the CUDA kernels from plonky_tpu_torch/csrc, holds every kernel
 against its plain PyTorch version on the card at the main path's shapes
 (exact equality: all of it is integer arithmetic), reproduces the committed
 fixture proofs byte for byte, then builds, proves (twice) and verifies the
-2^14-gate BufferGate circuit and shows that the steady prove launched every
+2^14-gate BufferGate circuit with the random source pinned, checks the
+steady proof's sha256, and shows that the steady prove launched every
 kernel.
 
     python3 chip_smoke.py
@@ -27,6 +28,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
+# sha256 of proof_to_bytes of the steady 2^14 proof under pinned_random()
+# (phase_prove): fixed by the protocol's values, whatever the kernels' inner
+# representation or order of adds.
+PROOF_2E14_SHA256 = ("7eddf299bab9296d33bb070c11a7d95a"
+                     "a1af70768d056f2083063145c2a799e2")
 
 # name -> (source, the TPU kernel it replaces, its CUDA function's name)
 _CSRC = "plonky_tpu_torch/csrc/"
@@ -168,14 +174,19 @@ class Checker:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs limb error {err})")
 
-    def record(self, name, shapes, kernel_fn, plain_fn, bytes_, ops,
-               reps=20, plain_reps=2, by_shape=None):
+    def record(self, name, shapes, kernel_fn=None, plain_fn=None, bytes_=0,
+               ops=0, reps=20, plain_reps=2, by_shape=None, measured=None):
+        """One kernel's record; `measured` (a measure() result, extra keys
+        ignored) stands in for timing kernel_fn and plain_fn here."""
         source, replaces, _symbol = KERNELS[name]
+        if measured is None:
+            measured = self.measure(kernel_fn, plain_fn, bytes_, ops, reps,
+                                    plain_reps)
+        timing = {k: measured[k] for k in ("ms", "cold_ms", "call_ms",
+                                           "plain_ms", "bound_ms", "bound_by")}
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": None,
-               "max_abs_err": self.errors[name],
-               **self.measure(kernel_fn, plain_fn, bytes_, ops, reps,
-                              plain_reps),
+               "max_abs_err": self.errors[name], **timing,
                "library_ms": None, "checked": True, "shapes": shapes}
         if by_shape is not None:
             rec["by_shape"] = by_shape
@@ -216,6 +227,67 @@ def check_horner(ck: Checker, cops, curve, ws, c):
         ck.compare("curve_add", nxt, cops.add_plain(curve, acc, win))
         acc = nxt
     return acc, win
+
+
+def k4_cases(np, torch, rng, dev):
+    """(label, scalars [8, K, N] on the card) for every shape the main path
+    gives K4 at the 2^14 circuit, and three edge cases: the commitments'
+    K = 9 (wires) and 7 (t), K = 1 (z, pi, halo_g), the IPA rounds' K = 2
+    with random and with round scalars (s_L zero where bit 13 of the index is
+    clear, s_R where it is set, as protocol/halo.py:_ipa_round_scalars makes
+    them in the first round), every scalar equal (each window row in one
+    bucket), all zero, and a ragged N = 1000."""
+    n = 1 << 14
+    cases = []
+    for k in (9, 7, 2, 1):
+        scal = rand_field(np, torch, rng, (k, n), dev)
+        if k == 9:
+            scal[:, 0, :7] = 0
+        cases.append((f"K={k}", scal))
+    ipa = rand_field(np, torch, rng, (2, n), dev)
+    bit = (torch.arange(n, device=dev) >> 13) & 1
+    ipa[:, 0] *= bit.to(torch.int32)
+    ipa[:, 1] *= (1 - bit).to(torch.int32)
+    cases.append(("K=2 ipa", ipa))
+    same = rand_field(np, torch, rng, (1, 1), dev)
+    cases.append(("skewed", same.expand(8, 1, n).contiguous()))
+    cases.append(("zero", torch.zeros((8, 1, n), dtype=torch.int32, device=dev)))
+    cases.append(("ragged", rand_field(np, torch, rng, (2, 1000), dev)))
+    return cases
+
+
+def k4_inputs(torch, cmsm, sf, basis, scal, c):
+    """msm's steps 1-2 (curves/msm.py) for scalars [8, K, N] over the first
+    N points of `basis`: (sub-basis, sorted digits, order, run starts, the
+    unsorted digit rows)."""
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    k, n = scal.shape[1], scal.shape[2]
+    sub = cmsm.precompute_base(TWEEDLEDEE, (basis.x[:, :n], basis.y[:, :n],
+                                            basis.z[:, :n]))
+    digits = cmsm.scalar_window_digits(sf, scal, c)
+    w = digits.shape[0]
+    rows = digits.reshape(w, k, n).transpose(0, 1).reshape(k * w, n)
+    sorted_digits, order = torch.sort(rows, dim=-1, stable=True)
+    starts = cmsm._run_starts(sorted_digits, 1 << c)
+    return (sub, sorted_digits.to(torch.int32).contiguous(),
+            order.to(torch.int32).contiguous(), starts, rows)
+
+
+def k4_work(rows, starts, acc):
+    """Bytes and IMAD slots of K4's bounds for this run's digits.
+    Accumulation: the basis, the sorted digits, the order and the run
+    starts read once, the buckets and carries written once; one add per
+    point beyond the first of each non-empty bucket.  Reduction: the
+    buckets, carries and run starts read once, one point per row written;
+    two adds per non-empty bucket (its running sum and its weighted sum)."""
+    r, n = rows.shape
+    live = int((rows != 0).sum().item())
+    nonempty = int(((starts[:, 2:] - starts[:, 1:-1]) > 0).sum().item())
+    out_bytes = 4 * sum(t.numel() for t in acc)
+    acc_bytes = 96 * n + 8 * r * n + 4 * starts.numel() + out_bytes
+    red_bytes = out_bytes + 4 * starts.numel() + 96 * r
+    return (acc_bytes, ADD_OPS * (live - nonempty), red_bytes,
+            ADD_OPS * 2 * nonempty)
 
 
 def phase_kernels(ck: Checker, torch, np, dev) -> None:
@@ -297,45 +369,40 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
               2 * 32 * 6 * (1 << 17) + 32 * m_mid,
               MUL_OPS * 3 * (1 << 17))
 
-    # K4 at N = 2^14, K = 9, c = 8, and at a ragged N = 1000, K = 2; the
-    # window sums feed the Horner check of K2
+    # K4 at every shape the main path gives it; the window sums of K = 9
+    # and K = 2 feed the Horner check of K2
     window_sums = {}
-    for n, k, c in ((1000, 2, 8), (1 << 14, 9, 8)):
-        sub = cmsm.precompute_base(TWEEDLEDEE, (basis.x[:, :n], basis.y[:, :n],
-                                                basis.z[:, :n]))
-        scal = rand_field(np, torch, rng, (k, n), dev)
-        scal[:, 0, :7] = 0                       # a few empty buckets' worth
-        digits = cmsm.scalar_window_digits(sf, scal, c)
-        w = digits.shape[0]
-        rows = digits.reshape(w, k, n).transpose(0, 1).reshape(k * w, n)
-        sorted_digits, order = torch.sort(rows, dim=-1, stable=True)
-        order = order.to(torch.int32).contiguous()
-        starts = cmsm._run_starts(sorted_digits, 1 << c)
-        buckets = cmsm.bucket_accumulate(TWEEDLEDEE, sub, order, starts)
-        ck.compare("msm_bucket_accumulate", buckets,
-                   cmsm.bucket_accumulate_plain(TWEEDLEDEE, sub, order, starts))
-        ws = cmsm.bucket_reduce(TWEEDLEDEE, buckets)
+    acc_by, red_by = [], []
+    c = 8
+    for label, scal in k4_cases(np, torch, rng, dev):
+        sub, digits, order, starts, rows = k4_inputs(torch, cmsm, sf, basis, scal, c)
+        k, n = scal.shape[1], scal.shape[2]
+        acc = cmsm.bucket_accumulate(TWEEDLEDEE, sub, digits, order, starts)
+        ck.compare("msm_bucket_accumulate", acc, cmsm.bucket_accumulate_plain(
+            TWEEDLEDEE, sub, digits, order, starts))
+        ws = cmsm.bucket_reduce(TWEEDLEDEE, *acc, starts)
         ck.compare("msm_bucket_reduce", ws,
-                   cmsm.bucket_reduce_plain(TWEEDLEDEE, buckets))
-        window_sums[k] = tuple(t.reshape(8, k, w) for t in ws)
-        live = int((rows != 0).sum().item())
-        nonempty = int(((starts[:, 2:] - starts[:, 1:-1]) > 0).sum().item())
-    nb = 1 << c
-    r = k * w
-    shapes = {"N": n, "K": 9, "c": 8, "ragged": {"N": 1000, "K": 2}}
-    # bucket j's run of L points needs L - 1 adds; the running sums of the
-    # reduction need 2 (nb - 2) adds per row
-    ck.record("msm_bucket_accumulate", shapes,
-              lambda: cmsm.bucket_accumulate(TWEEDLEDEE, sub, order, starts),
-              lambda: cmsm.bucket_accumulate_plain(TWEEDLEDEE, sub, order,
-                                                   starts),
-              96 * n + 4 * r * n + 4 * r * (nb + 1) + 96 * r * nb,
-              ADD_OPS * (live - nonempty), reps=5, plain_reps=1)
-    ck.record("msm_bucket_reduce", shapes,
-              lambda: cmsm.bucket_reduce(TWEEDLEDEE, buckets),
-              lambda: cmsm.bucket_reduce_plain(TWEEDLEDEE, buckets),
-              96 * r * nb + 96 * r, ADD_OPS * 2 * (nb - 2) * r,
-              reps=5, plain_reps=1)
+                   cmsm.bucket_reduce_plain(TWEEDLEDEE, *acc, starts))
+        if label in ("K=9", "K=2"):
+            window_sums[k] = tuple(t.reshape(8, k, -1) for t in ws)
+        shape = {"shape": label, "N": n, "K": k, "c": c, "rows": rows.shape[0]}
+        acc_bytes, acc_ops, red_bytes, red_ops = k4_work(rows, starts, acc)
+        acc_by.append({**shape, **ck.measure(
+            lambda: cmsm.bucket_accumulate(TWEEDLEDEE, sub, digits, order, starts),
+            lambda: cmsm.bucket_accumulate_plain(TWEEDLEDEE, sub, digits, order,
+                                                 starts),
+            acc_bytes, acc_ops, reps=10, plain_reps=1)})
+        red_by.append({**shape, **ck.measure(
+            lambda: cmsm.bucket_reduce(TWEEDLEDEE, *acc, starts),
+            lambda: cmsm.bucket_reduce_plain(TWEEDLEDEE, *acc, starts),
+            red_bytes, red_ops, reps=10, plain_reps=1)})
+    # the headline numbers are at K = 9, the commitments' shape; by_shape
+    # holds every shape
+    shapes = {"main": "K=9", "N": 1 << 14, "c": c,
+              "checked": [b["shape"] for b in acc_by]}
+    ck.record("msm_bucket_accumulate", shapes, by_shape=acc_by,
+              measured=acc_by[0])
+    ck.record("msm_bucket_reduce", shapes, by_shape=red_by, measured=red_by[0])
 
     # K2 at the shapes the MSM gives it: Horner on [LIMBS, K] for the
     # commitments' K = 9 (wires), 7 (t), 1 (z, pi, halo_g) and the IPA
@@ -455,33 +522,49 @@ def buffer_circuit(lg: int):
     return builder.build(), PartialWitness()
 
 
-def phase_prove(torch, lg: int = 14) -> dict:
+def phase_prove(torch, lg: int = 14, want_sha256=None) -> dict:
+    """Builds the 2^lg circuit, proves it twice and verifies the second
+    proof, with RANDOM_SOURCE pinned for the whole phase (circuit build
+    included), so the steady proof's bytes are fixed: their sha256 must be
+    `want_sha256` when one is given."""
+    import hashlib
+
+    import plonky_tpu_torch.circuit.builder as builder_mod
+    import plonky_tpu_torch.protocol.halo as halo_mod
     from plonky_tpu_torch import _cuda
-    from plonky_tpu_torch.curves import TWEEDLEDUM
+    from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
     from plonky_tpu_torch.protocol import generate_proof, verify_proof
+    from plonky_tpu_torch.protocol.serialization import proof_to_bytes
     from plonky_tpu_torch.utils.timing import record_phases
 
     out = {"phase": f"prove_2e{lg}"}
-    t0 = time.perf_counter()
-    circuit, inputs = buffer_circuit(lg)
-    torch.cuda.synchronize()
-    out["build_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    witness = circuit.generate_witness(inputs)
-    out["witness_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    generate_proof(circuit, witness, old_proofs=[], blinding=True)
-    torch.cuda.synchronize()
-    out["first_prove_s"] = time.perf_counter() - t0
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    with record_phases() as phases:
-        proof = generate_proof(circuit, witness, old_proofs=[], blinding=True)
-    torch.cuda.synchronize()
-    out["steady_prove_s"] = time.perf_counter() - t0
+    saved = (builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE)
+    builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = pinned_random()
+    try:
+        t0 = time.perf_counter()
+        circuit, inputs = buffer_circuit(lg)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        witness = circuit.generate_witness(inputs)
+        out["witness_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        generate_proof(circuit, witness, old_proofs=[], blinding=True)
+        torch.cuda.synchronize()
+        out["first_prove_s"] = time.perf_counter() - t0
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        with record_phases() as phases:
+            proof = generate_proof(circuit, witness, old_proofs=[], blinding=True)
+        torch.cuda.synchronize()
+        out["steady_prove_s"] = time.perf_counter() - t0
+    finally:
+        builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
     launches = dict(_cuda.LAUNCHES)
     out["phases_s"] = phases
     out["launches"] = launches
+    out["proof_sha256"] = hashlib.sha256(
+        proof_to_bytes(TWEEDLEDEE, proof)).hexdigest()
     t0 = time.perf_counter()
     verify_proof(circuit.get_public_inputs(witness), proof, [],
                  circuit.to_vk(), TWEEDLEDUM, verify_g=True)
@@ -489,6 +572,9 @@ def phase_prove(torch, lg: int = 14) -> dict:
     out["verified"] = True
     out["degree"] = circuit.degree()
     emit(out)
+    if want_sha256 is not None and out["proof_sha256"] != want_sha256:
+        raise AssertionError(f"the pinned 2^{lg} proof's sha256 is "
+                             f"{out['proof_sha256']}, not {want_sha256}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"the steady prove launched no {missing}")
@@ -531,7 +617,7 @@ def main() -> int:
     ck = Checker(torch, clock_hz, int_rate)
     phase_kernels(ck, torch, np, dev)
     phase_fixtures()
-    launches = phase_prove(torch)
+    launches = phase_prove(torch, want_sha256=PROOF_2E14_SHA256)
     for name, rec in ck.records.items():
         rec["launches"] = launches[name]
     emit({"kernels": list(ck.records.values())})

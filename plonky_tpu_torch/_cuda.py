@@ -55,9 +55,10 @@ _SIGNATURES = {
     "pt_curve_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "pt_curve_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "pt_ntt_stage": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P],
-    "pt_msm_bucket_accumulate": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I64, _I64, _I64, _P, _P],
-    "pt_msm_bucket_reduce": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P],
+    "pt_msm_bucket_accumulate": [_P, _P, _P, _P, _P, _P,
+                                 _I64, _I64, _I64, _I64, _I64, _P, _P],
+    "pt_msm_bucket_reduce": [_P, _P, _P, _P, _P, _P,
+                             _I64, _I64, _I64, _I64, _I64, _P, _P],
 }
 
 

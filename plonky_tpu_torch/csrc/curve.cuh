@@ -86,6 +86,83 @@ __device__ __forceinline__ void pt_add(Point& r, const Point& p, const Point& q,
   fe_add(r.z, a_, b_, c);         // Z3 = z3p t4 + t0_3 t3
 }
 
+// The MSM kernels' constants: coordinates in Montgomery form (field.cuh),
+// b3 = 3b as a small integer.
+struct MontCurveConsts {
+  FieldConsts f;
+  uint32_t b3;
+};
+
+// pt_add on Montgomery coordinates: the same formula and the same field
+// values (so, converted back, the same projective triple), with one
+// Montgomery product per multiply and the two multiplies by b3 done by
+// additions.  r may alias p or q.
+__device__ __forceinline__ void mpt_add(Point& r, const Point& p, const Point& q,
+                                        const MontCurveConsts& cc) {
+  const FieldConsts& c = cc.f;
+  uint32_t t0[PT_LIMBS], t1[PT_LIMBS], t2[PT_LIMBS], t3[PT_LIMBS], t4[PT_LIMBS];
+  uint32_t u[PT_LIMBS], v[PT_LIMBS], xz[PT_LIMBS];
+  mf_mul(t0, p.x, q.x, c);
+  mf_mul(t1, p.y, q.y, c);
+  mf_mul(t2, p.z, q.z, c);
+  fe_add(u, p.x, p.y, c);
+  fe_add(v, q.x, q.y, c);
+  mf_mul(t3, u, v, c);
+  fe_sub(t3, t3, t0, c);
+  fe_sub(t3, t3, t1, c);          // t3 = X1 Y2 + X2 Y1
+  fe_add(u, p.y, p.z, c);
+  fe_add(v, q.y, q.z, c);
+  mf_mul(t4, u, v, c);
+  fe_sub(t4, t4, t1, c);
+  fe_sub(t4, t4, t2, c);          // t4 = Y1 Z2 + Y2 Z1
+  fe_add(u, p.x, p.z, c);
+  fe_add(v, q.x, q.z, c);
+  mf_mul(xz, u, v, c);
+  fe_sub(xz, xz, t0, c);
+  fe_sub(xz, xz, t2, c);          // xz = X1 Z2 + X2 Z1
+  fe_add(u, t0, t0, c);
+  fe_add(t0, u, t0, c);           // t0 <- 3 t0
+  mf_mul_small(t2, t2, cc.b3, c); // t2 <- b3 t2
+  fe_add(u, t1, t2, c);           // z3p = t1 + b3 t2
+  fe_sub(t1, t1, t2, c);          // t1m = t1 - b3 t2
+  mf_mul_small(xz, xz, cc.b3, c); // yb3 = b3 xz
+  mf_mul(v, t3, t1, c);
+  mf_mul(t2, t4, xz, c);
+  fe_sub(r.x, v, t2, c);          // X3 = t3 t1m - t4 yb3
+  mf_mul(v, xz, t0, c);
+  mf_mul(t2, t1, u, c);
+  fe_add(r.y, v, t2, c);          // Y3 = yb3 t0_3 + t1m z3p
+  mf_mul(v, u, t4, c);
+  mf_mul(t2, t0, t3, c);
+  fe_add(r.z, v, t2, c);          // Z3 = z3p t4 + t0_3 t3
+}
+
+// pt_double on Montgomery coordinates (see mpt_add).  r may alias p.
+__device__ __forceinline__ void mpt_double(Point& r, const Point& p,
+                                           const MontCurveConsts& cc) {
+  const FieldConsts& c = cc.f;
+  uint32_t t0[PT_LIMBS], t1[PT_LIMBS], t2[PT_LIMBS], txy[PT_LIMBS];
+  mf_mul(t0, p.y, p.y, c);
+  mf_mul(t1, p.y, p.z, c);
+  mf_mul(t2, p.z, p.z, c);
+  mf_mul(txy, p.x, p.y, c);
+  uint32_t z3p[PT_LIMBS], x3p[PT_LIMBS], u[PT_LIMBS];
+  fe_add(z3p, t0, t0, c);
+  fe_add(z3p, z3p, z3p, c);
+  fe_add(z3p, z3p, z3p, c);       // 8 Y^2
+  mf_mul_small(t2, t2, cc.b3, c); // b3 Z^2
+  mf_mul(x3p, t2, z3p, c);
+  mf_mul(r.z, t1, z3p, c);        // Z3 = 8 Y^3 Z
+  fe_add(t1, t0, t2, c);          // y3p = Y^2 + b3 Z^2
+  fe_add(u, t2, t2, c);
+  fe_add(u, u, t2, c);            // 3 b3 Z^2
+  fe_sub(t0, t0, u, c);           // t0m = Y^2 - 3 b3 Z^2
+  mf_mul(u, t0, t1, c);
+  fe_add(r.y, u, x3p, c);         // Y3 = t0m y3p + x3p
+  fe_add(u, t0, t0, c);
+  mf_mul(r.x, u, txy, c);         // X3 = 2 t0m X Y
+}
+
 // RCB15 Algorithm 9 (a = 0).  r may alias p.
 __device__ __forceinline__ void pt_double(Point& r, const Point& p, const CurveConsts& cc) {
   const FieldConsts& c = cc.f;

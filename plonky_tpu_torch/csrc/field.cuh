@@ -232,3 +232,70 @@ __device__ __forceinline__ void fe_mul(uint32_t r[PT_LIMBS], const uint32_t a[PT
   acc[2 * PT_LIMBS] = 0;
   fe_reduce_acc(r, acc, c);
 }
+
+// ---------------------------------------------------------------------------
+// Montgomery form (R = 2^256), used inside the MSM kernels only: an element
+// x is held as x R mod p, canonical in [0, p).  Additions are the canonical
+// ones; a product is one CIOS Montgomery multiply (one 8 x 8 limb product
+// interleaved with one REDC), a quarter of the work of fe_mul.  Only c.p and
+// c.pinv are read.
+// ---------------------------------------------------------------------------
+
+// r = a b / 2^256 mod p for a, b < p (p < 2^255, so every partial sum fits
+// 9 limbs and the result is below 2p before the final subtraction).  The
+// loop over a's limbs is kept rolled (a shifts down one limb per round, so
+// every index stays static and a stays in registers): ~70 instructions of
+// machine code instead of the ~600 an unrolled product takes.
+__device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a_in[PT_LIMBS],
+                                       const uint32_t b[PT_LIMBS], const FieldConsts& c) {
+  uint32_t a[PT_LIMBS], t[PT_LIMBS];
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS; k++) {
+    a[k] = a_in[k];
+    t[k] = 0;
+  }
+  uint32_t t8 = 0;
+#pragma unroll 1
+  for (int i = 0; i < PT_LIMBS; i++) {
+    uint32_t ai = a[0];
+    uint64_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < PT_LIMBS; j++) {
+      uint64_t x = (uint64_t)ai * b[j] + t[j] + carry;
+      t[j] = (uint32_t)x;
+      carry = x >> 32;
+    }
+    uint64_t top = (uint64_t)t8 + carry;
+    uint32_t m = t[0] * c.pinv;
+    uint64_t x = (uint64_t)m * c.p[0] + t[0];
+    carry = x >> 32;
+#pragma unroll
+    for (int j = 1; j < PT_LIMBS; j++) {
+      x = (uint64_t)m * c.p[j] + t[j] + carry;
+      t[j - 1] = (uint32_t)x;
+      carry = x >> 32;
+    }
+    top += carry;
+    t[PT_LIMBS - 1] = (uint32_t)top;
+    t8 = (uint32_t)(top >> 32);
+#pragma unroll
+    for (int k = 0; k < PT_LIMBS - 1; k++) a[k] = a[k + 1];
+  }
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS; k++) r[k] = t[k];
+  fe_csub(r, c);
+}
+
+// r = k a for a small constant k >= 1 (double and add over k's bits; the
+// multiply by b3 = 3b in the point formulas).
+__device__ __forceinline__ void mf_mul_small(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                             uint32_t k, const FieldConsts& c) {
+  uint32_t x[PT_LIMBS];
+  fe_copy(x, a);
+#pragma unroll 1
+  for (int bit = 30 - __clz(k); bit >= 0; bit--) {
+    fe_add(x, x, x, c);
+    if ((k >> bit) & 1) fe_add(x, x, a, c);
+  }
+  fe_copy(r, x);
+}

@@ -5,100 +5,356 @@
 // the segmented-scan combine _seg_combine of plonky_tpu/curves/msm.py
 // (:95-102) inside _chunked_scan_parts, _seg_scan_pair and
 // _seg_scan_gather: a point add plus a select on the segment-start flag,
-// scanned over points sorted by window digit.  The TPU needed that
-// static-shaped scan because its grid runs in order; Hopper runs threads
-// independently, so the scan becomes one thread per bucket walking its own
-// run of the sorted points.  The digits and the argsort per window row stay
-// in torch; the combination across windows (Horner) is K2.
+// scanned over points sorted by window digit, then the reversed-cumsum
+// reduction sum_j j B_j (:376).  The digits and the argsort per window row
+// stay in torch; the combination across windows (Horner) is K2.
 //
-// What bounds it: every point of a window row costs one complete add
-// (~3,900 32-bit multiply-adds) against 96 bytes of point and a 4-byte
-// index, so accumulation is bound by the integer pipe; the
-// reduction is 2 adds per bucket and likewise.  The reduction runs one
-// thread per window row (a sequential running sum over 2^c buckets), so it
-// keeps only a few hundred threads busy: it is bound by latency, not by
-// either roofline, which a later tree reduction removes.
+// What bounds it: every point of a window row costs one complete add (12
+// Montgomery products) against 96 bytes of point and two 4-byte indices,
+// so both kernels are bound by the integer multiply pipe, and only if
+// enough threads run one add chain each.  The design keeps every chain
+// short whatever the digits are:
+//   - accumulate: one thread per chunk of `chunk` sorted positions, so the
+//     thread count is R N / chunk; a run of equal digits that crosses
+//     chunks is merged by a pairwise tree in shared memory over the block's
+//     MSM_TILE chunks, and a run that crosses blocks leaves one carry per
+//     block, added by the reduction (at most N / (chunk MSM_TILE) of
+//     them);
+//   - reduce: one warp per window row; lane s walks segment s of `seg`
+//     buckets with the running-sum trick, and lane 0 combines the segments:
+//     ~2 seg + 2 (2^c / seg) + log2 seg dependent adds instead of 2^(c+1).
+// The points stay in Montgomery form (R = 2^256) from the basis copy to the
+// reduction's output, which converts back to canonical coordinates once.
+// The gathered basis points arrive by cp.async into a per-thread double
+// buffer in shared memory while the previous add runs.
 #include "curve.cuh"
 
-// The kernels below call the complete add through this out-of-line copy:
-// inlining 14 unrolled field multiplies at every call site in a loop
-// crashed the compiler.  A call costs a few local-memory moves of the
-// points, against ~3,900 multiply-adds of work.
-__device__ __noinline__ void pt_add_call(Point& r, const Point& p, const Point& q,
-                                         const CurveConsts& cc) {
-  pt_add(r, p, q, cc);
+#define MSM_TILE 128        // chunks, one per thread, in an accumulate block
+#define MSM_WORDS 24        // a point: X, Y, Z, 8 limbs each
+#define MSM_WARP 32         // reduce: lanes, and the most segments per row
+
+__constant__ MontCurveConsts c_msm;
+
+// Sets c_msm on `stream` ahead of a launch from the CurveConsts buffer
+// [p, 2^544 mod p, -p^-1 mod 2^32, b3 (8 limbs)]; b3 must fit one limb.
+static int msm_set_consts(const uint32_t* host, cudaStream_t stream) {
+  MontCurveConsts c;
+  c.f = field_consts_from(host);
+  c.b3 = host[2 * PT_LIMBS + 1];
+  for (int k = 1; k < PT_LIMBS; k++)
+    if (host[2 * PT_LIMBS + 1 + k] != 0) return (int)cudaErrorInvalidValue;
+  if (c.b3 == 0) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyToSymbolAsync(c_msm, &c, sizeof(c), 0, cudaMemcpyHostToDevice,
+                                      stream);
 }
 
-// One thread per (row r, bucket j): the sum of the points order[r, s] for
-// s in [starts[r, j], starts[r, j + 1]).  Bucket 0 (digit 0) is the
-// identity.  px/py/pz: [8, N]; order: [R, N] int32; starts: [R, B + 1]
-// int32; out: [8, R, B].
-__global__ void msm_bucket_accumulate_kernel(int32_t* ox, int32_t* oy, int32_t* oz,
-                                             const int32_t* px, const int32_t* py,
-                                             const int32_t* pz, const int32_t* order,
-                                             const int32_t* starts, int64_t rows,
-                                             int64_t buckets, int64_t n, CurveConsts cc) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= rows * buckets) return;
-  int64_t r = t / buckets;
-  int64_t j = t - r * buckets;
-  Point acc;
-  pt_identity(acc);
-  if (j > 0) {
-    int64_t lo = starts[r * (buckets + 1) + j];
-    int64_t hi = starts[r * (buckets + 1) + j + 1];
-    for (int64_t s = lo; s < hi; s++) {
-      int64_t idx = order[r * n + s];
-      Point q;
-      pt_load(q, px, py, pz, n, idx);
-      pt_add_call(acc, acc, q, cc);
+__device__ __forceinline__ int64_t i64_min(int64_t a, int64_t b) { return a < b ? a : b; }
+__device__ __forceinline__ int64_t i64_max(int64_t a, int64_t b) { return a > b ? a : b; }
+
+__device__ __forceinline__ void mpt_load(Point& r, const uint32_t* src) {
+  const uint4* s = (const uint4*)src;
+  uint32_t w[MSM_WORDS];
+#pragma unroll
+  for (int k = 0; k < MSM_WORDS / 4; k++) {
+    uint4 v = s[k];
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
+  }
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS; k++) {
+    r.x[k] = w[k];
+    r.y[k] = w[PT_LIMBS + k];
+    r.z[k] = w[2 * PT_LIMBS + k];
+  }
+}
+
+__device__ __forceinline__ void mpt_save(uint32_t* dst, const Point& p) {
+  uint4* d = (uint4*)dst;
+#pragma unroll
+  for (int k = 0; k < MSM_WORDS / 4; k++) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      int e = 4 * k + i;
+      w[i] = e < PT_LIMBS ? p.x[e] : e < 2 * PT_LIMBS ? p.y[e - PT_LIMBS]
+                                                      : p.z[e - 2 * PT_LIMBS];
+    }
+    d[k] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+__device__ __forceinline__ void cp_async_point(uint32_t* smem, const uint32_t* gmem) {
+  uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+#pragma unroll
+  for (int k = 0; k < MSM_WORDS / 4; k++)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s + 16 * k),
+                 "l"(gmem + 4 * k)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Block (row r, tile): thread q sums the sorted positions
+// [chunk (tile MSM_TILE + q), + chunk) of row r.  A piece is the part of one
+// run (equal nonzero digits) inside the chunk, summed in sorted order from
+// its first point.  A piece that is its whole run goes to buckets[r, d].
+// Otherwise the piece of a run that began in an earlier chunk goes to
+// cont[q], and the piece of a run that begins here and runs on goes to
+// head[q].  Then, for each run crossing chunks, a pairwise tree over its
+// chunks within the tile, rooted at its first chunk here (offsets 1, 2,
+// 4, ...: element i takes in element i + 2^k when i is a multiple of
+// 2^(k+1)), sums the pieces; the root's sum goes to buckets[r, d] when the
+// run begins in this tile, and to carries[r, tile] when it began in an
+// earlier one.  Digit 0 is skipped; slots no one writes stay zero.
+// basis: [N, 24] Montgomery points; digits, order: [R, N] int32 (sorted
+// digits, the argsort); starts: [R, nb + 1] int32 run starts; buckets:
+// [R, nb, 24]; carries: [R, ntiles, 24].
+__global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
+    uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
+    const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
+    int64_t ntiles) {
+  __shared__ __align__(16) uint32_t stage[MSM_TILE][2][MSM_WORDS];
+  __shared__ __align__(16) uint32_t cont[MSM_TILE][MSM_WORDS];
+  __shared__ __align__(16) uint32_t head[MSM_TILE][MSM_WORDS];
+  const int q = threadIdx.x;
+  const int64_t r = blockIdx.x / ntiles;
+  const int64_t tile = blockIdx.x - r * ntiles;
+  const int64_t nchunks = (n + chunk - 1) / chunk;
+  const int64_t first = tile * MSM_TILE;                      // first chunk of the tile
+  const int64_t last = i64_min(first + MSM_TILE, nchunks) - 1;    // last chunk of the tile
+  const int64_t cq = first + q;                               // this thread's chunk
+  const int64_t s0 = cq * chunk;
+  const int64_t s1 = i64_min(s0 + chunk, n);
+  const int32_t* st = starts + r * (nb + 1);
+  const int32_t* dig = digits + r * n;
+  const int32_t* ord = order + r * n;
+  uint32_t* out = buckets + r * nb * MSM_WORDS;
+
+  // the runs this thread hands to the tree: the one it continues (cont) and
+  // the one it begins (head), by their [lo, hi) and digit
+  bool has_cont = false, has_head = false;
+  int64_t cont_lo = 0, cont_hi = 0, head_hi = 0;
+  int head_d = 0;
+
+  const int64_t sb = i64_max(s0, (int64_t)st[1]);                 // skip digit 0
+  if (sb < s1) {
+    cp_async_point(stage[q][0], basis + (int64_t)ord[sb] * MSM_WORDS);
+    Point acc;
+    int64_t end = sb, lo = 0, hi = 0;
+    int d = 0;
+    for (int64_t s = sb; s < s1; s++) {
+      const int buf = (int)((s - sb) & 1);
+      if (s + 1 < s1) {
+        cp_async_point(stage[q][buf ^ 1], basis + (int64_t)ord[s + 1] * MSM_WORDS);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      Point pt;
+      mpt_load(pt, stage[q][buf]);
+      if (s == end) {                                         // a new piece
+        d = dig[s];
+        lo = st[d];
+        hi = st[d + 1];
+        end = i64_min(hi, s1);
+        acc = pt;
+      } else {
+        mpt_add(acc, acc, pt, c_msm);
+      }
+      if (s + 1 == end) {                                     // the piece ends
+        if (lo >= s0 && hi <= s1) {
+          mpt_save(out + (int64_t)d * MSM_WORDS, acc);
+        } else if (lo < s0) {
+          mpt_save(cont[q], acc);
+          has_cont = true;
+          cont_lo = lo;
+          cont_hi = hi;
+        } else {
+          mpt_save(head[q], acc);
+          has_head = true;
+          head_hi = hi;
+          head_d = d;
+        }
+      }
     }
   }
-  pt_store(ox, oy, oz, rows * buckets, t, acc);
+  __syncthreads();
+
+  // the trees, one level per step; a receiver's partner holds a cont piece
+  // of the same run and is no receiver at this step
+  const int64_t cont_root = i64_max(cont_lo / chunk, first);
+  const int64_t cont_last = i64_min((cont_hi - 1) / chunk, last);
+  const int64_t head_last = i64_min((head_hi - 1) / chunk, last);
+  for (int64_t step = 1; step < MSM_TILE; step <<= 1) {
+    uint32_t* dst = nullptr;
+    if (has_cont && ((cq - cont_root) & (2 * step - 1)) == 0 && cq + step <= cont_last)
+      dst = cont[q];
+    if (has_head && cq + step <= head_last) dst = head[q];
+    if (dst != nullptr) {
+      Point a, b;
+      mpt_load(a, dst);
+      mpt_load(b, cont[q + step]);
+      mpt_add(a, a, b, c_msm);
+      mpt_save(dst, a);
+    }
+    __syncthreads();
+  }
+  if (has_head) {
+    Point a;
+    mpt_load(a, head[q]);
+    mpt_save(out + (int64_t)head_d * MSM_WORDS, a);
+  }
+  if (has_cont && cq == first) {
+    Point a;
+    mpt_load(a, cont[q]);
+    mpt_save(carries + (r * ntiles + tile) * MSM_WORDS, a);
+  }
 }
 
-// One thread per row: sum_j j B_j = sum_{k >= 1} T_k with T_k = sum_{j >= k}
-// B_j, by one running sum from the top bucket down.  b: [8, R, B]; out:
-// [8, R].
-__global__ void msm_bucket_reduce_kernel(int32_t* ox, int32_t* oy, int32_t* oz,
-                                         const int32_t* bx, const int32_t* by,
-                                         const int32_t* bz, int64_t rows, int64_t buckets,
-                                         CurveConsts cc) {
-  int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  Point running, acc;
-  pt_identity(running);
-  pt_identity(acc);
-  for (int64_t j = buckets - 1; j >= 1; j--) {
-    Point q;
-    pt_load(q, bx, by, bz, rows * buckets, r * buckets + j);
-    pt_add_call(running, running, q, cc);
-    pt_add_call(acc, acc, running, cc);
+// The reduction's add, out of line: one copy of the add's code serves
+// every call site (the reduction is a chain on few threads, where a call's
+// moves through local memory cost little against the add).
+__device__ __noinline__ void mpt_add_call(Point& r, const Point& p, const Point& q) {
+  mpt_add(r, p, q, c_msm);
+}
+
+// acc (+)= x, where `has` says whether acc holds a point yet.
+__device__ __forceinline__ void mpt_accumulate(Point& acc, bool& has, const Point& x) {
+  if (has) {
+    mpt_add_call(acc, acc, x);
+  } else {
+    acc = x;
+    has = true;
   }
-  pt_store(ox, oy, oz, rows, r, acc);
+}
+
+// One warp per window row r.  Buckets 1 .. nb-1 fall into nseg segments of
+// `seg` buckets (a power of two; the last segment may be short): segment s
+// holds buckets s seg + i + 1, i < seg.  Lane s adds to each nonempty bucket
+// its carries (run [lo, hi): those of tiles lo/tp + 1 .. (hi-1)/tp, tp =
+// points per accumulate tile), then walks i from the top down keeping
+//   T_s = sum_i B_{s seg+i+1}   and   W_s = sum_i (i+1) B_{s seg+i+1}.
+// Then sum_j j B_j = sum_s W_s + seg sum_{s>=1} s T_s: the W_s by a pairwise
+// tree, sum_s s T_s by a running sum from the top on lane 0, seg times by
+// log2 seg doublings, one add, and a conversion to canonical coordinates
+// (an empty row gives the identity (0 : 1 : 0)).  buckets: [R, nb, 24];
+// carries: [R, ntiles, 24]; starts: [R, nb + 1]; out: [8, R] each.
+__global__ void __launch_bounds__(MSM_WARP) msm_bucket_reduce_kernel(
+    int32_t* ox, int32_t* oy, int32_t* oz, const uint32_t* buckets, const uint32_t* carries,
+    const int32_t* starts, int64_t rows, int64_t nb, int64_t ntiles, int64_t tile_points,
+    int seg, int nseg) {
+  __shared__ __align__(16) uint32_t tot[MSM_WARP][MSM_WORDS];
+  __shared__ __align__(16) uint32_t wsum[MSM_WARP][MSM_WORDS];
+  __shared__ int tot_ok[MSM_WARP], w_ok[MSM_WARP];
+  const int s = threadIdx.x;
+  const int64_t r = blockIdx.x;
+  const int32_t* st = starts + r * (nb + 1);
+  const uint32_t* brow = buckets + r * nb * MSM_WORDS;
+  const uint32_t* crow = carries + r * ntiles * MSM_WORDS;
+
+  Point running, acc;
+  bool has_run = false, has_acc = false;
+  if (s < nseg) {
+    for (int i = seg - 1; i >= 0; i--) {
+      const int64_t j = (int64_t)s * seg + i + 1;
+      if (j < nb) {
+        const int64_t lo = st[j], hi = st[j + 1];
+        if (hi > lo) {
+          Point b;
+          mpt_load(b, brow + j * MSM_WORDS);
+          for (int64_t t = lo / tile_points + 1; t <= (hi - 1) / tile_points; t++) {
+            Point cpt;
+            mpt_load(cpt, crow + t * MSM_WORDS);
+            mpt_add_call(b, b, cpt);
+          }
+          mpt_accumulate(running, has_run, b);
+        }
+      }
+      if (has_run) mpt_accumulate(acc, has_acc, running);
+    }
+    if (has_run) mpt_save(tot[s], running);
+    if (has_acc) mpt_save(wsum[s], acc);
+  }
+  tot_ok[s] = has_run;
+  w_ok[s] = has_acc;
+  __syncthreads();
+
+  for (int step = 1; step < MSM_WARP; step <<= 1) {
+    if ((s & (2 * step - 1)) == 0 && s + step < nseg && w_ok[s + step]) {
+      Point a, b;
+      mpt_load(b, wsum[s + step]);
+      bool has = w_ok[s];
+      if (has) mpt_load(a, wsum[s]);
+      mpt_accumulate(a, has, b);
+      mpt_save(wsum[s], a);
+      w_ok[s] = 1;
+    }
+    __syncthreads();
+  }
+  if (s != 0) return;
+
+  Point run2, acc2, res;
+  bool has_run2 = false, has_acc2 = false, has_res = false;
+  for (int k = nseg - 1; k >= 1; k--) {
+    if (tot_ok[k]) {
+      Point t;
+      mpt_load(t, tot[k]);
+      mpt_accumulate(run2, has_run2, t);
+    }
+    if (has_run2) mpt_accumulate(acc2, has_acc2, run2);
+  }
+  if (has_acc2)
+    for (int m = 1; m < seg; m <<= 1) mpt_double(acc2, acc2, c_msm);
+  if (w_ok[0]) {
+    mpt_load(res, wsum[0]);
+    has_res = true;
+  }
+  if (has_acc2) mpt_accumulate(res, has_res, acc2);
+
+  uint32_t one[PT_LIMBS];
+  fe_set_small(one, 1);
+  if (has_res) {
+    mf_mul(res.x, res.x, one, c_msm.f);
+    mf_mul(res.y, res.y, one, c_msm.f);
+    mf_mul(res.z, res.z, one, c_msm.f);
+  } else {
+    pt_identity(res);
+  }
+  pt_store(ox, oy, oz, rows, r, res);
 }
 
 extern "C" {
 
-int pt_msm_bucket_accumulate(void* ox, void* oy, void* oz, const void* px, const void* py,
-                             const void* pz, const void* order, const void* starts,
-                             int64_t rows, int64_t buckets, int64_t n, const void* consts,
-                             void* stream) {
-  CurveConsts cc = curve_consts_from((const uint32_t*)consts);
-  msm_bucket_accumulate_kernel<<<pt_blocks(rows * buckets), PT_THREADS, 0,
-                                 (cudaStream_t)stream>>>(
-      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)px, (const int32_t*)py,
-      (const int32_t*)pz, (const int32_t*)order, (const int32_t*)starts, rows, buckets, n, cc);
+int pt_msm_bucket_accumulate(void* buckets, void* carries, const void* basis,
+                             const void* digits, const void* order, const void* starts,
+                             int64_t rows, int64_t n, int64_t nb, int64_t chunk,
+                             int64_t tile, const void* consts, void* stream) {
+  if (tile != MSM_TILE || chunk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = msm_set_consts((const uint32_t*)consts, st);
+  if (rc != 0) return rc;
+  const int64_t ntiles = (n + chunk * MSM_TILE - 1) / (chunk * MSM_TILE);
+  msm_bucket_accumulate_kernel<<<(unsigned int)(rows * ntiles), MSM_TILE, 0, st>>>(
+      (uint32_t*)buckets, (uint32_t*)carries, (const uint32_t*)basis, (const int32_t*)digits,
+      (const int32_t*)order, (const int32_t*)starts, n, nb, chunk, ntiles);
   return (int)cudaGetLastError();
 }
 
-int pt_msm_bucket_reduce(void* ox, void* oy, void* oz, const void* bx, const void* by,
-                         const void* bz, int64_t rows, int64_t buckets, const void* consts,
-                         void* stream) {
-  CurveConsts cc = curve_consts_from((const uint32_t*)consts);
-  msm_bucket_reduce_kernel<<<pt_blocks(rows), PT_THREADS, 0, (cudaStream_t)stream>>>(
-      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)bx, (const int32_t*)by,
-      (const int32_t*)bz, rows, buckets, cc);
+int pt_msm_bucket_reduce(void* ox, void* oy, void* oz, const void* buckets,
+                         const void* carries, const void* starts, int64_t rows, int64_t nb,
+                         int64_t ntiles, int64_t tile_points, int64_t seg,
+                         const void* consts, void* stream) {
+  const int64_t nseg = (nb - 1 + seg - 1) / seg;
+  if (seg < 1 || (seg & (seg - 1)) != 0 || nseg > MSM_WARP || tile_points < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = msm_set_consts((const uint32_t*)consts, st);
+  if (rc != 0) return rc;
+  msm_bucket_reduce_kernel<<<(unsigned int)rows, MSM_WARP, 0, st>>>(
+      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const uint32_t*)buckets,
+      (const uint32_t*)carries, (const int32_t*)starts, rows, nb, ntiles, tile_points,
+      (int)seg, (int)nseg);
   return (int)cudaGetLastError();
 }
 

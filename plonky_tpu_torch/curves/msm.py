@@ -4,17 +4,25 @@ Pipeline for scalars [LIMBS, *B, N] against an N-point basis:
   1. c-bit window digits of every scalar (torch),
   2. one stable argsort per (scalar, window) row and the start of every
      bucket's run in the sorted order (torch),
-  3. bucket sums: one thread per (row, bucket) adds its run of points
-     (K4 accumulation kernel),
-  4. window sums  sum_j j B_j  by a running sum from the top bucket
-     (K4 reduction kernel),
+  3. bucket sums (K4 accumulation kernel): one thread per chunk of CHUNK
+     sorted positions sums the pieces of the runs in its chunk; runs that
+     cross chunks are merged by a tree over the TILE chunks of a block, and
+     runs that cross blocks leave one carry per block,
+  4. window sums  sum_j j B_j  (K4 reduction kernel): the carries are added
+     to their buckets, segments of SEG buckets are reduced by running sums
+     in parallel and then combined,
   5. Horner across windows, batched over the B MSMs: c doublings and one
      add per window (K2).
 
-K4 lives in csrc/msm_kernels.cu; `bucket_accumulate_plain` and
-`bucket_reduce_plain` are its plain PyTorch versions, taken only for CPU
-tensors.  The result is a projective point [LIMBS, *B]; only its affine
-value is defined (it matches the reference's MSM, not its coordinates).
+Steps 3 and 4 keep the points in Montgomery form (x 2^256 mod p; the
+basis keeps a point-major copy in that form, `MsmBasis.mont`), and step 4
+converts its output back to canonical coordinates.  K4 lives in
+csrc/msm_kernels.cu; `bucket_accumulate_plain` and `bucket_reduce_plain`
+are its plain PyTorch versions, taken only for CPU tensors: they add the
+same points in the same grouping as the kernels, so their outputs equal
+the kernels' word for word.  The result is a projective point
+[LIMBS, *B]; only its affine value is defined (it matches the reference's
+MSM, not its coordinates).
 """
 
 from __future__ import annotations
@@ -30,16 +38,24 @@ from . import ops as cops
 from .spec import CurveSpec
 
 
+CHUNK = 32           # sorted positions per accumulation thread
+TILE = 128           # chunks per accumulation block (MSM_TILE in the kernel)
+SEG = 16             # buckets per segment of the reduction (a power of two)
+WORDS = 3 * LIMBS    # a point-major Montgomery point: X, Y, Z limbs
+
+
 @dataclass(frozen=True, eq=False)
 class MsmBasis:
     """A fixed MSM basis: canonical projective coordinates [LIMBS, N] on one
-    device.  `msm` takes nothing else, so a commitment can never be made
-    against an unchecked array (the reference took any uint8 input as
-    canonical)."""
+    device, and the same points point-major in Montgomery form, [N, WORDS]
+    (what the accumulation kernel gathers).  `msm` takes nothing else, so a
+    commitment can never be made against an unchecked array (the reference
+    took any uint8 input as canonical)."""
     curve: CurveSpec
     x: torch.Tensor
     y: torch.Tensor
     z: torch.Tensor
+    mont: torch.Tensor
 
     @property
     def n(self) -> int:
@@ -51,10 +67,11 @@ class MsmBasis:
 
 
 def precompute_base(curve: CurveSpec, points: cops.Point) -> MsmBasis:
-    """Contiguous [LIMBS, N] copies of a point batch as an MsmBasis."""
+    """Contiguous [LIMBS, N] copies of a point batch and their point-major
+    Montgomery copy as an MsmBasis."""
     x, y, z = (t.reshape(LIMBS, -1).contiguous() for t in points)
     assert x.shape == y.shape == z.shape
-    return MsmBasis(curve, x, y, z)
+    return MsmBasis(curve, x, y, z, pack_points(curve, (x, y, z)))
 
 
 def scalar_window_digits(spec: FieldSpec, scalars: torch.Tensor,
@@ -79,85 +96,296 @@ def _run_starts(sorted_digits: torch.Tensor, n_buckets: int) -> torch.Tensor:
     return torch.searchsorted(sorted_digits.contiguous(), ids).to(torch.int32)
 
 
-def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis,
-                            order: torch.Tensor, starts: torch.Tensor) -> cops.Point:
-    """Bucket sums [LIMBS, R, n_buckets]: bucket j of row r is the sum of
-    the points order[r, s], starts[r, j] <= s < starts[r, j + 1], added
-    in that order onto the identity; bucket 0 is the identity.  Step s adds
-    the s-th point of every bucket that has one."""
-    rows, nb = starts.shape[0], starts.shape[1] - 1
-    lo = starts[:, :-1].to(torch.int64).reshape(-1)
-    lens = (starts[:, 1:] - starts[:, :-1]).to(torch.int64)
-    lens[:, 0] = 0                                  # bucket 0 stays empty
-    lens = lens.reshape(-1)
-    acc = [t.reshape(LIMBS, -1).clone()
-           for t in cops.identity(curve, (rows, nb), basis.device)]
-    order64 = order.to(torch.int64)
-    steps = int(lens.max().item()) if lens.numel() else 0
-    for s in range(steps):
-        sel = (lens > s).nonzero().squeeze(1)
-        idx = order64[sel // nb, lo[sel] + s]
-        pt = tuple(t[:, idx] for t in (basis.x, basis.y, basis.z))
-        new = cops.add_plain(curve, tuple(t[:, sel] for t in acc), pt)
-        for t, v in zip(acc, new):
-            t[:, sel] = v
-    return tuple(t.reshape(LIMBS, rows, nb) for t in acc)
+def _mont_factors(spec: FieldSpec):
+    """(2^256 mod p, 2^-256 mod p)."""
+    r = pow(2, 32 * LIMBS, spec.p)
+    return r, pow(r, -1, spec.p)
 
 
-def bucket_reduce_plain(curve: CurveSpec, buckets: cops.Point) -> cops.Point:
-    """[LIMBS, R, n_buckets] -> [LIMBS, R]: sum_j j B_j as the sum over k >= 1
-    of the running sums T_k = sum_{j >= k} B_j, from the top bucket down."""
-    rows, nb = buckets[0].shape[1], buckets[0].shape[2]
-    running = cops.identity(curve, (rows,), buckets[0].device)
-    acc = running
-    for j in range(nb - 1, 0, -1):
-        running = cops.add_plain(curve, running, tuple(t[:, :, j] for t in buckets))
-        acc = cops.add_plain(curve, acc, running)
-    return acc
+def to_montgomery(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Canonical x -> x 2^256 mod p (canonical limbs of the Montgomery form)."""
+    return fops.mul(spec, x, fops.column(spec, _mont_factors(spec)[0], x.device))
 
 
-def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, order: torch.Tensor,
-                      starts: torch.Tensor) -> cops.Point:
-    """K4 accumulation on the card (order [R, N], starts [R, B + 1] int32)."""
-    if not fops._dispatch(basis.x):
-        return bucket_accumulate_plain(curve, basis, order, starts)
+def from_montgomery(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Montgomery form -> canonical x."""
+    return fops.mul(spec, x, fops.column(spec, _mont_factors(spec)[1], x.device))
+
+
+def pack_points(curve: CurveSpec, pt: cops.Point) -> torch.Tensor:
+    """Canonical [LIMBS, M] coordinates -> [M, WORDS] point-major Montgomery
+    words (X, Y, Z limbs of point m in row m)."""
+    m = pt[0].shape[1]
+    if m == 0:
+        return torch.zeros((0, WORDS), dtype=torch.int32, device=pt[0].device)
+    mont = to_montgomery(curve.base, torch.cat(pt, dim=1))
+    return mont.reshape(LIMBS, 3, m).permute(2, 1, 0).reshape(m, WORDS).contiguous()
+
+
+def unpack_points(curve: CurveSpec, words: torch.Tensor) -> cops.Point:
+    """[M, WORDS] point-major Montgomery words -> canonical [LIMBS, M]."""
+    m = words.shape[0]
+    if m == 0:
+        return _empty(0, words.device)
+    flat = words.reshape(m, 3, LIMBS).permute(2, 1, 0).reshape(LIMBS, 3 * m)
+    return tuple(from_montgomery(curve.base, flat.contiguous()).chunk(3, dim=1))
+
+
+def _take(pt: cops.Point, idx: torch.Tensor) -> cops.Point:
+    return tuple(t[:, idx] for t in pt)
+
+
+def _put(pt: cops.Point, idx: torch.Tensor, val: cops.Point) -> None:
+    for t, v in zip(pt, val):
+        t[:, idx] = v
+
+
+def _accumulate(curve: CurveSpec, acc: cops.Point, has: torch.Tensor,
+                x: cops.Point, x_has: torch.Tensor) -> torch.Tensor:
+    """acc (+)= x in place over a batch (the kernels' mpt_accumulate):
+    where acc holds no point yet it takes x, where both hold one it takes
+    add(acc, x).  Returns the new `has`."""
+    both = (has & x_has).nonzero().squeeze(1)
+    only = (x_has & ~has).nonzero().squeeze(1)
+    if both.numel():
+        _put(acc, both, cops.add_plain(curve, _take(acc, both), _take(x, both)))
+    if only.numel():
+        _put(acc, only, _take(x, only))
+    return has | x_has
+
+
+def _empty(m: int, device) -> cops.Point:
+    return tuple(torch.zeros((LIMBS, m), dtype=torch.int32, device=device)
+                 for _ in range(3))
+
+
+def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
+                            order: torch.Tensor, starts: torch.Tensor,
+                            chunk: int = CHUNK, tile: int = TILE):
+    """(buckets [R, nb, WORDS], carries [R, ntiles, WORDS]) in Montgomery
+    form, as the accumulation kernel leaves them (see its comment in
+    csrc/msm_kernels.cu): bucket j of row r holds the sum of its run's
+    points in the sorted order `order[r]` (digits[r] sorted, run starts
+    `starts`) that lie in the run's first tile of chunk * tile positions;
+    carries[r, t] holds the part in tile t of the run that crosses into
+    tile t.  Empty buckets, bucket 0 and unused carries are zero words.
+    The kernel's grouping is chunk = CHUNK, tile = TILE."""
+    rows, n = order.shape
+    nb = starts.shape[1] - 1
+    dev = basis.device
+    nchunks = -(-n // chunk)
+    ntiles = -(-nchunks // tile)
+    buckets = torch.zeros((rows * nb, WORDS), dtype=torch.int32, device=dev)
+    carries = torch.zeros((rows * ntiles, WORDS), dtype=torch.int32, device=dev)
+    if rows * n == 0:
+        return (buckets.reshape(rows, nb, WORDS),
+                carries.reshape(rows, ntiles, WORDS))
+    pad = nchunks * chunk + 1 - n
+    dig = torch.cat([digits.to(torch.int64),
+                     torch.full((rows, pad), -1, dtype=torch.int64, device=dev)], 1)
+    ordp = torch.cat([order.to(torch.int64),
+                      torch.zeros((rows, pad), dtype=torch.int64, device=dev)], 1)
+    st = starts.to(torch.int64)
+    m = rows * nchunks
+    row = torch.arange(rows, device=dev).repeat_interleave(nchunks)
+    cq = torch.arange(nchunks, device=dev).repeat(rows)
+    s0 = cq * chunk
+    s1 = torch.clamp(s0 + chunk, max=n)
+    pts = (basis.x, basis.y, basis.z)
+
+    acc = _empty(m, dev)
+    cont, head = _empty(m, dev), _empty(m, dev)
+    has_cont = torch.zeros(m, dtype=torch.bool, device=dev)
+    has_head = torch.zeros_like(has_cont)
+    cont_lo, cont_hi, head_hi, head_d = (torch.zeros(m, dtype=torch.int64, device=dev)
+                                         for _ in range(4))
+    written_idx, written = [], []
+    for k in range(chunk):
+        s = s0 + k
+        d = dig[row, s]
+        valid = d > 0
+        new = valid & ((d != dig[row, torch.clamp(s - 1, min=0)]) if k else valid)
+        step = (valid & ~new).nonzero().squeeze(1)
+        pt = _take(pts, ordp[row, s])
+        if step.numel():
+            _put(acc, step, cops.add_plain(curve, _take(acc, step), _take(pt, step)))
+        sel = new.nonzero().squeeze(1)
+        _put(acc, sel, _take(pt, sel))
+        ends = valid & ((dig[row, s + 1] != d) | (k == chunk - 1))
+        lo = st[row, torch.clamp(d, min=0)]
+        hi = st[row, torch.clamp(d + 1, min=0)]
+        whole = ends & (lo >= s0) & (hi <= s1)
+        to_cont = ends & (lo < s0)
+        to_head = ends & ~whole & ~to_cont
+        sel = whole.nonzero().squeeze(1)
+        written_idx.append(row[sel] * nb + d[sel])
+        written.append(_take(acc, sel))
+        sel = to_cont.nonzero().squeeze(1)
+        _put(cont, sel, _take(acc, sel))
+        has_cont |= to_cont
+        cont_lo = torch.where(to_cont, lo, cont_lo)
+        cont_hi = torch.where(to_cont, hi, cont_hi)
+        sel = to_head.nonzero().squeeze(1)
+        _put(head, sel, _take(acc, sel))
+        has_head |= to_head
+        head_hi = torch.where(to_head, hi, head_hi)
+        head_d = torch.where(to_head, d, head_d)
+
+    first = (cq // tile) * tile
+    last = torch.clamp(first + tile, max=nchunks) - 1
+    cont_root = torch.maximum(cont_lo // chunk, first)
+    cont_last = torch.minimum((cont_hi - 1) // chunk, last)
+    head_last = torch.minimum((head_hi - 1) // chunk, last)
+    step = 1
+    while step < min(tile, nchunks):
+        recv_c = (has_cont & ((cq - cont_root) % (2 * step) == 0)
+                  & (cq + step <= cont_last)).nonzero().squeeze(1)
+        recv_h = (has_head & (cq + step <= head_last)).nonzero().squeeze(1)
+        new_c = cops.add_plain(curve, _take(cont, recv_c), _take(cont, recv_c + step))
+        new_h = cops.add_plain(curve, _take(head, recv_h), _take(cont, recv_h + step))
+        _put(cont, recv_c, new_c)
+        _put(head, recv_h, new_h)
+        step *= 2
+    sel = has_head.nonzero().squeeze(1)
+    written_idx.append(row[sel] * nb + head_d[sel])
+    written.append(_take(head, sel))
+    sel = (has_cont & (cq == first)).nonzero().squeeze(1)
+    carry_idx = row[sel] * ntiles + cq[sel] // tile
+    idx = torch.cat(written_idx)
+    vals = tuple(torch.cat(parts, dim=1) for parts in zip(*written))
+    buckets[idx] = pack_points(curve, vals)
+    carries[carry_idx] = pack_points(curve, _take(cont, sel))
+    return buckets.reshape(rows, nb, WORDS), carries.reshape(rows, ntiles, WORDS)
+
+
+def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor,
+                        starts: torch.Tensor, chunk: int = CHUNK,
+                        tile: int = TILE, seg: int = SEG) -> cops.Point:
+    """Window sums [LIMBS, R] (canonical) of the accumulation's output:
+    sum_j j B_j, with B_j the bucket plus its carries, as the reduction
+    kernel forms it (see its comment in csrc/msm_kernels.cu): segments of
+    `seg` buckets by running sums, their W_s by a pairwise tree, sum s T_s
+    by a running sum, seg times by doublings.  An empty row gives the
+    identity.  chunk and tile are the accumulation's; the kernel's are
+    CHUNK, TILE and SEG."""
+    rows, nb = buckets.shape[0], buckets.shape[1]
+    ntiles = carries.shape[1]
+    dev = buckets.device
+    tp = chunk * tile
+    nseg = -(-(nb - 1) // seg)
+    out = cops.identity(curve, (rows,), dev)
+    if rows == 0 or nseg == 0:
+        return out
+    b = unpack_points(curve, buckets.reshape(rows * nb, WORDS))
+    c = unpack_points(curve, carries.reshape(rows * ntiles, WORDS))
+    st = starts.to(torch.int64)
+    lo, hi = st[:, :-1].reshape(-1), st[:, 1:].reshape(-1)
+    nonempty = hi > lo
+    t0 = lo // tp + 1
+    extra = torch.where(nonempty, (hi - 1) // tp - t0 + 1, torch.zeros_like(lo))
+    brow = torch.arange(rows, device=dev).repeat_interleave(nb)
+    for e in range(int(extra.max().item())):
+        sel = (extra > e).nonzero().squeeze(1)
+        _put(b, sel, cops.add_plain(curve, _take(b, sel),
+                                    _take(c, brow[sel] * ntiles + t0[sel] + e)))
+
+    lanes = rows * nseg
+    lrow = torch.arange(rows, device=dev).repeat_interleave(nseg)
+    lseg = torch.arange(nseg, device=dev).repeat(rows)
+    running, acc = _empty(lanes, dev), _empty(lanes, dev)
+    has_run = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    has_acc = torch.zeros_like(has_run)
+    for i in range(seg - 1, -1, -1):
+        j = lseg * seg + i + 1
+        present = j < nb
+        flat = lrow * nb + torch.clamp(j, max=nb - 1)
+        present &= nonempty[flat]
+        has_run = _accumulate(curve, running, has_run, _take(b, flat), present)
+        has_acc = _accumulate(curve, acc, has_acc, running, has_run)
+
+    step = 1
+    while step < nseg:
+        recv = ((lseg % (2 * step) == 0) & (lseg + step < nseg)).nonzero().squeeze(1)
+        part = recv + step
+        sub = _take(acc, recv)
+        sub_has = _accumulate(curve, sub, has_acc[recv], _take(acc, part), has_acc[part])
+        _put(acc, recv, sub)
+        has_acc[recv] = sub_has
+        step *= 2
+
+    run2, acc2 = _empty(rows, dev), _empty(rows, dev)
+    has_run2 = torch.zeros(rows, dtype=torch.bool, device=dev)
+    has_acc2 = torch.zeros_like(has_run2)
+    base = torch.arange(rows, device=dev) * nseg
+    for k in range(nseg - 1, 0, -1):
+        has_run2 = _accumulate(curve, run2, has_run2, _take(running, base + k),
+                               has_run[base + k])
+        has_acc2 = _accumulate(curve, acc2, has_acc2, run2, has_run2)
+    sel = has_acc2.nonzero().squeeze(1)
+    if sel.numel():
+        pt = _take(acc2, sel)
+        for _ in range(seg.bit_length() - 1):
+            pt = cops.double_plain(curve, pt)
+        _put(acc2, sel, pt)
+    res = _take(acc, base)
+    has_res = _accumulate(curve, res, has_acc[base], acc2, has_acc2)
+    sel = has_res.nonzero().squeeze(1)
+    if sel.numel():
+        _put(out, sel, _take(res, sel))
+    return out
+
+
+def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
+                      order: torch.Tensor, starts: torch.Tensor):
+    """K4 accumulation on the card: sorted digits and order [R, N], run
+    starts [R, B + 1] (int32) -> (buckets [R, B, WORDS], carries
+    [R, ntiles, WORDS]), Montgomery form (see bucket_accumulate_plain)."""
+    if not fops._dispatch(basis.mont):
+        return bucket_accumulate_plain(curve, basis, digits, order, starts)
     name = "msm_bucket_accumulate"
-    for t in (basis.x, basis.y, basis.z):
-        _cuda.check(name, t, LIMBS)
-    for t in (order, starts):
+    for t in (basis.mont, digits, order, starts):
         _cuda.check(name, t)
-    rows, nb = starts.shape[0], starts.shape[1] - 1
-    if starts.dim() != 2 or order.shape != (rows, basis.n):
-        raise ValueError(f"{name}: order {tuple(order.shape)} vs "
-                         f"{rows} rows of {basis.n} points")
-    outs = [torch.empty((LIMBS, rows, nb), dtype=torch.int32,
-                        device=basis.device) for _ in range(3)]
-    if rows * nb == 0:
-        return tuple(outs)
-    _cuda.launch(name, "pt_msm_bucket_accumulate",
-                 *[t.data_ptr() for t in outs],
-                 basis.x.data_ptr(), basis.y.data_ptr(), basis.z.data_ptr(),
-                 order.data_ptr(), starts.data_ptr(), rows, nb, basis.n,
+    rows, n = order.shape
+    nb = starts.shape[1] - 1
+    if (starts.dim() != 2 or starts.shape[0] != rows or n != basis.n
+            or digits.shape != order.shape
+            or basis.mont.shape != (n, WORDS) or basis.mont.data_ptr() % 16):
+        raise ValueError(f"{name}: order {tuple(order.shape)}, digits "
+                         f"{tuple(digits.shape)}, basis {tuple(basis.mont.shape)}")
+    ntiles = -(-n // (CHUNK * TILE))
+    buckets = torch.zeros((rows, nb, WORDS), dtype=torch.int32, device=basis.device)
+    carries = torch.zeros((rows, ntiles, WORDS), dtype=torch.int32, device=basis.device)
+    if rows * n == 0:
+        return buckets, carries
+    _cuda.launch(name, "pt_msm_bucket_accumulate", buckets.data_ptr(),
+                 carries.data_ptr(), basis.mont.data_ptr(), digits.data_ptr(),
+                 order.data_ptr(), starts.data_ptr(), rows, n, nb, CHUNK, TILE,
                  cops._consts_host(curve).ctypes.data, _cuda.stream())
-    return tuple(outs)
+    return buckets, carries
 
 
-def bucket_reduce(curve: CurveSpec, buckets: cops.Point) -> cops.Point:
-    """K4 reduction on the card: [LIMBS, R, B] bucket sums -> [LIMBS, R]."""
-    if not fops._dispatch(buckets[0]):
-        return bucket_reduce_plain(curve, buckets)
+def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor,
+                  starts: torch.Tensor) -> cops.Point:
+    """K4 reduction on the card: the accumulation's (buckets, carries) and
+    the run starts -> window sums [LIMBS, R], canonical."""
+    if not fops._dispatch(buckets):
+        return bucket_reduce_plain(curve, buckets, carries, starts)
     name = "msm_bucket_reduce"
-    for t in buckets:
-        _cuda.check(name, t, LIMBS)
-        if t.dim() != 3 or t.shape != buckets[0].shape:
-            raise ValueError(f"{name}: bucket coordinates {tuple(t.shape)}")
-    rows, nb = buckets[0].shape[1], buckets[0].shape[2]
-    outs = [torch.empty((LIMBS, rows), dtype=torch.int32,
-                        device=buckets[0].device) for _ in range(3)]
+    for t in (buckets, carries, starts):
+        _cuda.check(name, t)
+    rows, nb = buckets.shape[0], buckets.shape[1]
+    if (buckets.dim() != 3 or buckets.shape[2] != WORDS or carries.dim() != 3
+            or carries.shape[0] != rows or carries.shape[2] != WORDS
+            or starts.shape != (rows, nb + 1)):
+        raise ValueError(f"{name}: buckets {tuple(buckets.shape)}, carries "
+                         f"{tuple(carries.shape)}, starts {tuple(starts.shape)}")
+    outs = [torch.empty((LIMBS, rows), dtype=torch.int32, device=buckets.device)
+            for _ in range(3)]
     if rows == 0:
         return tuple(outs)
     _cuda.launch(name, "pt_msm_bucket_reduce", *[t.data_ptr() for t in outs],
-                 *[t.data_ptr() for t in buckets], rows, nb,
+                 buckets.data_ptr(), carries.data_ptr(), starts.data_ptr(), rows, nb,
+                 carries.shape[1], CHUNK * TILE, SEG,
                  cops._consts_host(curve).ctypes.data, _cuda.stream())
     return tuple(outs)
 
@@ -183,9 +411,10 @@ def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
         k * n_windows, basis.n)
     sorted_digits, order = torch.sort(rows, dim=-1, stable=True)
     starts = _run_starts(sorted_digits, n_buckets)
-    buckets = bucket_accumulate(curve, basis, order.to(torch.int32).contiguous(),
-                                starts)
-    ws = bucket_reduce(curve, buckets)                     # [LIMBS, K W]
+    buckets, carries = bucket_accumulate(
+        curve, basis, sorted_digits.to(torch.int32).contiguous(),
+        order.to(torch.int32).contiguous(), starts)
+    ws = bucket_reduce(curve, buckets, carries, starts)   # [LIMBS, K W]
     ws = tuple(t.reshape(LIMBS, k, n_windows) for t in ws)
     acc = tuple(t[..., n_windows - 1].contiguous() for t in ws)
     for w in range(n_windows - 2, -1, -1):

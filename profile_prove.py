@@ -114,7 +114,10 @@ def phase_timing(ck: Checker, torch, np) -> None:
             "profiler_cold_ms": profiled_ms(torch, fn, reps, symbol, flush),
             "sass_bytes": {k: v for k, v in sizes.items()
                            if symbol.split("<")[0] in k}})
-    emit({"phase": "timing", "rows": rows})
+    emit({"phase": "timing", "rows": rows,
+          "sass_bytes_all": {k: v for k, v in sizes.items()
+                             if any(sym.split("<")[0] in k
+                                    for _s, _r, sym in KERNELS.values())}})
 
 
 def phase_profile(torch) -> None:
