@@ -7,7 +7,8 @@ against its plain PyTorch version on the card at the main path's shapes
 fixture proofs byte for byte, then builds, proves (twice) and verifies the
 2^14-gate BufferGate circuit with the random source pinned, checks the
 steady proof's sha256, and shows that the steady prove launched every
-kernel.
+kernel of the main path (curve_add and curve_double, checked here, are off
+it: the MSM's Horner runs in curve_horner).
 
     python3 chip_smoke.py
 
@@ -50,6 +51,8 @@ KERNELS = {
                   "curve_add_kernel"),
     "curve_double": (_CSRC + "curve_kernels.cu", "plonky_tpu/curves/ops.py:93",
                      "curve_double_kernel"),
+    "curve_horner": (_CSRC + "curve_kernels.cu", "plonky_tpu/curves/msm.py:401",
+                     "curve_horner_kernel"),
     "ntt_stage": (_CSRC + "ntt_kernels.cu", "plonky_tpu/poly/fft.py:124",
                   "ntt_stage_kernel"),
     "msm_bucket_accumulate": (_CSRC + "msm_kernels.cu",
@@ -59,6 +62,9 @@ KERNELS = {
                           "plonky_tpu/curves/msm.py:376",
                           "msm_bucket_reduce_kernel"),
 }
+# Checked against their plain versions, but off the main path: the MSM's
+# Horner runs in curve_horner.
+OFF_PATH = ("curve_add", "curve_double")
 
 # The operations bound counts the multiplies a function needs at least, in
 # 32-bit IMAD issue slots (64 per SM per clock): a 32 x 32 -> 64-bit
@@ -210,10 +216,11 @@ def with_edges(fops, spec, x):
     return x
 
 
-def check_horner(ck: Checker, cops, curve, ws, c):
-    """msm's Horner steps (curves/msm.py) through K2 on window sums ws
-    [LIMBS, K, W], each step held against the plain version on the same
-    inputs, with the non-contiguous window slices that msm passes.
+def check_horner(ck: Checker, cops, cmsm, curve, ws, c):
+    """The Horner steps of curves/msm.py:horner_plain through the
+    elementwise K2 kernels on window sums ws [LIMBS, K, W], each step held
+    against the plain version on the same inputs, with non-contiguous
+    window slices; the chain's result held against curve_horner's.
     Returns the last step's operands."""
     n_windows = ws[0].shape[-1]
     acc = tuple(t[..., n_windows - 1].contiguous() for t in ws)
@@ -225,8 +232,33 @@ def check_horner(ck: Checker, cops, curve, ws, c):
         win = tuple(t[..., w] for t in ws)
         nxt = cops.add(curve, acc, win)
         ck.compare("curve_add", nxt, cops.add_plain(curve, acc, win))
-        acc = nxt
-    return acc, win
+        last, acc = acc, nxt
+    ck.compare("curve_horner", cmsm.horner(curve, ws, c), acc)
+    return last, win
+
+
+def horner_cases(torch, window_sums):
+    """(label, window sums [LIMBS, K, W]) for curve_horner's checks: the
+    window sums of every K4 case (the main path's K = 9, 7, 2 with IPA-round
+    scalars, 1; random K = 2, a skewed row, the all-zero rows, a ragged
+    N), one window (W = 1: no step), and a ragged K = 33 (a block's warps
+    not filled) made of the K = 9 and K = 2 sums with their windows
+    rotated."""
+    cases = list(window_sums.items())
+    cases.append(("W=1", tuple(t[..., :1].contiguous() for t in window_sums["K=9"])))
+    parts = [tuple(torch.roll(t, r, dims=2) for t in window_sums[label])
+             for label in ("K=9", "K=2") for r in range(3)]
+    cases.append(("K=33", tuple(torch.cat(ts, dim=1).contiguous()
+                                for ts in zip(*parts))))
+    return cases
+
+
+def horner_work(ws, c):
+    """Bytes and IMAD slots of curve_horner's bounds: the window sums read
+    once, one point an MSM written; (W - 1) (c doublings + 1 add) an MSM."""
+    k, n_windows = ws[0].shape[1], ws[0].shape[2]
+    return (3 * 32 * k * (n_windows + 1),
+            k * (n_windows - 1) * (c * DBL_OPS + ADD_OPS))
 
 
 def k4_cases(np, torch, rng, dev):
@@ -369,8 +401,8 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
               2 * 32 * 6 * (1 << 17) + 32 * m_mid,
               MUL_OPS * 3 * (1 << 17))
 
-    # K4 at every shape the main path gives it; the window sums of K = 9
-    # and K = 2 feed the Horner check of K2
+    # K4 at every shape the main path gives it; the window sums feed the
+    # checks of K2
     window_sums = {}
     acc_by, red_by = [], []
     c = 8
@@ -383,8 +415,7 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
         ws = cmsm.bucket_reduce(TWEEDLEDEE, *acc, starts)
         ck.compare("msm_bucket_reduce", ws,
                    cmsm.bucket_reduce_plain(TWEEDLEDEE, *acc, starts))
-        if label in ("K=9", "K=2"):
-            window_sums[k] = tuple(t.reshape(8, k, -1) for t in ws)
+        window_sums[label] = tuple(t.reshape(8, k, -1) for t in ws)
         shape = {"shape": label, "N": n, "K": k, "c": c, "rows": rows.shape[0]}
         acc_bytes, acc_ops, red_bytes, red_ops = k4_work(rows, starts, acc)
         acc_by.append({**shape, **ck.measure(
@@ -404,15 +435,37 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
               measured=acc_by[0])
     ck.record("msm_bucket_reduce", shapes, by_shape=red_by, measured=red_by[0])
 
-    # K2 at the shapes the MSM gives it: Horner on [LIMBS, K] for the
-    # commitments' K = 9 (wires), 7 (t), 1 (z, pi, halo_g) and the IPA
-    # rounds' K = 2
+    # K2's curve_horner on the window sums of every K4 case, W = 1 and a
+    # ragged K, timed at the main path's K = 9 (wires), 7 (t), 2 (the IPA
+    # rounds) and 1 (z, pi, halo_g)
+    horner_by = []
+    cases = horner_cases(torch, window_sums)
+    for label, ws in cases:
+        ck.compare("curve_horner", cmsm.horner(TWEEDLEDEE, ws, c),
+                   cmsm.horner_plain(TWEEDLEDEE, ws, c))
+        if label in ("K=9", "K=7", "K=2 ipa", "K=1"):
+            hb, hops = horner_work(ws, c)
+            horner_by.append({"shape": label, "K": ws[0].shape[1],
+                              "W": ws[0].shape[2], "c": c, **ck.measure(
+                lambda ws=ws: cmsm.horner(TWEEDLEDEE, ws, c),
+                lambda ws=ws: cmsm.horner_plain(TWEEDLEDEE, ws, c),
+                hb, hops, plain_reps=1)})
+    # the headline numbers are at K = 2, the shape of 14 of the 19 MSMs of
+    # a steady prove (the IPA rounds)
+    ck.record("curve_horner", {"main": "K=2 ipa", "c": c,
+                               "checked": [label for label, _ws in cases]},
+              by_shape=horner_by,
+              measured=next(b for b in horner_by if b["shape"] == "K=2 ipa"))
+
+    # the elementwise K2 kernels, off the main path: every Horner step of
+    # K = 9, 7, 2, 1 held against the plain version (and the chain's
+    # result against curve_horner's), timed there and at 2^14 + 3
     add_by, dbl_by = [], []
     timed = {}
-    for k in (9, 7, 2, 1):
-        src = window_sums[9 if k in (9, 7) else 2]
-        ws = tuple(t[:, :k] for t in src)
-        acc, win = check_horner(ck, cops, TWEEDLEDEE, ws, c)
+    for label in ("K=9", "K=7", "K=2 ipa", "K=1"):
+        ws = window_sums[label]
+        k = ws[0].shape[1]
+        acc, win = check_horner(ck, cops, cmsm, TWEEDLEDEE, ws, c)
         timed[k] = (acc, win)
         add_by.append({"shape": [8, k], **ck.measure(
             lambda acc=acc, win=win: cops.add(TWEEDLEDEE, acc, win),
@@ -522,11 +575,14 @@ def buffer_circuit(lg: int):
     return builder.build(), PartialWitness()
 
 
-def phase_prove(torch, lg: int = 14, want_sha256=None) -> dict:
+def phase_prove(torch, lg: int = 14, want_sha256=None,
+                check_launches: bool = True) -> dict:
     """Builds the 2^lg circuit, proves it twice and verifies the second
     proof, with RANDOM_SOURCE pinned for the whole phase (circuit build
     included), so the steady proof's bytes are fixed: their sha256 must be
-    `want_sha256` when one is given."""
+    `want_sha256` when one is given.  With `check_launches`, the steady
+    prove must have launched every kernel of KERNELS but OFF_PATH, none of
+    OFF_PATH, and curve_horner once per MSM."""
     import hashlib
 
     import plonky_tpu_torch.circuit.builder as builder_mod
@@ -575,9 +631,17 @@ def phase_prove(torch, lg: int = 14, want_sha256=None) -> dict:
     if want_sha256 is not None and out["proof_sha256"] != want_sha256:
         raise AssertionError(f"the pinned 2^{lg} proof's sha256 is "
                              f"{out['proof_sha256']}, not {want_sha256}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"the steady prove launched no {missing}")
+    if check_launches:
+        missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
+        if missing:
+            raise AssertionError(f"the steady prove launched no {missing}")
+        off = {k: launches[k] for k in OFF_PATH if launches[k]}
+        if off:
+            raise AssertionError(f"the steady prove launched {off} off its path")
+        if launches["curve_horner"] != launches["msm_bucket_reduce"]:
+            raise AssertionError("one curve_horner launch per MSM expected, got "
+                                 f"{launches['curve_horner']} for "
+                                 f"{launches['msm_bucket_reduce']} MSMs")
     return launches
 
 

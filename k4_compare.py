@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times K4, the MSM bucket kernels, of one or more plonky_tpu_torch trees
-on one NVIDIA GPU, at every shape of chip_smoke.k4_cases, and proves the
-pinned 2^14 circuit with each tree.
+"""Times the MSM's kernels (K4, the bucket kernels, and the Horner across
+windows) of one or more plonky_tpu_torch trees on one NVIDIA GPU, at every
+shape of chip_smoke.k4_cases, and proves the pinned 2^14 circuit with each
+tree.
 
     python3 k4_compare.py [ROOT ...]
 
@@ -12,14 +13,21 @@ its own, in the order given: give them in turns (A B B A) to compare two
 on one card.  Per tree it prints the card's nvidia-smi line, then one JSON
 line: per shape, the device time per launch of each K4 kernel (CUDA events
 over launches queued behind a sleep, L2 warm and flushed, as chip_smoke.py
-takes them), a whole `msm` call, and the sha256 of the MSM's affine
-result (equal across trees when the MSM's value did not change); then
-chip_smoke.py's pinned prove line, whose proof_sha256 must also agree.
+takes them), the device time of the Horner of the shape's window sums
+(`msm.horner` where the tree has it, else the loop of `ops.double` /
+`ops.add` that `msm` ran before it; L2 warm), a whole `msm` call, and the
+sha256 of the Horner's projective result and of the MSM's affine result;
+the elementwise curve_add / curve_double at two shapes; then
+chip_smoke.py's pinned prove line.  Last, one line compares the
+trees: every hash must agree (the pinned proof's too), or the exit code is
+not 0.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -58,10 +66,48 @@ def _k4_calls(cmsm, curve, sub, digits, order, starts):
     return acc, red
 
 
+def _horner_call(cmsm, cops, curve, ws, c):
+    """(the Horner of window sums ws [8, K, W], calls to time in a row): one
+    curve_horner launch, or in a tree without it, the (W - 1) (c + 1)
+    launches of curves/msm.py's loop before it, timed one call at a time
+    so that the launch queue never fills and stalls the host."""
+    if hasattr(cmsm, "horner"):
+        return (lambda: cmsm.horner(curve, ws, c)), 10
+
+    def loop():
+        n_windows = ws[0].shape[-1]
+        acc = tuple(t[..., n_windows - 1].contiguous() for t in ws)
+        for w in range(n_windows - 2, -1, -1):
+            for _ in range(c):
+                acc = cops.double(curve, acc)
+            acc = cops.add(curve, acc, tuple(t[..., w] for t in ws))
+        return acc
+    return loop, 1
+
+
+def _elementwise_rows(smoke, ck, np, torch, cops, curve, dev):
+    """curve_add / curve_double on random limbs at [8, 2] (a Horner step's
+    shape on the IPA rounds) and [8, 2^14 + 3]: device ms per launch, L2
+    warm and flushed, and the sha256 of the outputs."""
+    rng = np.random.default_rng(99)
+    flush = ck.flush.zero_
+    rows = []
+    for n in (2, (1 << 14) + 3):
+        a, b = (tuple(smoke.rand_field(np, torch, rng, (n,), dev) for _ in range(3))
+                for _ in range(2))
+        for name, fn in (("curve_add", lambda a=a, b=b: cops.add(curve, a, b)),
+                         ("curve_double", lambda a=a: cops.double(curve, a))):
+            rows.append({"name": name, "shape": [8, n],
+                         "sha256": hashlib.sha256(torch.cat(fn()).cpu().numpy()
+                                                  .tobytes()).hexdigest(),
+                         "ms": ck.queued_ms(fn, 20),
+                         "cold_ms": (ck.queued_ms(lambda fn=fn: (flush(), fn()), 20)
+                                     - ck.queued_ms(flush, 20))})
+    return rows
+
+
 def run_tree(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
-    import hashlib
-
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -91,10 +137,16 @@ def run_tree(root: str) -> int:
         sub, digits, order, starts, _rows = smoke.k4_inputs(
             torch, cmsm, TWEEDLEDEE.scalar, basis, scal, c)
         acc, red = _k4_calls(cmsm, TWEEDLEDEE, sub, digits, order, starts)
+        k = scal.shape[1]
+        ws = tuple(t.reshape(8, k, -1) for t in red())
+        horner, horner_reps = _horner_call(cmsm, cops, TWEEDLEDEE, ws, c)
         x, y, zero = cops.to_affine(TWEEDLEDEE, cmsm.msm(TWEEDLEDEE, sub, scal, c))
         affine = torch.cat([x, y, zero[None].to(torch.int32)]).cpu().numpy()
-        row = {"shape": label, "K": scal.shape[1], "N": scal.shape[2],
-               "msm_affine_sha256": hashlib.sha256(affine.tobytes()).hexdigest()}
+        row = {"shape": label, "K": k, "N": scal.shape[2],
+               "horner_sha256": hashlib.sha256(
+                   torch.cat(horner()).cpu().numpy().tobytes()).hexdigest(),
+               "msm_affine_sha256": hashlib.sha256(affine.tobytes()).hexdigest(),
+               "horner_ms": ck.queued_ms(horner, horner_reps)}
         for name, fn in (("accumulate", acc), ("reduce", red)):
             warm = ck.queued_ms(fn, 10)
             row[f"{name}_ms"] = warm
@@ -104,8 +156,10 @@ def run_tree(root: str) -> int:
             lambda sub=sub, scal=scal: cmsm.msm(TWEEDLEDEE, sub, scal, c), 3)
         rows_out.append(row)
     smoke.emit({"phase": "k4_compare", "root": root, "nvidia_smi": name_power,
-                "shapes": rows_out})
-    smoke.phase_prove(torch)
+                "shapes": rows_out, "elementwise": _elementwise_rows(
+                    smoke, ck, np, torch, cops, TWEEDLEDEE, dev)})
+    smoke.phase_prove(torch, want_sha256=smoke.PROOF_2E14_SHA256,
+                      check_launches=False)
     return 0
 
 
@@ -113,10 +167,23 @@ def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--one":
         return run_tree(argv[1])
     rc = 0
+    hashes = []
     for root in argv or [HERE]:
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                              root]).returncode
-    return rc
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+                              root], stdout=subprocess.PIPE, text=True)
+        print(out.stdout, end="", flush=True)
+        rc |= out.returncode
+        for line in out.stdout.splitlines():
+            if line.startswith('{"phase": "k4_compare"'):
+                rec = json.loads(line)
+                hashes.append({(r["shape"], key): r[key] for r in rec["shapes"]
+                               for key in ("horner_sha256", "msm_affine_sha256")})
+                hashes[-1].update({(r["name"], r["shape"][1]): r["sha256"]
+                                   for r in rec["elementwise"]})
+    equal = len(hashes) == len(argv or [HERE]) and all(h == hashes[0] for h in hashes)
+    print(json.dumps({"phase": "k4_compare_trees", "trees": len(hashes),
+                      "hashes_equal": equal}), flush=True)
+    return rc or (0 if equal else 1)
 
 
 if __name__ == "__main__":

@@ -1,22 +1,39 @@
 // Complete projective point add and double for y^2 = x^3 + b (a = 0),
-// Renes-Costello-Batina 2015 Algorithms 7 and 9, with b3 = 3b mod p.  The
+// Renes-Costello-Batina 2015 Algorithms 7 and 9, with b3 = 3b mod p, on
+// coordinates in Montgomery form (field.cuh: x held as x 2^256 mod p).  The
 // identity is (0 : 1 : 0); the formulas have no exceptional cases.  The
-// intermediate values are those of plonky_tpu/curves/ops.py:_add_body and
-// _double_body, so the outputs are the same projective triples.
+// field values are those of plonky_tpu/curves/ops.py:_add_body and
+// _double_body (and of curves/ops.py:add_plain / double_plain), so, converted
+// back, the outputs are the same projective triples.
 #pragma once
 
 #include "field.cuh"
 
-struct CurveConsts {
+// The point kernels' constants (K2 and K4): the field's, b3 = 3b as a small
+// integer, and R^2 = 2^512 mod p, the factor into Montgomery form.
+struct MontCurveConsts {
   FieldConsts f;
-  uint32_t b3[PT_LIMBS];   // 3 b mod p
+  uint32_t b3;
+  uint32_t r2[PT_LIMBS];
 };
 
-static inline CurveConsts curve_consts_from(const uint32_t* host) {
-  CurveConsts c;
+// One copy per kernel source (static: each .cu is its own module), set on
+// the launch's stream by curve_set_consts.
+static __constant__ MontCurveConsts c_curve;
+
+// Sets c_curve on `stream` ahead of a launch from the host buffer
+// [p, 2^544 mod p, -p^-1 mod 2^32, b3 (8 limbs), 2^512 mod p (8 limbs)]
+// (curves/ops.py:_consts_host); b3 must fit one limb.
+static int curve_set_consts(const uint32_t* host, cudaStream_t stream) {
+  MontCurveConsts c;
   c.f = field_consts_from(host);
-  for (int k = 0; k < PT_LIMBS; k++) c.b3[k] = host[2 * PT_LIMBS + 1 + k];
-  return c;
+  c.b3 = host[2 * PT_LIMBS + 1];
+  for (int k = 1; k < PT_LIMBS; k++)
+    if (host[2 * PT_LIMBS + 1 + k] != 0) return (int)cudaErrorInvalidValue;
+  if (c.b3 == 0) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < PT_LIMBS; k++) c.r2[k] = host[3 * PT_LIMBS + 1 + k];
+  return (int)cudaMemcpyToSymbolAsync(c_curve, &c, sizeof(c), 0, cudaMemcpyHostToDevice,
+                                      stream);
 }
 
 struct Point {
@@ -43,60 +60,24 @@ __device__ __forceinline__ void pt_store(int32_t* x, int32_t* y, int32_t* z, int
   fe_store(z, stride, i, r.z);
 }
 
-// RCB15 Algorithm 7 (a = 0).  r may alias p or q.
-__device__ __forceinline__ void pt_add(Point& r, const Point& p, const Point& q,
-                                       const CurveConsts& cc) {
-  const FieldConsts& c = cc.f;
-  uint32_t t0[PT_LIMBS], t1[PT_LIMBS], t2[PT_LIMBS], t3[PT_LIMBS], t4[PT_LIMBS];
-  uint32_t u[PT_LIMBS], v[PT_LIMBS], xz[PT_LIMBS];
-  fe_mul(t0, p.x, q.x, c);
-  fe_mul(t1, p.y, q.y, c);
-  fe_mul(t2, p.z, q.z, c);
-  fe_add(u, p.x, p.y, c);
-  fe_add(v, q.x, q.y, c);
-  fe_mul(t3, u, v, c);
-  fe_sub(t3, t3, t0, c);
-  fe_sub(t3, t3, t1, c);          // t3 = X1 Y2 + X2 Y1
-  fe_add(u, p.y, p.z, c);
-  fe_add(v, q.y, q.z, c);
-  fe_mul(t4, u, v, c);
-  fe_sub(t4, t4, t1, c);
-  fe_sub(t4, t4, t2, c);          // t4 = Y1 Z2 + Y2 Z1
-  fe_add(u, p.x, p.z, c);
-  fe_add(v, q.x, q.z, c);
-  fe_mul(xz, u, v, c);
-  fe_sub(xz, xz, t0, c);
-  fe_sub(xz, xz, t2, c);          // xz = X1 Z2 + X2 Z1
-  uint32_t t0_3[PT_LIMBS], t2b3[PT_LIMBS], z3p[PT_LIMBS], t1m[PT_LIMBS], yb3[PT_LIMBS];
-  fe_add(t0_3, t0, t0, c);
-  fe_add(t0_3, t0_3, t0, c);      // 3 t0
-  fe_mul(t2b3, t2, cc.b3, c);     // b3 t2
-  fe_add(z3p, t1, t2b3, c);
-  fe_sub(t1m, t1, t2b3, c);
-  fe_mul(yb3, xz, cc.b3, c);      // b3 xz
-  uint32_t a_[PT_LIMBS], b_[PT_LIMBS];
-  fe_mul(a_, t3, t1m, c);
-  fe_mul(b_, t4, yb3, c);
-  fe_sub(r.x, a_, b_, c);         // X3 = t3 t1m - t4 yb3
-  fe_mul(a_, yb3, t0_3, c);
-  fe_mul(b_, t1m, z3p, c);
-  fe_add(r.y, a_, b_, c);         // Y3 = yb3 t0_3 + t1m z3p
-  fe_mul(a_, z3p, t4, c);
-  fe_mul(b_, t0_3, t3, c);
-  fe_add(r.z, a_, b_, c);         // Z3 = z3p t4 + t0_3 t3
+// Canonical coordinates -> Montgomery form: x R^2 / R = x R.
+__device__ __forceinline__ void mpt_to_mont(Point& r, const MontCurveConsts& cc) {
+  mf_mul(r.x, r.x, cc.r2, cc.f);
+  mf_mul(r.y, r.y, cc.r2, cc.f);
+  mf_mul(r.z, r.z, cc.r2, cc.f);
 }
 
-// The MSM kernels' constants: coordinates in Montgomery form (field.cuh),
-// b3 = 3b as a small integer.
-struct MontCurveConsts {
-  FieldConsts f;
-  uint32_t b3;
-};
+// Montgomery form -> canonical coordinates: x R 1 / R = x.
+__device__ __forceinline__ void mpt_from_mont(Point& r, const MontCurveConsts& cc) {
+  uint32_t one[PT_LIMBS];
+  fe_set_small(one, 1);
+  mf_mul(r.x, r.x, one, cc.f);
+  mf_mul(r.y, r.y, one, cc.f);
+  mf_mul(r.z, r.z, one, cc.f);
+}
 
-// pt_add on Montgomery coordinates: the same formula and the same field
-// values (so, converted back, the same projective triple), with one
-// Montgomery product per multiply and the two multiplies by b3 done by
-// additions.  r may alias p or q.
+// RCB15 Algorithm 7 (a = 0): one Montgomery product per multiply, the two
+// multiplies by b3 done by additions.  r may alias p or q.
 __device__ __forceinline__ void mpt_add(Point& r, const Point& p, const Point& q,
                                         const MontCurveConsts& cc) {
   const FieldConsts& c = cc.f;
@@ -137,7 +118,7 @@ __device__ __forceinline__ void mpt_add(Point& r, const Point& p, const Point& q
   fe_add(r.z, v, t2, c);          // Z3 = z3p t4 + t0_3 t3
 }
 
-// pt_double on Montgomery coordinates (see mpt_add).  r may alias p.
+// RCB15 Algorithm 9 (a = 0), as mpt_add.  r may alias p.
 __device__ __forceinline__ void mpt_double(Point& r, const Point& p,
                                            const MontCurveConsts& cc) {
   const FieldConsts& c = cc.f;
@@ -161,30 +142,4 @@ __device__ __forceinline__ void mpt_double(Point& r, const Point& p,
   fe_add(r.y, u, x3p, c);         // Y3 = t0m y3p + x3p
   fe_add(u, t0, t0, c);
   mf_mul(r.x, u, txy, c);         // X3 = 2 t0m X Y
-}
-
-// RCB15 Algorithm 9 (a = 0).  r may alias p.
-__device__ __forceinline__ void pt_double(Point& r, const Point& p, const CurveConsts& cc) {
-  const FieldConsts& c = cc.f;
-  uint32_t t0[PT_LIMBS], t1[PT_LIMBS], t2[PT_LIMBS], txy[PT_LIMBS];
-  fe_mul(t0, p.y, p.y, c);
-  fe_mul(t1, p.y, p.z, c);
-  fe_mul(t2, p.z, p.z, c);
-  fe_mul(txy, p.x, p.y, c);
-  uint32_t z3p[PT_LIMBS], t2b3[PT_LIMBS], x3p[PT_LIMBS], y3p[PT_LIMBS], t0m[PT_LIMBS];
-  fe_add(z3p, t0, t0, c);
-  fe_add(z3p, z3p, z3p, c);
-  fe_add(z3p, z3p, z3p, c);       // 8 Y^2
-  fe_mul(t2b3, t2, cc.b3, c);     // b3 Z^2
-  fe_mul(x3p, t2b3, z3p, c);
-  fe_add(y3p, t0, t2b3, c);
-  fe_mul(r.z, t1, z3p, c);        // Z3 = 8 Y^3 Z
-  uint32_t u[PT_LIMBS];
-  fe_add(u, t2b3, t2b3, c);
-  fe_add(u, u, t2b3, c);          // 3 b3 Z^2
-  fe_sub(t0m, t0, u, c);          // Y^2 - 3 b3 Z^2
-  fe_mul(u, t0m, y3p, c);
-  fe_add(r.y, u, x3p, c);         // Y3 = t0m y3p + x3p
-  fe_add(u, t0m, t0m, c);
-  fe_mul(r.x, u, txy, c);         // X3 = 2 t0m X Y
 }

@@ -234,11 +234,11 @@ __device__ __forceinline__ void fe_mul(uint32_t r[PT_LIMBS], const uint32_t a[PT
 }
 
 // ---------------------------------------------------------------------------
-// Montgomery form (R = 2^256), used inside the MSM kernels only: an element
-// x is held as x R mod p, canonical in [0, p).  Additions are the canonical
-// ones; a product is one CIOS Montgomery multiply (one 8 x 8 limb product
-// interleaved with one REDC), a quarter of the work of fe_mul.  Only c.p and
-// c.pinv are read.
+// Montgomery form (R = 2^256), used inside the point kernels only (K2, K4;
+// curve.cuh): an element x is held as x R mod p, canonical in [0, p).
+// Additions are the canonical ones; a product is one CIOS Montgomery
+// multiply (one 8 x 8 limb product interleaved with one REDC), a quarter of
+// the work of fe_mul.  Only c.p and c.pinv are read.
 // ---------------------------------------------------------------------------
 
 // r = a b / 2^256 mod p for a, b < p (p < 2^255, so every partial sum fits

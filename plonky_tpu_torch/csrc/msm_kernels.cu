@@ -7,7 +7,8 @@
 // _seg_scan_gather: a point add plus a select on the segment-start flag,
 // scanned over points sorted by window digit, then the reversed-cumsum
 // reduction sum_j j B_j (:376).  The digits and the argsort per window row
-// stay in torch; the combination across windows (Horner) is K2.
+// stay in torch; the combination across windows (Horner) is K2's
+// curve_horner.
 //
 // What bounds it: every point of a window row costs one complete add (12
 // Montgomery products) against 96 bytes of point and two 4-byte indices,
@@ -32,21 +33,6 @@
 #define MSM_TILE 128        // chunks, one per thread, in an accumulate block
 #define MSM_WORDS 24        // a point: X, Y, Z, 8 limbs each
 #define MSM_WARP 32         // reduce: lanes, and the most segments per row
-
-__constant__ MontCurveConsts c_msm;
-
-// Sets c_msm on `stream` ahead of a launch from the CurveConsts buffer
-// [p, 2^544 mod p, -p^-1 mod 2^32, b3 (8 limbs)]; b3 must fit one limb.
-static int msm_set_consts(const uint32_t* host, cudaStream_t stream) {
-  MontCurveConsts c;
-  c.f = field_consts_from(host);
-  c.b3 = host[2 * PT_LIMBS + 1];
-  for (int k = 1; k < PT_LIMBS; k++)
-    if (host[2 * PT_LIMBS + 1 + k] != 0) return (int)cudaErrorInvalidValue;
-  if (c.b3 == 0) return (int)cudaErrorInvalidValue;
-  return (int)cudaMemcpyToSymbolAsync(c_msm, &c, sizeof(c), 0, cudaMemcpyHostToDevice,
-                                      stream);
-}
 
 __device__ __forceinline__ int64_t i64_min(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t i64_max(int64_t a, int64_t b) { return a > b ? a : b; }
@@ -160,7 +146,7 @@ __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
         end = i64_min(hi, s1);
         acc = pt;
       } else {
-        mpt_add(acc, acc, pt, c_msm);
+        mpt_add(acc, acc, pt, c_curve);
       }
       if (s + 1 == end) {                                     // the piece ends
         if (lo >= s0 && hi <= s1) {
@@ -195,7 +181,7 @@ __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
       Point a, b;
       mpt_load(a, dst);
       mpt_load(b, cont[q + step]);
-      mpt_add(a, a, b, c_msm);
+      mpt_add(a, a, b, c_curve);
       mpt_save(dst, a);
     }
     __syncthreads();
@@ -216,7 +202,7 @@ __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
 // every call site (the reduction is a chain on few threads, where a call's
 // moves through local memory cost little against the add).
 __device__ __noinline__ void mpt_add_call(Point& r, const Point& p, const Point& q) {
-  mpt_add(r, p, q, c_msm);
+  mpt_add(r, p, q, c_curve);
 }
 
 // acc (+)= x, where `has` says whether acc holds a point yet.
@@ -305,22 +291,17 @@ __global__ void __launch_bounds__(MSM_WARP) msm_bucket_reduce_kernel(
     if (has_run2) mpt_accumulate(acc2, has_acc2, run2);
   }
   if (has_acc2)
-    for (int m = 1; m < seg; m <<= 1) mpt_double(acc2, acc2, c_msm);
+    for (int m = 1; m < seg; m <<= 1) mpt_double(acc2, acc2, c_curve);
   if (w_ok[0]) {
     mpt_load(res, wsum[0]);
     has_res = true;
   }
   if (has_acc2) mpt_accumulate(res, has_res, acc2);
 
-  uint32_t one[PT_LIMBS];
-  fe_set_small(one, 1);
-  if (has_res) {
-    mf_mul(res.x, res.x, one, c_msm.f);
-    mf_mul(res.y, res.y, one, c_msm.f);
-    mf_mul(res.z, res.z, one, c_msm.f);
-  } else {
+  if (has_res)
+    mpt_from_mont(res, c_curve);
+  else
     pt_identity(res);
-  }
   pt_store(ox, oy, oz, rows, r, res);
 }
 
@@ -332,7 +313,7 @@ int pt_msm_bucket_accumulate(void* buckets, void* carries, const void* basis,
                              int64_t tile, const void* consts, void* stream) {
   if (tile != MSM_TILE || chunk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = msm_set_consts((const uint32_t*)consts, st);
+  int rc = curve_set_consts((const uint32_t*)consts, st);
   if (rc != 0) return rc;
   const int64_t ntiles = (n + chunk * MSM_TILE - 1) / (chunk * MSM_TILE);
   msm_bucket_accumulate_kernel<<<(unsigned int)(rows * ntiles), MSM_TILE, 0, st>>>(
@@ -349,7 +330,7 @@ int pt_msm_bucket_reduce(void* ox, void* oy, void* oz, const void* buckets,
   if (seg < 1 || (seg & (seg - 1)) != 0 || nseg > MSM_WARP || tile_points < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = msm_set_consts((const uint32_t*)consts, st);
+  int rc = curve_set_consts((const uint32_t*)consts, st);
   if (rc != 0) return rc;
   msm_bucket_reduce_kernel<<<(unsigned int)rows, MSM_WARP, 0, st>>>(
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const uint32_t*)buckets,

@@ -11,8 +11,10 @@ Pipeline for scalars [LIMBS, *B, N] against an N-point basis:
   4. window sums  sum_j j B_j  (K4 reduction kernel): the carries are added
      to their buckets, segments of SEG buckets are reduced by running sums
      in parallel and then combined,
-  5. Horner across windows, batched over the B MSMs: c doublings and one
-     add per window (K2).
+  5. Horner across windows: c doublings and one add per window, the
+     whole chain of every MSM in one launch, one warp per MSM (K2's
+     `curve_horner`, csrc/curve_kernels.cu; `horner_plain` is its plain
+     version, today's loop over `double_plain` / `add_plain`).
 
 Steps 3 and 4 keep the points in Montgomery form (x 2^256 mod p; the
 basis keeps a point-major copy in that form, `MsmBasis.mont`), and step 4
@@ -390,6 +392,42 @@ def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor
     return tuple(outs)
 
 
+def horner_plain(curve: CurveSpec, ws: cops.Point, c: int) -> cops.Point:
+    """Window sums [LIMBS, K, W] (canonical, least significant window
+    first) -> sum_w 2^(c w) ws[w], [LIMBS, K]: acc = ws[W-1], then for
+    w = W-2 .. 0, c doublings and one add of ws[w]."""
+    n_windows = ws[0].shape[-1]
+    acc = tuple(t[..., n_windows - 1].contiguous() for t in ws)
+    for w in range(n_windows - 2, -1, -1):
+        for _ in range(c):
+            acc = cops.double_plain(curve, acc)
+        acc = cops.add_plain(curve, acc, tuple(t[..., w] for t in ws))
+    return acc
+
+
+def horner(curve: CurveSpec, ws: cops.Point, c: int) -> cops.Point:
+    """K2's Horner chain on the card (one launch, one warp per MSM): the
+    same function as horner_plain, equal to it word for word."""
+    if not fops._dispatch(ws[0]):
+        return horner_plain(curve, ws, c)
+    name = "curve_horner"
+    for t in ws:
+        _cuda.check(name, t, LIMBS)
+    if (ws[0].dim() != 3 or any(t.shape != ws[0].shape for t in ws)
+            or ws[0].shape[2] < 1 or c < 1):
+        raise ValueError(f"{name}: window sums {[tuple(t.shape) for t in ws]}, "
+                         f"c = {c}")
+    k, n_windows = ws[0].shape[1], ws[0].shape[2]
+    outs = [torch.empty((LIMBS, k), dtype=torch.int32, device=ws[0].device)
+            for _ in range(3)]
+    if k == 0:
+        return tuple(outs)
+    _cuda.launch(name, "pt_curve_horner", *[t.data_ptr() for t in outs],
+                 *[t.data_ptr() for t in ws], k, n_windows, c,
+                 cops._consts_host(curve).ctypes.data, _cuda.stream())
+    return tuple(outs)
+
+
 def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
         window_bits: int) -> cops.Point:
     """sum_i scalars[..., i] * basis[i] for canonical scalars
@@ -416,9 +454,5 @@ def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
         order.to(torch.int32).contiguous(), starts)
     ws = bucket_reduce(curve, buckets, carries, starts)   # [LIMBS, K W]
     ws = tuple(t.reshape(LIMBS, k, n_windows) for t in ws)
-    acc = tuple(t[..., n_windows - 1].contiguous() for t in ws)
-    for w in range(n_windows - 2, -1, -1):
-        for _ in range(c):
-            acc = cops.double(curve, acc)
-        acc = cops.add(curve, acc, tuple(t[..., w] for t in ws))
+    acc = horner(curve, ws, c)
     return tuple(t.reshape(LIMBS, *lead) for t in acc)

@@ -6,10 +6,11 @@ doubling are the COMPLETE formulas of Renes-Costello-Batina 2015
 (Algorithms 7 and 9, a = 0), which have no exceptional cases.
 
 K2, the curve kernel (csrc/curve_kernels.cu), computes `add` and `double`
-on CUDA tensors, one thread per point.  `add_plain` / `double_plain` are
-its plain PyTorch versions (the same formulas over the plain field ops,
-with independent products stacked into one call); a wrapper takes the
-plain version only for CPU tensors.
+on CUDA tensors, one thread per point, in Montgomery form inside the
+kernel (the MSM's Horner chain is K2's `curve_horner`, curves/msm.py).
+`add_plain` / `double_plain` are its plain PyTorch versions (the same
+formulas over the plain field ops, with independent products stacked into
+one call); a wrapper takes the plain version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from .. import _cuda
 from ..device import resolve
 from ..fields import ops as fops
-from ..fields.spec import LIMBS, int_to_limbs
+from ..fields.spec import LIMB_BITS, LIMBS, int_to_limbs
 from .spec import CurveSpec
 
 Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -52,10 +53,13 @@ def from_affine(curve: CurveSpec, x: torch.Tensor, y: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _consts_host(curve: CurveSpec) -> np.ndarray:
-    """Field constants followed by b3 = 3b mod p (the CurveConsts buffer)."""
+    """The point kernels' constant buffer (csrc/curve.cuh:curve_set_consts):
+    the field constants, b3 = 3b mod p, and R^2 = 2^512 mod p, the factor
+    into Montgomery form."""
     f = curve.base
     return np.concatenate([f.kernel_consts,
-                           int_to_limbs(3 * curve.b % f.p)])
+                           int_to_limbs(3 * curve.b % f.p),
+                           int_to_limbs(pow(2, 2 * LIMB_BITS * LIMBS, f.p))])
 
 
 def _broadcast(coords):

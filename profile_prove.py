@@ -58,9 +58,9 @@ def profiled_ms(torch, fn, reps: int, symbol: str, flush=None):
 
 
 def sass_bytes(lib_path: str) -> dict:
-    """Machine code bytes of each kernel (16 bytes per sm_90 instruction),
-    from cuobjdump's SASS listing; empty where the toolkit has no
-    cuobjdump."""
+    """Machine code bytes of each kernel and out-of-line device function
+    (16 bytes per sm_90 instruction), from cuobjdump's SASS listing; empty
+    where the toolkit has no cuobjdump."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
@@ -81,6 +81,7 @@ def sass_bytes(lib_path: str) -> dict:
 def phase_timing(ck: Checker, torch, np) -> None:
     from plonky_tpu_torch import _cuda
     from plonky_tpu_torch.curves import TWEEDLEDEE
+    from plonky_tpu_torch.curves import msm as cmsm
     from plonky_tpu_torch.curves import ops as cops
     from plonky_tpu_torch.fields import ops as fops
 
@@ -91,12 +92,21 @@ def phase_timing(ck: Checker, torch, np) -> None:
     a, b = (rand_field(np, torch, rng, (n1,), dev) for _ in range(2))
     pts = [tuple(rand_field(np, torch, rng, (n,), dev) for _ in range(3))
            for n in (n2, n2, 2, 2)]
+    # window sums [8, K, 32] at c = 8, as msm hands them to the Horner
+    # (the chain's time does not depend on the values)
+    ws = {k: tuple(rand_field(np, torch, rng, (k, 32), dev) for _ in range(3))
+          for k in (9, 2)}
     cases = [
         ("field_mul", [8, n1], lambda: fops.mul(sf, a, b)),
         ("curve_add", [8, n2], lambda: cops.add(TWEEDLEDEE, pts[0], pts[1])),
         ("curve_double", [8, n2], lambda: cops.double(TWEEDLEDEE, pts[0])),
         ("curve_add", [8, 2], lambda: cops.add(TWEEDLEDEE, pts[2], pts[3])),
         ("curve_double", [8, 2], lambda: cops.double(TWEEDLEDEE, pts[2])),
+        ("curve_horner", [8, 9, 32], lambda: cmsm.horner(TWEEDLEDEE, ws[9], 8)),
+        ("curve_horner", [8, 2, 32], lambda: cmsm.horner(TWEEDLEDEE, ws[2], 8)),
+        # c = 1 beside c = 8: the chain's time per double and per add
+        ("curve_horner", [8, 2, 32, "c=1"],
+         lambda: cmsm.horner(TWEEDLEDEE, ws[2], 1)),
     ]
     flush = ck.flush.zero_
     sizes = sass_bytes(_cuda.build())
@@ -114,10 +124,7 @@ def phase_timing(ck: Checker, torch, np) -> None:
             "profiler_cold_ms": profiled_ms(torch, fn, reps, symbol, flush),
             "sass_bytes": {k: v for k, v in sizes.items()
                            if symbol.split("<")[0] in k}})
-    emit({"phase": "timing", "rows": rows,
-          "sass_bytes_all": {k: v for k, v in sizes.items()
-                             if any(sym.split("<")[0] in k
-                                    for _s, _r, sym in KERNELS.values())}})
+    emit({"phase": "timing", "rows": rows, "sass_bytes_all": sizes})
 
 
 def phase_profile(torch) -> None:
