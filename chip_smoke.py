@@ -3,7 +3,8 @@
 
 Builds the CUDA kernels from plonky_tpu_torch/csrc, holds every kernel
 against its plain PyTorch version on the card at the main path's shapes
-(exact equality: all of it is integer arithmetic), reproduces the committed
+(exact equality: all of it is integer arithmetic; the NTT at every
+transform shape of the prove and the fixtures), reproduces the committed
 fixture proofs byte for byte, then builds, proves (twice) and verifies the
 2^14-gate BufferGate circuit with the random source pinned, checks the
 steady proof's sha256, and shows that the steady prove launched every
@@ -53,8 +54,8 @@ KERNELS = {
                      "curve_double_kernel"),
     "curve_horner": (_CSRC + "curve_kernels.cu", "plonky_tpu/curves/msm.py:401",
                      "curve_horner_kernel"),
-    "ntt_stage": (_CSRC + "ntt_kernels.cu", "plonky_tpu/poly/fft.py:124",
-                  "ntt_stage_kernel"),
+    "ntt_pass": (_CSRC + "ntt_kernels.cu", "plonky_tpu/poly/fft.py:124",
+                 "ntt_pass_kernel"),
     "msm_bucket_accumulate": (_CSRC + "msm_kernels.cu",
                               "plonky_tpu/curves/msm.py:95",
                               "msm_bucket_accumulate_kernel"),
@@ -80,6 +81,11 @@ MUL_OPS = PRODUCT_OPS + REDC_OPS                # 264
 SQR_OPS = 36 * WIDE + REDC_OPS                  # 208
 ADD_OPS = 12 * MUL_OPS          # RCB15 Alg. 7 (a = 0): 12 M + 2 by b3
 DBL_OPS = 6 * MUL_OPS + 2 * SQR_OPS             # Alg. 9: 6 M + 2 S + 1 by b3
+# A whole NTT of B rows of n = 2^lg: B (n / 2) (lg - 1) twiddle products
+# (layer 0's twiddles are all 1), plus B n scale products where the
+# transform scales (coset input, inverse output); it reads the data, the
+# twiddles of layers 1 .. lg - 1 (n - 2) and any scale table once and writes
+# the data once (ntt_work).
 
 
 def emit(obj) -> None:
@@ -261,6 +267,44 @@ def horner_work(ws, c):
             k * (n_windows - 1) * (c * DBL_OPS + ADD_OPS))
 
 
+def ntt_cases():
+    """(label, B, lg n, inverse, coset) of every transform of a steady prove
+    of the 2^14 circuit (wires B = 9, the rest B = 1; n = 2^14 and the LDE
+    domain 8n) and of its build (B = 6), the same at the fixtures' degree 8,
+    and n = 2 and a ragged B = 5 at n = 2^10 in all four kinds."""
+    cases = []
+    for lg_n in (14, 3):
+        lg8 = lg_n + 3
+        for label, batch, lg, inverse, coset in (
+                ("wire_ifft", 9, lg_n, True, False),
+                ("wire_lde", 9, lg8, False, False),
+                ("z_ifft", 1, lg_n, True, False),
+                ("z8_fft", 1, lg8, False, False),
+                ("vanishing_ifft", 1, lg8, True, False),
+                ("coset_fft_8n", 1, lg8, False, True),
+                ("coset_ifft_8n", 1, lg8, True, True),
+                ("coset_fft_n", 1, lg_n, False, True),
+                ("coset_ifft_n", 1, lg_n, True, True),
+                ("build_ifft", 6, lg_n, True, False),
+                ("build_lde", 6, lg8, False, False)):
+            cases.append((f"2^{lg_n} {label}", batch, lg, inverse, coset))
+    for batch, lg in ((3, 1), (5, 10)):
+        for inverse in (False, True):
+            for coset in (False, True):
+                cases.append((f"[{batch}, 2^{lg}]", batch, lg, inverse, coset))
+    return cases
+
+
+def ntt_work(batch, lg, inverse, coset):
+    """Bytes and IMAD slots of a whole transform's bounds (top of file)."""
+    n = 1 << lg
+    scaled = inverse or coset
+    table = 32 * n if coset else (32 if inverse else 0)
+    return (2 * 32 * batch * n + 32 * max(n - 2, 0) + table,
+            MUL_OPS * (batch * (n // 2) * max(lg - 1, 0)
+                       + (batch * n if scaled else 0)))
+
+
 def k4_cases(np, torch, rng, dev):
     """(label, scalars [8, K, N] on the card) for every shape the main path
     gives K4 at the 2^14 circuit, and three edge cases: the commitments'
@@ -354,8 +398,17 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
                             ("field_sub", fops.sub, fops.sub_plain)):
         ck.record(name, shapes, lambda fn=fn: fn(sf, a, b),
                   lambda plain=plain: plain(sf, a, b), 3 * 32 * n1, 0)
-    ck.record("field_mul", shapes, lambda: fops.mul(sf, a, b),
-              lambda: fops.mul_plain(sf, a, b), 3 * 32 * n1, MUL_OPS * n1)
+    # field_mul also at the sizes most launches of a steady prove take
+    # (N = 2^14 and 2^17; N = 1 in the inversions' square-and-multiply)
+    mul_by = []
+    for n in (n1, 1 << 14, 1 << 17, 1):
+        x, y = (rand_field(np, torch, rng, (n,), dev) for _ in range(2))
+        ck.compare("field_mul", fops.mul(sf, x, y), fops.mul_plain(sf, x, y))
+        mul_by.append({"N": n, **ck.measure(
+            lambda x=x, y=y: fops.mul(sf, x, y),
+            lambda x=x, y=y: fops.mul_plain(sf, x, y), 3 * 32 * n, MUL_OPS * n)})
+    ck.record("field_mul", {**shapes, "timed_N": [b["N"] for b in mul_by]},
+              by_shape=mul_by, measured=mul_by[0])
     ck.record("field_product_sum", {**shapes, "terms": "col*a - b*c + a - c"},
               lambda: fops.product_sum(sf, terms),
               lambda: fops.product_sum_plain(sf, terms),
@@ -384,22 +437,32 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
     ck.compare("curve_double", cops.double(TWEEDLEDEE, dbl_in),
                cops.double_plain(TWEEDLEDEE, dbl_in))
 
-    # K3 over every layer of [9, 2^14] and [6, 2^17]
-    for batch, lg in ((9, 14), (6, 17)):
+    # K3: every transform of the steady 2^14 prove and of the circuit build,
+    # the same at the fixtures' degree 8, and n = 2 (below one group) and a
+    # ragged batch of 5 at n = 2^10, each held against the plain version;
+    # timed at the 2^14 prove's shapes
+    ntt_by = []
+    for label, batch, lg, inverse, coset in ntt_cases():
         n = 1 << lg
         pre = pfft.FftPrecomputation(sf, n)
-        tw, _rev = pre.tables(dev, inverse=False)
-        x = rand_field(np, torch, rng, (batch, n), dev)
-        for ell in range(lg):
-            y = pfft.ntt_stage(sf, x, tw, 1 << ell)
-            ck.compare("ntt_stage", y, pfft.ntt_stage_plain(sf, x, tw, 1 << ell))
-            x = y
-    m_mid = 1 << (lg - 1)
-    ck.record("ntt_stage", {"B": 6, "n": 1 << 17, "m": m_mid},
-              lambda: pfft.ntt_stage(sf, x, tw, m_mid),
-              lambda: pfft.ntt_stage_plain(sf, x, tw, m_mid),
-              2 * 32 * 6 * (1 << 17) + 32 * m_mid,
-              MUL_OPS * 3 * (1 << 17))
+        x = with_edges(fops, sf, rand_field(np, torch, rng, (batch, n), dev))
+        shift = sf.generator if coset else None
+        ck.compare("ntt_pass", pfft.ntt(pre, x, inverse, shift),
+                   pfft.ntt_plain(pre, x, inverse, shift))
+        if label.startswith("2^14 "):
+            nb, nops = ntt_work(batch, lg, inverse, coset)
+            ntt_by.append({"shape": label, "B": batch, "n": n,
+                           "inverse": inverse, "coset": coset,
+                           "passes": len(pfft.pass_plan(lg)), **ck.measure(
+                lambda pre=pre, x=x, inverse=inverse, shift=shift:
+                    pfft.ntt(pre, x, inverse, shift),
+                lambda pre=pre, x=x, inverse=inverse, shift=shift:
+                    pfft.ntt_plain(pre, x, inverse, shift),
+                nb, nops, reps=10, plain_reps=1)})
+    # the headline numbers are at the wires' LDE, [9, 2^17] forward
+    ck.record("ntt_pass", {"main": "2^14 wire_lde", "checked": [
+        c[0] for c in ntt_cases()]}, by_shape=ntt_by,
+        measured=next(b for b in ntt_by if b["shape"] == "2^14 wire_lde"))
 
     # K4 at every shape the main path gives it; the window sums feed the
     # checks of K2
@@ -582,7 +645,8 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
     included), so the steady proof's bytes are fixed: their sha256 must be
     `want_sha256` when one is given.  With `check_launches`, the steady
     prove must have launched every kernel of KERNELS but OFF_PATH, none of
-    OFF_PATH, and curve_horner once per MSM."""
+    OFF_PATH, curve_horner once per MSM, and ntt_pass once per pass of each
+    transform (len(pass_plan(lg n)) = ceil(lg n / NTT_MAX_LAYERS))."""
     import hashlib
 
     import plonky_tpu_torch.circuit.builder as builder_mod
@@ -608,17 +672,34 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
         generate_proof(circuit, witness, old_proofs=[], blinding=True)
         torch.cuda.synchronize()
         out["first_prove_s"] = time.perf_counter() - t0
+        transforms = []
+        if check_launches:
+            from plonky_tpu_torch.poly import fft as pfft
+            ntt = pfft.ntt
+
+            def counted(pre, x, inverse=False, shift=None):
+                transforms.append(pre.lg_n)
+                return ntt(pre, x, inverse, shift)
+            pfft.ntt = counted
         _cuda.reset_launches()
         t0 = time.perf_counter()
-        with record_phases() as phases:
-            proof = generate_proof(circuit, witness, old_proofs=[], blinding=True)
-        torch.cuda.synchronize()
+        try:
+            with record_phases() as phases:
+                proof = generate_proof(circuit, witness, old_proofs=[],
+                                       blinding=True)
+            torch.cuda.synchronize()
+        finally:
+            if check_launches:
+                pfft.ntt = ntt
         out["steady_prove_s"] = time.perf_counter() - t0
     finally:
         builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
     launches = dict(_cuda.LAUNCHES)
     out["phases_s"] = phases
     out["launches"] = launches
+    if check_launches:
+        out["ntt_transforms"] = len(transforms)
+        out["ntt_passes_expected"] = sum(len(pfft.pass_plan(t)) for t in transforms)
     out["proof_sha256"] = hashlib.sha256(
         proof_to_bytes(TWEEDLEDEE, proof)).hexdigest()
     t0 = time.perf_counter()
@@ -642,6 +723,10 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
             raise AssertionError("one curve_horner launch per MSM expected, got "
                                  f"{launches['curve_horner']} for "
                                  f"{launches['msm_bucket_reduce']} MSMs")
+        if launches["ntt_pass"] != out["ntt_passes_expected"]:
+            raise AssertionError(f"{launches['ntt_pass']} ntt_pass launches for "
+                                 f"{len(transforms)} transforms, expected "
+                                 f"{out['ntt_passes_expected']}")
     return launches
 
 

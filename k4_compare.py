@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Times the MSM's kernels (K4, the bucket kernels, and the Horner across
 windows) of one or more plonky_tpu_torch trees on one NVIDIA GPU, at every
-shape of chip_smoke.k4_cases, and proves the pinned 2^14 circuit with each
-tree.
+shape of chip_smoke.k4_cases, K1's field multiply and whole NTT calls at
+the prove's shapes, and proves the pinned 2^14 circuit with each tree.
 
     python3 k4_compare.py [ROOT ...]
 
@@ -17,8 +17,12 @@ takes them), the device time of the Horner of the shape's window sums
 (`msm.horner` where the tree has it, else the loop of `ops.double` /
 `ops.add` that `msm` ran before it; L2 warm), a whole `msm` call, and the
 sha256 of the Horner's projective result and of the MSM's affine result;
-the elementwise curve_add / curve_double at two shapes; then
-chip_smoke.py's pinned prove line.  Last, one line compares the
+the elementwise curve_add / curve_double at two shapes; `fops.mul` at
+N = 9 2^14, 2^14, 2^17 and 1 (L2 warm and flushed) and whole `pfft.fft` /
+`ifft` / `lde` / `coset_fft` / `coset_ifft` calls at the 2^14 prove's
+shapes (device time of the whole call, however many launches it makes,
+where the host can queue calls ahead of the card, and a call's time back
+to back, host included), each with the sha256 of its output; then chip_smoke.py's pinned prove line.  Last, one line compares the
 trees: every hash must agree (the pinned proof's too), or the exit code is
 not 0.
 """
@@ -106,6 +110,57 @@ def _elementwise_rows(smoke, ck, np, torch, cops, curve, dev):
     return rows
 
 
+# (label, function name, B, lg n of the call's input, coset) of the
+# transforms timed: the wires' LDE input [9, 2^14] and its [9, 2^17] FFT,
+# the wires' iFFT, and the B = 1 transforms of the t quotient.
+TRANSFORMS = (("fft [9, 2^17]", "fft", 9, 17, False),
+              ("lde [9, 2^14] -> 2^17", "lde", 9, 14, False),
+              ("ifft [9, 2^14]", "ifft", 9, 14, False),
+              ("ifft [1, 2^17]", "ifft", 1, 17, False),
+              ("coset_fft [1, 2^17]", "coset_fft", 1, 17, True),
+              ("coset_ifft [1, 2^17]", "coset_ifft", 1, 17, True),
+              ("coset_fft [1, 2^14]", "coset_fft", 1, 14, True))
+
+
+def _k1_k3_rows(smoke, ck, np, torch, dev):
+    """fops.mul at four sizes and the TRANSFORMS: device ms of a call, L2
+    warm (and flushed for the multiply), and the sha256 of the output."""
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.poly import fft as pfft
+    sf = TWEEDLEDEE.scalar
+    rng = np.random.default_rng(77)
+    flush = ck.flush.zero_
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    def queued(fn, reps):
+        """Device ms per call, or None where the call waits on the card
+        (the parent's coset transforms upload a column each call)."""
+        try:
+            return ck.queued_ms(fn, reps)
+        except AssertionError:
+            return None
+    rows = []
+    # N = 9 2^14 (the wires), and the prove's most common sizes (PERF.md)
+    for n in (9 << 14, 1 << 14, 1 << 17, 1):
+        a, b = (smoke.rand_field(np, torch, rng, (n,), dev) for _ in range(2))
+        rows.append({"name": "field_mul", "shape": [8, n],
+                     "sha256": digest(fops.mul(sf, a, b)),
+                     "ms": ck.queued_ms(lambda: fops.mul(sf, a, b), 50),
+                     "cold_ms": (ck.queued_ms(lambda: (flush(), fops.mul(sf, a, b)), 50)
+                                 - ck.queued_ms(flush, 50))})
+    for label, fn_name, batch, lg, coset in TRANSFORMS:
+        x = smoke.rand_field(np, torch, rng, (batch, 1 << lg), dev)
+        pre = pfft.FftPrecomputation(sf, (1 << lg) * (8 if fn_name == "lde" else 1))
+        fn = getattr(pfft, fn_name)
+        call = ((lambda fn=fn, pre=pre, x=x: fn(pre, x, sf.generator)) if coset
+                else (lambda fn=fn, pre=pre, x=x: fn(pre, x)))
+        rows.append({"name": fn_name, "shape": label, "sha256": digest(call()),
+                     "ms": queued(call, 10), "call_ms": ck.time_ms(call, 10)})
+    return rows
+
+
 def run_tree(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
@@ -157,7 +212,8 @@ def run_tree(root: str) -> int:
         rows_out.append(row)
     smoke.emit({"phase": "k4_compare", "root": root, "nvidia_smi": name_power,
                 "shapes": rows_out, "elementwise": _elementwise_rows(
-                    smoke, ck, np, torch, cops, TWEEDLEDEE, dev)})
+                    smoke, ck, np, torch, cops, TWEEDLEDEE, dev),
+                "k1_k3": _k1_k3_rows(smoke, ck, np, torch, dev)})
     smoke.phase_prove(torch, want_sha256=smoke.PROOF_2E14_SHA256,
                       check_launches=False)
     return 0
@@ -180,6 +236,8 @@ def main(argv) -> int:
                                for key in ("horner_sha256", "msm_affine_sha256")})
                 hashes[-1].update({(r["name"], r["shape"][1]): r["sha256"]
                                    for r in rec["elementwise"]})
+                hashes[-1].update({(r["name"], str(r["shape"])): r["sha256"]
+                                   for r in rec["k1_k3"]})
     equal = len(hashes) == len(argv or [HERE]) and all(h == hashes[0] for h in hashes)
     print(json.dumps({"phase": "k4_compare_trees", "trees": len(hashes),
                       "hashes_equal": equal}), flush=True)

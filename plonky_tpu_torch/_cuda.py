@@ -32,7 +32,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # Launches per kernel, counted by the wrappers (reset with reset_launches).
 LAUNCHES = {name: 0 for name in (
     "field_add", "field_sub", "field_mul", "field_product_sum",
-    "curve_add", "curve_double", "curve_horner", "ntt_stage",
+    "curve_add", "curve_double", "curve_horner", "ntt_pass",
     "msm_bucket_accumulate", "msm_bucket_reduce")}
 
 # Seconds the last build took (None: the library was up to date).
@@ -55,7 +55,8 @@ _SIGNATURES = {
     "pt_curve_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "pt_curve_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "pt_curve_horner": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P],
-    "pt_ntt_stage": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P],
+    "pt_ntt_pass": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _I32, _I32,
+                    _P, _P],
     "pt_msm_bucket_accumulate": [_P, _P, _P, _P, _P, _P,
                                  _I64, _I64, _I64, _I64, _I64, _P, _P],
     "pt_msm_bucket_reduce": [_P, _P, _P, _P, _P, _P,

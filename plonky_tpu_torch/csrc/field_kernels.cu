@@ -5,19 +5,26 @@
 // / reduce_work_pallas (loose carry rounds + fold-matrix reduction) and
 // their fusion fused_composite over fields/ops.py:_mul_body (the modular
 // multiply).  The TPU had no fast 32-bit multiply and so convolved 8-bit
-// digits in float32; Hopper has a native 32x32->64-bit multiply-add, so one
-// thread computes a whole 255-bit product from 32-bit limbs in registers.
+// digits in float32; Hopper has a native 32x32->64-bit multiply-add with a
+// carry flag, so one thread computes a whole 255-bit product from 32-bit
+// limbs in registers.
 //
 // What bounds it: add and sub move 3 x 32 bytes per element for ~20 integer
-// operations, so they are bound by memory bytes.  mul does 281 32-bit
-// multiply-adds per element (64 for the product, 81 for the 9-limb REDC,
-// 64 + 72 for the final Montgomery multiply) against 96 bytes: under the
-// card's ~5 multiply-adds per byte, so it too is bound by bytes at full
-// occupancy, with the integer pipe close behind.  The design keeps every
-// limb in registers (no shared memory, no local arrays indexed at run
-// time), reads limbs coalesced, and lets one reduction serve a whole
-// product sum.
+// operations, so they are bound by memory bytes.  mul moves the same 96
+// bytes and needs at least 264 IMAD issue slots (an 8 x 8 limb product and
+// one reduction), so at full rate the integer pipe and the bytes take about
+// the same time.  The design: add, sub and mul run on PTX carry chains
+// (field.cuh, cc_*), mul with ONE Barrett reduction per product (290
+// 32-bit multiplies in its machine code, where the product / REDC /
+// multiply by F / REDC it replaced took about twice that); every limb stays
+// in registers and limbs are read coalesced.  A product sum accumulates its
+// terms in 17 limbs and reduces once.
 #include "field.cuh"
+
+// add, sub and mul: one element a thread, 128 threads a block (at the main
+// path's N = 9 2^14 that spreads 1,152 blocks evenly over the SMs, where
+// 576 blocks of 256 left a tail; measured on the H100, PERF.md).
+#define K1_THREADS 128
 
 // Operand with a zero batch stride when `bcast` is set (an [8, 1] tensor
 // broadcast over the batch), else a full [8, N] tensor.
@@ -30,15 +37,15 @@ __device__ __forceinline__ void load_operand(uint32_t r[PT_LIMBS], const int32_t
 template <int OP>
 __global__ void field_binary_kernel(int32_t* out, const int32_t* a, int a_bcast,
                                     const int32_t* b, int b_bcast, int64_t n,
-                                    FieldConsts c) {
+                                    MulConsts c) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t x[PT_LIMBS], y[PT_LIMBS], r[PT_LIMBS];
   load_operand(x, a, a_bcast, n, i);
   load_operand(y, b, b_bcast, n, i);
-  if (OP == 0) fe_add(r, x, y, c);
-  else if (OP == 1) fe_sub(r, x, y, c);
-  else fe_mul(r, x, y, c);
+  if (OP == 0) cc_add_mod(r, x, y, c.f);
+  else if (OP == 1) cc_sub_mod(r, x, y, c.f);
+  else cc_mul_mod(r, x, y, c);
   fe_store(out, n, i, r);
 }
 
@@ -76,14 +83,16 @@ __global__ void field_product_sum_kernel(int32_t* out, ProductSumTerms terms, in
 template <int OP>
 static int launch_binary(void* out, const void* a, int a_bcast, const void* b,
                          int b_bcast, int64_t n, const void* consts, void* stream) {
-  FieldConsts c = field_consts_from((const uint32_t*)consts);
-  field_binary_kernel<OP><<<pt_blocks(n), PT_THREADS, 0, (cudaStream_t)stream>>>(
+  MulConsts c = mul_consts_from((const uint32_t*)consts);
+  const unsigned int blocks = (unsigned int)((n + K1_THREADS - 1) / K1_THREADS);
+  field_binary_kernel<OP><<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
       (int32_t*)out, (const int32_t*)a, a_bcast, (const int32_t*)b, b_bcast, n, c);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
+// consts: the host buffer FieldSpec.mul_consts.
 int pt_field_add(void* out, const void* a, int a_bcast, const void* b, int b_bcast,
                  int64_t n, const void* consts, void* stream) {
   return launch_binary<0>(out, a, a_bcast, b, b_bcast, n, consts, stream);

@@ -1,56 +1,184 @@
-// K3: one radix-2 NTT layer, one thread per butterfly.
+// K3: the NTT in ceil(lg n / NTT_MAX_LAYERS) launches of ntt_pass, each
+// running up to NTT_MAX_LAYERS radix-2 layers in shared memory.
 //
 // Replaces the TPU kernel fused_composite (plonky_tpu/fields/
 // pallas_kernels.py) as instantiated by fields/ops.py:fused_elementwise
 // from plonky_tpu/poly/fft.py:_fft_core, whose body `butterfly` computes
-// (e + o w, e - o w) for every pair of one layer.  The bit-reversal gather
-// stays a torch index; the coset scaling and the 1/n of the inverse are K1
+// (e + o w, e - o w) for every pair of one layer, after a bit-reversal
+// gather, with the coset scaling and the 1/n of the inverse as separate
 // multiplies.
 //
-// What bounds it: a butterfly reads 2 elements and one twiddle and writes 2
-// (160 bytes) for one field multiply (281 32-bit multiply-adds) and an add
-// and a sub: 1.8 multiply-adds per byte, under the card's ~5, so it is
-// bound by bytes.  The design: consecutive threads take
-// consecutive j inside a group of m butterflies, so even elements, odd
-// elements and twiddles are all read coalesced for m >= 32; the layer
-// loop stays on the host (lg n launches), with all twiddle layers in one
-// [8, n - 1] table uploaded once per size.
+// The transform is the one of poly/fft.py: the input in bit-reversed order,
+// then layers ell = 0 .. lg n - 1 of half-size m = 2^ell, where the pair
+// (pos, pos + m) with j = pos mod m takes the twiddle w_m^j.  A pass runs
+// layers l0 .. l0 + kp - 1; they mix only positions that differ in bits
+// l0 .. l0 + kp - 1, so the pass splits each row into n / 2^kp groups of
+// S = 2^kp elements, pos = base + (s << l0), and a block holds G groups in
+// shared memory for all kp layers (poly/fft.py:pass_plan, _pass_groups).
+//  - The first pass (l0 = 0) loads its groups through the bit reversal:
+//    group r of a row is the tile of S positions at rev(r) S, whose sources
+//    are rev(s) Q + r (Q = n / S): the G groups of a block read G
+//    neighbouring columns, coalesced.  A coset transform multiplies each
+//    input by its table entry shift^i there.
+//  - The last pass multiplies each output by its scale (n^-1, or
+//    n^-1 shift^-i for the inverse coset transform) before the store.
+//  - Twiddles and both tables are held as v 2^256 mod p, so each product is
+//    one Montgomery product (cc_mont_mul) with a canonical result.
+//
+// What bounds it: a transform of B rows moves 2 x 32 B n bytes once and
+// makes B (n / 2) (lg n - 1) Montgomery products (264 IMAD slots each;
+// layer 0's twiddles are all 1 and are skipped): at the prove's sizes the
+// operations bound is five to seven times the bytes bound.  The design reads
+// and writes the data once a pass, in ceil(lg n / NTT_MAX_LAYERS) passes,
+// and runs the products from registers on carry chains.  The products are
+// chains of dependent instructions, so what matters is how many warps an SM
+// holds and how evenly the blocks fill the SMs: a block holds up to
+// NTT_BLOCK_ELEMS elements (256 threads, one butterfly each a layer, at
+// most 20 KB of static shared memory), the best of a sweep of block sizes
+// and layers a pass on the H100 (PERF.md).
 #include "field.cuh"
 
-// x, y: [8, B, n] (limb stride B n).  tw: [8, n - 1] table whose layer of
-// half-size m starts at column m - 1.
-__global__ void ntt_stage_kernel(int32_t* y, const int32_t* x, const int32_t* tw,
-                                 int64_t tw_stride, int64_t batch, int64_t n, int64_t m,
-                                 FieldConsts c) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t half = n >> 1;
-  if (t >= batch * half) return;
-  int64_t b = t / half;
-  int64_t r = t - b * half;
-  int64_t g = r / m;
-  int64_t j = r - g * m;
-  int64_t ie = b * n + g * 2 * m + j;
-  int64_t io = ie + m;
-  int64_t stride = batch * n;
-  uint32_t e[PT_LIMBS], o[PT_LIMBS], w[PT_LIMBS], ow[PT_LIMBS], r0[PT_LIMBS], r1[PT_LIMBS];
-  fe_load(e, x, stride, ie);
-  fe_load(o, x, stride, io);
-  fe_load(w, tw, tw_stride, m - 1 + j);
-  fe_mul(ow, o, w, c);
-  fe_add(r0, e, ow, c);
-  fe_sub(r1, e, ow, c);
-  fe_store(y, stride, ie, r0);
-  fe_store(y, stride, io, r1);
+// The same values as poly/fft.py's NTT_MAX_LAYERS and NTT_BLOCK_ELEMS
+// (tests/test_torch_fft.py holds them equal).
+#define NTT_MAX_LAYERS 7
+#define NTT_BLOCK_ELEMS 512
+#define NTT_THREADS (NTT_BLOCK_ELEMS / 2)
+// A block's groups with their padding: S (G + 1) <= NTT_BLOCK_ELEMS + S.
+#define NTT_SMEM_ELEMS (NTT_BLOCK_ELEMS + (1 << NTT_MAX_LAYERS))
+
+__device__ __forceinline__ uint32_t bit_reverse(uint32_t v, int bits) {
+  return bits == 0 ? 0u : __brev(v) >> (32 - bits);
+}
+
+// x, y: [8, batch, n] (limb stride batch n; y may be x after the first
+// pass).  tw: [8, n - 1] Montgomery twiddles, layer of half-size m at column
+// m - 1.  pre: [8, n] Montgomery coset table or null (first pass only).
+// post: [8, n] or, with post_bcast, [8, 1] Montgomery scale, or null (last
+// pass only).  A block holds G = 2^lg_groups groups; groups gi >= batch Q
+// of the last block are skipped.
+__global__ void __launch_bounds__(NTT_THREADS)
+ntt_pass_kernel(int32_t* y, const int32_t* x, const int32_t* tw, const int32_t* pre,
+                const int32_t* post, int post_bcast, int64_t batch, int lg, int l0,
+                int kp, int lg_groups, FieldConsts c) {
+  __shared__ uint32_t sm[NTT_SMEM_ELEMS * PT_LIMBS];
+  const int S = 1 << kp;
+  const int G = 1 << lg_groups;
+  const int pitch = G + 1;                  // odd: a warp reading s-major
+  const int64_t words = (int64_t)S * pitch;  // or g-major hits 32 banks
+  const int64_t n = (int64_t)1 << lg;
+  const int lg_q = lg - kp;
+  const int64_t Q = (int64_t)1 << lg_q;
+  const int64_t total = batch * Q;
+  const int64_t gbase = (int64_t)blockIdx.x * G;
+  const int64_t stride = batch * n;
+  const int64_t low_mask = ((int64_t)1 << l0) - 1;
+  const bool first = l0 == 0;
+  const int elems = G * S;
+
+  // load (element e: s = e / G, g = e % G, so neighbouring threads read
+  // neighbouring groups' s-th elements)
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const int s = e >> lg_groups, g = e & (G - 1);
+    const int64_t gi = gbase + g;
+    if (gi >= total) continue;
+    const int64_t b = gi >> lg_q, r = gi & (Q - 1);
+    const int64_t src = first ? (int64_t)bit_reverse(s, kp) * Q + r
+                              : (r & low_mask) | ((r >> l0) << (l0 + kp)) | ((int64_t)s << l0);
+    uint32_t v[PT_LIMBS];
+    fe_load(v, x, stride, b * n + src);
+    if (first && pre != nullptr) {
+      uint32_t t[PT_LIMBS], sc[PT_LIMBS];
+      fe_load(sc, pre, n, src);
+      cc_mont_mul(t, v, sc, c);
+      fe_copy(v, t);
+    }
+#pragma unroll
+    for (int k = 0; k < PT_LIMBS; k++) sm[k * words + s * pitch + g] = v[k];
+  }
+  __syncthreads();
+
+  for (int d = 0; d < kp; d++) {
+    const int h = 1 << d;
+    const int64_t m = (int64_t)1 << (l0 + d);
+    for (int bi = threadIdx.x; bi < elems / 2; bi += blockDim.x) {
+      const int q = bi >> lg_groups, g = bi & (G - 1);
+      const int64_t gi = gbase + g;
+      if (gi >= total) continue;
+      const int se = ((q >> d) << (d + 1)) | (q & (h - 1));
+      const int so = se + h;
+      const int64_t j = (gi & (Q - 1) & low_mask) + ((int64_t)(se & (h - 1)) << l0);
+      uint32_t ev[PT_LIMBS], ov[PT_LIMBS], w[PT_LIMBS], ow[PT_LIMBS];
+#pragma unroll
+      for (int k = 0; k < PT_LIMBS; k++) {
+        ev[k] = sm[k * words + se * pitch + g];
+        ov[k] = sm[k * words + so * pitch + g];
+      }
+      if (m == 1) {
+        fe_copy(ow, ov);   // layer 0: every twiddle is 1
+      } else {
+        fe_load(w, tw, n - 1, m - 1 + j);
+        cc_mont_mul(ow, ov, w, c);
+      }
+      cc_add_mod(ov, ev, ow, c);
+      cc_sub_mod(ev, ev, ow, c);
+#pragma unroll
+      for (int k = 0; k < PT_LIMBS; k++) {
+        sm[k * words + se * pitch + g] = ov[k];
+        sm[k * words + so * pitch + g] = ev[k];
+      }
+    }
+    __syncthreads();
+  }
+
+  // store (the first pass writes each group's S positions contiguously, so
+  // there s runs fastest; later passes write like they read)
+  const bool last = post != nullptr;
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    int s, g;
+    if (first) {
+      g = e >> kp;
+      s = e & (S - 1);
+    } else {
+      s = e >> lg_groups;
+      g = e & (G - 1);
+    }
+    const int64_t gi = gbase + g;
+    if (gi >= total) continue;
+    const int64_t b = gi >> lg_q, r = gi & (Q - 1);
+    const int64_t dst = first ? ((int64_t)bit_reverse(r, lg_q) << kp) + s
+                              : (r & low_mask) | ((r >> l0) << (l0 + kp)) | ((int64_t)s << l0);
+    uint32_t v[PT_LIMBS];
+#pragma unroll
+    for (int k = 0; k < PT_LIMBS; k++) v[k] = sm[k * words + s * pitch + g];
+    if (last) {
+      uint32_t t[PT_LIMBS], sc[PT_LIMBS];
+      if (post_bcast) fe_load(sc, post, 1, 0);
+      else fe_load(sc, post, n, dst);
+      cc_mont_mul(t, v, sc, c);
+      fe_copy(v, t);
+    }
+    fe_store(y, stride, b * n + dst, v);
+  }
 }
 
 extern "C" {
 
-int pt_ntt_stage(void* y, const void* x, const void* tw, int64_t tw_stride, int64_t batch,
-                 int64_t n, int64_t m, const void* consts, void* stream) {
+// One pass of 2^lg_groups groups per block; consts: FieldSpec.kernel_consts.
+int pt_ntt_pass(void* y, const void* x, const void* tw, const void* pre, const void* post,
+                int post_bcast, int64_t batch, int lg, int l0, int kp, int lg_groups,
+                const void* consts, void* stream) {
+  if (kp < 1 || kp > NTT_MAX_LAYERS || l0 < 0 || l0 + kp > lg || lg_groups < 0 ||
+      (1 << (kp + lg_groups)) > NTT_BLOCK_ELEMS)
+    return (int)cudaErrorInvalidValue;
+  const int64_t total = batch * (((int64_t)1 << lg) >> kp);
+  const int64_t groups = (int64_t)1 << lg_groups;
+  const int64_t blocks = (total + groups - 1) / groups;
+  const int elems = 1 << (kp + lg_groups);
+  const int threads = ((elems / 2 + 31) / 32) * 32;
   FieldConsts c = field_consts_from((const uint32_t*)consts);
-  int64_t total = batch * (n >> 1);
-  ntt_stage_kernel<<<pt_blocks(total), PT_THREADS, 0, (cudaStream_t)stream>>>(
-      (int32_t*)y, (const int32_t*)x, (const int32_t*)tw, tw_stride, batch, n, m, c);
+  ntt_pass_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)y, (const int32_t*)x, (const int32_t*)tw, (const int32_t*)pre,
+      (const int32_t*)post, post_bcast, batch, lg, l0, kp, lg_groups, c);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@ spec.py).  Operands broadcast over the batch like torch tensors; an
 stride by the kernels.
 
 K1, the field kernel (csrc/field_kernels.cu), computes `add`, `sub`, `mul`
-and `product_sum` on CUDA tensors.  Beside each sits its plain PyTorch
+and `product_sum` on CUDA tensors (`mul`: one Barrett reduction per
+product, on PTX carry chains).  Beside each sits its plain PyTorch
 version (`add_plain`, ...), which computes the same canonical result with
 16-bit digits in int64 so that every partial product stays exact: the CPU
 runs it, and the chip check compares the kernel with it.  A wrapper takes
@@ -262,9 +263,8 @@ def _launch_binary(name: str, entry: str, spec: FieldSpec, a, b):
     (ta, fa), (tb, fb) = _operand(a, batch), _operand(b, batch)
     for t in (ta, tb):
         _cuda.check(name, t, LIMBS)
-    consts = spec.kernel_consts
     _cuda.launch(name, entry, out.data_ptr(), ta.data_ptr(), fa, tb.data_ptr(),
-                 fb, n, consts.ctypes.data, _cuda.stream())
+                 fb, n, spec.mul_consts.ctypes.data, _cuda.stream())
     return out
 
 

@@ -8,10 +8,12 @@ The batch axes come last so that, on the card, thread i reads limb k at
 plain PyTorch versions split them into 16-bit halves held in int64 so that
 every partial product and column sum stays exact.
 
-Multiplication is a 512-bit schoolbook product followed by Montgomery's
-REDC over 9 limbs (R' = 2^288) and one Montgomery multiply by
-``2^(288+256) mod p``, which cancels both scalings: the result is the
-canonical product, with no Montgomery form visible outside a kernel.
+A single product (K1's field_mul) is a 512-bit schoolbook product and one
+Barrett reduction by ``mu = floor(2^512 / p)``; a product sum reduces its
+17-limb accumulator by Montgomery's REDC over 9 limbs (R' = 2^288) and one
+Montgomery multiply by ``2^(288+256) mod p``, which cancels both scalings.
+Either way the result is canonical, with no Montgomery form visible
+outside a kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ LIMB_BITS = 32
 REDC_LIMBS = 9            # the wide reduction divides by 2^(32 * 9)
 ACC_LIMBS = 17            # accumulator of a product sum: 544 bits
 MAX_TERMS = 32            # terms of one product-sum launch (bound: < 2^516)
+MU_LIMBS = 9              # limbs of the Barrett factor floor(2^512 / p)
 
 
 def int_to_limbs(v: int, n: int = LIMBS) -> np.ndarray:
@@ -89,6 +92,25 @@ class FieldSpec:
         return np.concatenate([
             int_to_limbs(self.p), int_to_limbs(self.final_factor),
             np.array([self.p_inv_neg], dtype=np.uint32)])
+
+    @functools.cached_property
+    def barrett_mu(self) -> int:
+        """floor(2^512 / p), the Barrett factor of field_mul (csrc/field.cuh,
+        cc_mul_mod).  Only for 2^226 < p < 2^255 does the truncated
+        q1 mu / 2^288 fall short of x / p by less than 1 before its floor,
+        so that the quotient is floor(x / p) or one less (x / p - q3 < 2)
+        and one conditional subtraction suffices."""
+        assert (1 << 226) < self.p < (1 << 255), (
+            f"{self.name}: the one-subtraction Barrett bound needs "
+            "2^226 < p < 2^255")
+        return (1 << (2 * LIMB_BITS * LIMBS)) // self.p
+
+    @functools.cached_property
+    def mul_consts(self) -> np.ndarray:
+        """The constant buffer of K1 (csrc/field.cuh:mul_consts_from):
+        kernel_consts, then the Barrett factor (MU_LIMBS limbs)."""
+        return np.concatenate([self.kernel_consts,
+                               int_to_limbs(self.barrett_mu, MU_LIMBS)])
 
     def __hash__(self):
         return hash((self.name, self.p))

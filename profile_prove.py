@@ -10,16 +10,19 @@ breakdown needs renewing.  It prints JSON lines:
              over launches queued behind a sleep (chip_smoke.py's `ms` and
              `cold_ms`) and torch.profiler's kernel time, each with the L2
              cache warm and flushed before every launch, beside the size of
-             each kernel's machine code;
+             each kernel's machine code and its most frequent opcodes;
   profile    one steady 2^14 prove under torch.profiler: device seconds of
              each kernel and of everything else, and the share of the wall
              clock the card was busy;
+  k1_shapes  one steady prove with K1's elementwise launches counted by
+             batch size N (field_add, field_sub, field_mul);
   host       one steady prove under cProfile: the functions with the most
              own time (cProfile slows Python code: read the shares).
 """
 
 from __future__ import annotations
 
+import collections
 import cProfile
 import os
 import pstats
@@ -57,25 +60,28 @@ def profiled_ms(torch, fn, reps: int, symbol: str, flush=None):
     return total_us / 1e3 / count if count and total_us > 0 else None
 
 
-def sass_bytes(lib_path: str) -> dict:
-    """Machine code bytes of each kernel and out-of-line device function
-    (16 bytes per sm_90 instruction), from cuobjdump's SASS listing; empty
-    where the toolkit has no cuobjdump."""
+def sass_listing(lib_path: str) -> dict:
+    """Per kernel and out-of-line device function: its machine code bytes
+    (16 per sm_90 instruction) and its most frequent opcodes, from
+    cuobjdump's SASS listing; empty where the toolkit has no cuobjdump."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
         return {}
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    sizes, current = {}, None
+    ops, current = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             current = m.group(1)
-            sizes[current] = 0
-        elif current and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            sizes[current] += 16
-    return sizes
+            ops[current] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if current and m:
+            ops[current][m.group(2)] += 1
+    return {k: {"bytes": 16 * sum(v.values()), "opcodes": v.most_common(8)}
+            for k, v in ops.items()}
 
 
 def phase_timing(ck: Checker, torch, np) -> None:
@@ -84,6 +90,7 @@ def phase_timing(ck: Checker, torch, np) -> None:
     from plonky_tpu_torch.curves import msm as cmsm
     from plonky_tpu_torch.curves import ops as cops
     from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.poly import fft as pfft
 
     rng = np.random.default_rng(7)
     sf = TWEEDLEDEE.scalar
@@ -96,8 +103,18 @@ def phase_timing(ck: Checker, torch, np) -> None:
     # (the chain's time does not depend on the values)
     ws = {k: tuple(rand_field(np, torch, rng, (k, 32), dev) for _ in range(3))
           for k in (9, 2)}
+    # whole transforms (ntt_pass rows are per launch: a call makes
+    # len(pass_plan(lg n)) of them)
+    pre17, pre14 = (pfft.FftPrecomputation(sf, 1 << lg) for lg in (17, 14))
+    x17 = rand_field(np, torch, rng, (9, 1 << 17), dev)
+    x14 = rand_field(np, torch, rng, (1, 1 << 14), dev)
+    c1 = rand_field(np, torch, rng, (1,), dev)
     cases = [
         ("field_mul", [8, n1], lambda: fops.mul(sf, a, b)),
+        ("field_mul", [8, 1], lambda: fops.mul(sf, c1, c1)),
+        ("ntt_pass", [8, 9, 1 << 17, "fft"], lambda: pfft.fft(pre17, x17)),
+        ("ntt_pass", [8, 1, 1 << 14, "coset_ifft"],
+         lambda: pfft.coset_ifft(pre14, x14, sf.generator)),
         ("curve_add", [8, n2], lambda: cops.add(TWEEDLEDEE, pts[0], pts[1])),
         ("curve_double", [8, n2], lambda: cops.double(TWEEDLEDEE, pts[0])),
         ("curve_add", [8, 2], lambda: cops.add(TWEEDLEDEE, pts[2], pts[3])),
@@ -109,7 +126,7 @@ def phase_timing(ck: Checker, torch, np) -> None:
          lambda: cmsm.horner(TWEEDLEDEE, ws[2], 1)),
     ]
     flush = ck.flush.zero_
-    sizes = sass_bytes(_cuda.build())
+    sass = sass_listing(_cuda.build())
     rows = []
     for name, shape, fn in cases:
         symbol = KERNELS[name][2]
@@ -122,9 +139,9 @@ def phase_timing(ck: Checker, torch, np) -> None:
             "call_ms": ck.time_ms(fn, reps),
             "profiler_warm_ms": profiled_ms(torch, fn, reps, symbol),
             "profiler_cold_ms": profiled_ms(torch, fn, reps, symbol, flush),
-            "sass_bytes": {k: v for k, v in sizes.items()
-                           if symbol.split("<")[0] in k}})
-    emit({"phase": "timing", "rows": rows, "sass_bytes_all": sizes})
+            "sass": {k: v for k, v in sass.items()
+                     if symbol.split("<")[0] in k}})
+    emit({"phase": "timing", "rows": rows, "sass_all": sass})
 
 
 def phase_profile(torch) -> None:
@@ -167,6 +184,35 @@ def phase_profile(torch) -> None:
         for (f, line, fn), (_cc, calls, tt, ct, _cl) in top]})
 
 
+def phase_k1_shapes(torch) -> None:
+    """Counts K1's elementwise launches of one steady prove by kernel and
+    batch size N."""
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.protocol import generate_proof
+
+    circuit, inputs = buffer_circuit(14)
+    witness = circuit.generate_witness(inputs)
+    generate_proof(circuit, witness, old_proofs=[], blinding=True)
+    torch.cuda.synchronize()
+    counts = collections.Counter()
+    launch = fops._launch_binary
+
+    def counted(name, entry, spec, a, b):
+        out = launch(name, entry, spec, a, b)
+        counts[(name, out[0].numel())] += 1
+        return out
+    fops._launch_binary = counted
+    try:
+        generate_proof(circuit, witness, old_proofs=[], blinding=True)
+        torch.cuda.synchronize()
+    finally:
+        fops._launch_binary = launch
+    by_kernel = {}
+    for (name, n), c in sorted(counts.items()):
+        by_kernel.setdefault(name, []).append([n, c])
+    emit({"phase": "k1_shapes", "launches_by_n": by_kernel})
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -178,6 +224,7 @@ def main() -> int:
     ck = Checker(torch, clock_hz, int_rate)
     phase_timing(ck, torch, np)
     phase_profile(torch)
+    phase_k1_shapes(torch)
     return 0
 
 

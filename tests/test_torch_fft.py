@@ -118,3 +118,160 @@ def test_roll_sign_matches_jnp_roll():
     for shift in (-8, -8 * 65, 3):
         assert np.array_equal(torch.roll(torch.from_numpy(x), shift, dims=-1).numpy(),
                               np.asarray(jnp.roll(x, shift, axis=-1)))
+
+
+@pytest.mark.parametrize("n,batch", [(2, 1), (2, 3), (2, 9), (16, 1), (16, 3),
+                                     (64, 1), (64, 3), (1024, 1), (1024, 3),
+                                     (1024, 9)])
+def test_fft_family_batches_match_jax(n, batch):
+    """The whole-transform plain version (ntt_plain, the CPU path of fft,
+    ifft, lde, coset_fft and coset_ifft) against the JAX package, below one
+    group of a pass (n = 2, 16, 64), across two passes (n = 2^10) and over
+    ragged batches."""
+    rng = np.random.default_rng(100 * n + batch)
+    rows = _rand(rng, (batch, n))
+    low = [r[: max(1, n // 8)] for r in rows]
+    pre, jpre = pfft.FftPrecomputation(SPEC, n), jfft.FftPrecomputation(J_SPEC, n)
+    shift = SPEC.generator
+
+    @jax.jit
+    def reference(x, xl):
+        return (jfft.fft(jpre, x), jfft.ifft(jpre, x), jfft.lde(jpre, xl),
+                jfft.coset_fft(jpre, x, shift), jfft.coset_ifft(jpre, x, shift))
+
+    want = reference(_jax(rows), _jax(low))
+    x, xl = _port(rows), _port(low)
+    got = (pfft.fft(pre, x), pfft.ifft(pre, x), pfft.lde(pre, xl),
+           pfft.coset_fft(pre, x, shift), pfft.coset_ifft(pre, x, shift))
+    for name, g, w in zip(("fft", "ifft", "lde", "coset_fft", "coset_ifft"),
+                          got, want):
+        assert g.shape == (8, batch, n), name
+        assert _same(g, w), name
+
+
+@pytest.mark.parametrize("max_layers", [1, 2, 3, 9])
+def test_pass_plan(max_layers):
+    """Every layer of 2^lg points in exactly one pass, in order, at most
+    max_layers a pass, in ceil(lg / max_layers) passes, spread evenly."""
+    for lg in range(0, 21):
+        plan = pfft.pass_plan(lg, max_layers)
+        assert len(plan) == -(-lg // max_layers)
+        layers = [l0 + d for l0, kp in plan for d in range(kp)]
+        assert layers == list(range(lg))
+        sizes = [kp for _l0, kp in plan]
+        assert all(1 <= kp <= max_layers for kp in sizes)
+        assert not sizes or max(sizes) - min(sizes) <= 1
+    assert pfft.pass_plan(17) == [(0, 6), (6, 6), (12, 5)]
+    assert pfft.pass_plan(14) == [(0, 7), (7, 7)]
+    assert pfft.pass_plan(6) == [(0, 6)]
+
+
+def _kernel_defines():
+    import os
+    import re
+    path = os.path.join(os.path.dirname(pfft.__file__), "..", "csrc", "ntt_kernels.cu")
+    with open(path) as f:
+        return {k: int(v) for k, v in
+                re.findall(r"^#define (NTT_\w+) (\d+)$", f.read(), re.M)}
+
+
+@pytest.mark.parametrize("batch", [1, 3, 9])
+def test_ntt_launches_fit_the_kernel(batch):
+    """ntt_kernels.cu sizes its static shared memory by the same two limits
+    as fft.py, and every pass that ntt() launches (n = 2 .. 2^20) stays
+    inside them: at most NTT_MAX_LAYERS layers, a block's groups at most
+    NTT_BLOCK_ELEMS elements and, with their padding, at most the shared
+    array; no block beyond the groups but the last one's tail."""
+    defines = _kernel_defines()
+    assert defines["NTT_MAX_LAYERS"] == pfft.NTT_MAX_LAYERS
+    assert defines["NTT_BLOCK_ELEMS"] == pfft.NTT_BLOCK_ELEMS
+    smem_elems = pfft.NTT_BLOCK_ELEMS + (1 << pfft.NTT_MAX_LAYERS)
+    for lg in range(1, 21):
+        for _l0, kp in pfft.pass_plan(lg):
+            lg_groups = pfft.block_groups(batch, lg, kp)
+            size, groups = 1 << kp, 1 << lg_groups
+            assert kp <= defines["NTT_MAX_LAYERS"]
+            assert size * groups <= defines["NTT_BLOCK_ELEMS"]
+            assert size * (groups + 1) <= smem_elems
+            assert groups < 2 * (batch << (lg - kp))
+
+
+def _layers_reference(pre, x, inverse, shift):
+    """The layer-by-layer transform: a bit-reversal gather, lg n layers of
+    butterflies over the whole row, then the scales, with python ints."""
+    p, n = SPEC.p, pre.n
+    root = pre.g_inv if inverse else pre.g
+    out = []
+    for row in x:
+        if shift is not None and not inverse:
+            row = [v * pow(shift, i, p) % p for i, v in enumerate(row)]
+        lg = pre.lg_n
+        y = [row[int(format(i, f"0{lg}b")[::-1], 2) if lg else 0] for i in range(n)]
+        m = 1
+        while m < n:
+            w = pow(root, n // (2 * m), p)
+            for g0 in range(0, n, 2 * m):
+                for j in range(m):
+                    e, o = y[g0 + j], y[g0 + j + m] * pow(w, j, p) % p
+                    y[g0 + j], y[g0 + j + m] = (e + o) % p, (e - o) % p
+            m *= 2
+        if inverse:
+            s_inv = pow(shift, -1, p) if shift is not None else 1
+            y = [v * pre.n_inv * pow(s_inv, i, p) % p for i, v in enumerate(y)]
+        out.append(y)
+    return out
+
+
+@pytest.mark.parametrize("max_layers", [1, 2, 3])
+@pytest.mark.parametrize("inverse,coset", [(False, False), (True, False),
+                                           (False, True), (True, True)],
+                         ids=["fft", "ifft", "coset_fft", "coset_ifft"])
+def test_pass_decomposition_equals_layers(max_layers, inverse, coset):
+    """With passes of at most 1, 2 or 3 layers forced, the kernel's
+    decomposition (bit-reversed first-pass groups, strided later groups,
+    twiddle indices, the scales in the first and last pass) equals the
+    layer-by-layer transform, at n = 2^6 over a ragged batch of 3."""
+    n = 64
+    rng = np.random.default_rng(7 + max_layers)
+    rows = _rand(rng, (3, n))
+    pre = pfft.FftPrecomputation(SPEC, n)
+    shift = SPEC.generator if coset else None
+    got = pfft.ntt_plain(pre, _port(rows), inverse, shift, max_layers=max_layers)
+    want = _layers_reference(pre, rows, inverse, shift)
+    assert [[int(v) for v in r] for r in fops.to_ints(SPEC, got)] == want
+
+
+@pytest.mark.parametrize("lg", [1, 5, 10, 17])
+def test_pass_groups_cover_every_position(lg):
+    """Each pass reads and writes every position of a row exactly once, and
+    the first pass reads through the bit reversal."""
+    for l0, kp in pfft.pass_plan(lg):
+        src, dst = pfft._pass_groups(lg, l0, kp, "cpu")
+        assert src.shape == (1 << (lg - kp), 1 << kp)
+        for idx in (src, dst):
+            assert torch.equal(idx.reshape(-1).sort().values, torch.arange(1 << lg))
+        if l0 == 0:
+            rev = pfft._bit_reverse(dst, lg)
+            assert torch.equal(rev, src)
+
+
+def test_montgomery_tables():
+    """The kernel's tables: twiddles w 2^256, coset powers shift^i 2^256
+    and inverse scales n^-1 (shift^-i) 2^256, all mod p."""
+    p, n, R = SPEC.p, 32, 1 << 256
+    pre = pfft.FftPrecomputation(SPEC, n)
+    shift = SPEC.generator
+    for inverse in (False, True):
+        plain = [int(v) for v in fops.to_ints(SPEC, pre.twiddles("cpu", inverse)).reshape(-1)]
+        mont = [int(v) for v in fops.to_ints(
+            SPEC, pre.twiddles("cpu", inverse, montgomery=True)).reshape(-1)]
+        assert plain == pre._twiddle_ints(inverse)
+        assert mont == [w * R % p for w in plain]
+    coset = fops.to_ints(SPEC, pre.coset_powers("cpu", shift, montgomery=True))
+    assert [int(v) for v in coset.reshape(-1)] == [
+        pow(shift, i, p) * R % p for i in range(n)]
+    scale = fops.to_ints(SPEC, pre.inverse_scale("cpu", shift, montgomery=True))
+    assert [int(v) for v in scale.reshape(-1)] == [
+        pre.n_inv * pow(shift, -i, p) * R % p for i in range(n)]
+    col = fops.to_ints(SPEC, pre.inverse_scale("cpu", montgomery=True))
+    assert [int(v) for v in col.reshape(-1)] == [pre.n_inv * R % p]
