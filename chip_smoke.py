@@ -21,6 +21,8 @@ and the ok line is not printed.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -173,6 +175,9 @@ class Checker:
         torch = self.torch
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} outputs vs plain "
+                                 f"{len(want)}")
         err = 0
         for g, w in zip(got, want):
             if tuple(g.shape) != tuple(w.shape):
@@ -305,6 +310,107 @@ def ntt_work(batch, lg, inverse, coset):
                        + (batch * n if scaled else 0)))
 
 
+def product_sum_shapes():
+    """(label, call site, N in units of the degree n (1, or 8 on the LDE
+    domain), launches a steady prove makes ("rounds": one a round of the
+    IPA, lg n in all), sums) of every product-sum launch of a steady prove
+    of the BufferGate circuit.  A sum is a list of (a, b or None, sign);
+    an operand name starting with "F" is a full [8, N] column, with "C" an
+    [8, 1] challenge or constant; one name is one tensor, shared as the
+    prove shares it."""
+    def perm():
+        f = [[(f"Ck{j}", "Fsubgroup", 1), (f"Fw{j}", None, 1), ("Cgamma", None, 1)]
+             for j in range(6)]
+        g = [[("Cbeta", f"Fsigma{j}", 1), (f"Fw{j}", None, 1), ("Cgamma", None, 1)]
+             for j in range(6)]
+        return f + g
+
+    def fold(k):
+        return [[(f"Cs{i}", f"Fp{i}", 1) for i in range(k)]]
+    return [
+        ("#1 ipa_fold", "protocol/halo.py:_ipa_fold", 1, "rounds",
+         [[("Cu_inv", "Fa_hi", 1), ("Cu", "Fa", 1)],
+          [("Cu_inv", "Fb", 1), ("Cu", "Fb_hi", 1)]]),
+        ("#2 permutation", "protocol/prover.py:_permutation_parts", 1, 1, perm()),
+        ("#3 halo_b", "protocol/halo.py:_build_halo_b", 1, 1, fold(3)),
+        ("#4 pi_quotient", "protocol/prover.py:_pi_quotient", 1, 1, fold(9)),
+        ("#5 halo_a", "protocol/halo.py:batch_opening_proof", 1, 1, fold(30)),
+        ("#6 v_shift", "protocol/prover.py:_vanishing_poly", 8, 1,
+         [[("Ff", "Fz", 1), ("Fg", "Fz_right", -1)]]),
+        ("#7 vanishing_parts", "protocol/prover.py:_permutation_parts", 8, 1,
+         perm()),
+        ("#8 alpha_fold", "protocol/prover.py:_vanishing_poly", 8, 1, fold(10)),
+    ]
+
+
+def product_sum_inputs(named, full, col):
+    """The sums `named` with each operand name replaced by a tensor,
+    full(name) for an "F" name, col(name) for a "C" name, one per name."""
+    made = {}
+
+    def get(name):
+        if name is not None and name not in made:
+            made[name] = (full if name[0] == "F" else col)(name)
+        return made.get(name)
+    return [[(get(a), get(b), sign) for a, b, sign in terms] for terms in named]
+
+
+def product_sum_counts(named) -> dict:
+    """A launch's sums, products, singles, distinct full and [8, 1]
+    operands and negative terms."""
+    terms = [t for sum_ in named for t in sum_]
+    names = {x for a, b, _s in terms for x in (a, b) if x is not None}
+    return {"sums": len(named),
+            "products": sum(b is not None for _a, b, _s in terms),
+            "singles": sum(b is None for _a, b, _s in terms),
+            "full_operands": sum(x[0] == "F" for x in names),
+            "column_operands": sum(x[0] == "C" for x in names),
+            "negatives": sum(s < 0 for _a, _b, s in terms)}
+
+
+PS_KEYS = ("N", "sums", "products", "singles", "full_operands", "negatives")
+
+
+def product_sum_key(named, n) -> tuple:
+    """The PS_KEYS of a launch of the sums `named` over N = n."""
+    c = product_sum_counts(named)
+    return (n, *(c[k] for k in PS_KEYS[1:]))
+
+
+@contextlib.contextmanager
+def counting_product_sums(fops):
+    """While open, counts field_product_sum's launches (one a call of
+    fops._product_sums_launch) in a Counter keyed on PS_KEYS; a full
+    operand is a distinct tensor of more than one element a limb."""
+    counts = collections.Counter()
+    launch = fops._product_sums_launch
+
+    def counted(spec, sums, batch, splits=None):
+        out = launch(spec, sums, batch, splits)
+        terms = [t for sum_ in sums for t in sum_]
+        full = {id(x) for a, b, _s in terms for x in (a, b)
+                if x is not None and x[0].numel() > 1}
+        counts[(out[0][0].numel(), len(sums),
+                sum(b is not None for _a, b, _s in terms),
+                sum(b is None for _a, b, _s in terms), len(full),
+                sum(s < 0 for _a, _b, s in terms))] += 1
+        return out
+    fops._product_sums_launch = counted
+    try:
+        yield counts
+    finally:
+        fops._product_sums_launch = launch
+
+
+def product_sum_work(named, n):
+    """Bytes and IMAD slots of a product-sum launch's bounds: each distinct
+    operand read once, each sum's output written once; per element and sum
+    its products (PRODUCT_OPS each) and one reduction (REDC_OPS)."""
+    c = product_sum_counts(named)
+    return (32 * (n * (c["full_operands"] + c["sums"]) + c["column_operands"]),
+            n * (c["products"] * PRODUCT_OPS + c["sums"] * REDC_OPS))
+
+
 def k4_cases(np, torch, rng, dev):
     """(label, scalars [8, K, N] on the card) for every shape the main path
     gives K4 at the 2^14 circuit, and three edge cases: the commitments'
@@ -366,6 +472,78 @@ def k4_work(rows, starts, acc):
             ADD_OPS * 2 * nonempty)
 
 
+def check_product_sums(ck: Checker, torch, np, dev, fops, sf) -> None:
+    """field_product_sum held against product_sum_plain at every launch
+    shape of a steady 2^14 prove (product_sum_shapes; random canonical
+    values with the edge values first), each timed; then a ragged N, N = 1,
+    32 products of (p - 1)(p - 1) all positive, all negative, and with
+    b = 0 (the largest accumulator), 33 terms (two reductions and an add),
+    12 mixed sums in one launch and 20 in two, and 1, 2 and 4 threads an
+    element forced."""
+    rng = np.random.default_rng(55)
+    n = 1 << 14
+    p = sf.p
+
+    def inputs(named, n_elems):
+        return product_sum_inputs(
+            named,
+            lambda _name: with_edges(fops, sf, rand_field(np, torch, rng, (n_elems,), dev)),
+            lambda _name: rand_field(np, torch, rng, (1,), dev))
+
+    def calls(sums):
+        """(kernel call, plain call): product_sum for one sum, else
+        product_sums."""
+        if len(sums) == 1:
+            return (lambda: fops.product_sum(sf, sums[0]),
+                    lambda: fops.product_sum_plain(sf, sums[0]))
+        return (lambda: tuple(fops.product_sums(sf, sums)),
+                lambda: tuple(fops.product_sums_plain(sf, sums)))
+
+    by_shape = []
+    shapes = product_sum_shapes()
+    for label, site, scale, launches, named in shapes:
+        sums = inputs(named, scale * n)
+        kernel, plain = calls(sums)
+        ck.compare("field_product_sum", kernel(), plain())
+        nbytes, nops = product_sum_work(named, scale * n)
+        by_shape.append({"shape": label, "site": site, "N": scale * n,
+                         **product_sum_counts(named), **ck.measure(
+                             kernel, plain, nbytes, nops, plain_reps=1)})
+    # edge cases, compared only
+    fold = dict((s[0], s[4]) for s in shapes)
+    for named, n_elems in ((fold["#8 alpha_fold"], (1 << 17) + 1),
+                           (fold["#2 permutation"], (1 << 17) + 1),
+                           (fold["#5 halo_a"], 1), (fold["#6 v_shift"], 1)):
+        kernel, plain = calls(inputs(named, n_elems))
+        ck.compare("field_product_sum", kernel(), plain())
+    top = fops.from_ints(sf, [p - 1] * 1000, dev)
+    zero = torch.zeros_like(top)
+    for terms in ([(top, top, 1)] * 32, [(top, top, -1)] * 32,
+                  [(top, zero, -1)] * 32, [(top, top, -1)] * 32 + [(top, None, -1)]):
+        ck.compare("field_product_sum", fops.product_sum(sf, terms),
+                   fops.product_sum_plain(sf, terms))
+    n_mixed = n + 5
+    for count in (12, 20):
+        named = [[(f"{'C' if (i + t) % 3 == 0 and t else 'F'}a{i}_{t}",
+                   None if t % 4 == 3 else f"{'C' if (i * t) % 5 == 1 else 'F'}b{i}_{t}",
+                   -1 if (i + 2 * t) % 3 == 0 else 1) for t in range(1 + i % 12)]
+                 for i in range(count)]
+        kernel, plain = calls(inputs(named, n_mixed))
+        ck.compare("field_product_sum", kernel(), plain())
+    sums = inputs(fold["#5 halo_a"] + fold["#3 halo_b"], n)
+    for splits in (1, 2, 4):
+        got = fops._product_sums_launch(sf, sums, (n,), splits=splits)
+        ck.compare("field_product_sum", tuple(got),
+                   tuple(fops.product_sums_plain(sf, sums)))
+    # the headline numbers are at #8, the launch with the largest bound
+    ck.record("field_product_sum", {
+        "main": "#8 alpha_fold", "n": n, "timed": [b["shape"] for b in by_shape],
+        "checked": ["ragged 2^17 + 1", "N = 1", "32 x (p-1)^2, +, -, b = 0",
+                    "33 terms", "12 and 20 mixed sums", "splits 1, 2, 4"]},
+        by_shape=by_shape,
+        measured=next(b for b in by_shape if b["shape"] == "#8 alpha_fold"))
+
+
 def phase_kernels(ck: Checker, torch, np, dev) -> None:
     from plonky_tpu_torch.curves import TWEEDLEDEE
     from plonky_tpu_torch.curves import msm as cmsm
@@ -390,6 +568,8 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
             ck.compare(name, fn(sf, a, b), plain(sf, a, b))
             ck.compare(name, fn(sf, col, b), plain(sf, col, b))
             ck.compare(name, fn(sf, b, b), plain(sf, b, b))
+        # an edge check of the product sum: column and full products, one
+        # negative, and singles of both signs
         terms = [(col, a, 1), (b, c, -1), (a, None, 1), (c, None, -1)]
         ck.compare("field_product_sum", fops.product_sum(sf, terms),
                    fops.product_sum_plain(sf, terms))
@@ -409,10 +589,7 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
             lambda x=x, y=y: fops.mul_plain(sf, x, y), 3 * 32 * n, MUL_OPS * n)})
     ck.record("field_mul", {**shapes, "timed_N": [b["N"] for b in mul_by]},
               by_shape=mul_by, measured=mul_by[0])
-    ck.record("field_product_sum", {**shapes, "terms": "col*a - b*c + a - c"},
-              lambda: fops.product_sum(sf, terms),
-              lambda: fops.product_sum_plain(sf, terms),
-              32 * (4 * n1 + 1), (2 * PRODUCT_OPS + REDC_OPS) * n1)
+    check_product_sums(ck, torch, np, dev, fops, sf)
 
     # the Pedersen basis of the 2^14 circuit: real points for K2 and K4
     g_pts, _h, _u = pedersen_bases(TWEEDLEDEE, 1 << 14)
@@ -645,14 +822,19 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
     included), so the steady proof's bytes are fixed: their sha256 must be
     `want_sha256` when one is given.  With `check_launches`, the steady
     prove must have launched every kernel of KERNELS but OFF_PATH, none of
-    OFF_PATH, curve_horner once per MSM, and ntt_pass once per pass of each
-    transform (len(pass_plan(lg n)) = ceil(lg n / NTT_MAX_LAYERS))."""
+    OFF_PATH, curve_horner once per MSM, ntt_pass once per pass of each
+    transform (len(pass_plan(lg n)) = ceil(lg n / NTT_MAX_LAYERS)), and
+    field_product_sum at each shape of product_sum_shapes as often as it
+    says, counted by shape (counting_product_sums).  Returns the steady
+    prove's launches by kernel and, with `check_launches`, its product-sum
+    launches by label of product_sum_shapes."""
     import hashlib
 
     import plonky_tpu_torch.circuit.builder as builder_mod
     import plonky_tpu_torch.protocol.halo as halo_mod
     from plonky_tpu_torch import _cuda
     from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
+    from plonky_tpu_torch.fields import ops as fops
     from plonky_tpu_torch.protocol import generate_proof, verify_proof
     from plonky_tpu_torch.protocol.serialization import proof_to_bytes
     from plonky_tpu_torch.utils.timing import record_phases
@@ -673,6 +855,8 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
         torch.cuda.synchronize()
         out["first_prove_s"] = time.perf_counter() - t0
         transforms = []
+        counting = (counting_product_sums(fops) if check_launches
+                    else contextlib.nullcontext(collections.Counter()))
         if check_launches:
             from plonky_tpu_torch.poly import fft as pfft
             ntt = pfft.ntt
@@ -684,7 +868,7 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
         _cuda.reset_launches()
         t0 = time.perf_counter()
         try:
-            with record_phases() as phases:
+            with record_phases() as phases, counting as ps_counts:
                 proof = generate_proof(circuit, witness, old_proofs=[],
                                        blinding=True)
             torch.cuda.synchronize()
@@ -700,6 +884,16 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
     if check_launches:
         out["ntt_transforms"] = len(transforms)
         out["ntt_passes_expected"] = sum(len(pfft.pass_plan(t)) for t in transforms)
+        expected = {label: (product_sum_key(named, scale << lg),
+                            lg if times == "rounds" else times)
+                    for label, _s, scale, times, named in product_sum_shapes()}
+        ps_by_label = {label: ps_counts[key]
+                       for label, (key, _t) in expected.items()}
+        out["product_sum_launches_expected"] = sum(
+            t for _k, t in expected.values())
+        out["product_sum_by_shape"] = [
+            {**dict(zip(PS_KEYS, k)), "launches": c}
+            for k, c in sorted(ps_counts.items())]
     out["proof_sha256"] = hashlib.sha256(
         proof_to_bytes(TWEEDLEDEE, proof)).hexdigest()
     t0 = time.perf_counter()
@@ -723,11 +917,20 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
             raise AssertionError("one curve_horner launch per MSM expected, got "
                                  f"{launches['curve_horner']} for "
                                  f"{launches['msm_bucket_reduce']} MSMs")
+        if launches["field_product_sum"] != out["product_sum_launches_expected"]:
+            raise AssertionError(f"{launches['field_product_sum']} field_product_sum "
+                                 "launches, expected "
+                                 f"{out['product_sum_launches_expected']}")
+        if collections.Counter(dict(expected.values())) != ps_counts:
+            raise AssertionError("field_product_sum launches by shape "
+                                 f"{dict(ps_counts)}, expected "
+                                 f"{dict(expected.values())}")
         if launches["ntt_pass"] != out["ntt_passes_expected"]:
             raise AssertionError(f"{launches['ntt_pass']} ntt_pass launches for "
                                  f"{len(transforms)} transforms, expected "
                                  f"{out['ntt_passes_expected']}")
-    return launches
+        return launches, ps_by_label
+    return launches, {}
 
 
 def card(torch):
@@ -766,9 +969,11 @@ def main() -> int:
     ck = Checker(torch, clock_hz, int_rate)
     phase_kernels(ck, torch, np, dev)
     phase_fixtures()
-    launches = phase_prove(torch, want_sha256=PROOF_2E14_SHA256)
+    launches, ps_by_label = phase_prove(torch, want_sha256=PROOF_2E14_SHA256)
     for name, rec in ck.records.items():
         rec["launches"] = launches[name]
+    for row in ck.records["field_product_sum"]["by_shape"]:
+        row["launches_per_prove"] = ps_by_label[row["shape"]]
     emit({"kernels": list(ck.records.values())})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Times the MSM's kernels (K4, the bucket kernels, and the Horner across
 windows) of one or more plonky_tpu_torch trees on one NVIDIA GPU, at every
-shape of chip_smoke.k4_cases, K1's field multiply and whole NTT calls at
-the prove's shapes, and proves the pinned 2^14 circuit with each tree.
+shape of chip_smoke.k4_cases, K1's field multiply, K1's product sums and
+whole NTT calls at the prove's shapes, and proves the pinned 2^14 circuit
+with each tree.
 
     python3 k4_compare.py [ROOT ...]
 
@@ -22,7 +23,11 @@ N = 9 2^14, 2^14, 2^17 and 1 (L2 warm and flushed) and whole `pfft.fft` /
 `ifft` / `lde` / `coset_fft` / `coset_ifft` calls at the 2^14 prove's
 shapes (device time of the whole call, however many launches it makes,
 where the host can queue calls ahead of the card, and a call's time back
-to back, host included), each with the sha256 of its output; then chip_smoke.py's pinned prove line.  Last, one line compares the
+to back, host included), each with the sha256 of its output; the product
+sums of every launch shape of chip_smoke.product_sum_shapes (device time
+of one launch's sums, as one `product_sums` call or, in a tree without
+it, one `product_sum` launch a sum; L2 warm and flushed; the sha256 of
+the outputs); then chip_smoke.py's pinned prove line.  Last, one line compares the
 trees: every hash must agree (the pinned proof's too), or the exit code is
 not 0.
 """
@@ -161,6 +166,38 @@ def _k1_k3_rows(smoke, ck, np, torch, dev):
     return rows
 
 
+def _product_sum_rows(smoke, ck, np, torch, dev):
+    """The product sums at every launch shape of a steady 2^14 prove
+    (chip_smoke.product_sum_shapes): device ms of the launch's sums, L2
+    warm and flushed, through `product_sums` where the tree has it, else
+    one `product_sum` launch per sum, and the sha256 of the outputs."""
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    from plonky_tpu_torch.fields import ops as fops
+    sf = TWEEDLEDEE.scalar
+    rng = np.random.default_rng(88)
+    flush = ck.flush.zero_
+    rows = []
+    for label, _site, scale, _launches, named in smoke.product_sum_shapes():
+        n = scale << 14
+        sums = smoke.product_sum_inputs(
+            named,
+            lambda _name, n=n: smoke.rand_field(np, torch, rng, (n,), dev),
+            lambda _name: smoke.rand_field(np, torch, rng, (1,), dev))
+        if hasattr(fops, "product_sums"):
+            def call(sums=sums):
+                return fops.product_sums(sf, sums)
+        else:
+            def call(sums=sums):
+                return [fops.product_sum(sf, terms) for terms in sums]
+        digest = hashlib.sha256(torch.cat(call()).cpu().numpy().tobytes()).hexdigest()
+        rows.append({"name": "product_sum", "shape": label, "N": n,
+                     "sums": len(sums), "sha256": digest,
+                     "ms": ck.queued_ms(call, 20),
+                     "cold_ms": (ck.queued_ms(lambda call=call: (flush(), call()), 20)
+                                 - ck.queued_ms(flush, 20))})
+    return rows
+
+
 def run_tree(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
@@ -213,7 +250,8 @@ def run_tree(root: str) -> int:
     smoke.emit({"phase": "k4_compare", "root": root, "nvidia_smi": name_power,
                 "shapes": rows_out, "elementwise": _elementwise_rows(
                     smoke, ck, np, torch, cops, TWEEDLEDEE, dev),
-                "k1_k3": _k1_k3_rows(smoke, ck, np, torch, dev)})
+                "k1_k3": _k1_k3_rows(smoke, ck, np, torch, dev),
+                "product_sum": _product_sum_rows(smoke, ck, np, torch, dev)})
     smoke.phase_prove(torch, want_sha256=smoke.PROOF_2E14_SHA256,
                       check_launches=False)
     return 0
@@ -237,7 +275,7 @@ def main(argv) -> int:
                 hashes[-1].update({(r["name"], r["shape"][1]): r["sha256"]
                                    for r in rec["elementwise"]})
                 hashes[-1].update({(r["name"], str(r["shape"])): r["sha256"]
-                                   for r in rec["k1_k3"]})
+                                   for r in rec["k1_k3"] + rec["product_sum"]})
     equal = len(hashes) == len(argv or [HERE]) and all(h == hashes[0] for h in hashes)
     print(json.dumps({"phase": "k4_compare_trees", "trees": len(hashes),
                       "hashes_equal": equal}), flush=True)

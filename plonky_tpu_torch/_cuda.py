@@ -51,7 +51,7 @@ _SIGNATURES = {
     "pt_field_add": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
     "pt_field_sub": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
     "pt_field_mul": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
-    "pt_field_product_sum": [_P, _P, _P, _P, _P, _P, _I32, _I64, _P, _P],
+    "pt_field_product_sum": [_P, _P, _P, _P, _P, _I32, _I32, _I64, _P, _P],
     "pt_curve_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "pt_curve_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "pt_curve_horner": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P],

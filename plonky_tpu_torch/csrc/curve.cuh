@@ -22,16 +22,16 @@ struct MontCurveConsts {
 static __constant__ MontCurveConsts c_curve;
 
 // Sets c_curve on `stream` ahead of a launch from the host buffer
-// [p, 2^544 mod p, -p^-1 mod 2^32, b3 (8 limbs), 2^512 mod p (8 limbs)]
+// [p, -p^-1 mod 2^32, b3 (8 limbs), 2^512 mod p (8 limbs)]
 // (curves/ops.py:_consts_host); b3 must fit one limb.
 static int curve_set_consts(const uint32_t* host, cudaStream_t stream) {
   MontCurveConsts c;
   c.f = field_consts_from(host);
-  c.b3 = host[2 * PT_LIMBS + 1];
+  c.b3 = host[PT_FIELD_WORDS];
   for (int k = 1; k < PT_LIMBS; k++)
-    if (host[2 * PT_LIMBS + 1 + k] != 0) return (int)cudaErrorInvalidValue;
+    if (host[PT_FIELD_WORDS + k] != 0) return (int)cudaErrorInvalidValue;
   if (c.b3 == 0) return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < PT_LIMBS; k++) c.r2[k] = host[3 * PT_LIMBS + 1 + k];
+  for (int k = 0; k < PT_LIMBS; k++) c.r2[k] = host[PT_FIELD_WORDS + PT_LIMBS + k];
   return (int)cudaMemcpyToSymbolAsync(c_curve, &c, sizeof(c), 0, cudaMemcpyHostToDevice,
                                       stream);
 }

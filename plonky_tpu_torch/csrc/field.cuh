@@ -8,35 +8,29 @@
 // kernel.  A single product (field_mul) is one Barrett reduction on carry
 // chains (cc_mul_mod, below); the NTT's twiddle products are one Montgomery
 // product against twiddles held as w 2^256 mod p (cc_mont_mul).  A product
-// sum  sum_i +-a_i b_i  (field_product_sum) accumulates the 512-bit
-// products (a negative term adds p * 2^256 - a_i b_i) in 17 limbs and
-// reduces ONCE: Montgomery's REDC over 9 limbs (divides by 2^288, result
-// < 2p), then one Montgomery multiply by F = 2^(288+256) mod p, which
-// cancels both scalings; with at most 32 terms the sum stays below 2^516,
-// which keeps the REDC output below 2p.
+// sum  sum_i +-a_i b_i  (field_product_sum) adds its products straight into
+// a 17-limb accumulator on the same carry chains and reduces ONCE, by
+// Barrett with mu = floor(2^544 / p) (cc_acc_product, cc_sum_mod).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define PT_LIMBS 8
-#define PT_ACC 17
-#define PT_MAX_TERMS 32
 #define PT_THREADS 256
 
 struct FieldConsts {
   uint32_t p[PT_LIMBS];   // the modulus
-  uint32_t f[PT_LIMBS];   // 2^544 mod p
   uint32_t pinv;          // -p^-1 mod 2^32
 };
 
+// The words of FieldSpec.kernel_consts: [p (8 limbs), -p^-1 mod 2^32].
+#define PT_FIELD_WORDS (PT_LIMBS + 1)
+
 static inline FieldConsts field_consts_from(const uint32_t* host) {
   FieldConsts c;
-  for (int k = 0; k < PT_LIMBS; k++) {
-    c.p[k] = host[k];
-    c.f[k] = host[PT_LIMBS + k];
-  }
-  c.pinv = host[2 * PT_LIMBS];
+  for (int k = 0; k < PT_LIMBS; k++) c.p[k] = host[k];
+  c.pinv = host[PT_LIMBS];
   return c;
 }
 
@@ -111,128 +105,11 @@ __device__ __forceinline__ void fe_sub(uint32_t r[PT_LIMBS], const uint32_t a[PT
   if (sub_borrow(r, a, b)) add_carry(r, r, c.p);  // wraps back into [0, p)
 }
 
-// w[0..15] = a * b (512 bits).
-__device__ __forceinline__ void mul_wide(uint32_t w[2 * PT_LIMBS], const uint32_t a[PT_LIMBS],
-                                         const uint32_t b[PT_LIMBS]) {
-#pragma unroll
-  for (int k = 0; k < 2 * PT_LIMBS; k++) w[k] = 0;
-#pragma unroll
-  for (int i = 0; i < PT_LIMBS; i++) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < PT_LIMBS; j++) {
-      uint64_t t = (uint64_t)a[i] * b[j] + w[i + j] + carry;
-      w[i + j] = (uint32_t)t;
-      carry = t >> 32;
-    }
-    w[i + PT_LIMBS] = (uint32_t)carry;
-  }
-}
-
-// Montgomery REDC of t[0 .. LEN-1] over STEPS limbs: afterwards
-// t[STEPS .. STEPS+7] holds (t + m p) / 2^(32 STEPS) for the m that clears
-// the low limbs.  The caller guarantees the sum fits LEN limbs.
-template <int LEN, int STEPS>
-__device__ __forceinline__ void redc(uint32_t t[LEN], const FieldConsts& c) {
-#pragma unroll
-  for (int i = 0; i < STEPS; i++) {
-    uint32_t m = t[i] * c.pinv;
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < PT_LIMBS; j++) {
-      uint64_t x = (uint64_t)m * c.p[j] + t[i + j] + carry;
-      t[i + j] = (uint32_t)x;
-      carry = x >> 32;
-    }
-#pragma unroll
-    for (int k = i + PT_LIMBS; k < LEN; k++) {
-      uint64_t x = (uint64_t)t[k] + carry;
-      t[k] = (uint32_t)x;
-      carry = x >> 32;
-    }
-  }
-}
-
-// acc (< 2^516) -> acc mod p.
-__device__ __forceinline__ void fe_reduce_acc(uint32_t r[PT_LIMBS], uint32_t acc[PT_ACC],
-                                              const FieldConsts& c) {
-  redc<PT_ACC, 9>(acc, c);            // acc * 2^-288 mod p, < 2p
-  uint32_t x[PT_LIMBS];
-#pragma unroll
-  for (int k = 0; k < PT_LIMBS; k++) x[k] = acc[9 + k];
-  fe_csub(x, c);
-  uint32_t w[2 * PT_LIMBS + 1];
-  mul_wide(w, x, c.f);                // < p^2
-  w[2 * PT_LIMBS] = 0;
-  redc<2 * PT_LIMBS + 1, PT_LIMBS>(w, c);   // x F 2^-256 = acc mod p, < 2p
-#pragma unroll
-  for (int k = 0; k < PT_LIMBS; k++) r[k] = w[PT_LIMBS + k];
-  fe_csub(r, c);
-}
-
-__device__ __forceinline__ void acc_zero(uint32_t acc[PT_ACC]) {
-#pragma unroll
-  for (int k = 0; k < PT_ACC; k++) acc[k] = 0;
-}
-
-// acc += x, x given as n limbs at offset `off`.
-template <int N>
-__device__ __forceinline__ void acc_add(uint32_t acc[PT_ACC], const uint32_t x[N], int off) {
-  uint64_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < PT_ACC; k++) {
-    uint64_t xv = (k >= off && k - off < N) ? x[k - off] : 0;
-    uint64_t t = (uint64_t)acc[k] + xv + carry;
-    acc[k] = (uint32_t)t;
-    carry = t >> 32;
-  }
-}
-
-// acc -= x (the caller guarantees no underflow).
-template <int N>
-__device__ __forceinline__ void acc_sub(uint32_t acc[PT_ACC], const uint32_t x[N]) {
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < PT_ACC; k++) {
-    uint64_t xv = k < N ? x[k] : 0;
-    uint64_t t = (uint64_t)acc[k] - xv - borrow;
-    acc[k] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-}
-
-// acc += sign * a * b  (a negative term adds p * 2^256 - a b >= 0).
-__device__ __forceinline__ void acc_product(uint32_t acc[PT_ACC], const uint32_t a[PT_LIMBS],
-                                            const uint32_t b[PT_LIMBS], int sign,
-                                            const FieldConsts& c) {
-  uint32_t w[2 * PT_LIMBS];
-  mul_wide(w, a, b);
-  if (sign >= 0) {
-    acc_add<2 * PT_LIMBS>(acc, w, 0);
-  } else {
-    acc_add<PT_LIMBS>(acc, c.p, PT_LIMBS);
-    acc_sub<2 * PT_LIMBS>(acc, w);
-  }
-}
-
-// acc += sign * a  (a negative term adds p - a).
-__device__ __forceinline__ void acc_single(uint32_t acc[PT_ACC], const uint32_t a[PT_LIMBS],
-                                           int sign, const FieldConsts& c) {
-  if (sign >= 0) {
-    acc_add<PT_LIMBS>(acc, a, 0);
-  } else {
-    uint32_t d[PT_LIMBS];
-    sub_borrow(d, c.p, a);
-    acc_add<PT_LIMBS>(acc, d, 0);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Montgomery form (R = 2^256), used inside the point kernels only (K2, K4;
 // curve.cuh): an element x is held as x R mod p, canonical in [0, p).
 // Additions are the canonical ones; a product is one CIOS Montgomery
-// multiply (one 8 x 8 limb product interleaved with one REDC), a quarter of
-// the work of the two-pass reduction.  Only c.p and c.pinv are read.
+// multiply (one 8 x 8 limb product interleaved with one REDC).
 // ---------------------------------------------------------------------------
 
 // r = a b / 2^256 mod p for a, b < p (p < 2^255, so every partial sum fits
@@ -305,19 +182,24 @@ __device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a_in
 // ---------------------------------------------------------------------------
 
 #define PT_MU_LIMBS 9
+#define PT_MU_SUM_LIMBS 10
 
-// K1's constants: the field's, and field_mul's Barrett factor.
+// K1's constants: the field's, field_mul's Barrett factor and the product
+// sum's.
 struct MulConsts {
   FieldConsts f;
-  uint32_t mu[PT_MU_LIMBS];   // floor(2^512 / p)
+  uint32_t mu[PT_MU_LIMBS];           // floor(2^512 / p)
+  uint32_t mu_sum[PT_MU_SUM_LIMBS];   // floor(2^544 / p)
 };
 
-// From the host buffer [p, 2^544 mod p, -p^-1 mod 2^32, mu (9 limbs)]
+// From the host buffer [p, -p^-1 mod 2^32, mu (9 limbs), mu_sum (10 limbs)]
 // (fields/spec.py:FieldSpec.mul_consts).
 static inline MulConsts mul_consts_from(const uint32_t* host) {
   MulConsts c;
   c.f = field_consts_from(host);
-  for (int k = 0; k < PT_MU_LIMBS; k++) c.mu[k] = host[2 * PT_LIMBS + 1 + k];
+  for (int k = 0; k < PT_MU_LIMBS; k++) c.mu[k] = host[PT_FIELD_WORDS + k];
+  for (int k = 0; k < PT_MU_SUM_LIMBS; k++)
+    c.mu_sum[k] = host[PT_FIELD_WORDS + PT_MU_LIMBS + k];
   return c;
 }
 
@@ -457,6 +339,29 @@ __device__ __forceinline__ void cc_sub_mod(uint32_t r[PT_LIMBS], const uint32_t 
   r[PT_LIMBS - 1] = cc_addc_end(r[PT_LIMBS - 1], c.p[PT_LIMBS - 1] & mask);
 }
 
+// r = (x - q3 p) mod 2^256 for x - q3 p in [0, 2p), then canonical: the
+// last steps of both Barrett reductions.  Only x's and q3's low 8 limbs
+// are read, and only q3 p's low 256 bits are formed.
+__device__ __forceinline__ void cc_barrett_finish(uint32_t r[PT_LIMBS], const uint32_t* x,
+                                                  const uint32_t* q3, const FieldConsts& c) {
+  uint32_t v[PT_LIMBS];   // q3 p mod 2^256
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS; k++) v[k] = 0;
+  cc_mac_row_lo<8>(v, q3[0], c.p);
+  cc_mac_row_lo<7>(v + 1, q3[1], c.p);
+  cc_mac_row_lo<6>(v + 2, q3[2], c.p);
+  cc_mac_row_lo<5>(v + 3, q3[3], c.p);
+  cc_mac_row_lo<4>(v + 4, q3[4], c.p);
+  cc_mac_row_lo<3>(v + 5, q3[5], c.p);
+  cc_mac_row_lo<2>(v + 6, q3[6], c.p);
+  cc_mac_row_lo<1>(v + 7, q3[7], c.p);
+  r[0] = cc_sub(x[0], v[0]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS - 1; k++) r[k] = cc_subc(x[k], v[k]);
+  r[PT_LIMBS - 1] = cc_subc_end(x[PT_LIMBS - 1], v[PT_LIMBS - 1]);
+  cc_csub(r, c);
+}
+
 // r = a b mod p for canonical a, b: the 512-bit product and one Barrett
 // reduction (see the top of this section).
 __device__ __forceinline__ void cc_mul_mod(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
@@ -482,24 +387,7 @@ __device__ __forceinline__ void cc_mul_mod(uint32_t r[PT_LIMBS], const uint32_t 
   cc_mac_row<9>(u, w[14], c.mu);
   cc_mac_row<9>(u + 1, w[15], c.mu);
   // q3 = columns 9..16 = u[2..9] (< p: one limb short of mu's 9)
-  const uint32_t* q3 = u + 2;
-  uint32_t v[PT_LIMBS];   // q3 p mod 2^256
-#pragma unroll
-  for (int k = 0; k < PT_LIMBS; k++) v[k] = 0;
-  cc_mac_row_lo<8>(v, q3[0], c.f.p);
-  cc_mac_row_lo<7>(v + 1, q3[1], c.f.p);
-  cc_mac_row_lo<6>(v + 2, q3[2], c.f.p);
-  cc_mac_row_lo<5>(v + 3, q3[3], c.f.p);
-  cc_mac_row_lo<4>(v + 4, q3[4], c.f.p);
-  cc_mac_row_lo<3>(v + 5, q3[5], c.f.p);
-  cc_mac_row_lo<2>(v + 6, q3[6], c.f.p);
-  cc_mac_row_lo<1>(v + 7, q3[7], c.f.p);
-  // r = x - q3 p mod 2^256, in [0, 2p)
-  r[0] = cc_sub(w[0], v[0]);
-#pragma unroll
-  for (int k = 1; k < PT_LIMBS - 1; k++) r[k] = cc_subc(w[k], v[k]);
-  r[PT_LIMBS - 1] = cc_subc_end(w[PT_LIMBS - 1], v[PT_LIMBS - 1]);
-  cc_csub(r, c.f);
+  cc_barrett_finish(r, w, u + 2, c.f);
 }
 
 // r = a b / 2^256 mod p for canonical a, b (CIOS Montgomery, unrolled, on
@@ -520,6 +408,143 @@ __device__ __forceinline__ void cc_mont_mul(uint32_t r[PT_LIMBS], const uint32_t
 #pragma unroll
   for (int k = 0; k < PT_LIMBS; k++) r[k] = t[PT_LIMBS + k];
   cc_csub(r, c);
+}
+
+// ---------------------------------------------------------------------------
+// Product sums (field_product_sum): S = sum_t x_t y_t + sum_s z_s over at
+// most PT_MAX_TERMS terms of canonical operands.  A negative product
+// -a b enters as a (p - b), a negative single -z as p - z (the same
+// residues; p - b <= p), so every term is a nonnegative integer below p^2
+// and S < 32 p^2 < 2^515.
+//
+// The terms go straight into a 16-limb accumulator acc[0..15] on carry
+// chains, with no 512-bit temporary: row i of a product adds the low
+// halves of x_i y into acc[i .. i+7] on one chain and the high halves into
+// acc[i+1 .. i+8] on a second; each chain's carry out (into limb i + 8 or
+// i + 9) is counted in cnt[i] or cnt[i + 1] (cnt[k]: carries into limb
+// 8 + k) instead of rippling through the limbs above.  A single adds into
+// acc[0..7], its carry into cnt[0].  A term adds at most 2 to a counter,
+// so cnt[k] <= 64, and acc + sum_k cnt[k] 2^(32 (8 + k)) is S exactly.
+// cc_acc_fold adds the counters in once, into 17 limbs (S < 2^544: no
+// carry leaves limb 16).
+//
+// Then ONE Barrett reduction (cc_sum_mod), cc_mul_mod's for 17 limbs:
+//   q1 = floor(S / 2^224)                  (10 limbs, S's limbs 7..16)
+//   q3 = floor(q1 mu / 2^320), mu = floor(2^544 / p)   (10 limbs)
+//   r  = (S - q3 p) mod 2^256
+// where q1 mu skips the limb products of columns 0..7 (their sum is below
+// 8 2^288 (1 + 2^-31) < 2^292, against the 2^320 that q3 divides by), and
+// only columns 8..20 are formed.  Every truncation rounds down, so
+// q3 <= floor(S / p).  Before q3's own floor, the truncated q1 mu / 2^320
+// falls short of S / p by less than
+//   S / 2^544 + 2^224 / p + 2^-28 < 2^-29 + 2^-2 + 2^-28 < 1
+// (for 2^226 < p < 2^255 and S < 2^515; for the Tweedle fields, p > 2^254,
+// below 2^-27), and the floor loses less than 1 more, so S / p - q3 < 2:
+// q3 is floor(S / p) or one less, r = S - q3 p < 2p < 2^256, and exactly
+// one conditional subtraction of p makes it canonical.  Only q3's low 8
+// limbs (columns 10..17) enter r.  The Python model of these steps, with
+// every bound asserted, is tests/test_torch_product_sum.py.
+// ---------------------------------------------------------------------------
+
+#define PT_MAX_TERMS 32
+#define PT_ACC_LIMBS 16    // acc[0..15]; the counters hold limbs 8..16
+#define PT_ACC_CARRIES 9
+
+// acc[I .. I+8] += x y[0..7], carries out counted (see above).
+template <int I>
+__device__ __forceinline__ void cc_acc_row(uint32_t acc[PT_ACC_LIMBS],
+                                           uint32_t cnt[PT_ACC_CARRIES], uint32_t x,
+                                           const uint32_t y[PT_LIMBS]) {
+  const uint32_t zero = 0;
+  acc[I] = cc_mad_lo(x, y[0], acc[I]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS; k++) acc[I + k] = cc_madc_lo(x, y[k], acc[I + k]);
+  cnt[I] = cc_addc_end(cnt[I], zero);
+  acc[I + 1] = cc_mad_hi(x, y[0], acc[I + 1]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS; k++) acc[I + 1 + k] = cc_madc_hi(x, y[k], acc[I + 1 + k]);
+  cnt[I + 1] = cc_addc_end(cnt[I + 1], zero);
+}
+
+// acc += x y for x, y below 2^256.
+__device__ __forceinline__ void cc_acc_product(uint32_t acc[PT_ACC_LIMBS],
+                                               uint32_t cnt[PT_ACC_CARRIES],
+                                               const uint32_t x[PT_LIMBS],
+                                               const uint32_t y[PT_LIMBS]) {
+  cc_acc_row<0>(acc, cnt, x[0], y);
+  cc_acc_row<1>(acc, cnt, x[1], y);
+  cc_acc_row<2>(acc, cnt, x[2], y);
+  cc_acc_row<3>(acc, cnt, x[3], y);
+  cc_acc_row<4>(acc, cnt, x[4], y);
+  cc_acc_row<5>(acc, cnt, x[5], y);
+  cc_acc_row<6>(acc, cnt, x[6], y);
+  cc_acc_row<7>(acc, cnt, x[7], y);
+}
+
+// acc += z for z below 2^256.
+__device__ __forceinline__ void cc_acc_single(uint32_t acc[PT_ACC_LIMBS],
+                                              uint32_t cnt[PT_ACC_CARRIES],
+                                              const uint32_t z[PT_LIMBS]) {
+  const uint32_t zero = 0;
+  acc[0] = cc_add(acc[0], z[0]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS; k++) acc[k] = cc_addc(acc[k], z[k]);
+  cnt[0] = cc_addc_end(cnt[0], zero);
+}
+
+// x = p - x for canonical x (in [1, p]: a negative term's operand).
+__device__ __forceinline__ void cc_negate(uint32_t x[PT_LIMBS], const FieldConsts& c) {
+  x[0] = cc_sub(c.p[0], x[0]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS - 1; k++) x[k] = cc_subc(c.p[k], x[k]);
+  x[PT_LIMBS - 1] = cc_subc_end(c.p[PT_LIMBS - 1], x[PT_LIMBS - 1]);
+}
+
+// s[0..16] = acc + the counted carries (the sum S, below 2^515).
+__device__ __forceinline__ void cc_acc_fold(uint32_t s[PT_ACC_LIMBS + 1],
+                                            const uint32_t acc[PT_ACC_LIMBS],
+                                            const uint32_t cnt[PT_ACC_CARRIES]) {
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS; k++) s[k] = acc[k];
+  s[PT_LIMBS] = cc_add(acc[PT_LIMBS], cnt[0]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS; k++) s[PT_LIMBS + k] = cc_addc(acc[PT_LIMBS + k], cnt[k]);
+  s[PT_ACC_LIMBS] = cc_addc_end(cnt[PT_LIMBS], 0u);
+}
+
+// s += t over 17 limbs (two partial sums whose total is below 2^544).
+__device__ __forceinline__ void cc_add17(uint32_t s[PT_ACC_LIMBS + 1],
+                                         const uint32_t t[PT_ACC_LIMBS + 1]) {
+  s[0] = cc_add(s[0], t[0]);
+#pragma unroll
+  for (int k = 1; k < PT_ACC_LIMBS; k++) s[k] = cc_addc(s[k], t[k]);
+  s[PT_ACC_LIMBS] = cc_addc_end(s[PT_ACC_LIMBS], t[PT_ACC_LIMBS]);
+}
+
+// r = s mod p for s[0..16] < 2^515: one Barrett reduction (see above).
+__device__ __forceinline__ void cc_sum_mod(uint32_t r[PT_LIMBS],
+                                           const uint32_t s[PT_ACC_LIMBS + 1],
+                                           const MulConsts& c) {
+  // q1 = s[7..16]; u[k] is column 8 + k of q1 mu.  Row i multiplies q1's
+  // limb i by mu's limbs from 8 - i up (columns 0..7 skipped); row 9 one
+  // limb up.  Each row's window holds the running sum (below
+  // 2^(32 (i + 1)) mu < 2^(32 (i + 11)), the window's top).
+  const uint32_t* mu = c.mu_sum;
+  uint32_t u[13];
+#pragma unroll
+  for (int k = 0; k < 13; k++) u[k] = 0;
+  cc_mac_row<2>(u, s[7], mu + 8);
+  cc_mac_row<3>(u, s[8], mu + 7);
+  cc_mac_row<4>(u, s[9], mu + 6);
+  cc_mac_row<5>(u, s[10], mu + 5);
+  cc_mac_row<6>(u, s[11], mu + 4);
+  cc_mac_row<7>(u, s[12], mu + 3);
+  cc_mac_row<8>(u, s[13], mu + 2);
+  cc_mac_row<9>(u, s[14], mu + 1);
+  cc_mac_row<10>(u, s[15], mu);
+  cc_mac_row<10>(u + 1, s[16], mu);
+  // q3's low limbs = columns 10..17 = u[2..9]
+  cc_barrett_finish(r, s, u + 2, c.f);
 }
 
 // r = k a for a small constant k >= 1 (double and add over k's bits; the

@@ -17,11 +17,14 @@
 // (field.cuh, cc_*), mul with ONE Barrett reduction per product (290
 // 32-bit multiplies in its machine code, where the product / REDC /
 // multiply by F / REDC it replaced took about twice that); every limb stays
-// in registers and limbs are read coalesced.  A product sum accumulates its
-// terms in 17 limbs and reduces once.
+// in registers and limbs are read coalesced.  A product sum adds its
+// products straight into a 17-limb accumulator on the same chains and
+// reduces once, by Barrett; one launch evaluates several sums over one
+// batch (the grid's y), and where the batch is too small to fill the card
+// a sum's terms are dealt out among 2 or 4 threads an element.
 #include "field.cuh"
 
-// add, sub and mul: one element a thread, 128 threads a block (at the main
+// 128 threads a block (add, sub and mul: one element a thread; at the main
 // path's N = 9 2^14 that spreads 1,152 blocks evenly over the SMs, where
 // 576 blocks of 256 left a tail; measured on the H100, PERF.md).
 #define K1_THREADS 128
@@ -49,35 +52,85 @@ __global__ void field_binary_kernel(int32_t* out, const int32_t* a, int a_bcast,
   fe_store(out, n, i, r);
 }
 
-struct ProductSumTerms {
-  const int32_t* a[PT_MAX_TERMS];
-  const int32_t* b[PT_MAX_TERMS];  // null: the term is sign * a
-  int32_t a_bcast[PT_MAX_TERMS];
-  int32_t b_bcast[PT_MAX_TERMS];
-  int32_t sign[PT_MAX_TERMS];
-  int32_t count;
+// The term table of one product-sum launch, passed by value in the
+// kernel's parameter space (no copy to the device): sum s has the terms
+// first[s] .. first[s + 1] - 1.  A term is a b, or a alone when b is null;
+// its flags mark an [8, 1] operand read with a zero batch stride and a
+// negative sign.  fields/ops.py defines the same limits and flags.
+#define PS_MAX_SUMS 16
+#define PS_MAX_ENTRIES 64
+#define PS_MAX_SPLITS 4
+#define PS_A_BCAST 1
+#define PS_B_BCAST 2
+#define PS_NEG 4
+
+struct PsTerm {
+  const int32_t* a;
+  const int32_t* b;
+  uint32_t flags;
 };
 
-__global__ void field_product_sum_kernel(int32_t* out, ProductSumTerms terms, int64_t n,
-                                         FieldConsts c) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t acc[PT_ACC];
-  acc_zero(acc);
-  for (int t = 0; t < terms.count; t++) {
-    uint32_t x[PT_LIMBS];
-    load_operand(x, terms.a[t], terms.a_bcast[t], n, i);
-    if (terms.b[t] == nullptr) {
-      acc_single(acc, x, terms.sign[t], c);
-    } else {
-      uint32_t y[PT_LIMBS];
-      load_operand(y, terms.b[t], terms.b_bcast[t], n, i);
-      acc_product(acc, x, y, terms.sign[t], c);
+struct PsTable {
+  PsTerm term[PS_MAX_ENTRIES];
+  int32_t first[PS_MAX_SUMS + 1];
+};
+
+// One element of one sum a thread (the grid's y is the sum), or, with
+// `splits` = 2 or 4, one element of one sum per `splits` threads: thread
+// group g takes the sum's terms g, g + splits, ..., and the groups' partial
+// sums meet in shared memory before the one reduction.  A warp lies in one
+// group, so the term loop and its branches are uniform across it.
+__global__ void __launch_bounds__(K1_THREADS)
+field_product_sum_kernel(int32_t* out, const __grid_constant__ PsTable tab, int64_t n,
+                         int splits, const __grid_constant__ MulConsts c) {
+  const int per_block = K1_THREADS / splits;
+  const int group = threadIdx.x / per_block;
+  const int64_t i = (int64_t)blockIdx.x * per_block + threadIdx.x % per_block;
+  const int sum = blockIdx.y;
+  uint32_t acc[PT_ACC_LIMBS], cnt[PT_ACC_CARRIES];
+#pragma unroll
+  for (int k = 0; k < PT_ACC_LIMBS; k++) acc[k] = 0;
+#pragma unroll
+  for (int k = 0; k < PT_ACC_CARRIES; k++) cnt[k] = 0;
+  if (i < n) {
+#pragma unroll 1
+    for (int t = tab.first[sum] + group; t < tab.first[sum + 1]; t += splits) {
+      const PsTerm term = tab.term[t];
+      const bool neg = term.flags & PS_NEG;
+      uint32_t x[PT_LIMBS];
+      load_operand(x, term.a, term.flags & PS_A_BCAST, n, i);
+      if (term.b == nullptr) {
+        if (neg) cc_negate(x, c.f);
+        cc_acc_single(acc, cnt, x);
+      } else {
+        uint32_t y[PT_LIMBS];
+        load_operand(y, term.b, term.flags & PS_B_BCAST, n, i);
+        if (neg) cc_negate(y, c.f);
+        cc_acc_product(acc, cnt, x, y);
+      }
     }
   }
+  uint32_t s[PT_ACC_LIMBS + 1];
+  cc_acc_fold(s, acc, cnt);
+  if (splits > 1) {
+    __shared__ uint32_t part[PT_ACC_LIMBS + 1][K1_THREADS];
+    if (group > 0) {
+#pragma unroll
+      for (int k = 0; k <= PT_ACC_LIMBS; k++) part[k][threadIdx.x] = s[k];
+    }
+    __syncthreads();
+    if (group > 0) return;
+    for (int g = 1; g < splits; g++) {
+      uint32_t t[PT_ACC_LIMBS + 1];
+#pragma unroll
+      for (int k = 0; k <= PT_ACC_LIMBS; k++) t[k] = part[k][threadIdx.x + g * per_block];
+      cc_add17(s, t);
+    }
+  }
+  if (i >= n) return;
   uint32_t r[PT_LIMBS];
-  fe_reduce_acc(r, acc, c);
-  fe_store(out, n, i, r);
+  cc_sum_mod(r, s, c);
+  fe_store(out + (int64_t)sum * PT_LIMBS * n, n, i, r);
 }
 
 template <int OP>
@@ -108,30 +161,36 @@ int pt_field_mul(void* out, const void* a, int a_bcast, const void* b, int b_bca
   return launch_binary<2>(out, a, a_bcast, b, b_bcast, n, consts, stream);
 }
 
-// a_ptrs / b_ptrs: host arrays of `count` device pointers (b may hold 0);
-// a_bcast / b_bcast / signs: host int32 arrays of `count` entries.
+// n_sums sums over one batch of n into out [n_sums, 8, n]; the host arrays
+// a_ptrs / b_ptrs (device pointers, b may hold 0) and flags (int32) hold
+// the terms of every sum in turn, first (int32, n_sums + 1 entries) where
+// each sum's terms start; splits (1, 2 or 4) threads share an element.
 int pt_field_product_sum(void* out, const void* a_ptrs, const void* b_ptrs,
-                         const void* a_bcast, const void* b_bcast, const void* signs,
-                         int count, int64_t n, const void* consts, void* stream) {
-  if (count < 1 || count > PT_MAX_TERMS) return (int)cudaErrorInvalidValue;
-  ProductSumTerms terms;
+                         const void* flags, const void* first, int n_sums,
+                         int splits, int64_t n, const void* consts, void* stream) {
+  const int32_t* fs = (const int32_t*)first;
+  if (n_sums < 1 || n_sums > PS_MAX_SUMS || fs[0] != 0 || fs[n_sums] > PS_MAX_ENTRIES ||
+      splits < 1 || splits > PS_MAX_SPLITS || (splits & (splits - 1)))
+    return (int)cudaErrorInvalidValue;
+  PsTable tab = {};
   const uint64_t* ap = (const uint64_t*)a_ptrs;
   const uint64_t* bp = (const uint64_t*)b_ptrs;
-  const int32_t* ab = (const int32_t*)a_bcast;
-  const int32_t* bb = (const int32_t*)b_bcast;
-  const int32_t* sg = (const int32_t*)signs;
-  for (int t = 0; t < PT_MAX_TERMS; t++) {
-    bool live = t < count;
-    terms.a[t] = live ? (const int32_t*)ap[t] : nullptr;
-    terms.b[t] = live ? (const int32_t*)bp[t] : nullptr;
-    terms.a_bcast[t] = live ? ab[t] : 0;
-    terms.b_bcast[t] = live ? bb[t] : 0;
-    terms.sign[t] = live ? sg[t] : 1;
+  const int32_t* fl = (const int32_t*)flags;
+  for (int s = 0; s < n_sums; s++) {
+    const int terms = fs[s + 1] - fs[s];
+    if (terms < 1 || terms > PT_MAX_TERMS) return (int)cudaErrorInvalidValue;
   }
-  terms.count = count;
-  FieldConsts c = field_consts_from((const uint32_t*)consts);
-  field_product_sum_kernel<<<pt_blocks(n), PT_THREADS, 0, (cudaStream_t)stream>>>(
-      (int32_t*)out, terms, n, c);
+  for (int t = 0; t < fs[n_sums]; t++) {
+    tab.term[t].a = (const int32_t*)ap[t];
+    tab.term[t].b = (const int32_t*)bp[t];
+    tab.term[t].flags = (uint32_t)fl[t];
+  }
+  for (int s = 0; s <= n_sums; s++) tab.first[s] = fs[s];
+  MulConsts c = mul_consts_from((const uint32_t*)consts);
+  const int64_t per_block = K1_THREADS / splits;
+  dim3 grid((unsigned int)((n + per_block - 1) / per_block), (unsigned int)n_sums);
+  field_product_sum_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
+      (int32_t*)out, tab, n, splits, c);
   return (int)cudaGetLastError();
 }
 

@@ -54,8 +54,8 @@ def from_affine(curve: CurveSpec, x: torch.Tensor, y: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _consts_host(curve: CurveSpec) -> np.ndarray:
     """The point kernels' constant buffer (csrc/curve.cuh:curve_set_consts):
-    the field constants, b3 = 3b mod p, and R^2 = 2^512 mod p, the factor
-    into Montgomery form."""
+    the field constants (FieldSpec.kernel_consts), b3 = 3b mod p, and
+    R^2 = 2^512 mod p, the factor into Montgomery form."""
     f = curve.base
     return np.concatenate([f.kernel_consts,
                            int_to_limbs(3 * curve.b % f.p),

@@ -6,11 +6,13 @@ spec.py).  Operands broadcast over the batch like torch tensors; an
 stride by the kernels.
 
 K1, the field kernel (csrc/field_kernels.cu), computes `add`, `sub`, `mul`
-and `product_sum` on CUDA tensors (`mul`: one Barrett reduction per
-product, on PTX carry chains).  Beside each sits its plain PyTorch
-version (`add_plain`, ...), which computes the same canonical result with
-16-bit digits in int64 so that every partial product stays exact: the CPU
-runs it, and the chip check compares the kernel with it.  A wrapper takes
+and `product_sum` / `product_sums` on CUDA tensors (`mul`: one Barrett
+reduction per product, on PTX carry chains; `product_sums`: several sums
+over one batch in one launch, each reduced once).  Beside each sits its
+plain PyTorch version (`add_plain`, ...), which computes the same
+canonical result with 16-bit digits in int64 so that every partial
+product stays exact: the CPU runs it, and the chip check compares the
+kernel with it.  A wrapper takes
 the plain version only for a CPU tensor; for a CUDA tensor it launches the
 kernel or raises.
 """
@@ -239,6 +241,11 @@ def product_sum_plain(spec: FieldSpec, terms) -> torch.Tensor:
     return _join16(_reduce_columns(spec, s)).reshape(LIMBS, *batch)
 
 
+def product_sums_plain(spec: FieldSpec, sums) -> list:
+    """product_sum_plain of each term list of `sums`."""
+    return [product_sum_plain(spec, terms) for terms in sums]
+
+
 def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return product_sum_plain(spec, [(a, b, 1)])
 
@@ -295,52 +302,115 @@ def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _launch_binary("field_mul", "pt_field_mul", spec, a, b)
 
 
-def _product_sum_launch(spec: FieldSpec, terms) -> torch.Tensor:
-    batch = batch_shape(*[a for a, _b, _s in terms],
-                        *[b for _a, b, _s in terms if b is not None])
-    dev = terms[0][0].device
-    out = torch.empty((LIMBS, *batch), dtype=torch.int32, device=dev)
-    n = out[0].numel()
+# The product-sum launch's limits and term flags (csrc/field_kernels.cu).
+PS_MAX_SUMS = 16          # sums of one launch
+PS_MAX_ENTRIES = 64       # terms of one launch, all its sums together
+PS_MAX_SPLITS = 4         # threads that share one element of a sum
+PS_A_BCAST, PS_B_BCAST, PS_NEG = 1, 2, 4
+# Threads a launch should have per SM before its sums' terms are dealt out
+# among several threads an element (16 warps).
+_FILL_PER_SM = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _fill_threads(device: torch.device) -> int:
+    return _FILL_PER_SM * torch.cuda.get_device_properties(
+        device).multi_processor_count
+
+
+def _sums_batch(sums):
+    """The batch of a list of term lists: every sum must have the same."""
+    batches = [batch_shape(*[x for a, b, _s in terms for x in (a, b)
+                             if x is not None]) for terms in sums]
+    if any(b != batches[0] for b in batches[1:]):
+        raise ValueError(f"product_sums: the sums' batches differ: {batches}")
+    return batches[0]
+
+
+def _splits(threads: int, most_terms: int, fill: int) -> int:
+    """Threads an element: 1, or 2 or 4 (no more than the most terms of a
+    sum) where the launch has fewer than `fill` threads and a sum has more
+    than 2 terms (chosen from sweeps on the H100, which showed a gain from
+    3 terms on and none at 2; PERF.md)."""
+    if most_terms <= 2:
+        return 1
+    k = 1
+    while k < PS_MAX_SPLITS and threads * k < fill and k < most_terms:
+        k *= 2
+    return k
+
+
+def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
+    """One launch of field_product_sum for up to PS_MAX_SUMS sums of at
+    most MAX_TERMS terms each (PS_MAX_ENTRIES in all) over `batch`."""
+    dev = sums[0][0][0].device
+    out = torch.empty((len(sums), LIMBS, *batch), dtype=torch.int32, device=dev)
+    n = out[0, 0].numel()
     if n == 0:
-        return out
-    keep, a_ptrs, b_ptrs, a_bc, b_bc, signs = [], [], [], [], [], []
-    for a, b, sign in terms:
-        ta, fa = _operand(a, batch)
-        _cuda.check("field_product_sum", ta, LIMBS)
-        keep.append(ta)
-        a_ptrs.append(ta.data_ptr())
-        a_bc.append(fa)
-        if b is None:
-            b_ptrs.append(0)
-            b_bc.append(0)
-        else:
-            tb, fb = _operand(b, batch)
-            _cuda.check("field_product_sum", tb, LIMBS)
-            keep.append(tb)
-            b_ptrs.append(tb.data_ptr())
-            b_bc.append(fb)
-        signs.append(1 if sign >= 0 else -1)
+        return list(out)
+    keep, a_ptrs, b_ptrs, flags, first = [], [], [], [], [0]
+    for terms in sums:
+        for a, b, sign in terms:
+            ta, fa = _operand(a, batch)
+            _cuda.check("field_product_sum", ta, LIMBS)
+            keep.append(ta)
+            a_ptrs.append(ta.data_ptr())
+            flag = (PS_A_BCAST if fa else 0) | (PS_NEG if sign < 0 else 0)
+            if b is None:
+                b_ptrs.append(0)
+            else:
+                tb, fb = _operand(b, batch)
+                _cuda.check("field_product_sum", tb, LIMBS)
+                keep.append(tb)
+                b_ptrs.append(tb.data_ptr())
+                flag |= PS_B_BCAST if fb else 0
+            flags.append(flag)
+        first.append(len(a_ptrs))
+    if splits is None:
+        splits = _splits(n * len(sums), max(len(t) for t in sums),
+                         _fill_threads(dev))
     bufs = [_cuda.host_array(a_ptrs, np.uint64),
             _cuda.host_array(b_ptrs, np.uint64),
-            _cuda.host_array(a_bc, np.int32), _cuda.host_array(b_bc, np.int32),
-            _cuda.host_array(signs, np.int32)]
+            _cuda.host_array(flags, np.int32), _cuda.host_array(first, np.int32)]
     _cuda.launch("field_product_sum", "pt_field_product_sum", out.data_ptr(),
-                 *[buf.ctypes.data for buf in bufs], len(terms), n,
-                 spec.kernel_consts.ctypes.data, _cuda.stream())
+                 *[buf.ctypes.data for buf in bufs], len(sums), splits, n,
+                 spec.mul_consts.ctypes.data, _cuda.stream())
+    return list(out)
+
+
+def product_sums(spec: FieldSpec, sums) -> list:
+    """[sum_i sign_i a_i b_i mod p for each term list of `sums`] over one
+    batch (b None: the term is sign_i a_i): as many sums as fit in one
+    launch (PS_MAX_SUMS sums, PS_MAX_ENTRIES terms), each reduced once per
+    MAX_TERMS terms.  sums: list of lists of (a, b, sign)."""
+    sums = [list(terms) for terms in sums]
+    batch = _sums_batch(sums)
+    if not _dispatch(sums[0][0][0]):
+        return product_sums_plain(spec, sums)
+    chunks = [(k, terms[i:i + MAX_TERMS]) for k, terms in enumerate(sums)
+              for i in range(0, len(terms), MAX_TERMS)]
+    out = [None] * len(sums)
+    group = []
+
+    def flush():
+        parts = _product_sums_launch(spec, [c for _k, c in group], batch)
+        for (k, _c), part in zip(group, parts):
+            out[k] = part if out[k] is None else add(spec, out[k], part)
+        group.clear()
+
+    for chunk in chunks:
+        if group and (len(group) == PS_MAX_SUMS or sum(
+                len(c) for _k, c in group) + len(chunk[1]) > PS_MAX_ENTRIES):
+            flush()
+        group.append(chunk)
+    flush()
     return out
 
 
 def product_sum(spec: FieldSpec, terms) -> torch.Tensor:
     """sum_i sign_i a_i b_i  (b None: the term is sign_i a_i), mod p, with
     one reduction per MAX_TERMS terms.  terms: list of (a, b, sign)."""
-    terms = list(terms)
-    if not _dispatch(terms[0][0]):
-        return product_sum_plain(spec, terms)
-    out = None
-    for i in range(0, len(terms), MAX_TERMS):
-        part = _product_sum_launch(spec, terms[i:i + MAX_TERMS])
-        out = part if out is None else add(spec, out, part)
-    return out
+    return product_sums(spec, [terms])[0]
 
 
 # ---------------------------------------------------------------------------

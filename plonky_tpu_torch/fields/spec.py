@@ -9,11 +9,10 @@ plain PyTorch versions split them into 16-bit halves held in int64 so that
 every partial product and column sum stays exact.
 
 A single product (K1's field_mul) is a 512-bit schoolbook product and one
-Barrett reduction by ``mu = floor(2^512 / p)``; a product sum reduces its
-17-limb accumulator by Montgomery's REDC over 9 limbs (R' = 2^288) and one
-Montgomery multiply by ``2^(288+256) mod p``, which cancels both scalings.
-Either way the result is canonical, with no Montgomery form visible
-outside a kernel.
+Barrett reduction by ``mu = floor(2^512 / p)``; a product sum (of at most
+MAX_TERMS terms, below 2^515) reduces its 17-limb accumulator once, by
+Barrett with ``floor(2^544 / p)``.  Either way the result is canonical,
+with no Montgomery form visible outside a kernel.
 """
 
 from __future__ import annotations
@@ -25,10 +24,9 @@ import numpy as np
 
 LIMBS = 8                 # 32-bit limbs per element (fields below 2^255)
 LIMB_BITS = 32
-REDC_LIMBS = 9            # the wide reduction divides by 2^(32 * 9)
-ACC_LIMBS = 17            # accumulator of a product sum: 544 bits
-MAX_TERMS = 32            # terms of one product-sum launch (bound: < 2^516)
+MAX_TERMS = 32            # terms of one reduced product sum (< 32 p^2 < 2^515)
 MU_LIMBS = 9              # limbs of the Barrett factor floor(2^512 / p)
+MU_SUM_LIMBS = 10         # limbs of the product sum's floor(2^544 / p)
 
 
 def int_to_limbs(v: int, n: int = LIMBS) -> np.ndarray:
@@ -73,25 +71,24 @@ class FieldSpec:
     # Kernel constants
     # ------------------------------------------------------------------
     @functools.cached_property
-    def final_factor(self) -> int:
-        """2^(32*(REDC_LIMBS + LIMBS)) mod p: one Montgomery multiply by it
-        turns the REDC output S * 2^-288 back into S mod p."""
-        return pow(2, LIMB_BITS * (REDC_LIMBS + LIMBS), self.p)
-
-    @functools.cached_property
     def p_inv_neg(self) -> int:
         """-p^-1 mod 2^32, the REDC multiplier."""
         return (-pow(self.p, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
 
     @functools.cached_property
     def kernel_consts(self) -> np.ndarray:
-        """The constant buffer the CUDA kernels take by value:
-        [p (8 limbs), final_factor (8 limbs), -p^-1 mod 2^32] as uint32."""
+        """The constant buffer the CUDA kernels take by value
+        (csrc/field.cuh:field_consts_from): [p (8 limbs), -p^-1 mod 2^32]
+        as uint32."""
         assert self.bits <= LIMB_BITS * LIMBS - 1, (
             f"{self.name}: {self.bits}-bit fields need more than {LIMBS} limbs")
         return np.concatenate([
-            int_to_limbs(self.p), int_to_limbs(self.final_factor),
-            np.array([self.p_inv_neg], dtype=np.uint32)])
+            int_to_limbs(self.p), np.array([self.p_inv_neg], dtype=np.uint32)])
+
+    def _check_barrett_range(self) -> None:
+        assert (1 << 226) < self.p < (1 << 255), (
+            f"{self.name}: the one-subtraction Barrett bound needs "
+            "2^226 < p < 2^255")
 
     @functools.cached_property
     def barrett_mu(self) -> int:
@@ -100,17 +97,25 @@ class FieldSpec:
         q1 mu / 2^288 fall short of x / p by less than 1 before its floor,
         so that the quotient is floor(x / p) or one less (x / p - q3 < 2)
         and one conditional subtraction suffices."""
-        assert (1 << 226) < self.p < (1 << 255), (
-            f"{self.name}: the one-subtraction Barrett bound needs "
-            "2^226 < p < 2^255")
+        self._check_barrett_range()
         return (1 << (2 * LIMB_BITS * LIMBS)) // self.p
+
+    @functools.cached_property
+    def sum_mu(self) -> int:
+        """floor(2^544 / p), the Barrett factor of a product sum
+        (csrc/field.cuh, cc_sum_mod): for sums below 2^515 and p in
+        barrett_mu's range the quotient is floor(S / p) or one less."""
+        self._check_barrett_range()
+        return (1 << (LIMB_BITS * (2 * LIMBS + 1))) // self.p
 
     @functools.cached_property
     def mul_consts(self) -> np.ndarray:
         """The constant buffer of K1 (csrc/field.cuh:mul_consts_from):
-        kernel_consts, then the Barrett factor (MU_LIMBS limbs)."""
+        kernel_consts, then the Barrett factors of a product (MU_LIMBS
+        limbs) and of a product sum (MU_SUM_LIMBS limbs)."""
         return np.concatenate([self.kernel_consts,
-                               int_to_limbs(self.barrett_mu, MU_LIMBS)])
+                               int_to_limbs(self.barrett_mu, MU_LIMBS),
+                               int_to_limbs(self.sum_mu, MU_SUM_LIMBS)])
 
     def __hash__(self):
         return hash((self.name, self.p))

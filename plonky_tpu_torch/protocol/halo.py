@@ -66,10 +66,9 @@ def _ipa_fold(sf, w, a, b, u_col, u_inv_col, bit, mask_lo, half):
     """a' = u_inv a_hi + u a_lo ; b' = u_inv b_lo + u b_hi (live < half);
     w_k *= u if bit_{j-1}(k) else u_inv."""
     zero = torch.zeros_like(w)
-    a_new = fops.product_sum(sf, [(u_inv_col, torch.roll(a, -half, dims=-1), 1),
-                                  (u_col, a, 1)])
-    b_new = fops.product_sum(sf, [(u_inv_col, b, 1),
-                                  (u_col, torch.roll(b, -half, dims=-1), 1)])
+    a_new, b_new = fops.product_sums(sf, [
+        [(u_inv_col, torch.roll(a, -half, dims=-1), 1), (u_col, a, 1)],
+        [(u_inv_col, b, 1), (u_col, torch.roll(b, -half, dims=-1), 1)]])
     factor = fops.select(bit, u_col, u_inv_col)
     return (fops.mul(sf, w, factor), fops.select(mask_lo, a_new, zero),
             fops.select(mask_lo, b_new, zero))

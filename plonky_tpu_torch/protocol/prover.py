@@ -198,6 +198,23 @@ def prefix_product(spec, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _permutation_parts(sf, wires, subgroup, sigma, beta, beta_col, gamma_col):
+    """The permutation argument's per-wire factors, in one product-sum
+    launch: f_j = k_j beta x + w_j + gamma and g_j = beta sigma_j + w_j +
+    gamma over the routed wires j (reference: plonk_util.rs:242-261).
+    Each strided wire slice is made contiguous once, for both sums."""
+    w = [wires[:, j].contiguous() for j in range(NUM_ROUTED_WIRES)]
+    sums = []
+    for j in range(NUM_ROUTED_WIRES):
+        kb = _col(sf, get_subgroup_shift(sf, j) * beta, wires.device)
+        sums.append([(kb, subgroup, 1), (w[j], None, 1), (gamma_col, None, 1)])
+    for j in range(NUM_ROUTED_WIRES):
+        sums.append([(beta_col, sigma[:, j], 1), (w[j], None, 1),
+                     (gamma_col, None, 1)])
+    parts = fops.product_sums(sf, sums)
+    return parts[:NUM_ROUTED_WIRES], parts[NUM_ROUTED_WIRES:]
+
+
 def _permutation_polynomial(circuit: Circuit, wires: torch.Tensor,
                             beta: int, gamma: int) -> torch.Tensor:
     """Z running product (the reference's sequential loop,
@@ -206,14 +223,10 @@ def _permutation_polynomial(circuit: Circuit, wires: torch.Tensor,
     sf, dev = circuit.spec, circuit.device
     subgroup, sigma_d = _circuit_perm_consts(circuit)
     beta_col, gamma_col = _col(sf, beta, dev), _col(sf, gamma, dev)
+    f_terms, g_terms = _permutation_parts(
+        sf, wires, subgroup, sigma_d, beta, beta_col, gamma_col)
     num = den = None
-    for j in range(NUM_ROUTED_WIRES):
-        w = wires[:, j]
-        kb = _col(sf, get_subgroup_shift(sf, j) * beta, dev)
-        f_term = fops.product_sum(sf, [(kb, subgroup, 1), (w, None, 1),
-                                       (gamma_col, None, 1)])
-        g_term = fops.product_sum(sf, [(beta_col, sigma_d[:, j], 1),
-                                       (w, None, 1), (gamma_col, None, 1)])
+    for f_term, g_term in zip(f_terms, g_terms):
         num = f_term if num is None else fops.mul(sf, num, f_term)
         den = g_term if den is None else fops.mul(sf, den, g_term)
     ratio = fops.mul(sf, num, fops.inverse(sf, den))
@@ -281,13 +294,9 @@ def _vanishing_poly(circuit: Circuit, wires8: torch.Tensor,
     # permutation f'/g' terms
     beta_col, gamma_col = _col(sf, beta, dev), _col(sf, gamma, dev)
     f_prime = g_prime = None
-    for j in range(NUM_ROUTED_WIRES):
-        w = wires8[:, j]
-        kb = _col(sf, get_subgroup_shift(sf, j) * beta, dev)
-        f_part = fops.product_sum(sf, [(kb, sub8, 1), (w, None, 1),
-                                       (gamma_col, None, 1)])
-        g_part = fops.product_sum(sf, [(beta_col, sigma8[:, j], 1),
-                                       (w, None, 1), (gamma_col, None, 1)])
+    f_parts, g_parts = _permutation_parts(
+        sf, wires8, sub8, sigma8, beta, beta_col, gamma_col)
+    for f_part, g_part in zip(f_parts, g_parts):
         f_prime = f_part if f_prime is None else alg.mul(f_prime, f_part)
         g_prime = g_part if g_prime is None else alg.mul(g_prime, g_part)
     v_shift = fops.product_sum(sf, [(f_prime, z8, 1), (g_prime, z8_right, -1)])

@@ -15,7 +15,9 @@ breakdown needs renewing.  It prints JSON lines:
              each kernel and of everything else, and the share of the wall
              clock the card was busy;
   k1_shapes  one steady prove with K1's elementwise launches counted by
-             batch size N (field_add, field_sub, field_mul);
+             batch size N (field_add, field_sub, field_mul), and its
+             field_product_sum launches by N, sums, products, singles,
+             full-column operands and negative terms;
   host       one steady prove under cProfile: the functions with the most
              own time (cProfile slows Python code: read the shares).
 """
@@ -31,7 +33,9 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import KERNELS, Checker, buffer_circuit, card, emit, rand_field
+from chip_smoke import (KERNELS, PS_KEYS, Checker, buffer_circuit, card,
+                        counting_product_sums, emit, product_sum_inputs,
+                        product_sum_shapes, rand_field)
 
 
 def _device_us(evt) -> float:
@@ -109,9 +113,20 @@ def phase_timing(ck: Checker, torch, np) -> None:
     x17 = rand_field(np, torch, rng, (9, 1 << 17), dev)
     x14 = rand_field(np, torch, rng, (1, 1 << 14), dev)
     c1 = rand_field(np, torch, rng, (1,), dev)
+    shapes = {label: (scale, named) for label, _site, scale, _l, named
+              in product_sum_shapes()}
+    sums = [product_sum_inputs(
+        shapes[label][1],
+        lambda _name, n=shapes[label][0] << 14: rand_field(np, torch, rng, (n,), dev),
+        lambda _name: rand_field(np, torch, rng, (1,), dev))[0]
+        for label in ("#5 halo_a", "#8 alpha_fold")]
     cases = [
         ("field_mul", [8, n1], lambda: fops.mul(sf, a, b)),
         ("field_mul", [8, 1], lambda: fops.mul(sf, c1, c1)),
+        ("field_product_sum", [8, 1 << 14, "#5 halo_a"],
+         lambda: fops.product_sum(sf, sums[0])),
+        ("field_product_sum", [8, 1 << 17, "#8 alpha_fold"],
+         lambda: fops.product_sum(sf, sums[1])),
         ("ntt_pass", [8, 9, 1 << 17, "fft"], lambda: pfft.fft(pre17, x17)),
         ("ntt_pass", [8, 1, 1 << 14, "coset_ifft"],
          lambda: pfft.coset_ifft(pre14, x14, sf.generator)),
@@ -185,8 +200,8 @@ def phase_profile(torch) -> None:
 
 
 def phase_k1_shapes(torch) -> None:
-    """Counts K1's elementwise launches of one steady prove by kernel and
-    batch size N."""
+    """Counts K1's launches of one steady prove: the elementwise ones by
+    kernel and batch size N, the product sums by their shape."""
     from plonky_tpu_torch.fields import ops as fops
     from plonky_tpu_torch.protocol import generate_proof
 
@@ -203,14 +218,18 @@ def phase_k1_shapes(torch) -> None:
         return out
     fops._launch_binary = counted
     try:
-        generate_proof(circuit, witness, old_proofs=[], blinding=True)
-        torch.cuda.synchronize()
+        with counting_product_sums(fops) as sum_counts:
+            generate_proof(circuit, witness, old_proofs=[], blinding=True)
+            torch.cuda.synchronize()
     finally:
         fops._launch_binary = launch
     by_kernel = {}
     for (name, n), c in sorted(counts.items()):
         by_kernel.setdefault(name, []).append([n, c])
-    emit({"phase": "k1_shapes", "launches_by_n": by_kernel})
+    emit({"phase": "k1_shapes", "launches_by_n": by_kernel,
+          "product_sum_launches": sum(sum_counts.values()),
+          "product_sum_by_shape": [{**dict(zip(PS_KEYS, k)), "launches": c}
+                                   for k, c in sorted(sum_counts.items())]})
 
 
 def main() -> int:

@@ -17,7 +17,7 @@ except ImportError:
     given = None
 
 from plonky_tpu_torch.fields import TWEEDLEDEE_BASE, TWEEDLEDUM_BASE
-from plonky_tpu_torch.fields.spec import LIMBS, MU_LIMBS
+from plonky_tpu_torch.fields.spec import LIMBS, MU_LIMBS, MU_SUM_LIMBS
 
 SPECS = [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE]
 B32 = 1 << 32
@@ -163,8 +163,13 @@ if given is not None:
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
 def test_mul_consts_layout(spec):
-    """mul_consts = kernel_consts (what the point kernels read) + mu."""
+    """mul_consts = kernel_consts (what the point kernels read: p and
+    -p^-1 mod 2^32) + mu + the product sum's floor(2^544 / p)."""
     c = spec.mul_consts
-    assert c.dtype == np.uint32 and c.shape == (2 * LIMBS + 1 + MU_LIMBS,)
-    assert np.array_equal(c[:2 * LIMBS + 1], spec.kernel_consts)
-    assert _value(c[2 * LIMBS + 1:]) == (1 << 512) // spec.p
+    words = LIMBS + 1
+    assert c.dtype == np.uint32 and c.shape == (words + MU_LIMBS + MU_SUM_LIMBS,)
+    assert np.array_equal(c[:words], spec.kernel_consts)
+    assert _value(c[:LIMBS]) == spec.p
+    assert (int(c[LIMBS]) * spec.p) % B32 == B32 - 1
+    assert _value(c[words:words + MU_LIMBS]) == (1 << 512) // spec.p
+    assert _value(c[words + MU_LIMBS:]) == (1 << 544) // spec.p

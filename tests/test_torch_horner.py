@@ -100,13 +100,12 @@ def test_consts_buffer_holds_r_squared(name):
     curve = CURVES[name][0]
     p = curve.base.p
     buf = [int(v) for v in cops._consts_host(curve)]
-    assert len(buf) == 4 * LIMBS + 1
+    assert len(buf) == 3 * LIMBS + 1
 
     def value(at):
         return sum(v << (32 * i) for i, v in enumerate(buf[at:at + LIMBS]))
 
     assert value(0) == p
-    assert value(LIMBS) == pow(2, 544, p)
-    assert buf[2 * LIMBS] == (-pow(p, -1, 1 << 32)) % (1 << 32)
-    assert value(2 * LIMBS + 1) == 3 * curve.b % p
-    assert value(3 * LIMBS + 1) == pow(2, 512, p)
+    assert buf[LIMBS] == (-pow(p, -1, 1 << 32)) % (1 << 32)
+    assert value(LIMBS + 1) == 3 * curve.b % p
+    assert value(2 * LIMBS + 1) == pow(2, 512, p)
