@@ -4,12 +4,18 @@
 Builds the CUDA kernels from plonky_tpu_torch/csrc, holds every kernel
 against its plain PyTorch version on the card at the main path's shapes
 (exact equality: all of it is integer arithmetic; the NTT at every
-transform shape of the prove and the fixtures), reproduces the committed
-fixture proofs byte for byte, then builds, proves (twice) and verifies the
-2^14-gate BufferGate circuit with the random source pinned, checks the
-steady proof's sha256, and shows that the steady prove launched every
-kernel of the main path (curve_add and curve_double, checked here, are off
-it: the MSM's Horner runs in curve_horner).
+transform shape of the prove and the fixtures), drives the batch Rescue
+permutation's path (K5 against its plain version on a ragged batch of both
+Tweedle base fields at 128 and 64 security bits, one launch for 2^14
+permutations held against the host permutation at sampled lanes, timed at
+2^14 and 2^16 and held there against the plain version on every lane),
+reproduces the three committed fixture proofs byte for byte, proves and
+verifies the gadget circuits and the 2^10 BufferGate circuit, each at the
+JAX package's sha256, then builds, proves (twice) and verifies the 2^14-gate BufferGate
+circuit with the random source pinned, checks the steady proof's sha256,
+and shows that the steady prove launched every kernel of the main path
+(curve_add and curve_double, checked here, are off it: the MSM's Horner
+runs in curve_horner; rescue_permutation has its own path).
 
     python3 chip_smoke.py
 
@@ -37,6 +43,25 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 # representation or order of adds.
 PROOF_2E14_SHA256 = ("7eddf299bab9296d33bb070c11a7d95a"
                      "a1af70768d056f2083063145c2a799e2")
+# The JAX package's sha256 of proofs on the CPU, which the card's must equal
+# (tests/test_torch_ladder.py and tests/test_torch_gadgets.py assert them
+# there): the 2^10 BufferGate proof under a fresh pinned_random() for its
+# build and one prove (phase_ladder), and each gadget circuit's proof
+# (gadget_circuits) under a fresh gadget_random() (phase_gadgets).
+PROOF_2E10_SHA256 = ("cc27a990e8184516d14e8afb4345d269"
+                     "6e3b5831cba7813b9f9755be5e904df7")
+GADGET_PROOF_SHA256 = {
+    "rescue": ("cd0dab38016dd9235dfa82f1f59f170a"
+               "ec35ed6c854250f2a3982e908db4c63f"),
+    "curve_add": ("71ab67481a8561050e9b7842d51d6837"
+                  "024160e20c818c589d4aca6f206d56de"),
+    "curve_double": ("0b3dbd47793ea809728bca3d010e4b7a"
+                     "b40faf5f9cabad58ef45150d904ed44a"),
+    "base4sum": ("9e5b3413a0d2ad30ad36d89131c690f1"
+                 "5690931a07abe1a7ed852dd67c503819"),
+    "curve_msm": ("cfbac3c6463bcd7f42d28d8b9f2f9107"
+                  "c46a9b920029f1b2452d6c486a6662e9"),
+}
 
 # name -> (source, the TPU kernel it replaces, its CUDA function's name)
 _CSRC = "plonky_tpu_torch/csrc/"
@@ -64,10 +89,14 @@ KERNELS = {
     "msm_bucket_reduce": (_CSRC + "msm_kernels.cu",
                           "plonky_tpu/curves/msm.py:376",
                           "msm_bucket_reduce_kernel"),
+    "rescue_permutation": (_CSRC + "rescue_kernels.cu",
+                           "plonky_tpu/hashing/rescue.py:162",
+                           "rescue_permutation_kernel"),
 }
-# Checked against their plain versions, but off the main path: the MSM's
-# Horner runs in curve_horner.
-OFF_PATH = ("curve_add", "curve_double")
+# Checked against their plain versions, but off the prove's path: the MSM's
+# Horner runs in curve_horner, and the batch Rescue permutation has its own
+# path (phase_rescue).
+OFF_PATH = ("curve_add", "curve_double", "rescue_permutation")
 
 # The operations bound counts the multiplies a function needs at least, in
 # 32-bit IMAD issue slots (64 per SM per clock): a 32 x 32 -> 64-bit
@@ -83,6 +112,13 @@ MUL_OPS = PRODUCT_OPS + REDC_OPS                # 264
 SQR_OPS = 36 * WIDE + REDC_OPS                  # 208
 ADD_OPS = 12 * MUL_OPS          # RCB15 Alg. 7 (a = 0): 12 M + 2 by b3
 DBL_OPS = 6 * MUL_OPS + 2 * SQR_OPS             # Alg. 9: 6 M + 2 S + 1 by b3
+# A batch of n Rescue permutations of width 4 (rescue_work): per round, each
+# element's inverse S-box x^e (e = kth_root_exponent(p, 5), 254 bits) and
+# forward S-box x^5, each counted by the shortest of the sliding-window
+# chains of 1 to 8 bits (window_pow: for e, 5-bit windows, 250 squares and
+# 56 multiplies on TweedledeeBase, 55 on TweedledumBase; for 5, 2 squares
+# and 1 multiply), and the two MDS mixes (4 products and one reduction an
+# output element); 4 elements read and written per permutation.
 # A whole NTT of B rows of n = 2^lg: B (n / 2) (lg - 1) twiddle products
 # (layer 0's twiddles are all 1), plus B n scale products where the
 # transform scales (coset input, inverse output); it reads the data, the
@@ -270,6 +306,54 @@ def horner_work(ws, c):
     k, n_windows = ws[0].shape[1], ws[0].shape[2]
     return (3 * 32 * k * (n_windows + 1),
             k * (n_windows - 1) * (c * DBL_OPS + ADD_OPS))
+
+
+def window_pow(x: int, e: int, w: int, p: int):
+    """x^e mod p by a left-to-right sliding window of up to w bits:
+    (x^e mod p, squares, multiplies).  The table x^1, x^3, ...,
+    x^(2^w - 1) costs one square (x^2) and 2^(w-1) - 1 multiplies; the
+    first window is read from it, and every later bit costs a square and
+    every later window a multiply."""
+    bits = bin(e)[2:]
+    table = {1: x % p}
+    squares = mults = 0
+    if w > 1:
+        x2 = x * x % p
+        squares += 1
+        for k in range(3, 1 << w, 2):
+            table[k] = table[k - 2] * x2 % p
+            mults += 1
+    acc, i = None, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            acc, squares, i = acc * acc % p, squares + 1, i + 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        if acc is None:
+            acc = table[int(bits[i:j], 2)]
+        else:
+            for _ in range(j - i):
+                acc = acc * acc % p
+            acc = acc * table[int(bits[i:j], 2)] % p
+            squares, mults = squares + j - i, mults + 1
+        i = j
+    return acc, squares, mults
+
+
+def rescue_work(spec, security_bits: int, n: int):
+    """Bytes and IMAD slots of K5's bounds for n permutations (top of
+    file)."""
+    from plonky_tpu_torch.fields.host import kth_root_exponent
+    from plonky_tpu_torch.hashing.rescue import recommended_rounds
+
+    def sbox(e):
+        return min(sq * SQR_OPS + m * MUL_OPS for _x, sq, m in
+                   (window_pow(2, e, w, spec.p) for w in range(1, 9)))
+    per_round = (4 * (sbox(kth_root_exponent(spec, spec.alpha)) + sbox(spec.alpha))
+                 + 2 * 4 * (4 * PRODUCT_OPS + REDC_OPS))
+    return 2 * 4 * 32 * n, n * recommended_rounds(4, security_bits) * per_round
 
 
 def ntt_cases():
@@ -738,20 +822,134 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
               DBL_OPS * 2, by_shape=dbl_by)
 
 
+def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
+    """K5 against its plain version on a ragged batch of 2^10 + 3 for both
+    Tweedle base fields at 128 and 64 security bits; the batch entry
+    point's path (rescue_permutation on 2^14 states, the JAX package's bench
+    size) driven with the launch counts reset, which must show one K5
+    launch and nothing else, and held against the host permutation at 8
+    lanes (the states 0 and p - 1 among them); then timed at 2^14 and 2^16
+    beside its bound, and each whole batch (the path's output at 2^14)
+    held against the plain version's output from its timing.  Returns the
+    path's K5 launches."""
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.fields import TWEEDLEDEE_BASE, TWEEDLEDUM_BASE
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.hashing import rescue as hr
+
+    rng = np.random.default_rng(1337)
+
+    def states(spec, n):
+        return [with_edges(fops, spec, rand_field(np, torch, rng, (n,), dev))
+                for _ in range(4)]
+
+    for spec in (TWEEDLEDEE_BASE, TWEEDLEDUM_BASE):
+        for bits in (128, 64):
+            state = states(spec, (1 << 10) + 3)
+            ck.compare("rescue_permutation",
+                       tuple(hr.rescue_permutation(spec, state, bits)),
+                       tuple(hr.rescue_permutation_plain(spec, state, bits)))
+    spec, bits, n = TWEEDLEDEE_BASE, 128, 1 << 14
+    state = states(spec, n)
+    lanes = [0, 1, 2, 3, n // 3, n // 2, n - 2, n - 1]
+    for t in state:
+        t[:, 0] = 0                                  # the zero state
+        t[:, 1] = fops.column(spec, spec.p - 1, dev)[:, 0]
+    _cuda.reset_launches()
+    out = hr.rescue_permutation(spec, state, bits)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    if {k: v for k, v in launches.items() if v} != {"rescue_permutation": 1}:
+        raise AssertionError(f"the Rescue batch launched {launches}, expected "
+                             "one rescue_permutation")
+    got = [fops.to_ints(spec, o[:, lanes]) for o in out]
+    ins = [fops.to_ints(spec, t[:, lanes]) for t in state]
+    for j, lane in enumerate(lanes):
+        want = hr.rescue_permutation_host(spec, [int(x[j]) for x in ins], bits)
+        if [int(g[j]) for g in got] != want:
+            raise AssertionError(f"rescue_permutation differs from the host "
+                                 f"permutation at lane {lane}")
+    by_n = []
+    for n_t in (n, 1 << 16):
+        st = state if n_t == n else states(spec, n_t)
+        if n_t == n:
+            k5_out = out                             # the path's launch
+        else:
+            before = _cuda.LAUNCHES["rescue_permutation"]
+            k5_out = hr.rescue_permutation(spec, st, bits)
+            if _cuda.LAUNCHES["rescue_permutation"] != before + 1:
+                raise AssertionError("one rescue_permutation launch a call "
+                                     "expected")
+        nb, nops = rescue_work(spec, bits, n_t)
+        plain = {}
+
+        def plain_fn(st=st, plain=plain):
+            plain["out"] = hr.rescue_permutation_plain(spec, st, bits)
+        m = ck.measure(lambda st=st: hr.rescue_permutation(spec, st, bits),
+                       plain_fn, nb, nops, reps=10, plain_reps=1)
+        # the whole batch against the plain output that was just timed
+        ck.compare("rescue_permutation", tuple(k5_out), tuple(plain["out"]))
+        by_n.append({"N": n_t, "security_bits": bits, "field": spec.name,
+                     "perms_per_s": n_t / (m["ms"] * 1e-3), **m})
+    emit({"phase": "rescue", "nvidia_smi": name_power, "path_launches": launches,
+          "host_lanes": lanes, "perms_per_s": {
+              str(b["N"]): b["perms_per_s"] for b in by_n}})
+    ck.record("rescue_permutation", {
+        "main": "2^14, TweedledeeBase, 128 bits", "lanes_vs_host": lanes,
+        "checked": ["N = 2^10 + 3 x {TweedledeeBase, TweedledumBase} x "
+                    "{128, 64} bits", "N = 2^14 and 2^16, TweedledeeBase, "
+                    "128 bits, every lane"]},
+        by_shape=by_n, measured=by_n[0])
+    return launches["rescue_permutation"]
+
+
 def pinned_random():
     import numpy as np
     rng = np.random.default_rng(1337)
     return lambda p: int.from_bytes(rng.bytes(40), "little") % p
 
 
-def phase_fixtures() -> None:
+def pinned_proof(build, source, device=None) -> dict:
+    """With RANDOM_SOURCE (builder and halo) set to `source` throughout:
+    build() -> (circuit, witness inputs), the witness and one prove; the
+    proof verified with the G check on `device` (the card by default).
+    Returns the circuit, public inputs, proof, its bytes and sha256, and
+    the seconds taken."""
+    import hashlib
+
     import plonky_tpu_torch.circuit.builder as builder_mod
     import plonky_tpu_torch.protocol.halo as halo_mod
-    from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
     from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
     from plonky_tpu_torch.protocol import generate_proof, verify_proof
-    from plonky_tpu_torch.protocol.serialization import (proof_to_bytes,
-                                                         vk_to_bytes)
+    from plonky_tpu_torch.protocol.serialization import proof_to_bytes
+
+    saved = (builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE)
+    builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = source
+    try:
+        t0 = time.perf_counter()
+        circuit, inputs = build()
+        witness = circuit.generate_witness(inputs)
+        proof = generate_proof(circuit, witness, old_proofs=[], blinding=True)
+        prove_s = time.perf_counter() - t0
+    finally:
+        builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
+    pis = circuit.get_public_inputs(witness)
+    t0 = time.perf_counter()
+    verify_proof(pis, proof, [], circuit.to_vk(), TWEEDLEDUM, verify_g=True,
+                 device=device)
+    data = proof_to_bytes(TWEEDLEDEE, proof)
+    return {"circuit": circuit, "pis": pis, "proof": proof, "bytes": data,
+            "sha256": hashlib.sha256(data).hexdigest(), "build_prove_s": prove_s,
+            "verify_s": time.perf_counter() - t0}
+
+
+def phase_fixtures() -> None:
+    """The three committed fixtures (tests/test_proof_fixture.py) proved on
+    the card under a fresh pinned_random(): proof and vk byte-equal to the
+    files, and verified with the G check."""
+    from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    from plonky_tpu_torch.protocol.serialization import vk_to_bytes
 
     def trivial():
         b = CircuitBuilder(TWEEDLEDEE, security_bits=128)
@@ -771,48 +969,166 @@ def phase_fixtures() -> None:
         w.set_target(out, 42)
         return b, w
 
-    saved = (builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE)
+    def curve_add():
+        return gadget_circuits(port_modules())["curve_add"]()[:2]
+
     result = {"phase": "fixtures"}
-    try:
-        for name, make in (("trivial", trivial), ("sum_pi", sum_pi)):
-            source = pinned_random()
-            builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = source
-            t0 = time.perf_counter()
+    for name, make in (("trivial", trivial), ("sum_pi", sum_pi),
+                       ("curve_add", curve_add)):
+        def build(make=make):
             builder, inputs = make()
-            circuit = builder.build()
-            witness = circuit.generate_witness(inputs)
-            proof = generate_proof(circuit, witness, old_proofs=[],
-                                   blinding=True)
-            prove_s = time.perf_counter() - t0
-            with open(os.path.join(FIXTURES, f"proof_{name}.hex")) as f:
-                want_proof = f.read().strip()
-            with open(os.path.join(FIXTURES, f"vk_{name}.hex")) as f:
-                want_vk = f.read().strip()
-            if proof_to_bytes(TWEEDLEDEE, proof).hex() != want_proof:
-                raise AssertionError(f"{name}: proof bytes differ from the fixture")
-            if vk_to_bytes(circuit.to_vk()).hex() != want_vk:
-                raise AssertionError(f"{name}: vk bytes differ from the fixture")
-            t0 = time.perf_counter()
-            verify_proof(circuit.get_public_inputs(witness), proof, [],
-                         circuit.to_vk(), TWEEDLEDUM, verify_g=True)
-            result[name] = {"bytes_equal": True, "verified": True,
-                            "build_prove_s": prove_s,
-                            "verify_s": time.perf_counter() - t0}
-    finally:
-        builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
+            return builder.build(), inputs
+        got = pinned_proof(build, pinned_random())
+        with open(os.path.join(FIXTURES, f"proof_{name}.hex")) as f:
+            want_proof = f.read().strip()
+        with open(os.path.join(FIXTURES, f"vk_{name}.hex")) as f:
+            want_vk = f.read().strip()
+        if got["bytes"].hex() != want_proof:
+            raise AssertionError(f"{name}: proof bytes differ from the fixture")
+        if vk_to_bytes(got["circuit"].to_vk()).hex() != want_vk:
+            raise AssertionError(f"{name}: vk bytes differ from the fixture")
+        result[name] = {"bytes_equal": True, "verified": True,
+                        "build_prove_s": got["build_prove_s"],
+                        "verify_s": got["verify_s"]}
     emit(result)
 
 
-def buffer_circuit(lg: int):
+def phase_gadgets() -> None:
+    """The circuits of tests/test_prove_verify_gadgets.py (gadget_circuits)
+    proved on the card under a fresh gadget_random() each and verified with
+    the G check; their public inputs must be the host's values, and each
+    proof must hash to the JAX package's GADGET_PROOF_SHA256."""
+    result = {"phase": "gadgets"}
+    for name, make in gadget_circuits(port_modules()).items():
+        want = []
+
+        def build(make=make, want=want):
+            builder, inputs, expected = make()
+            want.extend(expected)
+            return builder.build(), inputs
+        got = pinned_proof(build, gadget_random())
+        if got["pis"] != want:
+            raise AssertionError(f"{name}: public inputs {got['pis']}, "
+                                 f"expected {want}")
+        if got["sha256"] != GADGET_PROOF_SHA256[name]:
+            raise AssertionError(f"{name}: proof sha256 {got['sha256']}, the "
+                                 f"JAX package's is {GADGET_PROOF_SHA256[name]}")
+        result[name] = {"degree": got["circuit"].degree(), "verified": True,
+                        "sha256": got["sha256"],
+                        "build_prove_s": got["build_prove_s"],
+                        "verify_s": got["verify_s"]}
+    emit(result)
+
+
+def phase_ladder(lg: int = 10) -> None:
+    """The 2^lg BufferGate circuit built and proved once on the card under a
+    fresh pinned_random(), verified with the G check; its proof must hash
+    to the JAX package's PROOF_2E10_SHA256."""
+    got = pinned_proof(lambda: buffer_circuit(lg), pinned_random())
+    emit({"phase": f"ladder_2e{lg}", "sha256": got["sha256"], "verified": True,
+          "degree": got["circuit"].degree(),
+          "build_prove_s": got["build_prove_s"], "verify_s": got["verify_s"]})
+    if got["sha256"] != PROOF_2E10_SHA256:
+        raise AssertionError(f"the 2^{lg} proof's sha256 is {got['sha256']}, the "
+                             f"JAX package's is {PROOF_2E10_SHA256}")
+
+
+def port_modules():
+    """The port's modules that gadget_circuits builds with."""
+    import types
+
+    from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
+    from plonky_tpu_torch.circuit.gadgets import curve as gadgets
+    from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
+    from plonky_tpu_torch.curves import host as chost
+    from plonky_tpu_torch.hashing import rescue_hash_n_to_1_host
+    return types.SimpleNamespace(
+        CircuitBuilder=CircuitBuilder, PartialWitness=PartialWitness,
+        gadgets=gadgets, TWEEDLEDEE=TWEEDLEDEE, TWEEDLEDUM=TWEEDLEDUM,
+        chost=chost, rescue_hash_n_to_1_host=rescue_hash_n_to_1_host)
+
+
+def gadget_circuits(m) -> dict:
+    """name -> make(), each make() returning (builder, witness inputs, the
+    expected public inputs) of the circuits of
+    tests/test_prove_verify_gadgets.py on Tweedledee, built with the modules
+    of the namespace m (port_modules(), or the same names from another
+    package); "curve_add" is also the circuit of the curve_add fixture
+    (tests/test_proof_fixture.py)."""
+    g = m.chost.generator(m.TWEEDLEDUM)
+
+    def builder():
+        return m.CircuitBuilder(m.TWEEDLEDEE, security_bits=128)
+
+    def export(b, point):
+        pix, piy = b.add_public_input(), b.add_public_input()
+        b.copy(point.x, pix)
+        b.copy(point.y, piy)
+
+    def rescue():
+        ins = [12345, 67890]
+        b = builder()
+        out = b.rescue_hash_n_to_1([b.constant_wire(v) for v in ins])
+        b.copy(out, b.add_public_input())
+        return b, m.PartialWitness(), [m.rescue_hash_n_to_1_host(
+            m.TWEEDLEDEE.scalar, ins, 128)]
+
+    def curve_add():
+        p1, p2 = m.chost.mul(g, 7), m.chost.mul(g, 11)
+        b = builder()
+        export(b, m.gadgets.curve_add(b, m.gadgets.constant_affine_point(b, p1),
+                                      m.gadgets.constant_affine_point(b, p2)))
+        want = m.chost.add(p1, p2)
+        return b, m.PartialWitness(), [want.x, want.y]
+
+    def curve_double():
+        p1 = m.chost.mul(g, 5)
+        b = builder()
+        export(b, m.gadgets.curve_double(b, m.gadgets.constant_affine_point(b, p1)))
+        want = m.chost.add(p1, p1)
+        return b, m.PartialWitness(), [want.x, want.y]
+
+    def base4sum():
+        b = builder()
+        x = b.add_virtual_target()
+        b.assert_dibit_length(x, 8)   # x < 4^8
+        b.copy(x, b.add_public_input())
+        w = m.PartialWitness()
+        w.set_target(x, 54321)
+        return b, w, [54321]
+
+    def curve_msm():
+        p1, p2 = m.chost.mul(g, 3), m.chost.mul(g, 19)
+        s1, s2 = 123456789, 987654321
+        b = builder()
+        ops = [m.gadgets.CurveMulOp(b.constant_wire(s), m.gadgets.constant_affine_point(b, pt))
+               for s, pt in ((s1, p1), (s2, p2))]
+        export(b, m.gadgets.curve_msm(b, m.TWEEDLEDUM, ops))
+        want = m.chost.add(m.chost.mul(p1, s1), m.chost.mul(p2, s2))
+        return b, m.PartialWitness(), [want.x, want.y]
+
+    return {"rescue": rescue, "curve_add": curve_add, "curve_double": curve_double,
+            "base4sum": base4sum, "curve_msm": curve_msm}
+
+
+def gadget_random():
+    """The random source tests/test_prove_verify_gadgets.py pins, fresh."""
+    import numpy as np
+    rng = np.random.default_rng(271828)
+    return lambda p: int.from_bytes(rng.bytes(40), "little") % p
+
+
+def buffer_circuit(lg: int, device=None):
     """The reference workload: a 2^lg-gate BufferGate circuit on Tweedledee
-    (as bench.py builds it) and its witness."""
+    (as bench.py builds it), built on `device` (the card by default), and
+    its witness's inputs."""
     from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
     from plonky_tpu_torch.circuit.gates import BufferGate
     from plonky_tpu_torch.curves import TWEEDLEDEE
     builder = CircuitBuilder(TWEEDLEDEE, security_bits=128)
     while builder.num_gates() < (1 << lg) - 3:
         builder.add_gate_no_constants(BufferGate(builder.num_gates()))
-    return builder.build(), PartialWitness()
+    return builder.build(device=device), PartialWitness()
 
 
 def phase_prove(torch, lg: int = 14, want_sha256=None,
@@ -968,8 +1284,12 @@ def main() -> int:
 
     ck = Checker(torch, clock_hz, int_rate)
     phase_kernels(ck, torch, np, dev)
+    rescue_launches = phase_rescue(ck, torch, np, dev, name_power)
     phase_fixtures()
+    phase_gadgets()
+    phase_ladder()
     launches, ps_by_label = phase_prove(torch, want_sha256=PROOF_2E14_SHA256)
+    launches["rescue_permutation"] = rescue_launches
     for name, rec in ck.records.items():
         rec["launches"] = launches[name]
     for row in ck.records["field_product_sum"]["by_shape"]:

@@ -24,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("field_kernels.cu", "curve_kernels.cu", "ntt_kernels.cu",
-           "msm_kernels.cu")
+           "msm_kernels.cu", "rescue_kernels.cu")
 HEADERS = ("field.cuh", "curve.cuh")
 LIB_NAME = "libplonky_kernels.so"
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -33,7 +33,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 LAUNCHES = {name: 0 for name in (
     "field_add", "field_sub", "field_mul", "field_product_sum",
     "curve_add", "curve_double", "curve_horner", "ntt_pass",
-    "msm_bucket_accumulate", "msm_bucket_reduce")}
+    "msm_bucket_accumulate", "msm_bucket_reduce", "rescue_permutation")}
 
 # Seconds the last build took (None: the library was up to date).
 BUILD_SECONDS = [None]
@@ -61,6 +61,7 @@ _SIGNATURES = {
                                  _I64, _I64, _I64, _I64, _I64, _P, _P],
     "pt_msm_bucket_reduce": [_P, _P, _P, _P, _P, _P,
                              _I64, _I64, _I64, _I64, _I64, _P, _P],
+    "pt_rescue_permutation": [_P, _P, _I64, _P, _I32, _P],
 }
 
 

@@ -8,6 +8,11 @@ def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def pad_to_multiple(n: int, m: int) -> int:
+    """Round n up to a multiple of m (reference: src/util.rs pad_to_multiple_usize)."""
+    return ceil_div(n, m) * m
+
+
 def log2_ceil(n: int) -> int:
     """Smallest k with 2^k >= n (reference: src/util.rs log2_ceil)."""
     assert n > 0

@@ -1,8 +1,9 @@
 """The port's prover and verifier on the CPU: with the randomness pinned as
-tests/test_proof_fixture.py pins it, the port's `trivial` and `sum_pi`
-proofs and vks are byte-equal to the committed fixtures; the port's verifier
-accepts them (with the G check) and rejects a changed opening; and the JAX
-package's verifier accepts the port's proof."""
+tests/test_proof_fixture.py pins it, the port's `trivial`, `sum_pi` and
+`curve_add` proofs and vks are byte-equal to the committed fixtures; the
+port's verifier accepts them (with the G check) and rejects a changed
+opening; and the JAX package's verifier accepts the port's proof (with the
+G check)."""
 
 import os
 
@@ -16,6 +17,7 @@ from plonky_tpu.protocol import verify_proof as jax_verify_proof
 from plonky_tpu.protocol.serialization import proof_from_bytes as jax_proof_from_bytes
 from plonky_tpu.protocol.serialization import vk_from_bytes as jax_vk_from_bytes
 from plonky_tpu.curves import TWEEDLEDEE as J_DEE, TWEEDLEDUM as J_DUM
+from chip_smoke import gadget_circuits, port_modules
 from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
 from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
 from plonky_tpu_torch.protocol import (VerificationError, generate_proof,
@@ -29,7 +31,7 @@ from plonky_tpu_torch.protocol.serialization import (proof_from_bytes,
 torch.set_num_threads(1)
 
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures")
-NAMES = ["trivial", "sum_pi"]
+NAMES = ["trivial", "sum_pi", "curve_add"]
 
 
 def _trivial():
@@ -52,6 +54,13 @@ def _sum_pi():
     return b, w
 
 
+def _curve_add():
+    """The in-circuit add of 7 G and 11 G on Tweedledum, exported as public
+    inputs (tests/test_proof_fixture.py:_curve_add_gadget_proof)."""
+    builder, inputs, _want = gadget_circuits(port_modules())["curve_add"]()
+    return builder, inputs
+
+
 @pytest.fixture(scope="module")
 def proofs():
     """{name: (proof bytes, vk bytes, vk, public inputs)}, each proved with
@@ -59,7 +68,7 @@ def proofs():
     saved = (builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE)
     out = {}
     try:
-        for name, make in zip(NAMES, (_trivial, _sum_pi)):
+        for name, make in zip(NAMES, (_trivial, _sum_pi, _curve_add)):
             rng = np.random.default_rng(1337)
             source = lambda p, rng=rng: int.from_bytes(rng.bytes(40), "little") % p
             builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = source
@@ -123,4 +132,4 @@ def test_jax_verifier_accepts_port_proof(proofs, name):
     proof = jax_proof_from_bytes(J_DEE, proof_bytes)
     vk = jax_vk_from_bytes(J_DEE, vk_bytes)
     assert jax_verify_proof(pis, proof, [], vk, J_DUM,
-                            verify_g=False) is not None
+                            verify_g=True) is None
