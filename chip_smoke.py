@@ -9,13 +9,18 @@ permutation's path (K5 against its plain version on a ragged batch of both
 Tweedle base fields at 128 and 64 security bits, one launch for 2^14
 permutations held against the host permutation at sampled lanes, timed at
 2^14 and 2^16 and held there against the plain version on every lane),
-reproduces the three committed fixture proofs byte for byte, proves and
-verifies the gadget circuits and the 2^10 BufferGate circuit, each at the
-JAX package's sha256, then builds, proves (twice) and verifies the 2^14-gate BufferGate
-circuit with the random source pinned, checks the steady proof's sha256,
-and shows that the steady prove launched every kernel of the main path
-(curve_add and curve_double, checked here, are off it: the MSM's Horner
-runs in curve_horner; rescue_permutation has its own path).
+drives BLS12-377 G1 (phase_bls12_377: the 12-limb builds of K1, K2 and K4
+held against their plain versions at ragged shapes, the JAX package's
+microbench sizes timed, the path driven once with the launch counts reset,
+and `msm_chunked` at 2^16 to 2^22 points timed and held against a
+discrete-log oracle), reproduces the three committed fixture proofs byte
+for byte, proves and verifies the gadget circuits and the 2^10 BufferGate
+circuit, each at the JAX package's sha256, then builds, proves (twice) and
+verifies the 2^14-gate BufferGate circuit with the random source pinned,
+checks the steady proof's sha256, and shows that the steady prove launched
+every kernel of the main path (curve_add and curve_double, checked here,
+are off it: the MSM's Horner runs in curve_horner; rescue_permutation and
+the 12-limb kernels have their own paths).
 
     python3 chip_smoke.py
 
@@ -93,25 +98,61 @@ KERNELS = {
                            "plonky_tpu/hashing/rescue.py:162",
                            "rescue_permutation_kernel"),
 }
+# The 12-limb builds of K1, K2 and K4 (BLS12-377's base field; the same
+# sources built with -DPT_LIMBS=12, kernels in namespace pt_l12), which
+# replace the same TPU kernels instantiated at BLS12_377_BASE.
+WIDE_KERNELS = ("field_add", "field_sub", "field_mul", "curve_add",
+                "curve_double", "curve_horner", "msm_bucket_accumulate",
+                "msm_bucket_reduce")
+KERNELS.update({f"{k}_l12": (KERNELS[k][0], KERNELS[k][1],
+                             "pt_l12::" + KERNELS[k][2]) for k in WIDE_KERNELS})
 # Checked against their plain versions, but off the prove's path: the MSM's
-# Horner runs in curve_horner, and the batch Rescue permutation has its own
-# path (phase_rescue).
-OFF_PATH = ("curve_add", "curve_double", "rescue_permutation")
+# Horner runs in curve_horner, the batch Rescue permutation has its own
+# path (phase_rescue), and so do the 12-limb kernels (phase_bls12_377).
+OFF_PATH = ("curve_add", "curve_double", "rescue_permutation",
+            *(f"{k}_l12" for k in WIDE_KERNELS))
 
 # The operations bound counts the multiplies a function needs at least, in
 # 32-bit IMAD issue slots (64 per SM per clock): a 32 x 32 -> 64-bit
-# product is two of them (its low and its high half).  An 8-limb product is
-# 64 wide products; a square 36 (8 squares, 28 doubled cross products); one
-# Montgomery reduction is 8 rounds of a low-half quotient digit and 8 wide
-# products.  Additions, and multiplies by the small constants 3 and
-# b3 = 3b (15 or 21), are not counted: the bound is a floor.
+# product is two of them (its low and its high half).  An L-limb product is
+# L^2 wide products (64 at 8 limbs, 144 at 12); a square L (L + 1) / 2 (L
+# squares, the doubled cross products); one Montgomery reduction is L
+# rounds of a low-half quotient digit and L wide products.  Additions, and
+# multiplies by the small constants 3 and b3 = 3b (3, 15 or 21), are not
+# counted: the bound is a floor.
 WIDE = 2
-REDC_OPS = 8 * (1 + 8 * WIDE)                   # 136
-PRODUCT_OPS = 64 * WIDE                         # 128
-MUL_OPS = PRODUCT_OPS + REDC_OPS                # 264
-SQR_OPS = 36 * WIDE + REDC_OPS                  # 208
-ADD_OPS = 12 * MUL_OPS          # RCB15 Alg. 7 (a = 0): 12 M + 2 by b3
-DBL_OPS = 6 * MUL_OPS + 2 * SQR_OPS             # Alg. 9: 6 M + 2 S + 1 by b3
+
+
+def product_ops(nl: int) -> int:
+    return nl * nl * WIDE                       # 128 at 8 limbs, 288 at 12
+
+
+def redc_ops(nl: int) -> int:
+    return nl * (1 + nl * WIDE)                 # 136 at 8 limbs, 300 at 12
+
+
+def mul_ops(nl: int) -> int:
+    return product_ops(nl) + redc_ops(nl)       # 264 at 8 limbs, 588 at 12
+
+
+def sqr_ops(nl: int) -> int:
+    return nl * (nl + 1) // 2 * WIDE + redc_ops(nl)   # 208, 456
+
+
+def add_ops(nl: int) -> int:
+    return 12 * mul_ops(nl)     # RCB15 Alg. 7 (a = 0): 12 M + 2 by b3
+
+
+def dbl_ops(nl: int) -> int:
+    return 6 * mul_ops(nl) + 2 * sqr_ops(nl)    # Alg. 9: 6 M + 2 S + 1 by b3
+
+
+REDC_OPS = redc_ops(8)
+PRODUCT_OPS = product_ops(8)
+MUL_OPS = mul_ops(8)
+SQR_OPS = sqr_ops(8)
+ADD_OPS = add_ops(8)
+DBL_OPS = dbl_ops(8)
 # A batch of n Rescue permutations of width 4 (rescue_work): per round, each
 # element's inverse S-box x^e (e = kth_root_exponent(p, 5), 254 bits) and
 # forward S-box x^5, each counted by the shortest of the sliding-window
@@ -240,6 +281,7 @@ class Checker:
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": None,
                "max_abs_err": self.errors[name], **timing,
+               "share": timing["bound_ms"] / timing["ms"],
                "library_ms": None, "checked": True, "shapes": shapes}
         if by_shape is not None:
             rec["by_shape"] = by_shape
@@ -247,16 +289,20 @@ class Checker:
         emit({"phase": f"kernel:{name}", **rec})
 
 
-def rand_field(np, torch, rng, shape, device):
-    """Canonical random elements (< 2^254 < p) with 0, 1, p-1, p-2 first."""
-    limbs = rng.integers(0, 1 << 32, size=(8,) + tuple(shape),
+def rand_field(np, torch, rng, shape, device, spec=None):
+    """Canonical random elements below 2^(bits - 1) < p (2^254 for the
+    Tweedle fields, the default) as [L, *shape]."""
+    nl, bits = (8, 255) if spec is None else (spec.limbs, spec.bits)
+    limbs = rng.integers(0, 1 << 32, size=(nl,) + tuple(shape),
                          dtype=np.uint64).astype(np.uint32)
-    limbs[7] &= 0x3FFFFFFF
+    top = bits - 1 - 32 * (nl - 1)
+    limbs[nl - 1] &= (1 << top) - 1
     return torch.from_numpy(limbs.view(np.int32).copy()).to(device)
 
 
 def with_edges(fops, spec, x):
-    flat = x.reshape(8, -1)
+    """x with 0, 1, p-1, p-2 as its first elements."""
+    flat = x.reshape(x.shape[0], -1)
     edges = fops.from_ints(spec, [0, 1, spec.p - 1, spec.p - 2], x.device)
     k = min(4, flat.shape[1])
     flat[:, :k] = edges[:, :k]
@@ -300,12 +346,12 @@ def horner_cases(torch, window_sums):
     return cases
 
 
-def horner_work(ws, c):
+def horner_work(ws, c, nl: int = 8):
     """Bytes and IMAD slots of curve_horner's bounds: the window sums read
     once, one point an MSM written; (W - 1) (c doublings + 1 add) an MSM."""
     k, n_windows = ws[0].shape[1], ws[0].shape[2]
-    return (3 * 32 * k * (n_windows + 1),
-            k * (n_windows - 1) * (c * DBL_OPS + ADD_OPS))
+    return (3 * 4 * nl * k * (n_windows + 1),
+            k * (n_windows - 1) * (c * dbl_ops(nl) + add_ops(nl)))
 
 
 def window_pow(x: int, e: int, w: int, p: int):
@@ -522,38 +568,46 @@ def k4_cases(np, torch, rng, dev):
     return cases
 
 
-def k4_inputs(torch, cmsm, sf, basis, scal, c):
-    """msm's steps 1-2 (curves/msm.py) for scalars [8, K, N] over the first
-    N points of `basis`: (sub-basis, sorted digits, order, run starts, the
-    unsorted digit rows)."""
-    from plonky_tpu_torch.curves import TWEEDLEDEE
+def k4_rows(torch, cmsm, sf, scal, c):
+    """msm's steps 1-2 (curves/msm.py) for scalars [8, K, N]: (sorted
+    digits, order, run starts, the unsorted digit rows)."""
     k, n = scal.shape[1], scal.shape[2]
-    sub = cmsm.precompute_base(TWEEDLEDEE, (basis.x[:, :n], basis.y[:, :n],
-                                            basis.z[:, :n]))
     digits = cmsm.scalar_window_digits(sf, scal, c)
     w = digits.shape[0]
     rows = digits.reshape(w, k, n).transpose(0, 1).reshape(k * w, n)
     sorted_digits, order = torch.sort(rows, dim=-1, stable=True)
     starts = cmsm._run_starts(sorted_digits, 1 << c)
-    return (sub, sorted_digits.to(torch.int32).contiguous(),
+    return (sorted_digits.to(torch.int32).contiguous(),
             order.to(torch.int32).contiguous(), starts, rows)
 
 
-def k4_work(rows, starts, acc):
-    """Bytes and IMAD slots of K4's bounds for this run's digits.
-    Accumulation: the basis, the sorted digits, the order and the run
-    starts read once, the buckets and carries written once; one add per
-    point beyond the first of each non-empty bucket.  Reduction: the
-    buckets, carries and run starts read once, one point per row written;
-    two adds per non-empty bucket (its running sum and its weighted sum)."""
+def k4_inputs(torch, cmsm, sf, basis, scal, c):
+    """k4_rows over the first N points of `basis`, with that sub-basis
+    first."""
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    n = scal.shape[2]
+    sub = cmsm.precompute_base(TWEEDLEDEE, (basis.x[:, :n], basis.y[:, :n],
+                                            basis.z[:, :n]))
+    return (sub, *k4_rows(torch, cmsm, sf, scal, c))
+
+
+def k4_work(rows, starts, acc, nl: int = 8):
+    """Bytes and IMAD slots of K4's bounds for this run's digits (L = nl
+    limbs a coordinate).  Accumulation: the basis, the sorted digits, the
+    order and the run starts read once, the buckets and carries written
+    once; one add per point beyond the first of each non-empty bucket.
+    Reduction: the buckets, carries and run starts read once, one point per
+    row written; two adds per non-empty bucket (its running sum and its
+    weighted sum)."""
     r, n = rows.shape
+    point = 12 * nl                          # bytes of X, Y, Z
     live = int((rows != 0).sum().item())
     nonempty = int(((starts[:, 2:] - starts[:, 1:-1]) > 0).sum().item())
     out_bytes = 4 * sum(t.numel() for t in acc)
-    acc_bytes = 96 * n + 8 * r * n + 4 * starts.numel() + out_bytes
-    red_bytes = out_bytes + 4 * starts.numel() + 96 * r
-    return (acc_bytes, ADD_OPS * (live - nonempty), red_bytes,
-            ADD_OPS * 2 * nonempty)
+    acc_bytes = point * n + 8 * r * n + 4 * starts.numel() + out_bytes
+    red_bytes = out_bytes + 4 * starts.numel() + point * r
+    return (acc_bytes, add_ops(nl) * (live - nonempty), red_bytes,
+            add_ops(nl) * 2 * nonempty)
 
 
 def check_product_sums(ck: Checker, torch, np, dev, fops, sf) -> None:
@@ -901,6 +955,315 @@ def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
                     "128 bits, every lane"]},
         by_shape=by_n, measured=by_n[0])
     return launches["rescue_permutation"]
+
+
+# BLS12-377 G1 (phase_bls12_377): msm_chunked at 2^16 .. 2^22 points in
+# slices of 2^16 (bench.py:phase_bls_msm's chunk_log and window), over a
+# basis tiled from a host doubling chain of 2^12 points.
+BLS_LADDER = (16, 18, 20, 22)
+BLS_CHUNK_LOG = 16
+BLS_WINDOW = 8
+BLS_CHAIN = 1 << 12
+
+
+def bls_scalars(np, torch, rng, spec, n, dev):
+    """n canonical scalars of `spec` (8 limbs) as [8, n] on the card: random
+    limbs with the top limb below p's (so every value is below p), then 0,
+    1 and p - 1 first; and the same limbs as a numpy array."""
+    limbs = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    limbs[7] %= spec.p >> 224
+    for i, v in enumerate((0, 1, spec.p - 1)):
+        limbs[:, i] = [(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+    limbs = limbs.astype(np.uint32)
+    return torch.from_numpy(limbs.view(np.int32)).to(dev), limbs
+
+
+def bls_oracle(np, r, limbs, a: int) -> int:
+    """e with sum_i s_i P_i = e G for P_i = 2^(i mod 2^12) (a G): e = a
+    sum_i s_i 2^(i mod 2^12) mod r, from the scalars' limbs [8, n] (n a
+    multiple of 2^12; the residue classes summed in numpy, each below
+    2^42)."""
+    n = limbs.shape[1]
+    sums = limbs.astype(np.uint64).reshape(8, n // BLS_CHAIN, BLS_CHAIN).sum(1)
+    e = 0
+    for j in range(BLS_CHAIN):
+        e += sum(int(sums[k, j]) << (32 * k) for k in range(8)) << j
+    return a * e % r
+
+
+def kernel_device_ms(prof) -> tuple:
+    """Device ms per kernel of KERNELS in a profiler trace (the longest
+    matching symbol wins, so a pt_l12:: kernel is not read as its 8-limb
+    twin), and the other device ms."""
+    ours, other = {}, 0.0
+    symbols = sorted(KERNELS.items(), key=lambda kv: -len(kv[1][2]))
+    for evt in prof.key_averages():
+        us = next((float(getattr(evt, a)) for a in
+                   ("device_time_total", "cuda_time_total")
+                   if getattr(evt, a, None)), 0.0)
+        name = next((k for k, (_s, _r, sym) in symbols if sym in evt.key), None)
+        if name is None:
+            other += us / 1e3
+        else:
+            ours[name] = ours.get(name, 0.0) + us / 1e3
+    return ours, other
+
+
+def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
+    """BLS12-377 G1 on the 12-limb builds of K1, K2 and K4.  Each 12-limb
+    kernel held against its plain version, exactly: K1 at N = 2^12 + 3 with
+    the edge values, a broadcast operand either side and a square; K2's
+    add and double at [12, 2^10 + 3] with the identity, P + P and
+    P + (-P); K4 at N = 2^12 + 5, K = 1 and 3, c = 8 and 5 (51 windows,
+    the last of 3 bits); curve_horner on those window sums (W = 32 and
+    51); the 8-limb field_mul on the scalar field at N = 2^12 + 3; and the
+    product sum, the NTT and Rescue must raise for the 12-limb field.  Timed
+    at the JAX package's microbench sizes (bin/microbench.py: field ops at
+    2^16 on both fields, G1 add and double at 2^14, the 150-point
+    summation) and K4 and the Horner at one slice of the ladder (N = 2^16,
+    K = 1, c = 8).  Then the path once, with the launch counts reset (K1 at
+    2^16, K2 at 2^14, the summation, msm_chunked at 2^16 and its affine
+    value): every 12-limb kernel launched, no other kernel.  Then the
+    ladder: msm_chunked at 2^16 .. 2^22 points (slices of 2^16, c = 8), a
+    warm call and three timed ones (median, ended by a synchronize), each
+    result held against ((a sum_i s_i 2^(i mod 2^12)) mod r) G on the host
+    for the basis P_i = 2^(i mod 2^12) (a G), and one call profiled for
+    its per-kernel device ms and launches.  Returns the path's launches
+    of the 12-limb kernels."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.curves import BLS12_377 as C
+    from plonky_tpu_torch.curves import host as chost
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.curves import ops as cops
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.protocol.circuit import points_to_device
+
+    bf, sf = C.base, C.scalar
+    nl = bf.limbs
+    rng = np.random.default_rng(377)
+    out = {"phase": "bls12_377", "nvidia_smi": name_power, "limbs": nl}
+    g = chost.generator(C)
+    a = int(rng.integers(2, 1 << 62))
+    chain = [chost.mul(g, a)]
+    for _ in range(BLS_CHAIN - 1):
+        chain.append(chost.add(chain[-1], chain[-1]))
+    chain_dev = points_to_device(C, chain, dev)        # [12, 2^12], Z = 1
+
+    def affine_is(res, want, what):
+        x, y, zero = cops.to_affine(C, res)
+        got = (bool(zero.reshape(-1)[0].item()),
+               int(fops.to_ints(bf, x.reshape(nl, -1)[:, 0])),
+               int(fops.to_ints(bf, y.reshape(nl, -1)[:, 0])))
+        if got != (want.zero, want.x, want.y):
+            raise AssertionError(f"{what}: the result is not the oracle's point")
+
+    def field_pair(spec, n):
+        return (with_edges(fops, spec, rand_field(np, torch, rng, (n,), dev, spec)),
+                rand_field(np, torch, rng, (n,), dev, spec))
+
+    ops = (("field_add", fops.add, fops.add_plain),
+           ("field_sub", fops.sub, fops.sub_plain),
+           ("field_mul", fops.mul, fops.mul_plain))
+    # K1, both fields, against the plain versions at a ragged N
+    n1 = (1 << 12) + 3
+    x, y = field_pair(bf, n1)
+    col = rand_field(np, torch, rng, (1,), dev, bf)
+    for name, fn, plain in ops:
+        for u, v in ((x, y), (col, y), (y, col), (y, y)):
+            ck.compare(f"{name}_l12", fn(bf, u, v), plain(bf, u, v))
+    xs, ys = field_pair(sf, n1)
+    for u, v in ((xs, ys), (ys, ys)):
+        ck.compare("field_mul", fops.mul(sf, u, v), fops.mul_plain(sf, u, v))
+
+    # K2 at [12, 2^10 + 3]: chain points plus the identity, P + P, P + (-P)
+    n2 = (1 << 10) + 3
+    g0 = tuple(t[:, :1] for t in chain_dev)
+    ident = cops.identity(C, (1,), dev)
+    p1 = tuple(torch.cat([t[:, :n2 - 3], i, q, q], 1).contiguous()
+               for t, i, q in zip(chain_dev, ident, g0))
+    p2 = tuple(torch.cat([torch.roll(t[:, :n2 - 3], 1, 1), q, q, m], 1)
+               .contiguous() for t, q, m in zip(chain_dev, g0, cops.neg(C, g0)))
+    ck.compare("curve_add_l12", cops.add(C, p1, p2), cops.add_plain(C, p1, p2))
+    s12 = cops.add(C, p1, p2)                          # Z != 1
+    ck.compare("curve_double_l12", cops.double(C, s12), cops.double_plain(C, s12))
+
+    # K4 at N = 2^12 + 5, then the Horner on its window sums
+    n4 = (1 << 12) + 5
+    sub = cmsm.precompute_base(C, tuple(torch.cat([t, t[:, :5]], 1)
+                                        for t in chain_dev))
+    window_sums = {}
+    for k in (1, 3):
+        scal = with_edges(fops, sf, rand_field(np, torch, rng, (k, n4), dev, sf))
+        for c in (8, 5):
+            digits, order, starts, _rows = k4_rows(torch, cmsm, sf, scal, c)
+            acc = cmsm.bucket_accumulate(C, sub, digits, order, starts)
+            ck.compare("msm_bucket_accumulate_l12", acc,
+                       cmsm.bucket_accumulate_plain(C, sub, digits, order, starts))
+            ws = cmsm.bucket_reduce(C, *acc, starts)
+            ck.compare("msm_bucket_reduce_l12", ws,
+                       cmsm.bucket_reduce_plain(C, *acc, starts))
+            window_sums[(k, c)] = tuple(t.reshape(nl, k, -1) for t in ws)
+    for (k, c), ws in window_sums.items():
+        ck.compare("curve_horner_l12", cmsm.horner(C, ws, c),
+                   cmsm.horner_plain(C, ws, c))
+    # the kernels with no 12-limb build refuse the field on the card
+    from plonky_tpu_torch.hashing import rescue as hr
+    from plonky_tpu_torch.poly import fft as pfft
+    for what, call in (
+            ("field_product_sum", lambda: fops.product_sums(bf, [[(x, y, 1)]])),
+            ("ntt_pass", lambda: pfft.FftPrecomputation(bf, 1 << 4)),
+            ("rescue_permutation", lambda: hr.rescue_permutation(bf, [x] * 4, 128))):
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{what} ran on a 12-limb field")
+    checked = {"K1": "N = 2^12 + 3, edges, [12, 1] either side, squares",
+               "K2": "[12, 2^10 + 3], identity, P + P, P + (-P)",
+               "K4": "N = 2^12 + 5, K = 1, 3, c = 8, 5",
+               "curve_horner": "K = 1, 3, W = 32 (c = 8), 51 (c = 5)"}
+
+    # timed at the microbench sizes: K1 at 2^16 on both fields
+    nf = 1 << 16
+    x, y = field_pair(bf, nf)
+    for name, fn, plain in ops:
+        ck.compare(f"{name}_l12", fn(bf, x, y), plain(bf, x, y))
+        ck.record(f"{name}_l12", {"main": "N = 2^16", "checked": checked["K1"]},
+                  lambda fn=fn: fn(bf, x, y), lambda plain=plain: plain(bf, x, y),
+                  3 * 4 * nl * nf, mul_ops(nl) * nf if name == "field_mul" else 0)
+    xs, ys = field_pair(sf, nf)
+    out["scalar_field_2e16"] = {name: ck.measure(
+        lambda fn=fn: fn(sf, xs, ys), lambda plain=plain: plain(sf, xs, ys),
+        3 * 32 * nf, MUL_OPS * nf if name == "field_mul" else 0)
+        for name, fn, plain in ops}
+    # K2 at 2^14: chain points plus the chain rotated by one
+    nc = 1 << 14
+    pa = tuple(t.repeat(1, nc // BLS_CHAIN).contiguous() for t in chain_dev)
+    pb = tuple(torch.roll(t, 1, 1).contiguous() for t in pa)
+    ck.compare("curve_add_l12", cops.add(C, pa, pb), cops.add_plain(C, pa, pb))
+    sc = cops.add(C, pa, pb)
+    ck.compare("curve_double_l12", cops.double(C, sc), cops.double_plain(C, sc))
+    ck.record("curve_add_l12", {"main": [nl, nc], "checked": checked["K2"]},
+              lambda: cops.add(C, pa, pb), lambda: cops.add_plain(C, pa, pb),
+              9 * 4 * nl * nc, add_ops(nl) * nc)
+    ck.record("curve_double_l12", {"main": [nl, nc], "checked": checked["K2"]},
+              lambda: cops.double(C, sc), lambda: cops.double_plain(C, sc),
+              6 * 4 * nl * nc, dbl_ops(nl) * nc)
+    # the 150-point summation (bin/microbench.py:134-171): 150 chain points
+    # padded with the identity to 256, a halving tree of adds
+    ps = tuple(torch.cat([t[:, :150], i.expand(nl, 106)], 1).contiguous()
+               for t, i in zip(chain_dev, ident))
+
+    def summation():
+        p, m = ps, 256
+        while m > 1:
+            p = cops.add(C, tuple(t[:, :m // 2] for t in p),
+                         tuple(t[:, m // 2:m] for t in p))
+            m //= 2
+        return p
+    want150 = chost.mul(chain[0], (1 << 150) - 1)
+    affine_is(summation(), want150, "the 150-point summation")
+    out["summation_150_ms"] = ck.time_ms(summation, 20)
+
+    # K4 and the Horner at one slice of the ladder: N = 2^16, K = 1, c = 8
+    basis16 = cmsm.precompute_base(C, tuple(t.repeat(1, nf // BLS_CHAIN)
+                                            for t in chain_dev))
+    scal16, _limbs = bls_scalars(np, torch, rng, sf, nf, dev)
+    scal16 = scal16[:, None, :]
+    digits, order, starts, rows = k4_rows(torch, cmsm, sf, scal16, BLS_WINDOW)
+    acc = cmsm.bucket_accumulate(C, basis16, digits, order, starts)
+    ck.compare("msm_bucket_accumulate_l12", acc, cmsm.bucket_accumulate_plain(
+        C, basis16, digits, order, starts))
+    ws = cmsm.bucket_reduce(C, *acc, starts)
+    ck.compare("msm_bucket_reduce_l12", ws,
+               cmsm.bucket_reduce_plain(C, *acc, starts))
+    ws = tuple(t.reshape(nl, 1, -1) for t in ws)
+    acc_b, acc_ops, red_b, red_ops = k4_work(rows, starts, acc, nl)
+    shape = {"main": f"N = 2^16, K = 1, c = {BLS_WINDOW}", "checked": checked["K4"]}
+    ck.record("msm_bucket_accumulate_l12", shape,
+              lambda: cmsm.bucket_accumulate(C, basis16, digits, order, starts),
+              lambda: cmsm.bucket_accumulate_plain(C, basis16, digits, order, starts),
+              acc_b, acc_ops, reps=10, plain_reps=1)
+    ck.record("msm_bucket_reduce_l12", shape,
+              lambda: cmsm.bucket_reduce(C, *acc, starts),
+              lambda: cmsm.bucket_reduce_plain(C, *acc, starts),
+              red_b, red_ops, reps=10, plain_reps=1)
+    ck.compare("curve_horner_l12", cmsm.horner(C, ws, BLS_WINDOW),
+               cmsm.horner_plain(C, ws, BLS_WINDOW))
+    hb, hops = horner_work(ws, BLS_WINDOW, nl)
+    ck.record("curve_horner_l12", {"main": f"K = 1, W = {ws[0].shape[2]}, "
+                                   f"c = {BLS_WINDOW}",
+                                   "checked": checked["curve_horner"]},
+              lambda: cmsm.horner(C, ws, BLS_WINDOW),
+              lambda: cmsm.horner_plain(C, ws, BLS_WINDOW), hb, hops,
+              reps=10, plain_reps=1)
+
+    # the path, once, with the launch counts reset
+    def chunked(basis, scal):
+        return cmsm.msm_chunked(C, basis, scal, window_bits=BLS_WINDOW,
+                                chunk_log=BLS_CHUNK_LOG)
+    _cuda.reset_launches()
+    for _name, fn, _plain in ops:
+        fn(bf, x, y)
+    cops.double(C, cops.add(C, pa, pb))
+    summation()
+    res = chunked(basis16, scal16[:, 0])
+    x16, _y16, _z16 = cops.to_affine(C, res)
+    torch.cuda.synchronize()
+    path = dict(_cuda.LAUNCHES)
+    missing = [f"{k}_l12" for k in WIDE_KERNELS if not path[f"{k}_l12"]]
+    off = {k: v for k, v in path.items() if v and not k.endswith("_l12")}
+    if missing or off:
+        raise AssertionError(f"the BLS12-377 path launched {path}: none of "
+                             f"{missing}, and {off} off it")
+    want16 = chost.mul(g, bls_oracle(np, sf.p, _limbs, a))
+    affine_is(res, want16, "msm_chunked at 2^16")
+    out["path_launches"] = {k: v for k, v in path.items() if v}
+
+    # the ladder
+    del basis16, scal16, acc
+    ladder = []
+    for lg in BLS_LADDER:
+        n = 1 << lg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        basis = cmsm.precompute_base(C, tuple(t.repeat(1, n // BLS_CHAIN)
+                                              for t in chain_dev))
+        scal, limbs = bls_scalars(np, torch, rng, sf, n, dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        want = chost.mul(g, bls_oracle(np, sf.p, limbs, a))
+        affine_is(chunked(basis, scal), want, f"msm_chunked at 2^{lg} (warm)")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = chunked(basis, scal)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        affine_is(res, want, f"msm_chunked at 2^{lg}")
+        _cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chunked(basis, scal)
+            torch.cuda.synchronize()
+        kernel_ms, other_ms = kernel_device_ms(prof)
+        med = statistics.median(times)
+        ladder.append({"log_n": lg, "seconds": times, "median_s": med,
+                       "points_per_s": n / med, "setup_s": setup_s,
+                       "launches": {k: v for k, v in _cuda.LAUNCHES.items() if v},
+                       "kernel_device_ms": kernel_ms,
+                       "other_device_ms": other_ms})
+        emit({"phase": f"bls12_377_msm_2e{lg}", "nvidia_smi": name_power,
+              **ladder[-1]})
+        del basis, scal, res
+    out["ladder_points_per_s"] = {str(r["log_n"]): r["points_per_s"]
+                                  for r in ladder}
+    emit(out)
+    return {k: v for k, v in path.items() if k.endswith("_l12")}
 
 
 def pinned_random():
@@ -1271,11 +1634,17 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     build_s = time.perf_counter() - t0
-    ptxas = []
+    # ptxas's register and spill lines by object (field_kernels, ...,
+    # field_kernels_l12, ...), in the build log's order
+    ptxas, obj = {}, None
     if os.path.exists(_cuda.BUILD_LOG):
         with open(_cuda.BUILD_LOG) as f:
-            ptxas = [ln.strip() for ln in f if "registers" in ln
-                     or "spill" in ln]
+            for ln in f:
+                if ln.startswith("== "):
+                    obj = ln.split()[1]
+                    ptxas[obj] = []
+                elif obj and ("registers" in ln or "spill" in ln):
+                    ptxas[obj].append(ln.strip())
     emit({"phase": "env", "nvidia_smi": name_power,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "sms": sms, "max_sm_clock_mhz": clock_hz / 1e6,
@@ -1285,11 +1654,13 @@ def main() -> int:
     ck = Checker(torch, clock_hz, int_rate)
     phase_kernels(ck, torch, np, dev)
     rescue_launches = phase_rescue(ck, torch, np, dev, name_power)
+    bls_launches = phase_bls12_377(ck, torch, np, dev, name_power)
     phase_fixtures()
     phase_gadgets()
     phase_ladder()
     launches, ps_by_label = phase_prove(torch, want_sha256=PROOF_2E14_SHA256)
     launches["rescue_permutation"] = rescue_launches
+    launches.update(bls_launches)
     for name, rec in ck.records.items():
         rec["launches"] = launches[name]
     for row in ck.records["field_product_sum"]["by_shape"]:

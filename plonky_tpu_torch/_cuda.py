@@ -3,8 +3,11 @@
 The kernels live in ``csrc/*.cu`` with a plain C interface.  At first use
 on a CUDA tensor each source is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a``, the objects are linked into one shared
-library under ``_build/``, and the library is loaded with ctypes.  Every C
-entry launches one kernel on the stream it is given and returns
+library under ``_build/``, and the library is loaded with ctypes.  The
+sources of K1, K2 and K4 (WIDE_SOURCES) are compiled twice: for 8-limb
+fields, and with ``-DPT_LIMBS=12`` for 12-limb ones, whose C entries and
+launch counts carry the suffix ``_l12`` (`kernel`).  Every C entry
+launches one kernel on the stream it is given and returns
 ``cudaGetLastError()``; `launch` raises when that is not 0 and counts the
 launch under the kernel's name.
 """
@@ -25,15 +28,29 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("field_kernels.cu", "curve_kernels.cu", "ntt_kernels.cu",
            "msm_kernels.cu", "rescue_kernels.cu")
+# Sources built a second time for 12-limb fields (-DPT_LIMBS=12).
+WIDE_LIMBS = 12
+WIDE_SOURCES = ("field_kernels.cu", "curve_kernels.cu", "msm_kernels.cu")
+WIDE_KERNELS = ("field_add", "field_sub", "field_mul", "curve_add",
+                "curve_double", "curve_horner", "msm_bucket_accumulate",
+                "msm_bucket_reduce")
 HEADERS = ("field.cuh", "curve.cuh")
 LIB_NAME = "libplonky_kernels.so"
 ARCH = "arch=compute_90a,code=sm_90a"
+
+
+def width_name(name: str, limbs: int) -> str:
+    """A kernel's name at a field width: `name` at 8 limbs, `name_l12` at
+    12 (its launch count and, with "pt_" before it, its C entry)."""
+    return name if limbs == 8 else f"{name}_l{limbs}"
+
 
 # Launches per kernel, counted by the wrappers (reset with reset_launches).
 LAUNCHES = {name: 0 for name in (
     "field_add", "field_sub", "field_mul", "field_product_sum",
     "curve_add", "curve_double", "curve_horner", "ntt_pass",
-    "msm_bucket_accumulate", "msm_bucket_reduce", "rescue_permutation")}
+    "msm_bucket_accumulate", "msm_bucket_reduce", "rescue_permutation",
+    *(width_name(k, WIDE_LIMBS) for k in WIDE_KERNELS))}
 
 # Seconds the last build took (None: the library was up to date).
 BUILD_SECONDS = [None]
@@ -63,6 +80,17 @@ _SIGNATURES = {
                              _I64, _I64, _I64, _I64, _I64, _P, _P],
     "pt_rescue_permutation": [_P, _P, _I64, _P, _I32, _P],
 }
+_SIGNATURES.update({"pt_" + width_name(k, WIDE_LIMBS): _SIGNATURES["pt_" + k]
+                    for k in WIDE_KERNELS})
+
+
+def kernel(name: str, limbs: int) -> tuple:
+    """(launch count name, C entry) of kernel `name` at a field width;
+    raises where the kernel has no build at that width."""
+    if limbs != 8 and (limbs != WIDE_LIMBS or name not in WIDE_KERNELS):
+        raise NotImplementedError(f"{name} has no {limbs}-limb build")
+    wide = width_name(name, limbs)
+    return wide, "pt_" + wide
 
 
 def nvcc_path() -> str:
@@ -84,8 +112,17 @@ def _stale(lib_path: str) -> bool:
                for f in SOURCES + HEADERS)
 
 
+def objects():
+    """(label, source, extra nvcc flags) of every object of the library:
+    each source at 8 limbs, then WIDE_SOURCES at 12 (label `*_l12`)."""
+    objs = [(src.replace(".cu", ""), src, []) for src in SOURCES]
+    objs += [(src.replace(".cu", f"_l{WIDE_LIMBS}"), src,
+              [f"-DPT_LIMBS={WIDE_LIMBS}"]) for src in WIDE_SOURCES]
+    return objs
+
+
 def build() -> str:
-    """Compile every source in parallel and link the shared library (only
+    """Compile every object in parallel and link the shared library (only
     when a source is newer than it).  Returns the library path."""
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     if not _stale(lib_path):
@@ -96,18 +133,18 @@ def build() -> str:
     common = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
     procs = []
-    for src in SOURCES:
-        obj = os.path.join(BUILD_DIR, src.replace(".cu", ".o"))
-        procs.append((src, obj, subprocess.Popen(
-            common + ["-c", os.path.join(CSRC, src), "-o", obj],
+    for label, src, flags in objects():
+        obj = os.path.join(BUILD_DIR, label + ".o")
+        procs.append((label, obj, subprocess.Popen(
+            common + flags + ["-c", os.path.join(CSRC, src), "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = []
     failed = []
-    for src, _obj, proc in procs:
+    for label, _obj, proc in procs:
         out, _ = proc.communicate()
-        log.append(f"== {src} (rc={proc.returncode})\n{out}")
+        log.append(f"== {label} (rc={proc.returncode})\n{out}")
         if proc.returncode != 0:
-            failed.append(src)
+            failed.append(label)
     if not failed:
         tmp = lib_path + f".tmp{os.getpid()}"
         link = subprocess.run(

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..fields import ops as fops
-from ..fields.spec import FieldSpec
+from ..fields.spec import FieldSpec, require_eight_limbs
 
 
 class HostAlgebra:
@@ -49,6 +49,7 @@ class BatchAlgebra:
     always canonical, so there are no pending carries to settle)."""
 
     def __init__(self, spec: FieldSpec, device: torch.device):
+        require_eight_limbs(spec, "BatchAlgebra")
         self.spec = spec
         self.device = device
 

@@ -1,6 +1,7 @@
 // Complete projective point add and double for y^2 = x^3 + b (a = 0),
 // Renes-Costello-Batina 2015 Algorithms 7 and 9, with b3 = 3b mod p, on
-// coordinates in Montgomery form (field.cuh: x held as x 2^256 mod p).  The
+// coordinates in Montgomery form (field.cuh: x held as x 2^(32 L) mod p, L =
+// PT_LIMBS: 8, or 12 for BLS12-377 G1).  The
 // identity is (0 : 1 : 0); the formulas have no exceptional cases.  The
 // field values are those of plonky_tpu/curves/ops.py:_add_body and
 // _double_body (and of curves/ops.py:add_plain / double_plain), so, converted
@@ -10,19 +11,20 @@
 #include "field.cuh"
 
 // The point kernels' constants (K2 and K4): the field's, b3 = 3b as a small
-// integer, and R^2 = 2^512 mod p, the factor into Montgomery form.
+// integer, and R^2 = 2^(64 L) mod p, the factor into Montgomery form.
 struct MontCurveConsts {
   FieldConsts f;
   uint32_t b3;
   uint32_t r2[PT_LIMBS];
 };
 
-// One copy per kernel source (static: each .cu is its own module), set on
-// the launch's stream by curve_set_consts.
+// One copy per kernel object (static: each .o is its own module, so the 8-
+// and 12-limb builds of a source hold one each), set on the launch's stream
+// by curve_set_consts.
 static __constant__ MontCurveConsts c_curve;
 
 // Sets c_curve on `stream` ahead of a launch from the host buffer
-// [p, -p^-1 mod 2^32, b3 (8 limbs), 2^512 mod p (8 limbs)]
+// [p, -p^-1 mod 2^32, b3 (L limbs), 2^(64 L) mod p (L limbs)]
 // (curves/ops.py:_consts_host); b3 must fit one limb.
 static int curve_set_consts(const uint32_t* host, cudaStream_t stream) {
   MontCurveConsts c;

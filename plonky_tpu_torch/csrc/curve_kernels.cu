@@ -22,7 +22,13 @@
 //     multiply of the chain sits in one out-of-line function.
 //   - curve_add / curve_double stay one thread per point (any batch), on the
 //     same Montgomery formulas, converting in and out around them.
+// Built twice (_cuda.py): at 8 limbs, and at 12 (-DPT_LIMBS=12, BLS12-377
+// G1; entries pt_curve_add_l12, ...), where a Montgomery product is 144
+// limb products and 12 REDC rounds (>= 588 IMAD slots against 264) and a
+// warp's Horner scratch is 3 x 8 x 48 bytes.
 #include "curve.cuh"
+
+PT_NAMESPACE_BEGIN
 
 #define HORNER_WARPS 4      // MSMs (one warp each) per block
 #define HORNER_PAIRS 8      // products of one level at most (a double's 4
@@ -57,7 +63,7 @@ __global__ void curve_double_kernel(int32_t* ox, int32_t* oy, int32_t* oz,
   pt_store(ox, oy, oz, n, i, p);
 }
 
-// A warp's scratch: operand pairs (a, b) and their products, 8 limbs each.
+// A warp's scratch: operand pairs (a, b) and their products, L limbs each.
 struct HornerScratch {
   uint32_t a[HORNER_PAIRS][PT_LIMBS];
   uint32_t b[HORNER_PAIRS][PT_LIMBS];
@@ -66,15 +72,18 @@ struct HornerScratch {
 
 __device__ __forceinline__ void limbs_put(uint32_t* dst, const uint32_t v[PT_LIMBS]) {
   uint4* d = (uint4*)dst;
-  d[0] = make_uint4(v[0], v[1], v[2], v[3]);
-  d[1] = make_uint4(v[4], v[5], v[6], v[7]);
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS / 4; k++)
+    d[k] = make_uint4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
 }
 
 __device__ __forceinline__ void limbs_get(uint32_t v[PT_LIMBS], const uint32_t* src) {
   const uint4* s = (const uint4*)src;
-  uint4 lo = s[0], hi = s[1];
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS / 4; k++) {
+    uint4 q = s[k];
+    v[4 * k] = q.x; v[4 * k + 1] = q.y; v[4 * k + 2] = q.z; v[4 * k + 3] = q.w;
+  }
 }
 
 // Pair i of the next level (written by lane 0 only; every lane computes it).
@@ -87,7 +96,7 @@ __device__ __forceinline__ void pair_put(HornerScratch& s, bool lead, int i,
   }
 }
 
-// One level: lane i < n sets p[i] = a[i] b[i] / 2^256 mod p; afterwards
+// One level: lane i < n sets p[i] = a[i] b[i] / 2^(32 L) mod p; afterwards
 // every lane of the warp may read the products.  Out of line, so that the
 // chain has one copy of the multiply's code.
 __device__ __noinline__ void horner_level(HornerScratch* s, int n) {
@@ -118,8 +127,8 @@ __device__ __forceinline__ void window_put(HornerScratch& s, bool lead, int i0,
 }
 
 // One warp per MSM m < k: acc = ws[nw-1]; for w = nw-2 .. 0: c doublings of
-// acc, then acc += ws[w].  ws (wx, wy, wz): [8, k, nw] canonical; out:
-// [8, k] canonical.  The field values are those of mpt_double / mpt_add
+// acc, then acc += ws[w].  ws (wx, wy, wz): [L, k, nw] canonical; out:
+// [L, k] canonical.  The field values are those of mpt_double / mpt_add
 // (hence of curves/ops.py:double_plain / add_plain), so the output equals
 // curves/msm.py:horner_plain word for word.
 __global__ void __launch_bounds__(HORNER_WARPS * 32) curve_horner_kernel(
@@ -255,9 +264,9 @@ __global__ void __launch_bounds__(HORNER_WARPS * 32) curve_horner_kernel(
 
 extern "C" {
 
-int pt_curve_add(void* ox, void* oy, void* oz, const void* ax, const void* ay,
-                 const void* az, const void* bx, const void* by, const void* bz,
-                 int64_t n, const void* consts, void* stream) {
+int PT_ENTRY(pt_curve_add)(void* ox, void* oy, void* oz, const void* ax, const void* ay,
+                           const void* az, const void* bx, const void* by,
+                           const void* bz, int64_t n, const void* consts, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int rc = curve_set_consts((const uint32_t*)consts, st);
   if (rc != 0) return rc;
@@ -267,8 +276,9 @@ int pt_curve_add(void* ox, void* oy, void* oz, const void* ax, const void* ay,
   return (int)cudaGetLastError();
 }
 
-int pt_curve_double(void* ox, void* oy, void* oz, const void* ax, const void* ay,
-                    const void* az, int64_t n, const void* consts, void* stream) {
+int PT_ENTRY(pt_curve_double)(void* ox, void* oy, void* oz, const void* ax,
+                              const void* ay, const void* az, int64_t n,
+                              const void* consts, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int rc = curve_set_consts((const uint32_t*)consts, st);
   if (rc != 0) return rc;
@@ -278,9 +288,9 @@ int pt_curve_double(void* ox, void* oy, void* oz, const void* ax, const void* ay
   return (int)cudaGetLastError();
 }
 
-int pt_curve_horner(void* ox, void* oy, void* oz, const void* wx, const void* wy,
-                    const void* wz, int64_t k, int64_t nw, int c, const void* consts,
-                    void* stream) {
+int PT_ENTRY(pt_curve_horner)(void* ox, void* oy, void* oz, const void* wx,
+                              const void* wy, const void* wz, int64_t k, int64_t nw,
+                              int c, const void* consts, void* stream) {
   if (k < 1 || nw < 1 || c < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int rc = curve_set_consts((const uint32_t*)consts, st);
@@ -293,3 +303,5 @@ int pt_curve_horner(void* ox, void* oy, void* oz, const void* wx, const void* wy
 }
 
 }  // extern "C"
+
+PT_NAMESPACE_END

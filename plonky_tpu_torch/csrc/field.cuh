@@ -1,30 +1,50 @@
-// Prime-field arithmetic on canonical 8 x 32-bit limb elements (p < 2^255).
+// Prime-field arithmetic on canonical L x 32-bit limb elements, L =
+// PT_LIMBS: 8 for p < 2^255 (the default), 12 for p < 2^383 (built with
+// -DPT_LIMBS=12, for BLS12-377's base field).
 //
 // Shared by every kernel of the port.  An element is an integer in [0, p);
-// limb k of element i of an [8, N] int32 tensor sits at base[k * N + i], so
+// limb k of element i of an [L, N] int32 tensor sits at base[k * N + i], so
 // the 32 threads of a warp read 32 neighbouring words per limb.
 //
 // Inputs and outputs are canonical; no Montgomery form is visible outside a
 // kernel.  A single product (field_mul) is one Barrett reduction on carry
 // chains (cc_mul_mod, below); the NTT's twiddle products are one Montgomery
 // product against twiddles held as w 2^256 mod p (cc_mont_mul).  A product
-// sum  sum_i +-a_i b_i  (field_product_sum) adds its products straight into
-// a 17-limb accumulator on the same carry chains and reduces ONCE, by
-// Barrett with mu = floor(2^544 / p) (cc_acc_product, cc_sum_mod).
+// sum  sum_i +-a_i b_i  (field_product_sum, 8 limbs only) adds its products
+// straight into a 17-limb accumulator on the same carry chains and reduces
+// ONCE, by Barrett with mu = floor(2^544 / p) (cc_acc_product, cc_sum_mod).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef PT_LIMBS
 #define PT_LIMBS 8
+#endif
+static_assert(PT_LIMBS == 8 || PT_LIMBS == 12, "PT_LIMBS is 8 or 12");
 #define PT_THREADS 256
+
+// Both widths link into one library: the 12-limb build's C entries carry
+// the suffix _l12 (PT_ENTRY(pt_field_mul) is pt_field_mul_l12) and its
+// kernels live in namespace pt_l12, so that no symbol is defined twice.
+#if PT_LIMBS == 8
+#define PT_ENTRY(name) name
+#define PT_NAMESPACE_BEGIN
+#define PT_NAMESPACE_END
+#else
+#define PT_ENTRY_CAT(name, limbs) name##_l##limbs
+#define PT_ENTRY_EXPAND(name, limbs) PT_ENTRY_CAT(name, limbs)
+#define PT_ENTRY(name) PT_ENTRY_EXPAND(name, PT_LIMBS)
+#define PT_NAMESPACE_BEGIN namespace pt_l12 {
+#define PT_NAMESPACE_END }
+#endif
 
 struct FieldConsts {
   uint32_t p[PT_LIMBS];   // the modulus
   uint32_t pinv;          // -p^-1 mod 2^32
 };
 
-// The words of FieldSpec.kernel_consts: [p (8 limbs), -p^-1 mod 2^32].
+// The words of FieldSpec.kernel_consts: [p (L limbs), -p^-1 mod 2^32].
 #define PT_FIELD_WORDS (PT_LIMBS + 1)
 
 static inline FieldConsts field_consts_from(const uint32_t* host) {
@@ -61,7 +81,7 @@ __device__ __forceinline__ void fe_set_small(uint32_t r[PT_LIMBS], uint32_t v) {
   for (int k = 1; k < PT_LIMBS; k++) r[k] = 0;
 }
 
-// r = a - b over 256 bits; returns the borrow out (1 when a < b).
+// r = a - b over 32 L bits; returns the borrow out (1 when a < b).
 __device__ __forceinline__ uint32_t sub_borrow(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                                const uint32_t b[PT_LIMBS]) {
   uint32_t borrow = 0;
@@ -74,7 +94,7 @@ __device__ __forceinline__ uint32_t sub_borrow(uint32_t r[PT_LIMBS], const uint3
   return borrow;
 }
 
-// r = a + b over 256 bits; returns the carry out.
+// r = a + b over 32 L bits; returns the carry out.
 __device__ __forceinline__ uint32_t add_carry(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                               const uint32_t b[PT_LIMBS]) {
   uint64_t carry = 0;
@@ -96,7 +116,7 @@ __device__ __forceinline__ void fe_csub(uint32_t x[PT_LIMBS], const FieldConsts&
 
 __device__ __forceinline__ void fe_add(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                        const uint32_t b[PT_LIMBS], const FieldConsts& c) {
-  add_carry(r, a, b);  // < 2p < 2^256: no carry out
+  add_carry(r, a, b);  // < 2p < 2^(32 L): no carry out
   fe_csub(r, c);
 }
 
@@ -106,17 +126,18 @@ __device__ __forceinline__ void fe_sub(uint32_t r[PT_LIMBS], const uint32_t a[PT
 }
 
 // ---------------------------------------------------------------------------
-// Montgomery form (R = 2^256), used inside the point kernels only (K2, K4;
-// curve.cuh): an element x is held as x R mod p, canonical in [0, p).
+// Montgomery form (R = 2^(32 L)), used inside the point kernels only (K2,
+// K4; curve.cuh): an element x is held as x R mod p, canonical in [0, p).
 // Additions are the canonical ones; a product is one CIOS Montgomery
-// multiply (one 8 x 8 limb product interleaved with one REDC).
+// multiply (one L x L limb product interleaved with one REDC).
 // ---------------------------------------------------------------------------
 
-// r = a b / 2^256 mod p for a, b < p (p < 2^255, so every partial sum fits
-// 9 limbs and the result is below 2p before the final subtraction).  The
-// loop over a's limbs is kept rolled (a shifts down one limb per round, so
-// every index stays static and a stays in registers): ~70 instructions of
-// machine code instead of the ~600 an unrolled product takes.
+// r = a b / 2^(32 L) mod p for a, b < p (p < 2^(32 L - 1), so every partial
+// sum fits L + 1 limbs and the result is below 2p before the final
+// subtraction).  The loop over a's limbs is kept rolled (a shifts down one
+// limb per round, so every index stays static and a stays in registers):
+// ~70 instructions of machine code at 8 limbs instead of the ~600 an
+// unrolled product takes.
 __device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a_in[PT_LIMBS],
                                        const uint32_t b[PT_LIMBS], const FieldConsts& c) {
   uint32_t a[PT_LIMBS], t[PT_LIMBS];
@@ -166,40 +187,50 @@ __device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a_in
 // touches the carry flag.
 //
 // field_mul reduces ONCE per product, by Barrett (HAC 14.42 with the base
-// 2^32): for x = a b < p^2,
-//   q1 = floor(x / 2^224)                    (9 limbs, x's limbs 7..15)
-//   q3 = floor(q1 mu / 2^288), mu = floor(2^512 / p)   (9 limbs)
-//   r  = (x - q3 p) mod 2^256
-// where the product q1 mu skips the limb products of columns 0..6 (their
-// sum is below 2^259, against the 2^288 that q3 divides by).  Every
-// truncation rounds down, so q3 <= floor(x / p).  Before q3's own floor,
-// the truncated q1 mu / 2^288 falls short of x / p by less than
-//   x / 2^512 + 2^224 / p + 2^-29 < 1      (for 2^226 < p < 2^255),
-// and the floor loses less than 1 more, so x / p - q3 < 2: q3 is
-// floor(x / p) or one less, r = x - q3 p < 2p < 2^256, and one
-// conditional subtraction of p makes it canonical.  The Python model of
-// these steps, with these bounds asserted, is tests/test_torch_barrett.py.
+// 2^32): for x = a b < p^2 over L limbs,
+//   q1 = floor(x / 2^(32 (L - 1)))           (L + 1 limbs, x's limbs L-1..2L-1)
+//   q3 = floor(q1 mu / 2^(32 (L + 1))), mu = floor(2^(64 L) / p)   (L + 1 limbs)
+//   r  = (x - q3 p) mod 2^(32 L)
+// where the product q1 mu skips the limb products of columns 0..L-2 (their
+// sum is below (L - 1) 2^(32 L) (1 + 2^-31): 2^259 at 8 limbs, 2^388 at
+// 12, against the 2^(32 (L + 1)) that q3 divides by).  Every truncation
+// rounds down, so q3 <= floor(x / p).  Before q3's own floor, the truncated
+// q1 mu / 2^(32 (L + 1)) falls short of x / p by less than
+//   x / 2^(64 L) + 2^(32 (L - 1)) / p + (L - 1) 2^-32 < 1,
+// which holds at 8 limbs for 2^226 < p < 2^255 (2^-2 + 2^-2 + 2^-29) and at
+// 12 limbs for 2^354 < p < 2^383 (2^-2 + 2^-2 + 2^-28; BLS12-377's
+// 2^376 < p < 2^377 gives below 2^-14), and the floor loses less than 1
+// more, so x / p - q3 < 2: q3 is floor(x / p) or one less,
+// r = x - q3 p < 2p < 2^(32 L), and one conditional subtraction of p makes
+// it canonical.  The Python model of these steps at both widths, with these
+// bounds asserted, is tests/test_torch_barrett.py.
 // ---------------------------------------------------------------------------
 
-#define PT_MU_LIMBS 9
+#define PT_MU_LIMBS (PT_LIMBS + 1)
+#if PT_LIMBS == 8
 #define PT_MU_SUM_LIMBS 10
+#endif
 
-// K1's constants: the field's, field_mul's Barrett factor and the product
-// sum's.
+// K1's constants: the field's, field_mul's Barrett factor and, at 8 limbs,
+// the product sum's.
 struct MulConsts {
   FieldConsts f;
-  uint32_t mu[PT_MU_LIMBS];           // floor(2^512 / p)
+  uint32_t mu[PT_MU_LIMBS];           // floor(2^(64 L) / p)
+#if PT_LIMBS == 8
   uint32_t mu_sum[PT_MU_SUM_LIMBS];   // floor(2^544 / p)
+#endif
 };
 
-// From the host buffer [p, -p^-1 mod 2^32, mu (9 limbs), mu_sum (10 limbs)]
-// (fields/spec.py:FieldSpec.mul_consts).
+// From the host buffer [p, -p^-1 mod 2^32, mu (L + 1 limbs), mu_sum (L + 2
+// limbs)] (fields/spec.py:FieldSpec.mul_consts).
 static inline MulConsts mul_consts_from(const uint32_t* host) {
   MulConsts c;
   c.f = field_consts_from(host);
   for (int k = 0; k < PT_MU_LIMBS; k++) c.mu[k] = host[PT_FIELD_WORDS + k];
+#if PT_LIMBS == 8
   for (int k = 0; k < PT_MU_SUM_LIMBS; k++)
     c.mu_sum[k] = host[PT_FIELD_WORDS + PT_MU_LIMBS + k];
+#endif
   return c;
 }
 
@@ -315,7 +346,7 @@ __device__ __forceinline__ void cc_csub(uint32_t x[PT_LIMBS], const FieldConsts&
   for (int k = 0; k < PT_LIMBS; k++) x[k] = borrow ? x[k] : d[k];
 }
 
-// r = a + b mod p (a, b canonical: a + b < 2p < 2^256, no carry out).
+// r = a + b mod p (a, b canonical: a + b < 2p < 2^(32 L), no carry out).
 __device__ __forceinline__ void cc_add_mod(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                            const uint32_t b[PT_LIMBS], const FieldConsts& c) {
   r[0] = cc_add(a[0], b[0]);
@@ -339,22 +370,27 @@ __device__ __forceinline__ void cc_sub_mod(uint32_t r[PT_LIMBS], const uint32_t 
   r[PT_LIMBS - 1] = cc_addc_end(r[PT_LIMBS - 1], c.p[PT_LIMBS - 1] & mask);
 }
 
-// r = (x - q3 p) mod 2^256 for x - q3 p in [0, 2p), then canonical: the
-// last steps of both Barrett reductions.  Only x's and q3's low 8 limbs
-// are read, and only q3 p's low 256 bits are formed.
+// v += q3 p mod 2^(32 L), rows I .. L-1: row I adds q3's limb I times p's
+// limbs 0 .. L-1-I into v[I ..] (at 8 limbs cc_mac_row_lo<8> on v, <7> on
+// v + 1, ..., <1> on v + 7).
+template <int I>
+__device__ __forceinline__ void cc_qp_rows(uint32_t* v, const uint32_t* q3,
+                                           const uint32_t* p) {
+  if constexpr (I < PT_LIMBS) {
+    cc_mac_row_lo<PT_LIMBS - I>(v + I, q3[I], p);
+    cc_qp_rows<I + 1>(v, q3, p);
+  }
+}
+
+// r = (x - q3 p) mod 2^(32 L) for x - q3 p in [0, 2p), then canonical: the
+// last steps of both Barrett reductions.  Only x's and q3's low L limbs
+// are read, and only q3 p's low 32 L bits are formed.
 __device__ __forceinline__ void cc_barrett_finish(uint32_t r[PT_LIMBS], const uint32_t* x,
                                                   const uint32_t* q3, const FieldConsts& c) {
-  uint32_t v[PT_LIMBS];   // q3 p mod 2^256
+  uint32_t v[PT_LIMBS];   // q3 p mod 2^(32 L)
 #pragma unroll
   for (int k = 0; k < PT_LIMBS; k++) v[k] = 0;
-  cc_mac_row_lo<8>(v, q3[0], c.p);
-  cc_mac_row_lo<7>(v + 1, q3[1], c.p);
-  cc_mac_row_lo<6>(v + 2, q3[2], c.p);
-  cc_mac_row_lo<5>(v + 3, q3[3], c.p);
-  cc_mac_row_lo<4>(v + 4, q3[4], c.p);
-  cc_mac_row_lo<3>(v + 5, q3[5], c.p);
-  cc_mac_row_lo<2>(v + 6, q3[6], c.p);
-  cc_mac_row_lo<1>(v + 7, q3[7], c.p);
+  cc_qp_rows<0>(v, q3, c.p);
   r[0] = cc_sub(x[0], v[0]);
 #pragma unroll
   for (int k = 1; k < PT_LIMBS - 1; k++) r[k] = cc_subc(x[k], v[k]);
@@ -362,38 +398,47 @@ __device__ __forceinline__ void cc_barrett_finish(uint32_t r[PT_LIMBS], const ui
   cc_csub(r, c);
 }
 
-// r = a b mod p for canonical a, b: the 512-bit product and one Barrett
+// u += the columns L-1 and up of q1 mu, rows I .. L, q1 = w[L-1 .. 2L-1],
+// u[k] column L - 1 + k: row I < L multiplies q1's limb I by mu's limbs from
+// L - 1 - I up (columns 0..L-2 skipped), into the window u[0 .. I + 3]; row
+// L multiplies q1's top limb by all of mu, one limb up.  At 8 limbs:
+// cc_mac_row<2>(u, w[7], mu + 7), <3>(u, w[8], mu + 6), ...,
+// <9>(u, w[14], mu), then <9>(u + 1, w[15], mu).
+template <int I>
+__device__ __forceinline__ void cc_barrett_rows(uint32_t* u, const uint32_t* w,
+                                                const uint32_t* mu) {
+  if constexpr (I < PT_LIMBS) {
+    cc_mac_row<I + 2>(u, w[PT_LIMBS - 1 + I], mu + (PT_LIMBS - 1 - I));
+    cc_barrett_rows<I + 1>(u, w, mu);
+  } else {
+    cc_mac_row<PT_LIMBS + 1>(u + 1, w[2 * PT_LIMBS - 1], mu);
+  }
+}
+
+// r = a b mod p for canonical a, b: the 64L-bit product and one Barrett
 // reduction (see the top of this section).
 __device__ __forceinline__ void cc_mul_mod(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                            const uint32_t b[PT_LIMBS], const MulConsts& c) {
-  // x = a b in w[0..15]; w[16..17] stay zero (room for cc_mac_row).
+  // x = a b in w[0..2L-1]; w[2L..2L+1] stay zero (room for cc_mac_row).
   uint32_t w[2 * PT_LIMBS + 2];
 #pragma unroll
   for (int k = 0; k < 2 * PT_LIMBS + 2; k++) w[k] = 0;
 #pragma unroll
   for (int i = 0; i < PT_LIMBS; i++) cc_mac_row<PT_LIMBS>(w + i, a[i], b);
-  // q1 = w[7..15]; u[k] is column 7 + k of q1 mu.  Row i multiplies q1's
-  // limb i by mu's limbs from 7 - i up (columns 0..6 skipped).
-  uint32_t u[12];
+  // q1 = w[L-1..2L-1]; u[k] is column L - 1 + k of q1 mu.
+  uint32_t u[PT_LIMBS + 4];
 #pragma unroll
-  for (int k = 0; k < 12; k++) u[k] = 0;
-  cc_mac_row<2>(u, w[7], c.mu + 7);
-  cc_mac_row<3>(u, w[8], c.mu + 6);
-  cc_mac_row<4>(u, w[9], c.mu + 5);
-  cc_mac_row<5>(u, w[10], c.mu + 4);
-  cc_mac_row<6>(u, w[11], c.mu + 3);
-  cc_mac_row<7>(u, w[12], c.mu + 2);
-  cc_mac_row<8>(u, w[13], c.mu + 1);
-  cc_mac_row<9>(u, w[14], c.mu);
-  cc_mac_row<9>(u + 1, w[15], c.mu);
-  // q3 = columns 9..16 = u[2..9] (< p: one limb short of mu's 9)
+  for (int k = 0; k < PT_LIMBS + 4; k++) u[k] = 0;
+  cc_barrett_rows<0>(u, w, c.mu);
+  // q3 = columns L+1..2L = u[2..L+1] (< p: one limb short of mu's L + 1)
   cc_barrett_finish(r, w, u + 2, c.f);
 }
 
-// r = a b / 2^256 mod p for canonical a, b (CIOS Montgomery, unrolled, on
-// carry chains): with b = w 2^256 mod p, r = a w mod p exactly.  The
-// running sum t stays below 2p + 1 after each round (p < 2^255), so it
-// fits t[0..9] while a round adds a_i b and m p.
+// r = a b / 2^(32 L) mod p for canonical a, b (CIOS Montgomery, unrolled,
+// on carry chains): with b = w 2^(32 L) mod p, r = a w mod p exactly.  The
+// running sum t stays below 2p + 1 after each round (p < 2^(32 L - 1)), so
+// it fits t[i .. i+L] while a round adds a_i b and m p in the window
+// t[i .. i+L+1].
 __device__ __forceinline__ void cc_mont_mul(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                             const uint32_t b[PT_LIMBS], const FieldConsts& c) {
   uint32_t t[2 * PT_LIMBS + 2];   // the window t[i .. i+9] is round i's
@@ -410,8 +455,10 @@ __device__ __forceinline__ void cc_mont_mul(uint32_t r[PT_LIMBS], const uint32_t
   cc_csub(r, c);
 }
 
+#if PT_LIMBS == 8
 // ---------------------------------------------------------------------------
-// Product sums (field_product_sum): S = sum_t x_t y_t + sum_s z_s over at
+// Product sums (field_product_sum, 8 limbs only; the 12-limb build leaves
+// this section out): S = sum_t x_t y_t + sum_s z_s over at
 // most PT_MAX_TERMS terms of canonical operands.  A negative product
 // -a b enters as a (p - b), a negative single -z as p - z (the same
 // residues; p - b <= p), so every term is a nonnegative integer below p^2
@@ -546,6 +593,7 @@ __device__ __forceinline__ void cc_sum_mod(uint32_t r[PT_LIMBS],
   // q3's low limbs = columns 10..17 = u[2..9]
   cc_barrett_finish(r, s, u + 2, c.f);
 }
+#endif  // PT_LIMBS == 8
 
 // r = k a for a small constant k >= 1 (double and add over k's bits; the
 // multiply by b3 = 3b in the point formulas).

@@ -22,15 +22,23 @@
 // reduces once, by Barrett; one launch evaluates several sums over one
 // batch (the grid's y), and where the batch is too small to fill the card
 // a sum's terms are dealt out among 2 or 4 threads an element.
+//
+// Built twice (_cuda.py): at 8 limbs, and at 12 (-DPT_LIMBS=12, BLS12-377's
+// base field), where add, sub and mul are the same code over 12 limbs
+// (entries pt_field_add_l12, ...; a product is 144 limb products and one
+// 12-limb Barrett reduction, >= 588 IMAD slots against 264) and the product
+// sum is left out (still to port, ROADMAP B2).
 #include "field.cuh"
+
+PT_NAMESPACE_BEGIN
 
 // 128 threads a block (add, sub and mul: one element a thread; at the main
 // path's N = 9 2^14 that spreads 1,152 blocks evenly over the SMs, where
 // 576 blocks of 256 left a tail; measured on the H100, PERF.md).
 #define K1_THREADS 128
 
-// Operand with a zero batch stride when `bcast` is set (an [8, 1] tensor
-// broadcast over the batch), else a full [8, N] tensor.
+// Operand with a zero batch stride when `bcast` is set (an [L, 1] tensor
+// broadcast over the batch), else a full [L, N] tensor.
 __device__ __forceinline__ void load_operand(uint32_t r[PT_LIMBS], const int32_t* base,
                                              int bcast, int64_t n, int64_t i) {
   if (bcast) fe_load(r, base, 1, 0);
@@ -52,6 +60,7 @@ __global__ void field_binary_kernel(int32_t* out, const int32_t* a, int a_bcast,
   fe_store(out, n, i, r);
 }
 
+#if PT_LIMBS == 8
 // The term table of one product-sum launch, passed by value in the
 // kernel's parameter space (no copy to the device): sum s has the terms
 // first[s] .. first[s + 1] - 1.  A term is a b, or a alone when b is null;
@@ -132,6 +141,7 @@ field_product_sum_kernel(int32_t* out, const __grid_constant__ PsTable tab, int6
   cc_sum_mod(r, s, c);
   fe_store(out + (int64_t)sum * PT_LIMBS * n, n, i, r);
 }
+#endif  // PT_LIMBS == 8
 
 template <int OP>
 static int launch_binary(void* out, const void* a, int a_bcast, const void* b,
@@ -146,21 +156,22 @@ static int launch_binary(void* out, const void* a, int a_bcast, const void* b,
 extern "C" {
 
 // consts: the host buffer FieldSpec.mul_consts.
-int pt_field_add(void* out, const void* a, int a_bcast, const void* b, int b_bcast,
-                 int64_t n, const void* consts, void* stream) {
+int PT_ENTRY(pt_field_add)(void* out, const void* a, int a_bcast, const void* b,
+                           int b_bcast, int64_t n, const void* consts, void* stream) {
   return launch_binary<0>(out, a, a_bcast, b, b_bcast, n, consts, stream);
 }
 
-int pt_field_sub(void* out, const void* a, int a_bcast, const void* b, int b_bcast,
-                 int64_t n, const void* consts, void* stream) {
+int PT_ENTRY(pt_field_sub)(void* out, const void* a, int a_bcast, const void* b,
+                           int b_bcast, int64_t n, const void* consts, void* stream) {
   return launch_binary<1>(out, a, a_bcast, b, b_bcast, n, consts, stream);
 }
 
-int pt_field_mul(void* out, const void* a, int a_bcast, const void* b, int b_bcast,
-                 int64_t n, const void* consts, void* stream) {
+int PT_ENTRY(pt_field_mul)(void* out, const void* a, int a_bcast, const void* b,
+                           int b_bcast, int64_t n, const void* consts, void* stream) {
   return launch_binary<2>(out, a, a_bcast, b, b_bcast, n, consts, stream);
 }
 
+#if PT_LIMBS == 8
 // n_sums sums over one batch of n into out [n_sums, 8, n]; the host arrays
 // a_ptrs / b_ptrs (device pointers, b may hold 0) and flags (int32) hold
 // the terms of every sum in turn, first (int32, n_sums + 1 entries) where
@@ -193,5 +204,8 @@ int pt_field_product_sum(void* out, const void* a_ptrs, const void* b_ptrs,
       (int32_t*)out, tab, n, splits, c);
   return (int)cudaGetLastError();
 }
+#endif  // PT_LIMBS == 8
 
 }  // extern "C"
+
+PT_NAMESPACE_END

@@ -24,14 +24,29 @@
 //   - reduce: one warp per window row; lane s walks segment s of `seg`
 //     buckets with the running-sum trick, and lane 0 combines the segments:
 //     ~2 seg + 2 (2^c / seg) + log2 seg dependent adds instead of 2^(c+1).
-// The points stay in Montgomery form (R = 2^256) from the basis copy to the
-// reduction's output, which converts back to canonical coordinates once.
-// The gathered basis points arrive by cp.async into a per-thread double
-// buffer in shared memory while the previous add runs.
+// The points stay in Montgomery form (R = 2^(32 L)) from the basis copy to
+// the reduction's output, which converts back to canonical coordinates
+// once.  The gathered basis points arrive by cp.async into a per-thread
+// double buffer in shared memory while the previous add runs.
+//
+// Built twice (_cuda.py): at 8 limbs, and at 12 (-DPT_LIMBS=12, BLS12-377
+// G1; entries pt_msm_bucket_accumulate_l12, ...).  A thread of the
+// accumulation holds four points in static shared memory (two staged, its
+// cont and head pieces): 128 x 4 x 96 bytes = 48 KB at 8 limbs, the static
+// limit, so the 12-limb build's points of 144 bytes take 64 chunks a block
+// (36 KB; curves/msm.py:tile_for).  Its blocks are half as wide; a
+// thread's registers (a 36-word point and the add's temporaries) limit
+// the SM to as many of its threads either way.
 #include "curve.cuh"
 
+PT_NAMESPACE_BEGIN
+
+#if PT_LIMBS == 8
 #define MSM_TILE 128        // chunks, one per thread, in an accumulate block
-#define MSM_WORDS 24        // a point: X, Y, Z, 8 limbs each
+#else
+#define MSM_TILE 64         // the same at 12 limbs (see above)
+#endif
+#define MSM_WORDS (3 * PT_LIMBS)   // a point: X, Y, Z, L limbs each
 #define MSM_WARP 32         // reduce: lanes, and the most segments per row
 
 __device__ __forceinline__ int64_t i64_min(int64_t a, int64_t b) { return a < b ? a : b; }
@@ -93,9 +108,9 @@ __device__ __forceinline__ void cp_async_point(uint32_t* smem, const uint32_t* g
 // 2^(k+1)), sums the pieces; the root's sum goes to buckets[r, d] when the
 // run begins in this tile, and to carries[r, tile] when it began in an
 // earlier one.  Digit 0 is skipped; slots no one writes stay zero.
-// basis: [N, 24] Montgomery points; digits, order: [R, N] int32 (sorted
+// basis: [N, 3L] Montgomery points; digits, order: [R, N] int32 (sorted
 // digits, the argsort); starts: [R, nb + 1] int32 run starts; buckets:
-// [R, nb, 24]; carries: [R, ntiles, 24].
+// [R, nb, 3L]; carries: [R, ntiles, 3L].
 __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
     uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
     const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
@@ -224,8 +239,8 @@ __device__ __forceinline__ void mpt_accumulate(Point& acc, bool& has, const Poin
 // Then sum_j j B_j = sum_s W_s + seg sum_{s>=1} s T_s: the W_s by a pairwise
 // tree, sum_s s T_s by a running sum from the top on lane 0, seg times by
 // log2 seg doublings, one add, and a conversion to canonical coordinates
-// (an empty row gives the identity (0 : 1 : 0)).  buckets: [R, nb, 24];
-// carries: [R, ntiles, 24]; starts: [R, nb + 1]; out: [8, R] each.
+// (an empty row gives the identity (0 : 1 : 0)).  buckets: [R, nb, 3L];
+// carries: [R, ntiles, 3L]; starts: [R, nb + 1]; out: [L, R] each.
 __global__ void __launch_bounds__(MSM_WARP) msm_bucket_reduce_kernel(
     int32_t* ox, int32_t* oy, int32_t* oz, const uint32_t* buckets, const uint32_t* carries,
     const int32_t* starts, int64_t rows, int64_t nb, int64_t ntiles, int64_t tile_points,
@@ -307,10 +322,11 @@ __global__ void __launch_bounds__(MSM_WARP) msm_bucket_reduce_kernel(
 
 extern "C" {
 
-int pt_msm_bucket_accumulate(void* buckets, void* carries, const void* basis,
-                             const void* digits, const void* order, const void* starts,
-                             int64_t rows, int64_t n, int64_t nb, int64_t chunk,
-                             int64_t tile, const void* consts, void* stream) {
+int PT_ENTRY(pt_msm_bucket_accumulate)(void* buckets, void* carries, const void* basis,
+                                       const void* digits, const void* order,
+                                       const void* starts, int64_t rows, int64_t n,
+                                       int64_t nb, int64_t chunk, int64_t tile,
+                                       const void* consts, void* stream) {
   if (tile != MSM_TILE || chunk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int rc = curve_set_consts((const uint32_t*)consts, st);
@@ -322,10 +338,10 @@ int pt_msm_bucket_accumulate(void* buckets, void* carries, const void* basis,
   return (int)cudaGetLastError();
 }
 
-int pt_msm_bucket_reduce(void* ox, void* oy, void* oz, const void* buckets,
-                         const void* carries, const void* starts, int64_t rows, int64_t nb,
-                         int64_t ntiles, int64_t tile_points, int64_t seg,
-                         const void* consts, void* stream) {
+int PT_ENTRY(pt_msm_bucket_reduce)(void* ox, void* oy, void* oz, const void* buckets,
+                                   const void* carries, const void* starts, int64_t rows,
+                                   int64_t nb, int64_t ntiles, int64_t tile_points,
+                                   int64_t seg, const void* consts, void* stream) {
   const int64_t nseg = (nb - 1 + seg - 1) / seg;
   if (seg < 1 || (seg & (seg - 1)) != 0 || nseg > MSM_WARP || tile_points < 1)
     return (int)cudaErrorInvalidValue;
@@ -340,3 +356,5 @@ int pt_msm_bucket_reduce(void* ox, void* oy, void* oz, const void* buckets,
 }
 
 }  // extern "C"
+
+PT_NAMESPACE_END

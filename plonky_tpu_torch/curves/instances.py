@@ -1,11 +1,13 @@
-"""The Tweedledee/Tweedledum 2-cycle (the recursion pair).
+"""The Tweedledee/Tweedledum 2-cycle (the recursion pair), and BLS12-377's
+G1 (no endomorphism constants: it is not a Halo curve).
 
 Constants converted to canonical form from the reference's Montgomery-form
 curve files (reference: src/curve/tweedledee_curve.rs,
 tweedledum_curve.rs).
 """
 
-from ..fields.instances import TWEEDLEDEE_BASE, TWEEDLEDUM_BASE
+from ..fields.instances import (BLS12_377_BASE, BLS12_377_SCALAR,
+                                TWEEDLEDEE_BASE, TWEEDLEDUM_BASE)
 from .spec import CurveSpec
 
 # reference: src/curve/tweedledee_curve.rs:7-38
@@ -33,4 +35,16 @@ TWEEDLEDUM = CurveSpec(
     zeta_scalar=0x093992C5E1FB65A7785274A0068CE00199BB1340487D58084097ED16EB705B03,
 )
 
-ALL_CURVES = [TWEEDLEDEE, TWEEDLEDUM]
+# reference: src/curve/bls12_377_curve.rs:13-33 (decimal constants in comments)
+BLS12_377 = CurveSpec(
+    name="Bls12377",
+    base=BLS12_377_BASE,
+    scalar=BLS12_377_SCALAR,
+    b=1,
+    generator_affine=(
+        81937999373150964239938255573465948239988671502647976594219695644855304257327692006745978603320413799295628339695,
+        241266749859715473739788878240585681733927191168601896383759122102112907357779751001206799952863815012735208165030,
+    ),
+)
+
+ALL_CURVES = [TWEEDLEDEE, TWEEDLEDUM, BLS12_377]

@@ -1,13 +1,15 @@
 """Multi-scalar multiplication (Pippenger) over a typed, precomputed basis.
 
-Pipeline for scalars [LIMBS, *B, N] against an N-point basis:
+Pipeline for scalars [Ls, *B, N] (Ls = curve.scalar.limbs) against an
+N-point basis of base-field coordinates [L, N] (L = curve.base.limbs: 8 on
+the Tweedle curves, 12 on BLS12-377; the kernels have a build for each):
   1. c-bit window digits of every scalar (torch),
   2. one stable argsort per (scalar, window) row and the start of every
      bucket's run in the sorted order (torch),
   3. bucket sums (K4 accumulation kernel): one thread per chunk of CHUNK
      sorted positions sums the pieces of the runs in its chunk; runs that
-     cross chunks are merged by a tree over the TILE chunks of a block, and
-     runs that cross blocks leave one carry per block,
+     cross chunks are merged by a tree over the `tile_for(L)` chunks of a
+     block, and runs that cross blocks leave one carry per block,
   4. window sums  sum_j j B_j  (K4 reduction kernel): the carries are added
      to their buckets, segments of SEG buckets are reduced by running sums
      in parallel and then combined,
@@ -16,15 +18,17 @@ Pipeline for scalars [LIMBS, *B, N] against an N-point basis:
      `curve_horner`, csrc/curve_kernels.cu; `horner_plain` is its plain
      version, today's loop over `double_plain` / `add_plain`).
 
-Steps 3 and 4 keep the points in Montgomery form (x 2^256 mod p; the
+Steps 3 and 4 keep the points in Montgomery form (x 2^(32 L) mod p; the
 basis keeps a point-major copy in that form, `MsmBasis.mont`), and step 4
 converts its output back to canonical coordinates.  K4 lives in
 csrc/msm_kernels.cu; `bucket_accumulate_plain` and `bucket_reduce_plain`
 are its plain PyTorch versions, taken only for CPU tensors: they add the
 same points in the same grouping as the kernels, so their outputs equal
 the kernels' word for word.  The result is a projective point
-[LIMBS, *B]; only its affine value is defined (it matches the reference's
-MSM, not its coordinates).
+[L, *B]; only its affine value is defined (it matches the reference's
+MSM, not its coordinates).  `msm_chunked` sums the MSMs of 2^chunk_log
+slices of the basis with K2's `curve_add` (the JAX package's bench entry
+point for BLS12-377).
 """
 
 from __future__ import annotations
@@ -35,24 +39,36 @@ import torch
 
 from .. import _cuda
 from ..fields import ops as fops
-from ..fields.spec import LIMBS, FieldSpec
+from ..fields.spec import FieldSpec
 from . import ops as cops
 from .spec import CurveSpec
 
 
 CHUNK = 32           # sorted positions per accumulation thread
-TILE = 128           # chunks per accumulation block (MSM_TILE in the kernel)
+TILE = 128           # chunks per accumulation block at 8 limbs (MSM_TILE)
+WIDE_TILE = 64       # the same at 12 limbs (36-word points)
 SEG = 16             # buckets per segment of the reduction (a power of two)
-WORDS = 3 * LIMBS    # a point-major Montgomery point: X, Y, Z limbs
+
+
+def tile_for(limbs: int) -> int:
+    """Chunks per accumulation block at a base-field width: the kernel's
+    MSM_TILE, which keeps its static shared memory (4 points a thread)
+    within 48 KB: 128 x 4 x 96 bytes at 8 limbs, 64 x 4 x 144 at 12."""
+    return TILE if limbs == 8 else WIDE_TILE
+
+
+def words(curve: CurveSpec) -> int:
+    """Words of a point-major Montgomery point: X, Y, Z limbs (24 or 36)."""
+    return 3 * curve.base.limbs
 
 
 @dataclass(frozen=True, eq=False)
 class MsmBasis:
-    """A fixed MSM basis: canonical projective coordinates [LIMBS, N] on one
-    device, and the same points point-major in Montgomery form, [N, WORDS]
-    (what the accumulation kernel gathers).  `msm` takes nothing else, so a
-    commitment can never be made against an unchecked array (the reference
-    took any uint8 input as canonical)."""
+    """A fixed MSM basis: canonical projective coordinates [L, N] on one
+    device, and the same points point-major in Montgomery form,
+    [N, words(curve)] (what the accumulation kernel gathers).  `msm` takes
+    nothing else, so a commitment can never be made against an unchecked
+    array (the reference took any uint8 input as canonical)."""
     curve: CurveSpec
     x: torch.Tensor
     y: torch.Tensor
@@ -67,18 +83,24 @@ class MsmBasis:
     def device(self) -> torch.device:
         return self.x.device
 
+    def slice(self, lo: int, hi: int) -> "MsmBasis":
+        """Points lo .. hi - 1 as a basis (views, no copy; the Montgomery
+        rows stay 16-byte aligned)."""
+        return MsmBasis(self.curve, self.x[:, lo:hi], self.y[:, lo:hi],
+                        self.z[:, lo:hi], self.mont[lo:hi])
+
 
 def precompute_base(curve: CurveSpec, points: cops.Point) -> MsmBasis:
-    """Contiguous [LIMBS, N] copies of a point batch and their point-major
+    """Contiguous [L, N] copies of a point batch and their point-major
     Montgomery copy as an MsmBasis."""
-    x, y, z = (t.reshape(LIMBS, -1).contiguous() for t in points)
+    x, y, z = (t.reshape(curve.base.limbs, -1).contiguous() for t in points)
     assert x.shape == y.shape == z.shape
     return MsmBasis(curve, x, y, z, pack_points(curve, (x, y, z)))
 
 
 def scalar_window_digits(spec: FieldSpec, scalars: torch.Tensor,
                          c: int) -> torch.Tensor:
-    """Canonical scalars [LIMBS, *B, N] -> window digits [W, *B, N] (int64,
+    """Canonical scalars [Ls, *B, N] -> window digits [W, *B, N] (int64,
     least significant window first), W = ceil(bits / c)."""
     n_windows = -(-spec.bits // c)
     v = scalars.to(torch.int64) & 0xFFFFFFFF
@@ -99,13 +121,14 @@ def _run_starts(sorted_digits: torch.Tensor, n_buckets: int) -> torch.Tensor:
 
 
 def _mont_factors(spec: FieldSpec):
-    """(2^256 mod p, 2^-256 mod p)."""
-    r = pow(2, 32 * LIMBS, spec.p)
+    """(R mod p, R^-1 mod p) for R = 2^(32 L)."""
+    r = pow(2, 32 * spec.limbs, spec.p)
     return r, pow(r, -1, spec.p)
 
 
 def to_montgomery(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
-    """Canonical x -> x 2^256 mod p (canonical limbs of the Montgomery form)."""
+    """Canonical x -> x 2^(32 L) mod p (canonical limbs of the Montgomery
+    form)."""
     return fops.mul(spec, x, fops.column(spec, _mont_factors(spec)[0], x.device))
 
 
@@ -115,21 +138,21 @@ def from_montgomery(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_points(curve: CurveSpec, pt: cops.Point) -> torch.Tensor:
-    """Canonical [LIMBS, M] coordinates -> [M, WORDS] point-major Montgomery
+    """Canonical [L, M] coordinates -> [M, 3L] point-major Montgomery
     words (X, Y, Z limbs of point m in row m)."""
-    m = pt[0].shape[1]
+    m, nl = pt[0].shape[1], curve.base.limbs
     if m == 0:
-        return torch.zeros((0, WORDS), dtype=torch.int32, device=pt[0].device)
+        return torch.zeros((0, 3 * nl), dtype=torch.int32, device=pt[0].device)
     mont = to_montgomery(curve.base, torch.cat(pt, dim=1))
-    return mont.reshape(LIMBS, 3, m).permute(2, 1, 0).reshape(m, WORDS).contiguous()
+    return mont.reshape(nl, 3, m).permute(2, 1, 0).reshape(m, 3 * nl).contiguous()
 
 
-def unpack_points(curve: CurveSpec, words: torch.Tensor) -> cops.Point:
-    """[M, WORDS] point-major Montgomery words -> canonical [LIMBS, M]."""
-    m = words.shape[0]
+def unpack_points(curve: CurveSpec, packed: torch.Tensor) -> cops.Point:
+    """[M, 3L] point-major Montgomery words -> canonical [L, M]."""
+    m, nl = packed.shape[0], curve.base.limbs
     if m == 0:
-        return _empty(0, words.device)
-    flat = words.reshape(m, 3, LIMBS).permute(2, 1, 0).reshape(LIMBS, 3 * m)
+        return _empty(curve, 0, packed.device)
+    flat = packed.reshape(m, 3, nl).permute(2, 1, 0).reshape(nl, 3 * m)
     return tuple(from_montgomery(curve.base, flat.contiguous()).chunk(3, dim=1))
 
 
@@ -156,32 +179,36 @@ def _accumulate(curve: CurveSpec, acc: cops.Point, has: torch.Tensor,
     return has | x_has
 
 
-def _empty(m: int, device) -> cops.Point:
-    return tuple(torch.zeros((LIMBS, m), dtype=torch.int32, device=device)
-                 for _ in range(3))
+def _empty(curve: CurveSpec, m: int, device) -> cops.Point:
+    return tuple(torch.zeros((curve.base.limbs, m), dtype=torch.int32,
+                             device=device) for _ in range(3))
 
 
 def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
                             order: torch.Tensor, starts: torch.Tensor,
-                            chunk: int = CHUNK, tile: int = TILE):
-    """(buckets [R, nb, WORDS], carries [R, ntiles, WORDS]) in Montgomery
+                            chunk: int = CHUNK, tile: int | None = None):
+    """(buckets [R, nb, 3L], carries [R, ntiles, 3L]) in Montgomery
     form, as the accumulation kernel leaves them (see its comment in
     csrc/msm_kernels.cu): bucket j of row r holds the sum of its run's
     points in the sorted order `order[r]` (digits[r] sorted, run starts
     `starts`) that lie in the run's first tile of chunk * tile positions;
     carries[r, t] holds the part in tile t of the run that crosses into
     tile t.  Empty buckets, bucket 0 and unused carries are zero words.
-    The kernel's grouping is chunk = CHUNK, tile = TILE."""
+    The kernel's grouping is chunk = CHUNK, tile = tile_for(L) (the
+    default)."""
+    if tile is None:
+        tile = tile_for(curve.base.limbs)
+    w = words(curve)
     rows, n = order.shape
     nb = starts.shape[1] - 1
     dev = basis.device
     nchunks = -(-n // chunk)
     ntiles = -(-nchunks // tile)
-    buckets = torch.zeros((rows * nb, WORDS), dtype=torch.int32, device=dev)
-    carries = torch.zeros((rows * ntiles, WORDS), dtype=torch.int32, device=dev)
+    buckets = torch.zeros((rows * nb, w), dtype=torch.int32, device=dev)
+    carries = torch.zeros((rows * ntiles, w), dtype=torch.int32, device=dev)
     if rows * n == 0:
-        return (buckets.reshape(rows, nb, WORDS),
-                carries.reshape(rows, ntiles, WORDS))
+        return (buckets.reshape(rows, nb, w),
+                carries.reshape(rows, ntiles, w))
     pad = nchunks * chunk + 1 - n
     dig = torch.cat([digits.to(torch.int64),
                      torch.full((rows, pad), -1, dtype=torch.int64, device=dev)], 1)
@@ -195,8 +222,8 @@ def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Ten
     s1 = torch.clamp(s0 + chunk, max=n)
     pts = (basis.x, basis.y, basis.z)
 
-    acc = _empty(m, dev)
-    cont, head = _empty(m, dev), _empty(m, dev)
+    acc = _empty(curve, m, dev)
+    cont, head = _empty(curve, m, dev), _empty(curve, m, dev)
     has_cont = torch.zeros(m, dtype=torch.bool, device=dev)
     has_head = torch.zeros_like(has_cont)
     cont_lo, cont_hi, head_hi, head_d = (torch.zeros(m, dtype=torch.int64, device=dev)
@@ -257,19 +284,22 @@ def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Ten
     vals = tuple(torch.cat(parts, dim=1) for parts in zip(*written))
     buckets[idx] = pack_points(curve, vals)
     carries[carry_idx] = pack_points(curve, _take(cont, sel))
-    return buckets.reshape(rows, nb, WORDS), carries.reshape(rows, ntiles, WORDS)
+    return buckets.reshape(rows, nb, w), carries.reshape(rows, ntiles, w)
 
 
 def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor,
                         starts: torch.Tensor, chunk: int = CHUNK,
-                        tile: int = TILE, seg: int = SEG) -> cops.Point:
-    """Window sums [LIMBS, R] (canonical) of the accumulation's output:
+                        tile: int | None = None, seg: int = SEG) -> cops.Point:
+    """Window sums [L, R] (canonical) of the accumulation's output:
     sum_j j B_j, with B_j the bucket plus its carries, as the reduction
     kernel forms it (see its comment in csrc/msm_kernels.cu): segments of
     `seg` buckets by running sums, their W_s by a pairwise tree, sum s T_s
     by a running sum, seg times by doublings.  An empty row gives the
     identity.  chunk and tile are the accumulation's; the kernel's are
-    CHUNK, TILE and SEG."""
+    CHUNK, tile_for(L) (the default) and SEG."""
+    if tile is None:
+        tile = tile_for(curve.base.limbs)
+    w = words(curve)
     rows, nb = buckets.shape[0], buckets.shape[1]
     ntiles = carries.shape[1]
     dev = buckets.device
@@ -278,8 +308,8 @@ def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.
     out = cops.identity(curve, (rows,), dev)
     if rows == 0 or nseg == 0:
         return out
-    b = unpack_points(curve, buckets.reshape(rows * nb, WORDS))
-    c = unpack_points(curve, carries.reshape(rows * ntiles, WORDS))
+    b = unpack_points(curve, buckets.reshape(rows * nb, w))
+    c = unpack_points(curve, carries.reshape(rows * ntiles, w))
     st = starts.to(torch.int64)
     lo, hi = st[:, :-1].reshape(-1), st[:, 1:].reshape(-1)
     nonempty = hi > lo
@@ -294,7 +324,7 @@ def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.
     lanes = rows * nseg
     lrow = torch.arange(rows, device=dev).repeat_interleave(nseg)
     lseg = torch.arange(nseg, device=dev).repeat(rows)
-    running, acc = _empty(lanes, dev), _empty(lanes, dev)
+    running, acc = _empty(curve, lanes, dev), _empty(curve, lanes, dev)
     has_run = torch.zeros(lanes, dtype=torch.bool, device=dev)
     has_acc = torch.zeros_like(has_run)
     for i in range(seg - 1, -1, -1):
@@ -315,7 +345,7 @@ def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.
         has_acc[recv] = sub_has
         step *= 2
 
-    run2, acc2 = _empty(rows, dev), _empty(rows, dev)
+    run2, acc2 = _empty(curve, rows, dev), _empty(curve, rows, dev)
     has_run2 = torch.zeros(rows, dtype=torch.bool, device=dev)
     has_acc2 = torch.zeros_like(has_run2)
     base = torch.arange(rows, device=dev) * nseg
@@ -340,28 +370,29 @@ def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.
 def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
                       order: torch.Tensor, starts: torch.Tensor):
     """K4 accumulation on the card: sorted digits and order [R, N], run
-    starts [R, B + 1] (int32) -> (buckets [R, B, WORDS], carries
-    [R, ntiles, WORDS]), Montgomery form (see bucket_accumulate_plain)."""
+    starts [R, B + 1] (int32) -> (buckets [R, B, 3L], carries
+    [R, ntiles, 3L]), Montgomery form (see bucket_accumulate_plain)."""
     if not fops._dispatch(basis.mont):
         return bucket_accumulate_plain(curve, basis, digits, order, starts)
-    name = "msm_bucket_accumulate"
+    name, entry = _cuda.kernel("msm_bucket_accumulate", curve.base.limbs)
     for t in (basis.mont, digits, order, starts):
         _cuda.check(name, t)
+    w, tile = words(curve), tile_for(curve.base.limbs)
     rows, n = order.shape
     nb = starts.shape[1] - 1
     if (starts.dim() != 2 or starts.shape[0] != rows or n != basis.n
             or digits.shape != order.shape
-            or basis.mont.shape != (n, WORDS) or basis.mont.data_ptr() % 16):
+            or basis.mont.shape != (n, w) or basis.mont.data_ptr() % 16):
         raise ValueError(f"{name}: order {tuple(order.shape)}, digits "
                          f"{tuple(digits.shape)}, basis {tuple(basis.mont.shape)}")
-    ntiles = -(-n // (CHUNK * TILE))
-    buckets = torch.zeros((rows, nb, WORDS), dtype=torch.int32, device=basis.device)
-    carries = torch.zeros((rows, ntiles, WORDS), dtype=torch.int32, device=basis.device)
+    ntiles = -(-n // (CHUNK * tile))
+    buckets = torch.zeros((rows, nb, w), dtype=torch.int32, device=basis.device)
+    carries = torch.zeros((rows, ntiles, w), dtype=torch.int32, device=basis.device)
     if rows * n == 0:
         return buckets, carries
-    _cuda.launch(name, "pt_msm_bucket_accumulate", buckets.data_ptr(),
+    _cuda.launch(name, entry, buckets.data_ptr(),
                  carries.data_ptr(), basis.mont.data_ptr(), digits.data_ptr(),
-                 order.data_ptr(), starts.data_ptr(), rows, n, nb, CHUNK, TILE,
+                 order.data_ptr(), starts.data_ptr(), rows, n, nb, CHUNK, tile,
                  cops._consts_host(curve).ctypes.data, _cuda.stream())
     return buckets, carries
 
@@ -369,32 +400,34 @@ def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
 def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor,
                   starts: torch.Tensor) -> cops.Point:
     """K4 reduction on the card: the accumulation's (buckets, carries) and
-    the run starts -> window sums [LIMBS, R], canonical."""
+    the run starts -> window sums [L, R], canonical."""
     if not fops._dispatch(buckets):
         return bucket_reduce_plain(curve, buckets, carries, starts)
-    name = "msm_bucket_reduce"
+    nl = curve.base.limbs
+    name, entry = _cuda.kernel("msm_bucket_reduce", nl)
     for t in (buckets, carries, starts):
         _cuda.check(name, t)
+    w = words(curve)
     rows, nb = buckets.shape[0], buckets.shape[1]
-    if (buckets.dim() != 3 or buckets.shape[2] != WORDS or carries.dim() != 3
-            or carries.shape[0] != rows or carries.shape[2] != WORDS
+    if (buckets.dim() != 3 or buckets.shape[2] != w or carries.dim() != 3
+            or carries.shape[0] != rows or carries.shape[2] != w
             or starts.shape != (rows, nb + 1)):
         raise ValueError(f"{name}: buckets {tuple(buckets.shape)}, carries "
                          f"{tuple(carries.shape)}, starts {tuple(starts.shape)}")
-    outs = [torch.empty((LIMBS, rows), dtype=torch.int32, device=buckets.device)
+    outs = [torch.empty((nl, rows), dtype=torch.int32, device=buckets.device)
             for _ in range(3)]
     if rows == 0:
         return tuple(outs)
-    _cuda.launch(name, "pt_msm_bucket_reduce", *[t.data_ptr() for t in outs],
+    _cuda.launch(name, entry, *[t.data_ptr() for t in outs],
                  buckets.data_ptr(), carries.data_ptr(), starts.data_ptr(), rows, nb,
-                 carries.shape[1], CHUNK * TILE, SEG,
+                 carries.shape[1], CHUNK * tile_for(nl), SEG,
                  cops._consts_host(curve).ctypes.data, _cuda.stream())
     return tuple(outs)
 
 
 def horner_plain(curve: CurveSpec, ws: cops.Point, c: int) -> cops.Point:
-    """Window sums [LIMBS, K, W] (canonical, least significant window
-    first) -> sum_w 2^(c w) ws[w], [LIMBS, K]: acc = ws[W-1], then for
+    """Window sums [L, K, W] (canonical, least significant window
+    first) -> sum_w 2^(c w) ws[w], [L, K]: acc = ws[W-1], then for
     w = W-2 .. 0, c doublings and one add of ws[w]."""
     n_windows = ws[0].shape[-1]
     acc = tuple(t[..., n_windows - 1].contiguous() for t in ws)
@@ -410,19 +443,20 @@ def horner(curve: CurveSpec, ws: cops.Point, c: int) -> cops.Point:
     same function as horner_plain, equal to it word for word."""
     if not fops._dispatch(ws[0]):
         return horner_plain(curve, ws, c)
-    name = "curve_horner"
+    nl = curve.base.limbs
+    name, entry = _cuda.kernel("curve_horner", nl)
     for t in ws:
-        _cuda.check(name, t, LIMBS)
+        _cuda.check(name, t, nl)
     if (ws[0].dim() != 3 or any(t.shape != ws[0].shape for t in ws)
             or ws[0].shape[2] < 1 or c < 1):
         raise ValueError(f"{name}: window sums {[tuple(t.shape) for t in ws]}, "
                          f"c = {c}")
     k, n_windows = ws[0].shape[1], ws[0].shape[2]
-    outs = [torch.empty((LIMBS, k), dtype=torch.int32, device=ws[0].device)
+    outs = [torch.empty((nl, k), dtype=torch.int32, device=ws[0].device)
             for _ in range(3)]
     if k == 0:
         return tuple(outs)
-    _cuda.launch(name, "pt_curve_horner", *[t.data_ptr() for t in outs],
+    _cuda.launch(name, entry, *[t.data_ptr() for t in outs],
                  *[t.data_ptr() for t in ws], k, n_windows, c,
                  cops._consts_host(curve).ctypes.data, _cuda.stream())
     return tuple(outs)
@@ -431,8 +465,8 @@ def horner(curve: CurveSpec, ws: cops.Point, c: int) -> cops.Point:
 def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
         window_bits: int) -> cops.Point:
     """sum_i scalars[..., i] * basis[i] for canonical scalars
-    [LIMBS, *B, N]; returns a [LIMBS, *B] projective point (a multi-MSM
-    over the shared basis when B is not empty)."""
+    [Ls, *B, N]; returns a [L, *B] projective point (a multi-MSM over the
+    shared basis when B is not empty)."""
     if not isinstance(basis, MsmBasis):
         raise TypeError("msm takes an MsmBasis (see precompute_base)")
     if scalars.shape[-1] != basis.n:
@@ -452,7 +486,30 @@ def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
     buckets, carries = bucket_accumulate(
         curve, basis, sorted_digits.to(torch.int32).contiguous(),
         order.to(torch.int32).contiguous(), starts)
-    ws = bucket_reduce(curve, buckets, carries, starts)   # [LIMBS, K W]
-    ws = tuple(t.reshape(LIMBS, k, n_windows) for t in ws)
+    nl = curve.base.limbs
+    ws = bucket_reduce(curve, buckets, carries, starts)   # [L, K W]
+    ws = tuple(t.reshape(nl, k, n_windows) for t in ws)
     acc = horner(curve, ws, c)
-    return tuple(t.reshape(LIMBS, *lead) for t in acc)
+    return tuple(t.reshape(nl, *lead) for t in acc)
+
+
+def msm_chunked(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
+                window_bits: int = 8, chunk_log: int = 18) -> cops.Point:
+    """`msm` over slices of 2^chunk_log points, summed by `cops.add` (K2's
+    curve_add on the card): the MSM is linear in its points, so the sum of
+    the slices' MSMs is the whole one (plonky_tpu/curves/msm.py:436-465,
+    whose bench runs BLS12-377 at chunk_log = 16).  N must be at most
+    2^chunk_log or a multiple of it."""
+    if not isinstance(basis, MsmBasis):
+        raise TypeError("msm_chunked takes an MsmBasis (see precompute_base)")
+    n, size = basis.n, 1 << chunk_log
+    if n <= size:
+        return msm(curve, basis, scalars, window_bits)
+    if n % size:
+        raise ValueError(f"N={n} not a multiple of chunk {size}")
+    acc = None
+    for lo in range(0, n, size):
+        part = msm(curve, basis.slice(lo, lo + size),
+                   scalars[..., lo:lo + size], window_bits)
+        acc = part if acc is None else cops.add(curve, acc, part)
+    return acc

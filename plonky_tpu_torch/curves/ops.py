@@ -1,13 +1,15 @@
 """Batched, branch-free curve arithmetic on canonical limb tensors.
 
-A batched point is a tuple (X, Y, Z) of base-field tensors [LIMBS, *batch]
-in projective coordinates; the identity is (0 : 1 : 0).  Addition and
+A batched point is a tuple (X, Y, Z) of base-field tensors [L, *batch]
+(L = curve.base.limbs: 8 on the Tweedle curves, 12 on BLS12-377) in
+projective coordinates; the identity is (0 : 1 : 0).  Addition and
 doubling are the COMPLETE formulas of Renes-Costello-Batina 2015
 (Algorithms 7 and 9, a = 0), which have no exceptional cases.
 
-K2, the curve kernel (csrc/curve_kernels.cu), computes `add` and `double`
-on CUDA tensors, one thread per point, in Montgomery form inside the
-kernel (the MSM's Horner chain is K2's `curve_horner`, curves/msm.py).
+K2, the curve kernel (csrc/curve_kernels.cu, built for 8 and for 12
+limbs), computes `add` and `double` on CUDA tensors, one thread per point,
+in Montgomery form inside the kernel (the MSM's Horner chain is K2's
+`curve_horner`, curves/msm.py).
 `add_plain` / `double_plain` are its plain PyTorch versions (the same
 formulas over the plain field ops, with independent products stacked into
 one call); a wrapper takes the plain version only for CPU tensors.
@@ -24,7 +26,7 @@ import torch
 from .. import _cuda
 from ..device import resolve
 from ..fields import ops as fops
-from ..fields.spec import LIMB_BITS, LIMBS, int_to_limbs
+from ..fields.spec import LIMB_BITS, int_to_limbs
 from .spec import CurveSpec
 
 Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -55,16 +57,19 @@ def from_affine(curve: CurveSpec, x: torch.Tensor, y: torch.Tensor,
 def _consts_host(curve: CurveSpec) -> np.ndarray:
     """The point kernels' constant buffer (csrc/curve.cuh:curve_set_consts):
     the field constants (FieldSpec.kernel_consts), b3 = 3b mod p, and
-    R^2 = 2^512 mod p, the factor into Montgomery form."""
+    R^2 mod p with R = 2^(32 L), the factor into Montgomery form (all at
+    the base field's L limbs)."""
     f = curve.base
     return np.concatenate([f.kernel_consts,
-                           int_to_limbs(3 * curve.b % f.p),
-                           int_to_limbs(pow(2, 2 * LIMB_BITS * LIMBS, f.p))])
+                           int_to_limbs(3 * curve.b % f.p, f.limbs),
+                           int_to_limbs(pow(2, 2 * LIMB_BITS * f.limbs, f.p),
+                                        f.limbs)])
 
 
 def _broadcast(coords):
     batch = fops.batch_shape(*coords)
-    return batch, [fops._expand(c, batch).reshape(LIMBS, -1) for c in coords]
+    return batch, [fops._expand(c, batch).reshape(c.shape[0], -1)
+                   for c in coords]
 
 
 def _cat(*xs):
@@ -85,7 +90,7 @@ def add_plain(curve: CurveSpec, p1: Point, p2: Point) -> Point:
     n = X1.shape[1]
 
     def col(v):
-        return fops.column(f, v, X1.device).expand(LIMBS, n)
+        return fops.column(f, v, X1.device).expand(f.limbs, n)
 
     zero = torch.zeros_like(X1)
     b3 = 3 * curve.b
@@ -101,7 +106,7 @@ def add_plain(curve: CurveSpec, p1: Point, p2: Point) -> Point:
     X3, Y3, Z3 = _split(fops.product_sum_plain(f, [
         (_cat(t3, yb3, z3p), _cat(t1m, t0_3, t4), 1),
         (_cat(t4, t1m, t0_3), _cat(neg_yb3, z3p, t3), 1)]), 3)
-    return tuple(c.reshape(LIMBS, *batch) for c in (X3, Y3, Z3))
+    return tuple(c.reshape(f.limbs, *batch) for c in (X3, Y3, Z3))
 
 
 def double_plain(curve: CurveSpec, p: Point) -> Point:
@@ -112,7 +117,7 @@ def double_plain(curve: CurveSpec, p: Point) -> Point:
     n = X.shape[1]
 
     def col(v):
-        return fops.column(f, v, X.device).expand(LIMBS, n)
+        return fops.column(f, v, X.device).expand(f.limbs, n)
 
     zero = torch.zeros_like(X)
     t0, t1, t2, txy = _split(fops.mul_plain(f, _cat(Y, Y, Z, X),
@@ -126,20 +131,22 @@ def double_plain(curve: CurveSpec, p: Point) -> Point:
     Y3, X3 = _split(fops.product_sum_plain(f, [
         (_cat(t0m, t0m), _cat(y3p, txy), 1),
         (_cat(x3p, t0m), _cat(col(1), txy), 1)]), 2)
-    return tuple(c.reshape(LIMBS, *batch) for c in (X3, Y3, Z3))
+    return tuple(c.reshape(f.limbs, *batch) for c in (X3, Y3, Z3))
 
 
-def _launch_point(name: str, entry: str, curve: CurveSpec, coords) -> Point:
+def _launch_point(kernel: str, curve: CurveSpec, coords) -> Point:
+    nl = curve.base.limbs
+    name, entry = _cuda.kernel(kernel, nl)
     batch = fops.batch_shape(*coords)
     dev = coords[0].device
-    outs = [torch.empty((LIMBS, *batch), dtype=torch.int32, device=dev)
+    outs = [torch.empty((nl, *batch), dtype=torch.int32, device=dev)
             for _ in range(3)]
     n = outs[0][0].numel()
     if n == 0:
         return tuple(outs)
     ins = [fops._expand(c, batch).contiguous() for c in coords]
     for t in ins:
-        _cuda.check(name, t, LIMBS)
+        _cuda.check(name, t, nl)
     _cuda.launch(name, entry, *[t.data_ptr() for t in outs],
                  *[t.data_ptr() for t in ins], n,
                  _consts_host(curve).ctypes.data, _cuda.stream())
@@ -150,14 +157,14 @@ def add(curve: CurveSpec, p1: Point, p2: Point) -> Point:
     """Complete projective addition (K2 on the card)."""
     if not fops._dispatch(p1[0]):
         return add_plain(curve, p1, p2)
-    return _launch_point("curve_add", "pt_curve_add", curve, [*p1, *p2])
+    return _launch_point("curve_add", curve, [*p1, *p2])
 
 
 def double(curve: CurveSpec, p: Point) -> Point:
     """Complete projective doubling (K2 on the card)."""
     if not fops._dispatch(p[0]):
         return double_plain(curve, p)
-    return _launch_point("curve_double", "pt_curve_double", curve, list(p))
+    return _launch_point("curve_double", curve, list(p))
 
 
 def neg(curve: CurveSpec, p: Point) -> Point:

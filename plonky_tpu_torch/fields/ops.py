@@ -1,18 +1,20 @@
 """Batched prime-field arithmetic on canonical limb tensors.
 
-A value is an int32 tensor ``[LIMBS, *batch]`` of canonical elements (see
-spec.py).  Operands broadcast over the batch like torch tensors; an
-``[LIMBS, 1]`` column (a challenge, a constant) is read with a zero batch
-stride by the kernels.
+A value is an int32 tensor ``[L, *batch]`` of canonical elements, L =
+``spec.limbs`` (8 or 12, see spec.py).  Operands broadcast over the batch
+like torch tensors; an ``[L, 1]`` column (a challenge, a constant) is read
+with a zero batch stride by the kernels.
 
 K1, the field kernel (csrc/field_kernels.cu), computes `add`, `sub`, `mul`
 and `product_sum` / `product_sums` on CUDA tensors (`mul`: one Barrett
 reduction per product, on PTX carry chains; `product_sums`: several sums
-over one batch in one launch, each reduced once).  Beside each sits its
-plain PyTorch version (`add_plain`, ...), which computes the same
-canonical result with 16-bit digits in int64 so that every partial
-product stays exact: the CPU runs it, and the chip check compares the
-kernel with it.  A wrapper takes
+over one batch in one launch, each reduced once).  `add`, `sub` and `mul`
+have a build for each width (the 12-limb launches count as
+`field_add_l12`, ...); `product_sums` has only the 8-limb one and raises
+for a 12-limb field on the card.  Beside each sits its plain PyTorch
+version (`add_plain`, ...), which computes the same canonical result with
+16-bit digits in int64 so that every partial product stays exact: the CPU
+runs it, and the chip check compares the kernel with it.  A wrapper takes
 the plain version only for a CPU tensor; for a CUDA tensor it launches the
 kernel or raises.
 """
@@ -26,7 +28,7 @@ import torch
 
 from .. import _cuda
 from ..device import resolve
-from .spec import LIMBS, MAX_TERMS, FieldSpec, int_to_limbs
+from .spec import LIMB_BITS, MAX_TERMS, FieldSpec, int_to_limbs, require_eight_limbs
 
 _M16 = 0xFFFF
 
@@ -36,23 +38,23 @@ _M16 = 0xFFFF
 # ---------------------------------------------------------------------------
 
 def _limb_matrix(spec: FieldSpec, values) -> np.ndarray:
-    """Python ints -> canonical limbs as int32 [LIMBS, len(values)]."""
-    p = spec.p
-    flat = b"".join((int(v) % p).to_bytes(4 * LIMBS, "little") for v in values)
-    arr = np.frombuffer(flat, dtype="<u4").reshape(len(values), LIMBS)
+    """Python ints -> canonical limbs as int32 [L, len(values)]."""
+    p, nl = spec.p, spec.limbs
+    flat = b"".join((int(v) % p).to_bytes(4 * nl, "little") for v in values)
+    arr = np.frombuffer(flat, dtype="<u4").reshape(len(values), nl)
     return np.array(arr.T, order="C").view(np.int32)
 
 
 def from_ints(spec: FieldSpec, values, device=None) -> torch.Tensor:
-    """Python ints -> [LIMBS, len(values)] tensor (reduced mod p)."""
+    """Python ints -> [L, len(values)] tensor (reduced mod p)."""
     return torch.from_numpy(_limb_matrix(spec, values)).to(resolve(device))
 
 
 def to_ints(spec: FieldSpec, x: torch.Tensor):
-    """[LIMBS, *batch] -> canonical python ints: an object array shaped like
+    """[L, *batch] -> canonical python ints: an object array shaped like
     the batch, or an int when there is no batch."""
     arr = x.detach().cpu().contiguous().numpy().view(np.uint32)
-    flat = np.ascontiguousarray(arr.reshape(LIMBS, -1).T)
+    flat = np.ascontiguousarray(arr.reshape(spec.limbs, -1).T)
     vals = [int.from_bytes(row.tobytes(), "little") for row in flat]
     shape = tuple(x.shape[1:])
     if not shape:
@@ -63,19 +65,20 @@ def to_ints(spec: FieldSpec, x: torch.Tensor):
 
 
 def constant(spec: FieldSpec, v: int, batch=(), device=None) -> torch.Tensor:
-    """A python int as a [LIMBS, *batch] tensor (an expanded view)."""
+    """A python int as a [L, *batch] tensor (an expanded view)."""
+    nl = spec.limbs
     col = torch.from_numpy(
-        int_to_limbs(v % spec.p).view(np.int32).copy()).to(resolve(device))
-    return col.reshape((LIMBS,) + (1,) * len(batch)).expand(LIMBS, *batch)
+        int_to_limbs(v % spec.p, nl).view(np.int32).copy()).to(resolve(device))
+    return col.reshape((nl,) + (1,) * len(batch)).expand(nl, *batch)
 
 
 def zeros(spec: FieldSpec, batch=(), device=None) -> torch.Tensor:
-    return torch.zeros((LIMBS, *batch), dtype=torch.int32,
+    return torch.zeros((spec.limbs, *batch), dtype=torch.int32,
                        device=resolve(device))
 
 
 def column(spec: FieldSpec, v: int, device) -> torch.Tensor:
-    """A python int as a contiguous [LIMBS, 1] column."""
+    """A python int as a contiguous [L, 1] column."""
     return constant(spec, v, (1,), device).contiguous()
 
 
@@ -85,14 +88,20 @@ def column(spec: FieldSpec, v: int, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _plain_tables(spec: FieldSpec, device: torch.device):
-    """p, the Barrett factor mu = floor(2^544 / p) and 2p as 16-bit
-    digits."""
+    """p (2L + 2 digits), the Barrett factor mu = floor(2^(32 (2L + 1)) / p)
+    (2L + 3 digits) and 2p (2L + 1 digits) as 16-bit digits, L =
+    spec.limbs (18, 19 and 17 digits at 8 limbs).  _reduce_columns needs
+    2^(16 (2L - 1)) < p < 2^(32 L - 1)."""
+    nd = 2 * spec.limbs
+    assert (1 << (16 * (nd - 1))) < spec.p < (1 << (16 * nd - 1)), spec.name
+
     def digits(v, n):
+        assert 0 <= v < (1 << (16 * n)), (v, n)
         return torch.tensor([(v >> (16 * k)) & _M16 for k in range(n)],
                             dtype=torch.int64, device=device)
-    p16 = digits(spec.p, 18)
-    mu = digits((1 << 544) // spec.p, 19)
-    return p16, mu, digits(2 * spec.p, 17)
+    p16 = digits(spec.p, nd + 2)
+    mu = digits(spec.sum_mu, nd + 3)
+    return p16, mu, digits(2 * spec.p, nd + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,13 +111,13 @@ def _diag(la: int, lb: int, device: torch.device) -> torch.Tensor:
 
 
 def _split16(x: torch.Tensor) -> torch.Tensor:
-    """[LIMBS, N] int32 -> [2 LIMBS, N] int64 16-bit digits."""
+    """[L, N] int32 -> [2L, N] int64 16-bit digits."""
     v = x.to(torch.int64) & 0xFFFFFFFF
-    return torch.stack([v & _M16, v >> 16], dim=1).reshape(2 * LIMBS, -1)
+    return torch.stack([v & _M16, v >> 16], dim=1).reshape(2 * x.shape[0], -1)
 
 
 def _join16(d: torch.Tensor) -> torch.Tensor:
-    """[2 LIMBS, N] digits in [0, 2^16) -> [LIMBS, N] int32."""
+    """[2L, N] digits in [0, 2^16) -> [L, N] int32."""
     v = d[0::2] | (d[1::2] << 16)
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
 
@@ -129,7 +138,7 @@ def _carry(cols: torch.Tensor, rounds: int = 1) -> torch.Tensor:
 
 
 def batch_shape(*xs) -> torch.Size:
-    """The broadcast batch shape of [LIMBS, *batch] operands."""
+    """The broadcast batch shape of [L, *batch] operands."""
     shapes = [x.shape[1:] for x in xs]
     if all(s == shapes[0] for s in shapes[1:]):
         return shapes[0]
@@ -168,52 +177,58 @@ def _sub_multiple(x: torch.Tensor, k: torch.Tensor, p16) -> torch.Tensor:
 
 
 def _reduce_columns(spec: FieldSpec, s: torch.Tensor) -> torch.Tensor:
-    """Columns of an integer 0 <= S < 2^544 at 16-bit positions (any values
-    that keep int64 exact) -> S mod p as 16 normalized digits, by Barrett
-    reduction: q = floor(floor(S / 2^240) mu / 2^304) with
-    mu = floor(2^544 / p) is at most 2 below floor(S / p) (as 2^240 < p),
-    so S - q p < 3p."""
-    p16, mu, _p2 = _plain_tables(spec, s.device)
+    """Columns of an integer 0 <= S < 2^T, T = 32 (2L + 1) (2^544 at 8
+    limbs, 2^800 at 12), at 16-bit positions (any values that keep int64
+    exact; at most 4L + 2 columns) -> S mod p as 2L normalized digits, by
+    Barrett reduction: q = floor(floor(S / 2^(16 (2L - 1))) mu /
+    2^(T - 16 (2L - 1))) with mu = floor(2^T / p) is at most 2 below
+    floor(S / p) (as 2^(16 (2L - 1)) < p), so S - q p < 3p <
+    2^(16 (2L + 1))."""
+    p16, mu, p2 = _plain_tables(spec, s.device)
+    nd = 2 * spec.limbs                                  # digits of a value
     n = s.shape[1]
-    x = _carry(torch.cat([s, s.new_zeros((35 - s.shape[0], n))]), 3)
-    q2 = _conv16(x[15:34], mu[:, None])                  # 37 columns
+    assert s.shape[0] <= 2 * nd + 2, s.shape
+    x = _carry(torch.cat([s, s.new_zeros((2 * nd + 3 - s.shape[0], n))]), 3)
+    q2 = _conv16(x[nd - 1:2 * nd + 2], mu[:, None])     # 2 nd + 5 columns
     q2 = _carry(torch.cat([q2, q2.new_zeros((1, n))]), 3)
-    r2 = _conv16(q2[19:38], p16[:16, None])[:17]         # q p mod 2^272
-    r = _carry(torch.cat([x[:17] - r2, x.new_zeros((1, n))]), 3)[:17]
-    p2 = _plain_tables(spec, s.device)[2]
-    k = _geq(r, p16[:17, None]).long() + _geq(r, p2[:, None]).long()
-    return _sub_multiple(r, k, p16)[:16]
+    r2 = _conv16(q2[nd + 3:2 * nd + 6], p16[:nd, None])[:nd + 1]  # q p, low
+    r = _carry(torch.cat([x[:nd + 1] - r2, x.new_zeros((1, n))]), 3)[:nd + 1]
+    k = _geq(r, p16[:nd + 1, None]).long() + _geq(r, p2[:, None]).long()
+    return _sub_multiple(r, k, p16)[:nd]
 
 
 def _expand(x: torch.Tensor, batch) -> torch.Tensor:
-    """Broadcast [LIMBS, *b] to [LIMBS, *batch] (batch axes align right)."""
+    """Broadcast [L, *b] to [L, *batch] (batch axes align right)."""
+    nl = x.shape[0]
     pad = len(batch) - (x.dim() - 1)
     if pad:
-        x = x.reshape((LIMBS,) + (1,) * pad + tuple(x.shape[1:]))
-    return x.expand(LIMBS, *batch)
+        x = x.reshape((nl,) + (1,) * pad + tuple(x.shape[1:]))
+    return x.expand(nl, *batch)
 
 
 def _flat(x: torch.Tensor, batch) -> torch.Tensor:
-    return _expand(x, batch).reshape(LIMBS, -1)
+    return _expand(x, batch).reshape(x.shape[0], -1)
 
 
 def add_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batch = batch_shape(a, b)
-    p16 = _plain_tables(spec, a.device)[0][:16]
+    nl = spec.limbs
+    p16 = _plain_tables(spec, a.device)[0][:2 * nl]
     s = _split16(_flat(a, batch)) + _split16(_flat(b, batch))
     s = _carry(torch.cat([s, torch.zeros_like(s[:1])]))[:-1]
     s = _sub_multiple(s, _geq(s, p16[:, None]).long(), p16)
-    return _join16(s).reshape(LIMBS, *batch)
+    return _join16(s).reshape(nl, *batch)
 
 
 def sub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batch = batch_shape(a, b)
-    p16 = _plain_tables(spec, a.device)[0][:16]
+    nl = spec.limbs
+    p16 = _plain_tables(spec, a.device)[0][:2 * nl]
     a16, b16 = _split16(_flat(a, batch)), _split16(_flat(b, batch))
     wrap = (~_geq(a16, b16)).long()             # a < b: add p
     d = torch.cat([a16 - b16 + wrap[None] * p16[:, None],
                    torch.zeros_like(a16[:1])])
-    return _join16(_carry(d)[:-1]).reshape(LIMBS, *batch)
+    return _join16(_carry(d)[:-1]).reshape(nl, *batch)
 
 
 def product_sum_plain(spec: FieldSpec, terms) -> torch.Tensor:
@@ -221,24 +236,27 @@ def product_sum_plain(spec: FieldSpec, terms) -> torch.Tensor:
     batch = batch_shape(*[a for a, _b, _s in terms],
                         *[b for _a, b, _s in terms if b is not None])
     dev = terms[0][0].device
-    p16 = _plain_tables(spec, dev)[0][:16]
+    nl = spec.limbs
+    nd = 2 * nl
+    p16 = _plain_tables(spec, dev)[0][:nd]
     n = int(np.prod(batch)) if batch else 1
-    s = torch.zeros((33, n), dtype=torch.int64, device=dev)
+    # a negative product enters as p 2^(32 L) - a b: S < 32 p 2^(32 L)
+    s = torch.zeros((2 * nd + 1, n), dtype=torch.int64, device=dev)
     for a, b, sign in terms:
         a16 = _split16(_flat(a, batch))
         if b is None:
             if sign >= 0:
-                s[:16] += a16
+                s[:nd] += a16
             else:
-                s[:16] += p16[:, None] - a16
+                s[:nd] += p16[:, None] - a16
         else:
             c = _conv16(a16, _split16(_flat(b, batch)))
             if sign >= 0:
-                s[:31] += c
+                s[:2 * nd - 1] += c
             else:
-                s[16:32] += p16[:, None]
-                s[:31] -= c
-    return _join16(_reduce_columns(spec, s)).reshape(LIMBS, *batch)
+                s[nd:2 * nd] += p16[:, None]
+                s[:2 * nd - 1] -= c
+    return _join16(_reduce_columns(spec, s)).reshape(nl, *batch)
 
 
 def product_sums_plain(spec: FieldSpec, sums) -> list:
@@ -257,19 +275,22 @@ def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 def _operand(x: torch.Tensor, batch) -> tuple:
     """(contiguous tensor, zero-stride flag) for one kernel operand."""
     if x[0].numel() == 1:
-        return x.reshape(LIMBS, 1).contiguous(), 1
+        return x.reshape(x.shape[0], 1).contiguous(), 1
     return _expand(x, batch).contiguous(), 0
 
 
-def _launch_binary(name: str, entry: str, spec: FieldSpec, a, b):
+def _launch_binary(kernel: str, spec: FieldSpec, a, b):
+    """One launch of field_add / field_sub / field_mul at the field's
+    width."""
+    name, entry = _cuda.kernel(kernel, spec.limbs)
     batch = batch_shape(a, b)
-    out = torch.empty((LIMBS, *batch), dtype=torch.int32, device=a.device)
+    out = torch.empty((spec.limbs, *batch), dtype=torch.int32, device=a.device)
     n = out[0].numel()
     if n == 0:
         return out
     (ta, fa), (tb, fb) = _operand(a, batch), _operand(b, batch)
     for t in (ta, tb):
-        _cuda.check(name, t, LIMBS)
+        _cuda.check(name, t, spec.limbs)
     _cuda.launch(name, entry, out.data_ptr(), ta.data_ptr(), fa, tb.data_ptr(),
                  fb, n, spec.mul_consts.ctypes.data, _cuda.stream())
     return out
@@ -287,19 +308,19 @@ def _dispatch(a: torch.Tensor) -> bool:
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not _dispatch(a):
         return add_plain(spec, a, b)
-    return _launch_binary("field_add", "pt_field_add", spec, a, b)
+    return _launch_binary("field_add", spec, a, b)
 
 
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not _dispatch(a):
         return sub_plain(spec, a, b)
-    return _launch_binary("field_sub", "pt_field_sub", spec, a, b)
+    return _launch_binary("field_sub", spec, a, b)
 
 
 def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not _dispatch(a):
         return mul_plain(spec, a, b)
-    return _launch_binary("field_mul", "pt_field_mul", spec, a, b)
+    return _launch_binary("field_mul", spec, a, b)
 
 
 # The product-sum launch's limits and term flags (csrc/field_kernels.cu).
@@ -344,7 +365,8 @@ def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
     """One launch of field_product_sum for up to PS_MAX_SUMS sums of at
     most MAX_TERMS terms each (PS_MAX_ENTRIES in all) over `batch`."""
     dev = sums[0][0][0].device
-    out = torch.empty((len(sums), LIMBS, *batch), dtype=torch.int32, device=dev)
+    out = torch.empty((len(sums), spec.limbs, *batch), dtype=torch.int32,
+                      device=dev)
     n = out[0, 0].numel()
     if n == 0:
         return list(out)
@@ -352,7 +374,7 @@ def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
     for terms in sums:
         for a, b, sign in terms:
             ta, fa = _operand(a, batch)
-            _cuda.check("field_product_sum", ta, LIMBS)
+            _cuda.check("field_product_sum", ta, spec.limbs)
             keep.append(ta)
             a_ptrs.append(ta.data_ptr())
             flag = (PS_A_BCAST if fa else 0) | (PS_NEG if sign < 0 else 0)
@@ -360,7 +382,7 @@ def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
                 b_ptrs.append(0)
             else:
                 tb, fb = _operand(b, batch)
-                _cuda.check("field_product_sum", tb, LIMBS)
+                _cuda.check("field_product_sum", tb, spec.limbs)
                 keep.append(tb)
                 b_ptrs.append(tb.data_ptr())
                 flag |= PS_B_BCAST if fb else 0
@@ -382,11 +404,13 @@ def product_sums(spec: FieldSpec, sums) -> list:
     """[sum_i sign_i a_i b_i mod p for each term list of `sums`] over one
     batch (b None: the term is sign_i a_i): as many sums as fit in one
     launch (PS_MAX_SUMS sums, PS_MAX_ENTRIES terms), each reduced once per
-    MAX_TERMS terms.  sums: list of lists of (a, b, sign)."""
+    MAX_TERMS terms.  sums: list of lists of (a, b, sign).  The kernel has
+    an 8-limb build only: a 12-limb field on the card raises."""
     sums = [list(terms) for terms in sums]
     batch = _sums_batch(sums)
     if not _dispatch(sums[0][0][0]):
         return product_sums_plain(spec, sums)
+    require_eight_limbs(spec, "field_product_sum")
     chunks = [(k, terms[i:i + MAX_TERMS]) for k, terms in enumerate(sums)
               for i in range(0, len(terms), MAX_TERMS)]
     out = [None] * len(sums)
@@ -418,7 +442,7 @@ def product_sum(spec: FieldSpec, terms) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    zero = torch.zeros((LIMBS,) + (1,) * (a.dim() - 1), dtype=a.dtype,
+    zero = torch.zeros((spec.limbs,) + (1,) * (a.dim() - 1), dtype=a.dtype,
                        device=a.device)
     return sub(spec, zero, a)
 
@@ -483,5 +507,5 @@ def to_bits(spec: FieldSpec, x: torch.Tensor, n_bits: int) -> torch.Tensor:
     """Little-endian bits [n_bits, *batch] (int64 0/1) of x."""
     v = x.to(torch.int64) & 0xFFFFFFFF
     idx = torch.arange(n_bits, device=x.device)
-    shifts = (idx % 32).reshape((n_bits,) + (1,) * (x.dim() - 1))
-    return (v[idx // 32] >> shifts) & 1
+    shifts = (idx % LIMB_BITS).reshape((n_bits,) + (1,) * (x.dim() - 1))
+    return (v[idx // LIMB_BITS] >> shifts) & 1

@@ -25,7 +25,8 @@ import torch
 from .. import _cuda
 from ..fields import host
 from ..fields import ops as fops
-from ..fields.spec import LIMB_BITS, LIMBS, FieldSpec, int_to_limbs
+from ..fields.spec import (LIMB_BITS, LIMBS, FieldSpec, int_to_limbs,
+                           require_eight_limbs)
 from .chacha import ChaCha8Rng
 
 RESCUE_SPONGE_WIDTH = 4
@@ -129,6 +130,7 @@ def rescue_permutation_plain(spec: FieldSpec, state, security_bits: int):
     into one [LIMBS, 4, *batch] tensor.  Each S-box is a left-to-right
     square-and-multiply; each MDS row and its round constant is one
     product sum."""
+    require_eight_limbs(spec, "rescue_permutation_plain")
     _check_state(state)
     batch = fops.batch_shape(*state)
     dev = state[0].device
@@ -166,6 +168,7 @@ def kernel_consts(spec: FieldSpec, security_bits: int) -> np.ndarray:
     x^alpha; 8 limbs each) and the index of each one's top bit, the round
     count, the MDS matrix [row][column] and the round constants
     [round][half][element], these two in Montgomery form (v 2^256 mod p)."""
+    require_eight_limbs(spec, "rescue_permutation")
     p = spec.p
     width = RESCUE_SPONGE_WIDTH
     consts = rescue_constants(spec, width, security_bits)
@@ -193,6 +196,7 @@ def rescue_permutation(spec: FieldSpec, state, security_bits: int):
     of the 4 permuted elements, [LIMBS, *batch] each.  On a CUDA tensor it
     launches K5 (one launch) or raises; on a CPU tensor it runs
     rescue_permutation_plain."""
+    require_eight_limbs(spec, "rescue_permutation")
     _check_state(state)
     if not fops._dispatch(state[0]):
         return rescue_permutation_plain(spec, state, security_bits)

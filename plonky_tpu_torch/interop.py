@@ -16,12 +16,13 @@ import torch
 from .curves.spec import CurveSpec
 from .device import resolve
 from .fields import ops as fops
-from .fields.spec import LIMBS, FieldSpec
+from .fields.spec import FieldSpec
 
 
 def field_from_jax_digits(spec: FieldSpec, digits, device=None) -> torch.Tensor:
-    """Loose digits [D, *batch] (any non-negative int32 values) ->
-    canonical limbs [LIMBS, *batch] holding sum_i d_i 256^i mod p."""
+    """Loose digits [D, *batch] (any non-negative int32 values; D = 34 on
+    the Tweedle fields, 50 on BLS12-377's base field) -> canonical limbs
+    [L, *batch] (L = spec.limbs) holding sum_i d_i 256^i mod p."""
     d = np.asarray(digits).astype(np.int64)
     assert d.ndim >= 1 and (d >= 0).all(), "digits must be non-negative"
     batch = d.shape[1:]
@@ -30,21 +31,22 @@ def field_from_jax_digits(spec: FieldSpec, digits, device=None) -> torch.Tensor:
         flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
     # pairs of 8-bit digits -> columns at 16-bit positions (still loose)
     cols = flat[0::2] + (flat[1::2] << 8)
-    assert cols.shape[0] <= 34, "value too wide for the reduction"
+    assert cols.shape[0] <= 4 * spec.limbs + 2, "value too wide for the reduction"
     limbs = fops._join16(fops._reduce_columns(spec, cols))
-    return limbs.reshape(LIMBS, *batch).to(resolve(device))
+    return limbs.reshape(spec.limbs, *batch).to(resolve(device))
 
 
 def field_to_jax_digits(spec: FieldSpec, x: torch.Tensor,
                         n_digits: int) -> np.ndarray:
-    """Canonical limbs [LIMBS, *batch] -> canonical 8-bit digits
+    """Canonical limbs [L, *batch] -> canonical 8-bit digits
     [n_digits, *batch] int32 (the JAX package's working width is
     ceil((bits + 16) / 8) digits)."""
+    nl = spec.limbs
     arr = x.detach().cpu().contiguous().numpy().view(np.uint32)
     batch = arr.shape[1:]
-    b = arr.reshape(LIMBS, -1).T.copy().view(np.uint8)     # [N, 4 LIMBS]
+    b = arr.reshape(nl, -1).T.copy().view(np.uint8)     # [N, 4 L]
     out = np.zeros((n_digits, b.shape[0]), dtype=np.int32)
-    k = min(n_digits, 4 * LIMBS)
+    k = min(n_digits, 4 * nl)
     out[:k] = b[:, :k].T
     return out.reshape((n_digits,) + batch)
 

@@ -26,7 +26,7 @@ import torch
 from .. import _cuda
 from ..fields import host as fhost
 from ..fields import ops as fops
-from ..fields.spec import LIMB_BITS, LIMBS, FieldSpec
+from ..fields.spec import LIMB_BITS, LIMBS, FieldSpec, require_eight_limbs
 from ..utils import log2_strict
 
 # Layers of one ntt_pass launch, and elements of one block's groups: the
@@ -44,6 +44,7 @@ class FftPrecomputation:
     built on the host and uploaded once per device and form."""
 
     def __init__(self, spec: FieldSpec, n: int):
+        require_eight_limbs(spec, "FftPrecomputation")
         self.spec = spec
         self.n = n
         self.lg_n = log2_strict(n)
@@ -280,6 +281,7 @@ def lde(pre: FftPrecomputation, coeffs: torch.Tensor) -> torch.Tensor:
 def powers_dyn(spec: FieldSpec, base_col: torch.Tensor, n: int) -> torch.Tensor:
     """[base^0 .. base^(n-1)] as [LIMBS, n] from a [LIMBS, 1] device base:
     a doubling construction, log2(n) batched multiplies."""
+    require_eight_limbs(spec, "powers_dyn")
     acc = fops.column(spec, 1, base_col.device)
     top = base_col   # invariant: top = base^(width of acc)
     while acc.shape[-1] < n:

@@ -10,7 +10,7 @@ import torch
 
 from ..fields import host as fhost
 from ..fields import ops as fops
-from ..fields.spec import LIMBS, FieldSpec
+from ..fields.spec import LIMBS, FieldSpec, require_eight_limbs
 from ..utils import log2_ceil
 from .fft import FftPrecomputation, coset_fft, coset_ifft, powers_dyn
 
@@ -20,6 +20,7 @@ def eval_at_dyn(spec: FieldSpec, coeffs: torch.Tensor,
     """Evaluate [LIMBS, ..., n] polynomials at a [LIMBS, 1] point: the inner
     product with its powers (reference `eval_from_power`:
     src/polynomial.rs:130)."""
+    require_eight_limbs(spec, "eval_at_dyn")
     n = coeffs.shape[-1]
     pw = powers_dyn(spec, point_col, n)
     pwb = pw.reshape((LIMBS,) + (1,) * (coeffs.dim() - 2) + (n,))
@@ -32,6 +33,7 @@ def z_h_inverses(spec: FieldSpec, n: int, big_n: int, device) -> torch.Tensor:
     """1 / ((s h)^n - 1) for h in H_{big_n}, s the field's generator, as a
     [LIMBS, big_n] tensor: (s h)^n takes only big_n / n values, so the
     host computes that period and tiles it."""
+    require_eight_limbs(spec, "z_h_inverses")
     p = spec.p
     shift = spec.generator
     g_big = fhost.primitive_root_of_unity(spec, log2_ceil(big_n))
@@ -51,6 +53,7 @@ def divide_by_z_h(spec: FieldSpec, coeffs: torch.Tensor, n: int) -> torch.Tensor
     """Divide a polynomial (exactly divisible) by Z_H = X^n - 1: evaluate on
     the coset g*H_N (N = len(coeffs)), multiply by 1/Z_H, interpolate back
     (reference: src/polynomial.rs:330-380)."""
+    require_eight_limbs(spec, "divide_by_z_h")
     N = coeffs.shape[-1]
     shift = spec.generator
     pre = FftPrecomputation(spec, N)

@@ -26,7 +26,7 @@ from ..curves.spec import CurveSpec
 from ..device import resolve
 from ..fields import host as fhost
 from ..fields import ops as fops
-from ..fields.spec import LIMBS
+from ..fields.spec import LIMBS, require_eight_limbs
 from ..hashing.hash_to_curve import blake_hash_usize_to_curve
 from ..poly.fft import FftPrecomputation, ifft, lde
 from ..utils import log2_strict
@@ -73,10 +73,11 @@ def points_to_device(curve: CurveSpec, pts, device) -> cops.Point:
 
 
 def device_points_to_host(curve: CurveSpec, pts: cops.Point):
-    """[LIMBS, k] projective points -> k affine host points (Z = 0 maps to
-    the zero point).  One readback; the inversions run on the host, where
-    the values are needed anyway."""
-    xs, ys, zs = (fops.to_ints(curve.base, t.reshape(LIMBS, -1)) for t in pts)
+    """[L, k] projective points (L = curve.base.limbs) -> k affine host
+    points (Z = 0 maps to the zero point).  One readback; the inversions
+    run on the host, where the values are needed anyway."""
+    xs, ys, zs = (fops.to_ints(curve.base, t.reshape(curve.base.limbs, -1))
+                  for t in pts)
     return chost.batch_to_affine_host(curve, [int(v) for v in xs],
                                       [int(v) for v in ys], [int(v) for v in zs])
 
@@ -93,10 +94,10 @@ class PolynomialCommitment:
 
 
 def ints_to_device_matrix(spec, rows, device) -> torch.Tensor:
-    """[[int]] (k rows x n cols) -> [LIMBS, k, n] tensor (reduced mod p)."""
+    """[[int]] (k rows x n cols) -> [L, k, n] tensor (reduced mod p)."""
     k, n = len(rows), len(rows[0])
     flat = fops._limb_matrix(spec, [v for row in rows for v in row])
-    return torch.from_numpy(flat.reshape(LIMBS, k, n).copy()).to(device)
+    return torch.from_numpy(flat.reshape(spec.limbs, k, n).copy()).to(device)
 
 
 class CommitmentEngine:
@@ -268,6 +269,7 @@ def build_circuit(builder, inner_curve: Optional[CurveSpec] = None,
     from ..circuit.gates import BufferGate
     from ..utils import is_power_of_two
 
+    require_eight_limbs(builder.curve.scalar, "build_circuit")
     dev = resolve(device)
     if inner_curve is None:
         inner_curve = cycle_partner(builder.curve)

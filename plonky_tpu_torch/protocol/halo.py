@@ -30,6 +30,7 @@ from ..curves import msm as cmsm
 from ..curves.spec import CurveSpec
 from ..fields import host as fhost
 from ..fields import ops as fops
+from ..fields.spec import require_eight_limbs
 from ..poly.fft import powers_dyn
 from .plonk_util import halo_n, halo_n_mul, powers, scalar_to_bits_le, try_convert
 from .proof import SchnorrProof
@@ -91,6 +92,7 @@ def batch_opening_proof(
 ) -> OpeningProof:
     """reference: src/halo.rs:16-141."""
     sf = curve.scalar
+    require_eight_limbs(sf, "batch_opening_proof")
     p = sf.p
     dev = polynomials_coeffs.device
     K = polynomials_coeffs.shape[1]

@@ -20,7 +20,7 @@ from ..circuit.partition import get_subgroup_shift
 from ..circuit.target import GRID_WIDTH, NUM_ROUTED_WIRES, NUM_WIRES
 from ..circuit.witness import Witness
 from ..fields import ops as fops
-from ..fields.spec import LIMBS
+from ..fields.spec import LIMBS, require_eight_limbs
 from ..hashing.challenger import Challenger
 from ..poly.fft import (coset_fft, coset_ifft, fft, ifft, lde, pad_to,
                         powers_dyn)
@@ -39,6 +39,7 @@ def generate_proof(circuit: Circuit, witness: Witness,
                    old_proofs: List = (), blinding: bool = True) -> Proof:
     curve = circuit.curve
     sf = circuit.spec
+    require_eight_limbs(sf, "generate_proof")
     bf = curve.base
     p = sf.p
     n = circuit.degree()

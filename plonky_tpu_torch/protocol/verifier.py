@@ -23,6 +23,7 @@ from ..curves import msm as cmsm
 from ..curves.spec import CurveSpec
 from ..device import resolve
 from ..fields import host as fhost
+from ..fields.spec import require_eight_limbs
 from ..utils import ceil_div, log2_strict
 from . import halo as halo_mod
 from .circuit import (commit_window_bits, device_point_to_host,
@@ -67,6 +68,7 @@ def verify_proof(public_inputs: List[int], proof: Proof,
     dev = resolve(device)
     curve = vk.curve
     sf = curve.scalar
+    require_eight_limbs(sf, "verify_proof")
     p = sf.p
 
     check_proof_parameters(proof)

@@ -1,6 +1,7 @@
 """The port's point add and double (plonky_tpu_torch.curves.ops, plain
 versions on the CPU) against the JAX package's plonky_tpu.curves.ops and the
-host formulas, including P + P, P + (-P) and the identity.  The two packages
+host formulas, including P + P, P + (-P) and the identity (BLS12-377 G1's
+add and double: tests/test_torch_bls12_377.py).  The two packages
 evaluate the same RCB15 formulas, so even the projective triples agree."""
 
 import jax
@@ -12,7 +13,7 @@ from plonky_tpu.curves import TWEEDLEDEE as J_DEE, TWEEDLEDUM as J_DUM
 from plonky_tpu.curves import ops as jcops
 from plonky_tpu.fields import ops as jfops
 from plonky_tpu_torch import interop
-from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
+from plonky_tpu_torch.curves import BLS12_377, TWEEDLEDEE, TWEEDLEDUM
 from plonky_tpu_torch.curves import host as chost
 from plonky_tpu_torch.curves import ops as cops
 from plonky_tpu_torch.fields import ops as fops
@@ -74,7 +75,8 @@ def test_add_double_match_jax_and_host(curve, jcurve):
     assert all(torch.equal(g, w) for g, w in zip(back, d))
 
 
-@pytest.mark.parametrize("curve", [TWEEDLEDEE, TWEEDLEDUM], ids=lambda c: c.name)
+@pytest.mark.parametrize("curve", [TWEEDLEDEE, TWEEDLEDUM, BLS12_377],
+                         ids=lambda c: c.name)
 def test_affine_neg_select_identity(curve):
     pts_a, pts_b = _cases(curve)
     a = points_to_device(curve, pts_a, "cpu")

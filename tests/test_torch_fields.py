@@ -1,6 +1,7 @@
 """The port's field ops (plonky_tpu_torch.fields.ops, plain versions on the
 CPU) against the JAX package's plonky_tpu.fields.ops and python ints, for
-both Tweedle fields.  Canonical ints are compared, never digit arrays, with
+both Tweedle fields and BLS12-377's two (the 377-bit base field at 12
+limbs).  Canonical ints are compared, never digit arrays, with
 exact equality: this is integer arithmetic."""
 
 import jax
@@ -8,17 +9,21 @@ import numpy as np
 import pytest
 import torch
 
+from plonky_tpu.fields import BLS12_377_BASE as J_BLS_BASE
+from plonky_tpu.fields import BLS12_377_SCALAR as J_BLS_SCALAR
 from plonky_tpu.fields import TWEEDLEDEE_BASE as J_DEE, TWEEDLEDUM_BASE as J_DUM
 from plonky_tpu.fields import ops as jfops
 from plonky_tpu_torch import interop
-from plonky_tpu_torch.fields import TWEEDLEDEE_BASE, TWEEDLEDUM_BASE
+from plonky_tpu_torch.fields import (BLS12_377_BASE, BLS12_377_SCALAR,
+                                     TWEEDLEDEE_BASE, TWEEDLEDUM_BASE)
 from plonky_tpu_torch.fields import ops as fops
 
 # The plain versions run thousands of small tensor ops: extra intra-op
 # threads only contend with the other test processes.
 torch.set_num_threads(1)
 
-FIELDS = [(TWEEDLEDEE_BASE, J_DEE), (TWEEDLEDUM_BASE, J_DUM)]
+FIELDS = [(TWEEDLEDEE_BASE, J_DEE), (TWEEDLEDUM_BASE, J_DUM),
+          (BLS12_377_BASE, J_BLS_BASE), (BLS12_377_SCALAR, J_BLS_SCALAR)]
 BATCH = 37
 
 
@@ -27,7 +32,8 @@ def _values(p: int, seed: int):
     rng = np.random.default_rng(seed)
     edge = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, 1 << 128, (1 << 254) % p,
             (1 << 255) % p, ((1 << 256) - 1) % p]
-    rand = [int.from_bytes(rng.bytes(40), "little") % p
+    width = 40 if p.bit_length() <= 255 else 56       # 64 bits above p
+    rand = [int.from_bytes(rng.bytes(width), "little") % p
             for _ in range(BATCH - len(edge))]
     return edge + rand
 
@@ -94,8 +100,9 @@ def test_bits_select_and_comparisons(spec, jspec):
     p = spec.p
     av = _values(p, 4)
     a = fops.from_ints(spec, av, "cpu")
-    jbits = np.asarray(jfops.to_bits(jspec, jfops.from_ints(jspec, av), 255))
-    assert np.array_equal(fops.to_bits(spec, a, 255).numpy(), jbits)
+    n_bits = 32 * spec.limbs - 1            # 255 at 8 limbs, 383 at 12
+    jbits = np.asarray(jfops.to_bits(jspec, jfops.from_ints(jspec, av), n_bits))
+    assert np.array_equal(fops.to_bits(spec, a, n_bits).numpy(), jbits)
     mask = np.arange(BATCH) % 3 == 0
     z = fops.zeros(spec, (BATCH,), "cpu")
     sel = fops.select(torch.from_numpy(mask), a, z)
@@ -106,7 +113,8 @@ def test_bits_select_and_comparisons(spec, jspec):
         m or v == 0 for v, m in zip(av, mask)]
 
 
-@pytest.mark.parametrize("spec", [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE],
+@pytest.mark.parametrize("spec", [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE,
+                                  BLS12_377_BASE, BLS12_377_SCALAR],
                          ids=lambda s: s.name)
 def test_product_sum_extremes(spec):
     """32 terms of (p-1)^2 with mixed signs, and 33 (two launches' worth):

@@ -13,7 +13,7 @@ import torch
 from plonky_tpu.curves import TWEEDLEDEE as J_DEE, TWEEDLEDUM as J_DUM
 from plonky_tpu.curves import ops as jcops
 from plonky_tpu.fields import ops as jfops
-from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
+from plonky_tpu_torch.curves import BLS12_377, TWEEDLEDEE, TWEEDLEDUM
 from plonky_tpu_torch.curves import host as chost
 from plonky_tpu_torch.curves import msm as cmsm
 from plonky_tpu_torch.curves import ops as cops
@@ -95,17 +95,19 @@ def test_horner_plain_matches_jax_and_host(name, k, n_windows, c):
         assert res == acc, m
 
 
-@pytest.mark.parametrize("name", list(CURVES))
+@pytest.mark.parametrize("name", [*CURVES, "Bls12377"])
 def test_consts_buffer_holds_r_squared(name):
-    curve = CURVES[name][0]
-    p = curve.base.p
+    """[p, -p^-1 mod 2^32, b3, R^2 mod p] at the base field's L limbs, R =
+    2^(32 L): 2^512 mod p at 8 limbs, 2^768 mod p on BLS12-377 (12)."""
+    curve = CURVES[name][0] if name in CURVES else BLS12_377
+    p, nl = curve.base.p, curve.base.limbs
     buf = [int(v) for v in cops._consts_host(curve)]
-    assert len(buf) == 3 * LIMBS + 1
+    assert len(buf) == 3 * nl + 1
 
     def value(at):
-        return sum(v << (32 * i) for i, v in enumerate(buf[at:at + LIMBS]))
+        return sum(v << (32 * i) for i, v in enumerate(buf[at:at + nl]))
 
     assert value(0) == p
-    assert buf[LIMBS] == (-pow(p, -1, 1 << 32)) % (1 << 32)
-    assert value(LIMBS + 1) == 3 * curve.b % p
-    assert value(2 * LIMBS + 1) == pow(2, 512, p)
+    assert buf[nl] == (-pow(p, -1, 1 << 32)) % (1 << 32)
+    assert value(nl + 1) == 3 * curve.b % p
+    assert value(2 * nl + 1) == pow(2, 64 * nl, p)

@@ -69,8 +69,8 @@ def test_chunked_accumulation_matches_bucket_sums(points, chunk, tile):
     buckets, carries = cmsm.bucket_accumulate_plain(
         CURVE, basis, digits, order, starts, chunk=chunk, tile=tile)
     ntiles = -(-(-(-N // chunk)) // tile)
-    assert buckets.shape == (4, nb, cmsm.WORDS)
-    assert carries.shape == (4, ntiles, cmsm.WORDS)
+    assert buckets.shape == (4, nb, cmsm.words(CURVE))
+    assert carries.shape == (4, ntiles, cmsm.words(CURVE))
     assert not buckets[:, 0].any() and not buckets[2].any()
     tp = chunk * tile
     for r, row in enumerate(digit_rows):
@@ -128,7 +128,7 @@ def test_montgomery_round_trip(points):
     assert list(fops.to_ints(f, cmsm.from_montgomery(f, m))) == vals
     pts = points_to_device(CURVE, points[:5], "cpu")
     words = cmsm.pack_points(CURVE, pts)
-    assert words.shape == (5, cmsm.WORDS)
+    assert words.shape == (5, cmsm.words(CURVE))
     assert all(torch.equal(a, b) for a, b in
                zip(cmsm.unpack_points(CURVE, words), pts))
     basis = cmsm.precompute_base(CURVE, pts)
