@@ -13,14 +13,20 @@ drives BLS12-377 G1 (phase_bls12_377: the 12-limb builds of K1, K2 and K4
 held against their plain versions at ragged shapes, the JAX package's
 microbench sizes timed, the path driven once with the launch counts reset,
 and `msm_chunked` at 2^16 to 2^22 points timed and held against a
-discrete-log oracle), reproduces the three committed fixture proofs byte
+discrete-log oracle, with signed windows beside unsigned), sweeps K4 over
+every window width from 2 to 12, signed and unsigned, at both widths
+(k4_sweep), runs the probe (phase_probe: the flat NTT against the
+four-step FFT at 2^20 and 2^22, the Tweedledee MSM at 2^18 unsigned
+against signed windows, every result checked, both paths' launches
+asserted), reproduces the three committed fixture proofs byte
 for byte, proves and verifies the gadget circuits and the 2^10 BufferGate
 circuit, each at the JAX package's sha256, then builds, proves (twice) and
 verifies the 2^14-gate BufferGate circuit with the random source pinned,
 checks the steady proof's sha256, and shows that the steady prove launched
 every kernel of the main path (curve_add and curve_double, checked here,
-are off it: the MSM's Horner runs in curve_horner; rescue_permutation and
-the 12-limb kernels have their own paths).
+are off it: the MSM's Horner runs in curve_horner; rescue_permutation,
+the 12-limb kernels, the signed accumulate and ntt_twiddle_transpose have
+their own paths).
 
     python3 chip_smoke.py
 
@@ -88,9 +94,15 @@ KERNELS = {
                      "curve_horner_kernel"),
     "ntt_pass": (_CSRC + "ntt_kernels.cu", "plonky_tpu/poly/fft.py:124",
                  "ntt_pass_kernel"),
+    "ntt_twiddle_transpose": (_CSRC + "ntt_kernels.cu",
+                              "plonky_tpu/poly/fft.py:256",
+                              "ntt_twiddle_transpose_kernel"),
     "msm_bucket_accumulate": (_CSRC + "msm_kernels.cu",
                               "plonky_tpu/curves/msm.py:95",
                               "msm_bucket_accumulate_kernel"),
+    "msm_bucket_accumulate_signed": (_CSRC + "msm_kernels.cu",
+                                     "plonky_tpu/curves/msm.py:351",
+                                     "msm_bucket_accumulate_signed_kernel"),
     "msm_bucket_reduce": (_CSRC + "msm_kernels.cu",
                           "plonky_tpu/curves/msm.py:376",
                           "msm_bucket_reduce_kernel"),
@@ -103,13 +115,18 @@ KERNELS = {
 # replace the same TPU kernels instantiated at BLS12_377_BASE.
 WIDE_KERNELS = ("field_add", "field_sub", "field_mul", "curve_add",
                 "curve_double", "curve_horner", "msm_bucket_accumulate",
-                "msm_bucket_reduce")
+                "msm_bucket_accumulate_signed", "msm_bucket_reduce")
 KERNELS.update({f"{k}_l12": (KERNELS[k][0], KERNELS[k][1],
                              "pt_l12::" + KERNELS[k][2]) for k in WIDE_KERNELS})
+# The kernels of the unsigned BLS12-377 path (phase_bls12_377's path run);
+# the signed accumulate has a run of its own there.
+BLS_PATH = tuple(k for k in WIDE_KERNELS if k != "msm_bucket_accumulate_signed")
 # Checked against their plain versions, but off the prove's path: the MSM's
 # Horner runs in curve_horner, the batch Rescue permutation has its own
-# path (phase_rescue), and so do the 12-limb kernels (phase_bls12_377).
+# path (phase_rescue), and so do the 12-limb kernels (phase_bls12_377), the
+# signed-window MSM and the four-step FFT (phase_probe).
 OFF_PATH = ("curve_add", "curve_double", "rescue_permutation",
+            "msm_bucket_accumulate_signed", "ntt_twiddle_transpose",
             *(f"{k}_l12" for k in WIDE_KERNELS))
 
 # The operations bound counts the multiplies a function needs at least, in
@@ -190,11 +207,13 @@ class Checker:
         self.records = {}
         self.errors = {}
 
-    def time_ms(self, fn, reps: int) -> float:
+    def time_ms(self, fn, reps: int, warm: bool = True) -> float:
         """Mean time per call of `reps` calls in a row, host work included
-        wherever the host is slower than the card."""
+        wherever the host is slower than the card; after one call more
+        unless `warm` is False."""
         torch = self.torch
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -204,6 +223,19 @@ class Checker:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def plain_ms(self, fn, reps: int) -> float:
+        """A plain version's time per call: `reps` calls after a warm one,
+        or the warm call's own time where it took a second or more."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        if first_s >= 1.0:
+            return first_s * 1e3
+        return self.time_ms(fn, reps, warm=False)
 
     def queued_ms(self, fn, reps: int) -> float:
         """Mean device time per call of `reps` calls enqueued while the card
@@ -234,7 +266,9 @@ class Checker:
         """ms: device time per launch with the L2 cache warm; cold_ms: the
         same with the 50 MB L2 flushed before each launch (the flush's own
         time taken off); call_ms: a wrapper call timed back to back, host
-        included; plain_ms: the plain version's call."""
+        included; plain_ms: the plain version's call, after one warm call
+        where that call took under a second (the plain versions of K4 and
+        K5 take seconds a call: their time is that one cold call)."""
         flush = self.flush.zero_
         cold = self.queued_ms(lambda: (flush(), kernel_fn()), reps)
         t_bytes = bytes_ / HBM_BYTES_PER_S
@@ -242,7 +276,7 @@ class Checker:
         return {"ms": self.queued_ms(kernel_fn, reps),
                 "cold_ms": cold - self.queued_ms(flush, reps),
                 "call_ms": self.time_ms(kernel_fn, reps),
-                "plain_ms": self.time_ms(plain_fn, plain_reps),
+                "plain_ms": self.plain_ms(plain_fn, plain_reps),
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -774,10 +808,55 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
                 lambda pre=pre, x=x, inverse=inverse, shift=shift:
                     pfft.ntt_plain(pre, x, inverse, shift),
                 nb, nops, reps=10, plain_reps=1)})
+    # the twiddle tables the card builds, against python ints at 2^17:
+    # layer ell (half-size m = 2^ell) holds w^j, j < m, w = g^(n / 2m)
+    pre = pfft.FftPrecomputation(sf, 1 << 17)
+    for inverse in (False, True):
+        root, ints = pre.g_inv if inverse else pre.g, []
+        for ell in range(pre.lg_n):
+            w, cur = pow(root, pre.n >> (ell + 1), sf.p), 1 << 256
+            for _ in range(1 << ell):
+                ints.append(cur % sf.p)
+                cur = cur % sf.p * w
+        host = fops.from_ints(sf, ints, dev)
+        if not torch.equal(pre.twiddles(dev, inverse, montgomery=True), host):
+            raise AssertionError("the card's twiddle table is not the host's")
     # the headline numbers are at the wires' LDE, [9, 2^17] forward
     ck.record("ntt_pass", {"main": "2^14 wire_lde", "checked": [
         c[0] for c in ntt_cases()]}, by_shape=ntt_by,
         measured=next(b for b in ntt_by if b["shape"] == "2^14 wire_lde"))
+
+    # ntt_twiddle_transpose (the four-step FFT's steps): tiles below one
+    # (2^3 x 2^3), a batch of 3 at [2^5, 2^7], the square 2^11 x 2^11 of
+    # 2^22, and the split 2^10 x 2^12 either way, with and without a table;
+    # timed at 2^22 (the table of four_step_twiddles, as the probe runs it)
+    fs = TWEEDLEDEE.base
+    tt_by = []
+    for batch, r, s_ in ((1, 8, 8), (3, 32, 128), (1, 2048, 2048),
+                         (1, 1024, 4096), (1, 4096, 1024)):
+        x = rand_field(np, torch, rng, (batch, r, s_), dev)
+        if r * s_ == 1 << 22:
+            tw = pfft.four_step_twiddles(fs, 1 << 22, (r - 1).bit_length(),
+                                         device=dev)
+        else:
+            tw = pfft.Twiddles.of(fs, with_edges(
+                fops, fs, rand_field(np, torch, rng, (r, s_), dev)))
+        for table in (None, tw):
+            ck.compare("ntt_twiddle_transpose", pfft.twiddle_transpose(fs, x, table),
+                       pfft.twiddle_transpose_plain(fs, x, table))
+            if r * s_ == 1 << 22:
+                elems = batch * r * s_
+                tt_by.append({"shape": [8, batch, r, s_], "twiddles": table is not None,
+                              **ck.measure(
+                    lambda x=x, table=table: pfft.twiddle_transpose(fs, x, table),
+                    lambda x=x, table=table: pfft.twiddle_transpose_plain(fs, x, table),
+                    (96 if table is not None else 64) * elems,
+                    MUL_OPS * elems if table is not None else 0, plain_reps=1)})
+    ck.record("ntt_twiddle_transpose", {
+        "main": "[8, 1, 2^11, 2^11] with twiddles (2^22, lg n1 = 11)",
+        "checked": ["[8, 1, 2^3, 2^3]", "[8, 3, 2^5, 2^7]", "[8, 1, 2^11, 2^11]",
+                    "[8, 1, 2^10, 2^12]", "[8, 1, 2^12, 2^10]"]},
+        by_shape=tt_by, measured=tt_by[1])
 
     # K4 at every shape the main path gives it; the window sums feed the
     # checks of K2
@@ -812,6 +891,20 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
     ck.record("msm_bucket_accumulate", shapes, by_shape=acc_by,
               measured=acc_by[0])
     ck.record("msm_bucket_reduce", shapes, by_shape=red_by, measured=red_by[0])
+
+    # K4 at every window width from 2 to 12, signed and unsigned, on both
+    # widths, each whole MSM held against the discrete-log oracle
+    from plonky_tpu_torch.curves import BLS12_377
+    sweep_rng = np.random.default_rng(4101)
+    for curve in (TWEEDLEDEE, BLS12_377):
+        t0 = time.perf_counter()
+        a = int(sweep_rng.integers(2, 1 << 62))
+        _chain, chain_dev = doubling_chain(curve, a, dev)
+        nbs = k4_sweep(ck, torch, np, dev, curve, chain_dev, a, sweep_rng,
+                       SWEEP_CASES)
+        emit({"phase": f"k4_sweep_l{curve.base.limbs}", "N": SWEEP_N,
+              "cases": [list(c) for c in SWEEP_CASES], "nb_checked": nbs,
+              "seconds": time.perf_counter() - t0})
 
     # K2's curve_horner on the window sums of every K4 case, W = 1 and a
     # ragged K, timed at the main path's K = 9 (wires), 7 (t), 2 (the IPA
@@ -978,7 +1071,7 @@ def bls_scalars(np, torch, rng, spec, n, dev):
     return torch.from_numpy(limbs.view(np.int32)).to(dev), limbs
 
 
-def bls_oracle(np, r, limbs, a: int) -> int:
+def chain_oracle(np, r, limbs, a: int) -> int:
     """e with sum_i s_i P_i = e G for P_i = 2^(i mod 2^12) (a G): e = a
     sum_i s_i 2^(i mod 2^12) mod r, from the scalars' limbs [8, n] (n a
     multiple of 2^12; the residue classes summed in numpy, each below
@@ -994,7 +1087,8 @@ def bls_oracle(np, r, limbs, a: int) -> int:
 def kernel_device_ms(prof) -> tuple:
     """Device ms per kernel of KERNELS in a profiler trace (the longest
     matching symbol wins, so a pt_l12:: kernel is not read as its 8-limb
-    twin), and the other device ms."""
+    twin), and the other device ms (torch's own kernels; those of its
+    sorts also under "torch_sort" in the first dict)."""
     ours, other = {}, 0.0
     symbols = sorted(KERNELS.items(), key=lambda kv: -len(kv[1][2]))
     for evt in prof.key_averages():
@@ -1004,9 +1098,363 @@ def kernel_device_ms(prof) -> tuple:
         name = next((k for k, (_s, _r, sym) in symbols if sym in evt.key), None)
         if name is None:
             other += us / 1e3
+            if "sort" in evt.key.lower():
+                ours["torch_sort"] = ours.get("torch_sort", 0.0) + us / 1e3
         else:
             ours[name] = ours.get(name, 0.0) + us / 1e3
     return ours, other
+
+
+def doubling_chain(curve, a: int, dev):
+    """[2^i (a G), i < BLS_CHAIN] on the host and as device points
+    ([L, 2^12], Z = 1)."""
+    from plonky_tpu_torch.curves import host as chost
+    from plonky_tpu_torch.protocol.circuit import points_to_device
+    chain = [chost.mul(chost.generator(curve), a)]
+    for _ in range(BLS_CHAIN - 1):
+        chain.append(chost.add(chain[-1], chain[-1]))
+    return chain, points_to_device(curve, chain, dev)
+
+
+def median_s(torch, fn, reps: int = 3) -> tuple:
+    """(median seconds, all seconds, the last call's result) of `reps`
+    calls, each ended by a synchronize (host clock: what a caller waits);
+    the caller makes the warm call, and checks its result."""
+    import statistics
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times, out
+
+
+def profiled(torch, fn, tries: int = 3) -> tuple:
+    """(device ms by kernel of KERNELS, the other device ms, launches) of
+    one call of fn under torch.profiler, the launch counts reset first.
+    A trace that lacks a kernel the call launched, or torch's own work, is
+    taken again (the profiler on the H100 machine has dropped a short
+    call's events), up to `tries` calls; the fullest trace is kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plonky_tpu_torch import _cuda
+    best = None
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ours, other = kernel_device_ms(prof)
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        if best is None or sum(ours.values()) + other > sum(best[0].values()) + best[1]:
+            best = (ours, other, launches)
+        if other > 0 and all(k in ours for k in launches):
+            break
+    return best
+
+
+# The K4 sweep (k4_sweep): every window width from 2 to 12, unsigned and
+# signed, at a ragged N over two accumulate tiles (8 limbs) or more.
+SWEEP_N = (1 << 12) + 5
+# (K, c, signed): K = 1 at every window, unsigned and signed; K = 3
+# signed at the windows the probe compares
+SWEEP_CASES = (tuple((1, c, signed) for c in range(2, 13) for signed in (False, True))
+               + tuple((3, c, True) for c in (5, 8, 9, 10, 12)))
+
+
+def sweep_basis(torch, curve, chain_dev):
+    """The chain's 2^12 points, then P_0 again, -P_0, the identity twice
+    and P_1 again, and each one's discrete log over P_0 = a G."""
+    from plonky_tpu_torch.curves import ops as cops
+    p0 = tuple(t[:, :1] for t in chain_dev)
+    p1 = tuple(t[:, 1:2] for t in chain_dev)
+    ident = cops.identity(curve, (2,), chain_dev[0].device)
+    pts = tuple(torch.cat(parts, 1).contiguous() for parts in
+                zip(chain_dev, p0, cops.neg(curve, p0), ident, p1))
+    r = curve.scalar.p
+    logs = [pow(2, i, r) for i in range(BLS_CHAIN)] + [1, r - 1, 0, 0, 2]
+    return pts, logs
+
+
+def k4_sweep(ck: Checker, torch, np, dev, curve, chain_dev, a: int, rng,
+             cases) -> dict:
+    """For each (K, c, signed) of `cases`: K4's accumulate (signed or not)
+    and reduce held against their plain versions, then the whole `msm` on
+    the card held against the discrete-log oracle, over sweep_basis (so
+    that buckets take P + P, P + (-P) and the identity: basis point 2^12
+    and 2^12 + 1 take point 0's scalars, 2^12 + 4 point 1's) with random
+    scalars whose first four are 0, 1, p - 1, p - 2.  Returns the bucket
+    counts checked, by kernel."""
+    from plonky_tpu_torch.curves import host as chost
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.protocol.circuit import device_points_to_host
+
+    sf = curve.scalar
+    suffix = "" if curve.base.limbs == 8 else "_l12"
+    pts, logs = sweep_basis(torch, curve, chain_dev)
+    basis = cmsm.precompute_base(curve, pts)
+    g = chost.generator(curve)
+    nbs = collections.defaultdict(list)
+    for k, c, signed in cases:
+        scal = with_edges(fops, sf, rand_field(np, torch, rng, (k, SWEEP_N), dev, sf))
+        for dst, src in ((BLS_CHAIN, 0), (BLS_CHAIN + 1, 0), (BLS_CHAIN + 4, 1)):
+            scal[:, :, dst] = scal[:, :, src]
+        digits, order, starts, signs, _w = cmsm.window_rows(curve, scal, c, signed)
+        name = "msm_bucket_accumulate" + ("_signed" if signed else "") + suffix
+        acc = cmsm.bucket_accumulate(curve, basis, digits, order, starts, signs)
+        ck.compare(name, acc, cmsm.bucket_accumulate_plain(
+            curve, basis, digits, order, starts, signs=signs))
+        ws = cmsm.bucket_reduce(curve, *acc, starts)
+        ck.compare("msm_bucket_reduce" + suffix, ws,
+                   cmsm.bucket_reduce_plain(curve, *acc, starts))
+        nb = starts.shape[1] - 1
+        nbs[name].append(nb)
+        nbs["msm_bucket_reduce" + suffix].append(nb)
+        got = device_points_to_host(curve, cmsm.msm(curve, basis, scal, c,
+                                                     signed=signed))
+        vals = fops.to_ints(sf, scal)
+        for j in range(k):
+            e = a * sum(int(v) * w for v, w in zip(vals[j], logs)) % sf.p
+            if got[j] != chost.mul(g, e):
+                raise AssertionError(f"msm (K = {k}, c = {c}, signed = "
+                                     f"{signed}) is not the oracle's point")
+    return {key: sorted(set(v)) for key, v in nbs.items()}
+
+
+
+
+# The four-step FFT probe (phase_probe): bin/tpu_probe_r5.py's comparison
+# at 2^22 with lg n1 = 11 and one split with n1 != n2, and at 2^20; the
+# flat oracle checked at 2^20, 2^21 and 2^22.
+FFT_PROBE = {20: (10,), 21: (), 22: (11, 10)}
+# The signed-window MSM probe: Tweedledee at 2^18 (bin/tpu_probe_r5.py's
+# size), unsigned c = 8 against signed c = 8, 9, 10 and 12; unsigned
+# c = 10 and 12 beside them (widths whose reduction the port refused
+# before it took its segments from reduce_seg).
+MSM_PROBE_LOG = 18
+MSM_PROBE = ((8, False), (8, True), (9, True), (10, True), (12, True),
+             (10, False), (12, False))
+# Classes of the inputs summed for the cheap host evaluations: at g^k of
+# order dividing 2^12 the transform is sum_r z^r (the inputs at i = r mod
+# 2^12).
+EVAL_CLASSES = 1 << 12
+
+
+def ntt_host_check(np, torch, spec, pre, x, flat, rng) -> list:
+    """flat = ntt(pre, x) at sampled points X[k] = sum_i x_i g^(i k), on the
+    host: k = 0, n / 2, 3 n / 4 and a random odd multiple of n / 2^12 from
+    the inputs' residue classes mod 2^12 (numpy sums of limbs, each below
+    2^52), and one random k by Horner over every input.  Returns the k
+    checked."""
+    from plonky_tpu_torch.fields import ops as fops
+    p, n = spec.p, pre.n
+    limbs = x.reshape(8, n).cpu().numpy().view(np.uint32)
+    step = n // EVAL_CLASSES
+    sums = limbs.astype(np.uint64).reshape(8, step, EVAL_CLASSES).sum(1)
+    classes = [sum(int(sums[l, r]) << (32 * l) for l in range(8))
+               for r in range(EVAL_CLASSES)]
+    ks = [0, n // 2, 3 * n // 4, step * (2 * int(rng.integers(0, EVAL_CLASSES // 2)) + 1)]
+    want = {}
+    for k in ks:
+        z = pow(pre.g, k, p)
+        acc = 0
+        for v in reversed(classes):
+            acc = (acc * z + v) % p
+        want[k] = acc
+    k = int(rng.integers(1, n))
+    z = pow(pre.g, k, p)
+    coeffs = np.ascontiguousarray(limbs.T).view(np.uint8).reshape(n, 32)
+    acc = 0
+    for row in coeffs[::-1]:
+        acc = (acc * z + int.from_bytes(row.tobytes(), "little")) % p
+    want[k] = acc
+    got = fops.to_ints(spec, flat.reshape(8, n)[:, list(want)])
+    for (k, w), v in zip(want.items(), got):
+        if int(v) != w:
+            raise AssertionError(f"ntt at 2^{pre.lg_n}: X[{k}] is not the host's")
+    return list(want)
+
+
+def phase_probe(ck: Checker, torch, np, dev, name_power: str) -> dict:
+    """The port's answer to bin/tpu_probe_r5.py, every result checked before
+    its time is written.  FFT (TweedledeeBase): the flat ntt at 2^20, 2^21
+    and 2^22 held against the host at sampled points (ntt_host_check) and
+    its inverse returning the input; fft_four_step forward and inverse at
+    2^22 (lg n1 = 11 and 10) and 2^20 (lg n1 = 10) held equal to the flat
+    transform and to the input; ms and butterflies/s (n / 2 lg n a
+    transform) of both forms, each the median of three warm calls ended
+    by a synchronize; the device ms of each (CUDA events) and of the
+    four-step's five steps alone.  The
+    four-step path once with the launch counts reset: ntt_pass once a pass
+    of the two sub-transforms, ntt_twiddle_transpose three times, nothing
+    else.  MSM (Tweedledee, 2^18 points over a tiled doubling chain): each
+    of MSM_PROBE warm, then three timed calls, each held against the
+    discrete-log oracle, one profiled for its per-kernel device ms; the
+    signed path once with the launch counts reset.  The signed accumulate
+    and the reduce timed at each probe shape against their bounds.
+    Returns the launches of the two paths' new kernels."""
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.curves import TWEEDLEDEE as C
+    from plonky_tpu_torch.curves import host as chost
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.curves import ops as cops
+    from plonky_tpu_torch.poly import fft as pfft
+    from plonky_tpu_torch.protocol.circuit import device_points_to_host
+
+    rng = np.random.default_rng(518)
+    spec = C.base
+    launches = {}
+    for lg in sorted(FFT_PROBE):
+        n = 1 << lg
+        butterflies = n // 2 * lg
+        x = rand_field(np, torch, rng, (n,), dev)
+        t0 = time.perf_counter()
+        pre = pfft.FftPrecomputation(spec, n)
+        flat = pfft.ntt(pre, x)
+        back = pfft.ntt(pre, flat, inverse=True)
+        torch.cuda.synchronize()
+        rec = {"phase": f"probe_fft_2e{lg}", "nvidia_smi": name_power,
+               "log_n": lg, "tables_and_first_calls_s": time.perf_counter() - t0}
+        if not torch.equal(back, x):
+            raise AssertionError(f"the inverse ntt at 2^{lg} is not the input")
+        t0 = time.perf_counter()
+        rec["host_checked_k"] = ntt_host_check(np, torch, spec, pre, x, flat, rng)
+        rec["host_check_s"] = time.perf_counter() - t0
+        med, times, again = median_s(torch, lambda: pfft.ntt(pre, x))
+        med_i, _t, back = median_s(torch, lambda: pfft.ntt(pre, flat, inverse=True))
+        if not (torch.equal(again, flat) and torch.equal(back, x)):
+            raise AssertionError(f"the timed ntt calls at 2^{lg} differ")
+        rec["flat"] = {"ms": med * 1e3, "seconds": times, "inverse_ms": med_i * 1e3,
+                       "butterflies_per_s": butterflies / med,
+                       "passes": len(pfft.pass_plan(lg)),
+                       "device_ms": ck.queued_ms(lambda: pfft.ntt(pre, x), 10)}
+        rec["four_step"] = []
+        for lg_n1 in FFT_PROBE[lg]:
+            t0 = time.perf_counter()
+            tw = pfft.four_step_twiddles(spec, n, lg_n1, device=dev)
+            twi = pfft.four_step_twiddles(spec, n, lg_n1, True, dev)
+            torch.cuda.synchronize()
+            row = {"lg_n1": lg_n1, "twiddles_s": time.perf_counter() - t0}
+            if not torch.equal(pfft.fft_four_step(spec, x, tw, lg_n1), flat):
+                raise AssertionError(f"four-step 2^{lg}, lg n1 = {lg_n1}: not "
+                                     "the flat transform")
+            if not torch.equal(pfft.fft_four_step(spec, flat, twi, lg_n1,
+                                                  inverse=True), x):
+                raise AssertionError(f"inverse four-step 2^{lg}, lg n1 = "
+                                     f"{lg_n1}: not the input")
+            med, times, fwd = median_s(torch, lambda: pfft.fft_four_step(spec, x, tw, lg_n1))
+            med_i, _t, inv = median_s(torch, lambda: pfft.fft_four_step(
+                spec, flat, twi, lg_n1, inverse=True))
+            if not (torch.equal(fwd, flat) and torch.equal(inv, x)):
+                raise AssertionError(f"the timed four-step calls at 2^{lg} differ")
+            row.update(ms=med * 1e3, seconds=times, inverse_ms=med_i * 1e3,
+                       butterflies_per_s=butterflies / med)
+            # its steps one by one (median ms of each, ended by a synchronize)
+            n1, n2 = 1 << lg_n1, n >> lg_n1
+            pre1, pre2 = pfft.FftPrecomputation(spec, n1), pfft.FftPrecomputation(spec, n2)
+            cols = pfft.twiddle_transpose(spec, x.reshape(8, n2, n1))
+            inner = pfft.ntt(pre2, cols)
+            mid = pfft.twiddle_transpose(spec, inner, tw)
+            outer = pfft.ntt(pre1, mid)
+            row["steps_device_ms"] = {name: ck.queued_ms(fn, 10) for name, fn in (
+                ("transpose_in", lambda: pfft.twiddle_transpose(
+                    spec, x.reshape(8, n2, n1))),
+                (f"ntt_n2: {n1} rows of {n2}", lambda: pfft.ntt(pre2, cols)),
+                ("twiddle_transpose", lambda: pfft.twiddle_transpose(spec, inner, tw)),
+                (f"ntt_n1: {n2} rows of {n1}", lambda: pfft.ntt(pre1, mid)),
+                ("transpose_out", lambda: pfft.twiddle_transpose(spec, outer)))}
+            row["device_ms"] = ck.queued_ms(
+                lambda: pfft.fft_four_step(spec, x, tw, lg_n1), 10)
+            del cols, inner, mid, outer
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            pfft.fft_four_step(spec, x, tw, lg_n1)
+            torch.cuda.synchronize()
+            path = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+            row["launches"] = path
+            want = {"ntt_pass": len(pfft.pass_plan(lg - lg_n1))
+                    + len(pfft.pass_plan(lg_n1)), "ntt_twiddle_transpose": 3}
+            if path != want:
+                raise AssertionError(f"the four-step path launched {path}, "
+                                     f"not {want}")
+            launches["ntt_twiddle_transpose"] = path["ntt_twiddle_transpose"]
+            rec["four_step"].append(row)
+        emit(rec)
+        del x, flat, back
+
+    # the signed-window MSM at 2^18
+    n = 1 << MSM_PROBE_LOG
+    a = int(rng.integers(2, 1 << 62))
+    _chain, chain_dev = doubling_chain(C, a, dev)
+    basis = cmsm.precompute_base(C, tuple(t.repeat(1, n // BLS_CHAIN)
+                                          for t in chain_dev))
+    scal, limbs = bls_scalars(np, torch, rng, C.scalar, n, dev)
+    want = chost.mul(chost.generator(C), chain_oracle(np, C.scalar.p, limbs, a))
+    rows = []
+    for c, signed in MSM_PROBE:
+        def call(c=c, signed=signed):
+            return cmsm.msm(C, basis, scal, c, signed=signed)
+        if device_points_to_host(C, call()) != [want]:
+            raise AssertionError(f"msm at 2^{MSM_PROBE_LOG}, c = {c}, signed = "
+                                 f"{signed}: not the oracle's point")
+        med, times, res = median_s(torch, call)
+        if device_points_to_host(C, res) != [want]:
+            raise AssertionError(f"msm at 2^{MSM_PROBE_LOG}, c = {c}, signed = "
+                                 f"{signed} (timed): not the oracle's point")
+        ours, other, path = profiled(torch, call)
+        rows.append({"c": c, "signed": signed, "ms": med * 1e3, "seconds": times,
+                     "points_per_s": n / med, "kernel_device_ms": ours,
+                     "other_device_ms": other, "launches": path})
+    # the signed path once, with the counts reset
+    _cuda.reset_launches()
+    cops.to_affine(C, cmsm.msm(C, basis, scal, 8, signed=True))
+    torch.cuda.synchronize()
+    path = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if (path.get("msm_bucket_accumulate_signed") != 1
+            or path.get("msm_bucket_reduce") != 1 or path.get("curve_horner") != 1
+            or path.get("msm_bucket_accumulate")):
+        raise AssertionError(f"the signed MSM launched {path}")
+    launches["msm_bucket_accumulate_signed"] = path["msm_bucket_accumulate_signed"]
+    emit({"phase": f"probe_msm_2e{MSM_PROBE_LOG}", "nvidia_smi": name_power,
+          "curve": C.name, "configs": rows, "path_launches": path})
+
+    # the signed accumulate and the reduce at the probe's shapes
+    acc_by, red_by = [], []
+    for c, signed in MSM_PROBE:
+        digits, order, starts, signs, _w = cmsm.window_rows(C, scal, c, signed)
+        acc = cmsm.bucket_accumulate(C, basis, digits, order, starts, signs)
+        shape = {"shape": f"2^{MSM_PROBE_LOG} c={c}" + (" signed" if signed else ""),
+                 "N": n, "K": 1, "c": c, "signed": signed, "rows": digits.shape[0],
+                 "nb": starts.shape[1] - 1,
+                 "seg": cmsm.reduce_seg(starts.shape[1] - 1)}
+        acc_b, acc_ops, red_b, red_ops = k4_work(digits, starts, acc)
+        if signed:
+            ck.compare("msm_bucket_accumulate_signed", acc,
+                       cmsm.bucket_accumulate_plain(C, basis, digits, order, starts,
+                                                    signs=signs))
+            acc_by.append({**shape, **ck.measure(
+                lambda: cmsm.bucket_accumulate(C, basis, digits, order, starts, signs),
+                lambda: cmsm.bucket_accumulate_plain(C, basis, digits, order, starts,
+                                                     signs=signs),
+                acc_b, acc_ops, reps=10, plain_reps=1)})
+        if (c, signed) == (8, False):
+            continue              # the reduce at 256 buckets is the prove's
+        ck.compare("msm_bucket_reduce", cmsm.bucket_reduce(C, *acc, starts),
+                   cmsm.bucket_reduce_plain(C, *acc, starts))
+        red_by.append({**shape, **ck.measure(
+            lambda: cmsm.bucket_reduce(C, *acc, starts),
+            lambda: cmsm.bucket_reduce_plain(C, *acc, starts),
+            red_b, red_ops, reps=10, plain_reps=1)})
+    ck.record("msm_bucket_accumulate_signed", {
+        "main": acc_by[0]["shape"], "checked": "k4_sweep (8 limbs)",
+        "timed": [b["shape"] for b in acc_by]}, by_shape=acc_by, measured=acc_by[0])
+    ck.records["msm_bucket_reduce"]["by_shape"].extend(red_by)
+    emit({"phase": "probe_msm_bucket_reduce", "by_shape": red_by})
+    return launches
 
 
 def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
@@ -1030,17 +1478,12 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     for the basis P_i = 2^(i mod 2^12) (a G), and one call profiled for
     its per-kernel device ms and launches.  Returns the path's launches
     of the 12-limb kernels."""
-    import statistics
-
-    from torch.profiler import ProfilerActivity, profile
-
     from plonky_tpu_torch import _cuda
     from plonky_tpu_torch.curves import BLS12_377 as C
     from plonky_tpu_torch.curves import host as chost
     from plonky_tpu_torch.curves import msm as cmsm
     from plonky_tpu_torch.curves import ops as cops
     from plonky_tpu_torch.fields import ops as fops
-    from plonky_tpu_torch.protocol.circuit import points_to_device
 
     bf, sf = C.base, C.scalar
     nl = bf.limbs
@@ -1048,10 +1491,7 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     out = {"phase": "bls12_377", "nvidia_smi": name_power, "limbs": nl}
     g = chost.generator(C)
     a = int(rng.integers(2, 1 << 62))
-    chain = [chost.mul(g, a)]
-    for _ in range(BLS_CHAIN - 1):
-        chain.append(chost.add(chain[-1], chain[-1]))
-    chain_dev = points_to_device(C, chain, dev)        # [12, 2^12], Z = 1
+    chain, chain_dev = doubling_chain(C, a, dev)       # [12, 2^12], Z = 1
 
     def affine_is(res, want, what):
         x, y, zero = cops.to_affine(C, res)
@@ -1192,6 +1632,25 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
               lambda: cmsm.bucket_reduce(C, *acc, starts),
               lambda: cmsm.bucket_reduce_plain(C, *acc, starts),
               red_b, red_ops, reps=10, plain_reps=1)
+    # the signed accumulate at the same slice
+    s_digits, s_order, s_starts, s_signs, _w = cmsm.window_rows(
+        C, scal16, BLS_WINDOW, signed=True)
+    s_acc = cmsm.bucket_accumulate(C, basis16, s_digits, s_order, s_starts, s_signs)
+    ck.compare("msm_bucket_accumulate_signed_l12", s_acc,
+               cmsm.bucket_accumulate_plain(C, basis16, s_digits, s_order, s_starts,
+                                            signs=s_signs))
+    ck.compare("msm_bucket_reduce_l12", cmsm.bucket_reduce(C, *s_acc, s_starts),
+               cmsm.bucket_reduce_plain(C, *s_acc, s_starts))
+    s_b, s_ops, _rb, _ro = k4_work(s_digits, s_starts, s_acc, nl)
+    ck.record("msm_bucket_accumulate_signed_l12",
+              {"main": f"N = 2^16, K = 1, c = {BLS_WINDOW} signed",
+               "checked": "k4_sweep (12 limbs)"},
+              lambda: cmsm.bucket_accumulate(C, basis16, s_digits, s_order, s_starts,
+                                             s_signs),
+              lambda: cmsm.bucket_accumulate_plain(C, basis16, s_digits, s_order,
+                                                   s_starts, signs=s_signs),
+              s_b, s_ops, reps=10, plain_reps=1)
+    del s_acc
     ck.compare("curve_horner_l12", cmsm.horner(C, ws, BLS_WINDOW),
                cmsm.horner_plain(C, ws, BLS_WINDOW))
     hb, hops = horner_work(ws, BLS_WINDOW, nl)
@@ -1203,9 +1662,9 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
               reps=10, plain_reps=1)
 
     # the path, once, with the launch counts reset
-    def chunked(basis, scal):
+    def chunked(basis, scal, signed=False):
         return cmsm.msm_chunked(C, basis, scal, window_bits=BLS_WINDOW,
-                                chunk_log=BLS_CHUNK_LOG)
+                                chunk_log=BLS_CHUNK_LOG, signed=signed)
     _cuda.reset_launches()
     for _name, fn, _plain in ops:
         fn(bf, x, y)
@@ -1215,18 +1674,35 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     x16, _y16, _z16 = cops.to_affine(C, res)
     torch.cuda.synchronize()
     path = dict(_cuda.LAUNCHES)
-    missing = [f"{k}_l12" for k in WIDE_KERNELS if not path[f"{k}_l12"]]
-    off = {k: v for k, v in path.items() if v and not k.endswith("_l12")}
+    missing = [f"{k}_l12" for k in BLS_PATH if not path[f"{k}_l12"]]
+    off = {k: v for k, v in path.items()
+           if v and (not k.endswith("_l12") or k.startswith("msm_bucket_accumulate_signed"))}
     if missing or off:
         raise AssertionError(f"the BLS12-377 path launched {path}: none of "
                              f"{missing}, and {off} off it")
-    want16 = chost.mul(g, bls_oracle(np, sf.p, _limbs, a))
+    want16 = chost.mul(g, chain_oracle(np, sf.p, _limbs, a))
     affine_is(res, want16, "msm_chunked at 2^16")
     out["path_launches"] = {k: v for k, v in path.items() if v}
+    # the signed path, once, with the launch counts reset
+    _cuda.reset_launches()
+    res = chunked(basis16, scal16[:, 0], signed=True)
+    cops.to_affine(C, res)
+    torch.cuda.synchronize()
+    signed_path = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if (signed_path.get("msm_bucket_accumulate_signed_l12") != 1
+            or signed_path.get("msm_bucket_reduce_l12") != 1
+            or signed_path.get("curve_horner_l12") != 1
+            or any(k.startswith("msm_bucket_accumulate") and "signed" not in k
+                   for k in signed_path)):
+        raise AssertionError(f"the signed BLS12-377 path launched {signed_path}")
+    affine_is(res, want16, "msm_chunked(signed=True) at 2^16")
+    out["signed_path_launches"] = signed_path
+    path["msm_bucket_accumulate_signed_l12"] = signed_path[
+        "msm_bucket_accumulate_signed_l12"]
 
     # the ladder
     del basis16, scal16, acc
-    ladder = []
+    ladder, signed_ladder = [], []
     for lg in BLS_LADDER:
         n = 1 << lg
         torch.cuda.synchronize()
@@ -1236,32 +1712,35 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
         scal, limbs = bls_scalars(np, torch, rng, sf, n, dev)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        want = chost.mul(g, bls_oracle(np, sf.p, limbs, a))
+        want = chost.mul(g, chain_oracle(np, sf.p, limbs, a))
         affine_is(chunked(basis, scal), want, f"msm_chunked at 2^{lg} (warm)")
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = chunked(basis, scal)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        med, times, res = median_s(torch, lambda: chunked(basis, scal))
         affine_is(res, want, f"msm_chunked at 2^{lg}")
-        _cuda.reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            chunked(basis, scal)
-            torch.cuda.synchronize()
-        kernel_ms, other_ms = kernel_device_ms(prof)
-        med = statistics.median(times)
+        kernel_ms, other_ms, path_lg = profiled(torch, lambda: chunked(basis, scal))
         ladder.append({"log_n": lg, "seconds": times, "median_s": med,
                        "points_per_s": n / med, "setup_s": setup_s,
-                       "launches": {k: v for k, v in _cuda.LAUNCHES.items() if v},
-                       "kernel_device_ms": kernel_ms,
+                       "launches": path_lg, "kernel_device_ms": kernel_ms,
                        "other_device_ms": other_ms})
         emit({"phase": f"bls12_377_msm_2e{lg}", "nvidia_smi": name_power,
               **ladder[-1]})
+        # beside it, the signed windows on the same points and scalars
+        affine_is(chunked(basis, scal, signed=True), want,
+                  f"msm_chunked(signed=True) at 2^{lg} (warm)")
+        med, times, res = median_s(torch, lambda: chunked(basis, scal, signed=True))
+        affine_is(res, want, f"msm_chunked(signed=True) at 2^{lg}")
+        kernel_ms, other_ms, path_lg = profiled(
+            torch, lambda: chunked(basis, scal, signed=True))
+        signed_ladder.append({"log_n": lg, "seconds": times, "median_s": med,
+                              "points_per_s": n / med, "launches": path_lg,
+                              "kernel_device_ms": kernel_ms,
+                              "other_device_ms": other_ms})
+        emit({"phase": f"bls12_377_msm_signed_2e{lg}", "nvidia_smi": name_power,
+              **signed_ladder[-1]})
         del basis, scal, res
     out["ladder_points_per_s"] = {str(r["log_n"]): r["points_per_s"]
                                   for r in ladder}
+    out["signed_ladder_points_per_s"] = {str(r["log_n"]): r["points_per_s"]
+                                         for r in signed_ladder}
     emit(out)
     return {k: v for k, v in path.items() if k.endswith("_l12")}
 
@@ -1629,6 +2108,7 @@ def main() -> int:
     import numpy as np
     from plonky_tpu_torch import _cuda
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name_power, clock_hz, sms, int_rate = card(torch)
     t0 = time.perf_counter()
@@ -1652,15 +2132,27 @@ def main() -> int:
           "built_now": _cuda.BUILD_SECONDS[0] is not None, "ptxas": ptxas})
 
     ck = Checker(torch, clock_hz, int_rate)
-    phase_kernels(ck, torch, np, dev)
-    rescue_launches = phase_rescue(ck, torch, np, dev, name_power)
-    bls_launches = phase_bls12_377(ck, torch, np, dev, name_power)
-    phase_fixtures()
-    phase_gadgets()
-    phase_ladder()
-    launches, ps_by_label = phase_prove(torch, want_sha256=PROOF_2E14_SHA256)
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        return out
+    timed("kernels", phase_kernels, ck, torch, np, dev)
+    rescue_launches = timed("rescue", phase_rescue, ck, torch, np, dev, name_power)
+    bls_launches = timed("bls12_377", phase_bls12_377, ck, torch, np, dev, name_power)
+    probe_launches = timed("probe", phase_probe, ck, torch, np, dev, name_power)
+    timed("fixtures", phase_fixtures)
+    timed("gadgets", phase_gadgets)
+    timed("ladder", phase_ladder)
+    launches, ps_by_label = timed("prove", phase_prove, torch,
+                                  want_sha256=PROOF_2E14_SHA256)
     launches["rescue_permutation"] = rescue_launches
     launches.update(bls_launches)
+    launches.update(probe_launches)
+    emit({"phase": "seconds", "build_s": build_s, **seconds,
+          "total_s": time.perf_counter() - t_start})
     for name, rec in ck.records.items():
         rec["launches"] = launches[name]
     for row in ck.records["field_product_sum"]["by_shape"]:

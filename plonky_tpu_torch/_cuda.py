@@ -33,7 +33,7 @@ WIDE_LIMBS = 12
 WIDE_SOURCES = ("field_kernels.cu", "curve_kernels.cu", "msm_kernels.cu")
 WIDE_KERNELS = ("field_add", "field_sub", "field_mul", "curve_add",
                 "curve_double", "curve_horner", "msm_bucket_accumulate",
-                "msm_bucket_reduce")
+                "msm_bucket_accumulate_signed", "msm_bucket_reduce")
 HEADERS = ("field.cuh", "curve.cuh")
 LIB_NAME = "libplonky_kernels.so"
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -49,7 +49,8 @@ def width_name(name: str, limbs: int) -> str:
 LAUNCHES = {name: 0 for name in (
     "field_add", "field_sub", "field_mul", "field_product_sum",
     "curve_add", "curve_double", "curve_horner", "ntt_pass",
-    "msm_bucket_accumulate", "msm_bucket_reduce", "rescue_permutation",
+    "ntt_twiddle_transpose", "msm_bucket_accumulate",
+    "msm_bucket_accumulate_signed", "msm_bucket_reduce", "rescue_permutation",
     *(width_name(k, WIDE_LIMBS) for k in WIDE_KERNELS))}
 
 # Seconds the last build took (None: the library was up to date).
@@ -74,8 +75,11 @@ _SIGNATURES = {
     "pt_curve_horner": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P],
     "pt_ntt_pass": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _I32, _I32,
                     _P, _P],
+    "pt_ntt_twiddle_transpose": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
     "pt_msm_bucket_accumulate": [_P, _P, _P, _P, _P, _P,
                                  _I64, _I64, _I64, _I64, _I64, _P, _P],
+    "pt_msm_bucket_accumulate_signed": [_P, _P, _P, _P, _P, _P,
+                                        _I64, _I64, _I64, _I64, _I64, _P, _P],
     "pt_msm_bucket_reduce": [_P, _P, _P, _P, _P, _P,
                              _I64, _I64, _I64, _I64, _I64, _P, _P],
     "pt_rescue_permutation": [_P, _P, _I64, _P, _I32, _P],

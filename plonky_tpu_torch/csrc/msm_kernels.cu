@@ -24,6 +24,9 @@
 //   - reduce: one warp per window row; lane s walks segment s of `seg`
 //     buckets with the running-sum trick, and lane 0 combines the segments:
 //     ~2 seg + 2 (2^c / seg) + log2 seg dependent adds instead of 2^(c+1).
+//     seg is 16, or the smallest power of two that leaves at most 32
+//     segments (curves/msm.py:reduce_seg: 32 at c = 10, 128 at c = 12,
+//     64 for the signed 2^11 + 1 buckets of c = 12).
 // The points stay in Montgomery form (R = 2^(32 L)) from the basis copy to
 // the reduction's output, which converts back to canonical coordinates
 // once.  The gathered basis points arrive by cp.async into a per-thread
@@ -111,7 +114,31 @@ __device__ __forceinline__ void cp_async_point(uint32_t* smem, const uint32_t* g
 // basis: [N, 3L] Montgomery points; digits, order: [R, N] int32 (sorted
 // digits, the argsort); starts: [R, nb + 1] int32 run starts; buckets:
 // [R, nb, 3L]; carries: [R, ntiles, 3L].
-__global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
+//
+// SIGNED (msm_bucket_accumulate_signed, the signed-window MSM that
+// replaces plonky_tpu/curves/msm.py:292-294, which negates Y on the
+// gathered points): bit 31 of an order word marks a position whose digit
+// is negative (N < 2^31 leaves the bit free); the point is gathered from
+// the low 31 bits and enters with Y negated (mpt_negate_y), before any
+// add.  The unsigned kernel is the same body with SIGNED false, whose code
+// the flag leaves as it was (ptxas_compare.py).
+template <bool SIGNED>
+__device__ __forceinline__ int64_t point_row(int32_t word) {
+  if constexpr (SIGNED)
+    return (int64_t)(word & 0x7FFFFFFF);
+  else
+    return (int64_t)word;
+}
+
+// y -> p - y (0 stays 0), in Montgomery form as in canonical form.
+__device__ __forceinline__ void mpt_negate_y(Point& pt, const MontCurveConsts& cc) {
+  uint32_t zero[PT_LIMBS];
+  fe_set_small(zero, 0);
+  fe_sub(pt.y, zero, pt.y, cc.f);
+}
+
+template <bool SIGNED>
+__device__ __forceinline__ void msm_bucket_accumulate_body(
     uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
     const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
     int64_t ntiles) {
@@ -140,20 +167,23 @@ __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
 
   const int64_t sb = i64_max(s0, (int64_t)st[1]);                 // skip digit 0
   if (sb < s1) {
-    cp_async_point(stage[q][0], basis + (int64_t)ord[sb] * MSM_WORDS);
+    cp_async_point(stage[q][0], basis + point_row<SIGNED>(ord[sb]) * MSM_WORDS);
     Point acc;
     int64_t end = sb, lo = 0, hi = 0;
     int d = 0;
     for (int64_t s = sb; s < s1; s++) {
       const int buf = (int)((s - sb) & 1);
       if (s + 1 < s1) {
-        cp_async_point(stage[q][buf ^ 1], basis + (int64_t)ord[s + 1] * MSM_WORDS);
+        cp_async_point(stage[q][buf ^ 1], basis + point_row<SIGNED>(ord[s + 1]) * MSM_WORDS);
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");
       } else {
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       }
       Point pt;
       mpt_load(pt, stage[q][buf]);
+      if constexpr (SIGNED) {
+        if (ord[s] < 0) mpt_negate_y(pt, c_curve);
+      }
       if (s == end) {                                         // a new piece
         d = dig[s];
         lo = st[d];
@@ -211,6 +241,22 @@ __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
     mpt_load(a, cont[q]);
     mpt_save(carries + (r * ntiles + tile) * MSM_WORDS, a);
   }
+}
+
+__global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
+    uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
+    const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
+    int64_t ntiles) {
+  msm_bucket_accumulate_body<false>(buckets, carries, basis, digits, order, starts, n, nb,
+                                    chunk, ntiles);
+}
+
+__global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_signed_kernel(
+    uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
+    const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
+    int64_t ntiles) {
+  msm_bucket_accumulate_body<true>(buckets, carries, basis, digits, order, starts, n, nb,
+                                   chunk, ntiles);
 }
 
 // The reduction's add, out of line: one copy of the add's code serves
@@ -333,6 +379,24 @@ int PT_ENTRY(pt_msm_bucket_accumulate)(void* buckets, void* carries, const void*
   if (rc != 0) return rc;
   const int64_t ntiles = (n + chunk * MSM_TILE - 1) / (chunk * MSM_TILE);
   msm_bucket_accumulate_kernel<<<(unsigned int)(rows * ntiles), MSM_TILE, 0, st>>>(
+      (uint32_t*)buckets, (uint32_t*)carries, (const uint32_t*)basis, (const int32_t*)digits,
+      (const int32_t*)order, (const int32_t*)starts, n, nb, chunk, ntiles);
+  return (int)cudaGetLastError();
+}
+
+// As pt_msm_bucket_accumulate, with the signs in bit 31 of `order`.
+int PT_ENTRY(pt_msm_bucket_accumulate_signed)(void* buckets, void* carries,
+                                              const void* basis, const void* digits,
+                                              const void* order, const void* starts,
+                                              int64_t rows, int64_t n, int64_t nb,
+                                              int64_t chunk, int64_t tile,
+                                              const void* consts, void* stream) {
+  if (tile != MSM_TILE || chunk < 1 || n > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = curve_set_consts((const uint32_t*)consts, st);
+  if (rc != 0) return rc;
+  const int64_t ntiles = (n + chunk * MSM_TILE - 1) / (chunk * MSM_TILE);
+  msm_bucket_accumulate_signed_kernel<<<(unsigned int)(rows * ntiles), MSM_TILE, 0, st>>>(
       (uint32_t*)buckets, (uint32_t*)carries, (const uint32_t*)basis, (const int32_t*)digits,
       (const int32_t*)order, (const int32_t*)starts, n, nb, chunk, ntiles);
   return (int)cudaGetLastError();

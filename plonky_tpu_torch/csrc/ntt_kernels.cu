@@ -161,7 +161,89 @@ ntt_pass_kernel(int32_t* y, const int32_t* x, const int32_t* tw, const int32_t* 
   }
 }
 
+// ntt_twiddle_transpose: the four-step FFT's middle and outer steps
+// (poly/fft.py:fft_four_step), y[b, j, i] = x[b, i, j] (times tw[i, j]
+// when tw is given), x [8, B, r, s] -> y [8, B, s, r].
+//
+// Replaces, in plonky_tpu/poly/fft.py:fft_four_step (:237-262), the
+// twiddle product fops.mul(spec, inner, tw) (the TPU kernel
+// fused_composite of plonky_tpu/fields/pallas_kernels.py as a modular
+// multiply) and the swapaxes around it, which XLA ran as transposes.
+//
+// What bounds it: an element is read once (32 B), its twiddle read once
+// (32 B) and written once (32 B): 96 B against one Montgomery product
+// (264 IMAD slots), so at 3.35 TB/s and 1.67e13 IMAD/s the bytes bound is
+// about twice the operations bound.  A transpose read or written along
+// the wrong axis moves a 32-byte sector for every 4-byte word, so a block
+// takes one TT_TILE x TT_TILE tile of one row of the batch through shared
+// memory: its threads read the tile's rows along s (neighbouring threads,
+// neighbouring words, one limb plane at a time), multiply each element by
+// its twiddle in registers (cc_mont_mul, with tw held as w 2^256 mod p,
+// as ntt_pass holds its twiddles), and write the tile's columns along r.
+// The tile's eight limb planes are padded to TT_TILE + 1 words a row, so
+// neither the row-wise writes nor the column-wise reads share a bank
+// (33.8 KB of static shared memory).  Tiles at the edges are guarded, so r
+// and s need not be multiples of TT_TILE and B may be any count.
+#define TT_TILE 32
+#define TT_ROWS 8     // threads down a tile: each moves TT_TILE / TT_ROWS elements
+
+// x: [8, batch, r, s] (limb stride batch r s); y: [8, batch, s, r]; tw:
+// [8, r, s] Montgomery twiddles or null.  Block t covers row b = t /
+// (tiles_r tiles_s) of the batch and the tile at (r0, s0).
+__global__ void __launch_bounds__(TT_TILE * TT_ROWS)
+ntt_twiddle_transpose_kernel(int32_t* y, const int32_t* x, const int32_t* tw, int64_t batch,
+                             int64_t r, int64_t s, int64_t tiles_s, int64_t per_row,
+                             FieldConsts c) {
+  __shared__ uint32_t tile[PT_LIMBS][TT_TILE][TT_TILE + 1];
+  const int64_t b = blockIdx.x / per_row;
+  const int64_t t = blockIdx.x - b * per_row;
+  const int64_t r0 = t / tiles_s * TT_TILE, s0 = t % tiles_s * TT_TILE;
+  const int64_t stride = batch * r * s;
+  const int64_t row = b * r * s;
+  const int tx = threadIdx.x;
+  for (int j = threadIdx.y; j < TT_TILE; j += TT_ROWS) {
+    const int64_t i = r0 + j, k = s0 + tx;
+    if (i < r && k < s) {
+      uint32_t v[PT_LIMBS];
+      fe_load(v, x, stride, row + i * s + k);
+      if (tw != nullptr) {
+        uint32_t w[PT_LIMBS], prod[PT_LIMBS];
+        fe_load(w, tw, r * s, i * s + k);
+        cc_mont_mul(prod, v, w, c);
+        fe_copy(v, prod);
+      }
+#pragma unroll
+      for (int l = 0; l < PT_LIMBS; l++) tile[l][j][tx] = v[l];
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < TT_TILE; j += TT_ROWS) {
+    const int64_t k = s0 + j, i = r0 + tx;
+    if (i < r && k < s) {
+#pragma unroll
+      for (int l = 0; l < PT_LIMBS; l++) y[l * stride + row + k * r + i] = (int32_t)tile[l][tx][j];
+    }
+  }
+}
+
 extern "C" {
+
+// y = x transposed over its last two axes [r, s], times tw when it is not
+// null; consts: FieldSpec.kernel_consts.
+int pt_ntt_twiddle_transpose(void* y, const void* x, const void* tw, int64_t batch, int64_t r,
+                             int64_t s, const void* consts, void* stream) {
+  if (batch < 1 || r < 1 || s < 1) return (int)cudaErrorInvalidValue;
+  const int64_t tiles_r = (r + TT_TILE - 1) / TT_TILE;
+  const int64_t tiles_s = (s + TT_TILE - 1) / TT_TILE;
+  const int64_t blocks = batch * tiles_r * tiles_s;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  FieldConsts c = field_consts_from((const uint32_t*)consts);
+  ntt_twiddle_transpose_kernel<<<(unsigned int)blocks, dim3(TT_TILE, TT_ROWS), 0,
+                                 (cudaStream_t)stream>>>(
+      (int32_t*)y, (const int32_t*)x, (const int32_t*)tw, batch, r, s, tiles_s,
+      tiles_r * tiles_s, c);
+  return (int)cudaGetLastError();
+}
 
 // One pass of 2^lg_groups groups per block; consts: FieldSpec.kernel_consts.
 int pt_ntt_pass(void* y, const void* x, const void* tw, const void* pre, const void* post,

@@ -3,16 +3,20 @@
 Pipeline for scalars [Ls, *B, N] (Ls = curve.scalar.limbs) against an
 N-point basis of base-field coordinates [L, N] (L = curve.base.limbs: 8 on
 the Tweedle curves, 12 on BLS12-377; the kernels have a build for each):
-  1. c-bit window digits of every scalar (torch),
+  1. c-bit window digits of every scalar (torch); with `signed`, the
+     signed-window recoding: digits in [-2^(c-1), 2^(c-1)] over one window
+     more, as magnitudes and signs (`scalar_window_digits_signed`),
   2. one stable argsort per (scalar, window) row and the start of every
-     bucket's run in the sorted order (torch),
+     bucket's run in the sorted order (torch; `window_rows`),
   3. bucket sums (K4 accumulation kernel): one thread per chunk of CHUNK
      sorted positions sums the pieces of the runs in its chunk; runs that
      cross chunks are merged by a tree over the `tile_for(L)` chunks of a
-     block, and runs that cross blocks leave one carry per block,
+     block, and runs that cross blocks leave one carry per block; signed,
+     `msm_bucket_accumulate_signed` negates Y of a point whose digit is
+     negative as it gathers it,
   4. window sums  sum_j j B_j  (K4 reduction kernel): the carries are added
-     to their buckets, segments of SEG buckets are reduced by running sums
-     in parallel and then combined,
+     to their buckets, segments of `reduce_seg(nb)` buckets are reduced by
+     running sums in parallel and then combined,
   5. Horner across windows: c doublings and one add per window, the
      whole chain of every MSM in one launch, one warp per MSM (K2's
      `curve_horner`, csrc/curve_kernels.cu; `horner_plain` is its plain
@@ -47,7 +51,9 @@ from .spec import CurveSpec
 CHUNK = 32           # sorted positions per accumulation thread
 TILE = 128           # chunks per accumulation block at 8 limbs (MSM_TILE)
 WIDE_TILE = 64       # the same at 12 limbs (36-word points)
-SEG = 16             # buckets per segment of the reduction (a power of two)
+SEG = 16             # least buckets per segment of the reduction
+REDUCE_LANES = 32    # most segments of a row: one warp lane each (MSM_WARP)
+SIGN_BIT = -(1 << 31)  # bit 31 of an `order` word: the point enters negated
 
 
 def tile_for(limbs: int) -> int:
@@ -55,6 +61,17 @@ def tile_for(limbs: int) -> int:
     MSM_TILE, which keeps its static shared memory (4 points a thread)
     within 48 KB: 128 x 4 x 96 bytes at 8 limbs, 64 x 4 x 144 at 12."""
     return TILE if limbs == 8 else WIDE_TILE
+
+
+def reduce_seg(nb: int) -> int:
+    """Buckets per segment of the reduction for nb buckets a row: the
+    smallest power of two from SEG up with ceil((nb - 1) / seg) segments
+    within the kernel's REDUCE_LANES (16 up to c = 9 unsigned; 32 at
+    c = 10, 128 at c = 12; 64 at signed c = 12, nb = 2049)."""
+    seg = SEG
+    while -(-(nb - 1) // seg) > REDUCE_LANES:
+        seg *= 2
+    return seg
 
 
 def words(curve: CurveSpec) -> int:
@@ -113,28 +130,40 @@ def scalar_window_digits(spec: FieldSpec, scalars: torch.Tensor,
     return (lo | hi) & ((1 << c) - 1)
 
 
+def scalar_window_digits_signed(spec: FieldSpec, scalars: torch.Tensor,
+                                c: int):
+    """Canonical scalars [Ls, *B, N] -> (magnitudes, signs), each
+    [W + 1, *B, N] (int64; signs +1 or -1), W = ceil(bits / c): the
+    signed-window recoding of plonky_tpu/curves/msm.py:49-72.  Window by
+    window from the least significant, t = digit + carry; t >= 2^(c-1)
+    becomes the digit t - 2^c (magnitude 2^c - t, sign -1) and carries one
+    into the next window, so magnitudes lie in [0, 2^(c-1)]; the extra top
+    window takes the last carry.  sum_w sign_w mag_w 2^(c w) is the
+    scalar.
+
+    The carries are found for all windows at once, as a carry-lookahead:
+    a window whose digit is at least 2^(c-1) carries out whatever comes
+    in, one whose digit is 2^(c-1) - 1 passes its carry in on, and any
+    other stops it; so window w carries out what the last window up to w
+    that is not a pass-on decides (cummax over window indices), in a
+    fixed number of torch ops rather than a loop over the windows."""
+    d = scalar_window_digits(spec, scalars, c)
+    d = torch.cat([d, torch.zeros_like(d[:1])])          # the extra window
+    half, full = 1 << (c - 1), 1 << c
+    idx = torch.arange(d.shape[0], device=d.device).reshape(
+        (-1,) + (1,) * (d.dim() - 1))
+    last = torch.where(d != half - 1, idx, -1).cummax(dim=0).values
+    carry_out = (last >= 0) & (torch.gather(d, 0, last.clamp(min=0)) >= half)
+    t = d + torch.cat([torch.zeros_like(d[:1]), carry_out[:-1].to(d.dtype)])
+    return (torch.where(carry_out, full - t, t),
+            torch.where(carry_out, -1, 1))
+
+
 def _run_starts(sorted_digits: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """[R, N] sorted digits -> [R, n_buckets + 1] int32 run starts."""
     ids = torch.arange(n_buckets + 1, device=sorted_digits.device)
     ids = ids.expand(sorted_digits.shape[0], -1).contiguous()
     return torch.searchsorted(sorted_digits.contiguous(), ids).to(torch.int32)
-
-
-def _mont_factors(spec: FieldSpec):
-    """(R mod p, R^-1 mod p) for R = 2^(32 L)."""
-    r = pow(2, 32 * spec.limbs, spec.p)
-    return r, pow(r, -1, spec.p)
-
-
-def to_montgomery(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
-    """Canonical x -> x 2^(32 L) mod p (canonical limbs of the Montgomery
-    form)."""
-    return fops.mul(spec, x, fops.column(spec, _mont_factors(spec)[0], x.device))
-
-
-def from_montgomery(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
-    """Montgomery form -> canonical x."""
-    return fops.mul(spec, x, fops.column(spec, _mont_factors(spec)[1], x.device))
 
 
 def pack_points(curve: CurveSpec, pt: cops.Point) -> torch.Tensor:
@@ -143,7 +172,7 @@ def pack_points(curve: CurveSpec, pt: cops.Point) -> torch.Tensor:
     m, nl = pt[0].shape[1], curve.base.limbs
     if m == 0:
         return torch.zeros((0, 3 * nl), dtype=torch.int32, device=pt[0].device)
-    mont = to_montgomery(curve.base, torch.cat(pt, dim=1))
+    mont = fops.to_montgomery(curve.base, torch.cat(pt, dim=1))
     return mont.reshape(nl, 3, m).permute(2, 1, 0).reshape(m, 3 * nl).contiguous()
 
 
@@ -153,7 +182,7 @@ def unpack_points(curve: CurveSpec, packed: torch.Tensor) -> cops.Point:
     if m == 0:
         return _empty(curve, 0, packed.device)
     flat = packed.reshape(m, 3, nl).permute(2, 1, 0).reshape(nl, 3 * m)
-    return tuple(from_montgomery(curve.base, flat.contiguous()).chunk(3, dim=1))
+    return tuple(fops.from_montgomery(curve.base, flat.contiguous()).chunk(3, dim=1))
 
 
 def _take(pt: cops.Point, idx: torch.Tensor) -> cops.Point:
@@ -179,6 +208,14 @@ def _accumulate(curve: CurveSpec, acc: cops.Point, has: torch.Tensor,
     return has | x_has
 
 
+def _negate_where(curve: CurveSpec, pt: cops.Point, neg: torch.Tensor) -> cops.Point:
+    """pt with Y negated where `neg` (plain field ops)."""
+    y = pt[1]
+    zero = torch.zeros_like(y[:, :1])
+    return (pt[0], torch.where(neg[None], fops.sub_plain(curve.base, zero, y), y),
+            pt[2])
+
+
 def _empty(curve: CurveSpec, m: int, device) -> cops.Point:
     return tuple(torch.zeros((curve.base.limbs, m), dtype=torch.int32,
                              device=device) for _ in range(3))
@@ -186,7 +223,8 @@ def _empty(curve: CurveSpec, m: int, device) -> cops.Point:
 
 def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
                             order: torch.Tensor, starts: torch.Tensor,
-                            chunk: int = CHUNK, tile: int | None = None):
+                            chunk: int = CHUNK, tile: int | None = None,
+                            signs: torch.Tensor | None = None):
     """(buckets [R, nb, 3L], carries [R, ntiles, 3L]) in Montgomery
     form, as the accumulation kernel leaves them (see its comment in
     csrc/msm_kernels.cu): bucket j of row r holds the sum of its run's
@@ -194,8 +232,10 @@ def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Ten
     `starts`) that lie in the run's first tile of chunk * tile positions;
     carries[r, t] holds the part in tile t of the run that crosses into
     tile t.  Empty buckets, bucket 0 and unused carries are zero words.
-    The kernel's grouping is chunk = CHUNK, tile = tile_for(L) (the
-    default)."""
+    With `signs` ([R, N] in the sorted order, as `digits`), a position
+    whose sign is negative adds its point with Y negated (p - y, 0 for
+    0), at the gather as the signed kernel does.  The kernel's grouping
+    is chunk = CHUNK, tile = tile_for(L) (the default)."""
     if tile is None:
         tile = tile_for(curve.base.limbs)
     w = words(curve)
@@ -214,6 +254,8 @@ def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Ten
                      torch.full((rows, pad), -1, dtype=torch.int64, device=dev)], 1)
     ordp = torch.cat([order.to(torch.int64),
                       torch.zeros((rows, pad), dtype=torch.int64, device=dev)], 1)
+    negp = None if signs is None else torch.cat(
+        [signs < 0, torch.zeros((rows, pad), dtype=torch.bool, device=dev)], 1)
     st = starts.to(torch.int64)
     m = rows * nchunks
     row = torch.arange(rows, device=dev).repeat_interleave(nchunks)
@@ -236,6 +278,8 @@ def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Ten
         new = valid & ((d != dig[row, torch.clamp(s - 1, min=0)]) if k else valid)
         step = (valid & ~new).nonzero().squeeze(1)
         pt = _take(pts, ordp[row, s])
+        if negp is not None:
+            pt = _negate_where(curve, pt, negp[row, s])
         if step.numel():
             _put(acc, step, cops.add_plain(curve, _take(acc, step), _take(pt, step)))
         sel = new.nonzero().squeeze(1)
@@ -289,18 +333,20 @@ def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Ten
 
 def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor,
                         starts: torch.Tensor, chunk: int = CHUNK,
-                        tile: int | None = None, seg: int = SEG) -> cops.Point:
+                        tile: int | None = None, seg: int | None = None) -> cops.Point:
     """Window sums [L, R] (canonical) of the accumulation's output:
     sum_j j B_j, with B_j the bucket plus its carries, as the reduction
     kernel forms it (see its comment in csrc/msm_kernels.cu): segments of
     `seg` buckets by running sums, their W_s by a pairwise tree, sum s T_s
     by a running sum, seg times by doublings.  An empty row gives the
     identity.  chunk and tile are the accumulation's; the kernel's are
-    CHUNK, tile_for(L) (the default) and SEG."""
+    CHUNK, tile_for(L) (the default) and reduce_seg(nb) (the default)."""
     if tile is None:
         tile = tile_for(curve.base.limbs)
     w = words(curve)
     rows, nb = buckets.shape[0], buckets.shape[1]
+    if seg is None:
+        seg = reduce_seg(nb)
     ntiles = carries.shape[1]
     dev = buckets.device
     tp = chunk * tile
@@ -367,16 +413,33 @@ def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.
     return out
 
 
+def signed_order(order: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """int32 order words with bit 31 set where the sign is negative."""
+    return torch.where(signs < 0, order | SIGN_BIT, order)
+
+
 def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
-                      order: torch.Tensor, starts: torch.Tensor):
+                      order: torch.Tensor, starts: torch.Tensor,
+                      signs: torch.Tensor | None = None):
     """K4 accumulation on the card: sorted digits and order [R, N], run
     starts [R, B + 1] (int32) -> (buckets [R, B, 3L], carries
-    [R, ntiles, 3L]), Montgomery form (see bucket_accumulate_plain)."""
+    [R, ntiles, 3L]), Montgomery form (see bucket_accumulate_plain).  With
+    `signs` ([R, N], sorted order) it launches msm_bucket_accumulate_signed,
+    which reads a negative position's sign from bit 31 of its `order`
+    word (SIGN_BIT; N < 2^31 leaves the bit free, and the kernel reads the
+    word anyway, so the sign costs no bytes and no argument)."""
     if not fops._dispatch(basis.mont):
-        return bucket_accumulate_plain(curve, basis, digits, order, starts)
-    name, entry = _cuda.kernel("msm_bucket_accumulate", curve.base.limbs)
+        return bucket_accumulate_plain(curve, basis, digits, order, starts,
+                                       signs=signs)
+    kernel = "msm_bucket_accumulate" + ("" if signs is None else "_signed")
+    name, entry = _cuda.kernel(kernel, curve.base.limbs)
     for t in (basis.mont, digits, order, starts):
         _cuda.check(name, t)
+    if signs is not None:
+        if signs.shape != order.shape:
+            raise ValueError(f"{name}: signs {tuple(signs.shape)}, order "
+                             f"{tuple(order.shape)}")
+        order = signed_order(order, signs)
     w, tile = words(curve), tile_for(curve.base.limbs)
     rows, n = order.shape
     nb = starts.shape[1] - 1
@@ -420,7 +483,7 @@ def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor
         return tuple(outs)
     _cuda.launch(name, entry, *[t.data_ptr() for t in outs],
                  buckets.data_ptr(), carries.data_ptr(), starts.data_ptr(), rows, nb,
-                 carries.shape[1], CHUNK * tile_for(nl), SEG,
+                 carries.shape[1], CHUNK * tile_for(nl), reduce_seg(nb),
                  cops._consts_host(curve).ctypes.data, _cuda.stream())
     return tuple(outs)
 
@@ -462,30 +525,51 @@ def horner(curve: CurveSpec, ws: cops.Point, c: int) -> cops.Point:
     return tuple(outs)
 
 
+def window_rows(curve: CurveSpec, scalars: torch.Tensor, c: int,
+                signed: bool = False):
+    """Steps 1-2 of `msm` for canonical scalars [Ls, *B, N]: (sorted
+    digits [R, N] int32, order [R, N] int32, run starts [R, nb + 1] int32,
+    signs [R, N] in the sorted order or None, windows a scalar), R = K W
+    rows scalar-major (a scalar's windows contiguous, least significant
+    first), nb = 2^c buckets, or 2^(c-1) + 1 and W + 1 windows signed."""
+    if signed:
+        digits, signs = scalar_window_digits_signed(curve.scalar, scalars, c)
+        n_buckets = (1 << (c - 1)) + 1
+    else:
+        digits, signs = scalar_window_digits(curve.scalar, scalars, c), None
+        n_buckets = 1 << c
+    n_windows, n = digits.shape[0], digits.shape[-1]
+
+    def rows(t):
+        return t.reshape(n_windows, -1, n).transpose(0, 1).reshape(-1, n)
+    sorted_digits, order = torch.sort(rows(digits), dim=-1, stable=True)
+    starts = _run_starts(sorted_digits, n_buckets)
+    if signs is not None:
+        signs = torch.gather(rows(signs), 1, order)
+    return (sorted_digits.to(torch.int32).contiguous(),
+            order.to(torch.int32).contiguous(), starts, signs, n_windows)
+
+
 def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
-        window_bits: int) -> cops.Point:
+        window_bits: int, signed: bool = False) -> cops.Point:
     """sum_i scalars[..., i] * basis[i] for canonical scalars
     [Ls, *B, N]; returns a [L, *B] projective point (a multi-MSM over the
-    shared basis when B is not empty)."""
+    shared basis when B is not empty).  `signed` takes the signed-window
+    recoding (plonky_tpu/curves/msm.py:277): half the buckets, one window
+    more."""
     if not isinstance(basis, MsmBasis):
         raise TypeError("msm takes an MsmBasis (see precompute_base)")
     if scalars.shape[-1] != basis.n:
         raise ValueError(f"{scalars.shape[-1]} scalars for {basis.n} points")
     c = window_bits
-    n_buckets = 1 << c
+    if signed and c < 2:
+        raise ValueError(f"signed windows need window_bits >= 2, not {c}")
     lead = tuple(scalars.shape[1:-1])
-    digits = scalar_window_digits(curve.scalar, scalars, c)   # [W, *B, N]
-    n_windows = digits.shape[0]
     k = 1
     for d in lead:
         k *= d
-    rows = digits.reshape(n_windows, k, basis.n).transpose(0, 1).reshape(
-        k * n_windows, basis.n)
-    sorted_digits, order = torch.sort(rows, dim=-1, stable=True)
-    starts = _run_starts(sorted_digits, n_buckets)
-    buckets, carries = bucket_accumulate(
-        curve, basis, sorted_digits.to(torch.int32).contiguous(),
-        order.to(torch.int32).contiguous(), starts)
+    digits, order, starts, signs, n_windows = window_rows(curve, scalars, c, signed)
+    buckets, carries = bucket_accumulate(curve, basis, digits, order, starts, signs)
     nl = curve.base.limbs
     ws = bucket_reduce(curve, buckets, carries, starts)   # [L, K W]
     ws = tuple(t.reshape(nl, k, n_windows) for t in ws)
@@ -494,7 +578,8 @@ def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
 
 
 def msm_chunked(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
-                window_bits: int = 8, chunk_log: int = 18) -> cops.Point:
+                window_bits: int = 8, chunk_log: int = 18,
+                signed: bool = False) -> cops.Point:
     """`msm` over slices of 2^chunk_log points, summed by `cops.add` (K2's
     curve_add on the card): the MSM is linear in its points, so the sum of
     the slices' MSMs is the whole one (plonky_tpu/curves/msm.py:436-465,
@@ -504,12 +589,12 @@ def msm_chunked(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
         raise TypeError("msm_chunked takes an MsmBasis (see precompute_base)")
     n, size = basis.n, 1 << chunk_log
     if n <= size:
-        return msm(curve, basis, scalars, window_bits)
+        return msm(curve, basis, scalars, window_bits, signed)
     if n % size:
         raise ValueError(f"N={n} not a multiple of chunk {size}")
     acc = None
     for lo in range(0, n, size):
         part = msm(curve, basis.slice(lo, lo + size),
-                   scalars[..., lo:lo + size], window_bits)
+                   scalars[..., lo:lo + size], window_bits, signed)
         acc = part if acc is None else cops.add(curve, acc, part)
     return acc

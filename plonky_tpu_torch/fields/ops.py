@@ -455,6 +455,23 @@ def mul_small(spec: FieldSpec, a: torch.Tensor, c: int) -> torch.Tensor:
     return mul(spec, a, column(spec, c, a.device))
 
 
+def _mont_factors(spec: FieldSpec):
+    """(R mod p, R^-1 mod p) for R = 2^(32 L)."""
+    r = pow(2, 32 * spec.limbs, spec.p)
+    return r, pow(r, -1, spec.p)
+
+
+def to_montgomery(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Canonical x -> x 2^(32 L) mod p (canonical limbs of the Montgomery
+    form), the form the curve and NTT kernels read their tables in."""
+    return mul_small(spec, x, _mont_factors(spec)[0])
+
+
+def from_montgomery(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Montgomery form -> canonical x."""
+    return mul_small(spec, x, _mont_factors(spec)[1])
+
+
 def sum_reduce(spec: FieldSpec, x: torch.Tensor, axis: int) -> torch.Tensor:
     """Sum along a batch axis (axis 0 is the first batch axis) by a halving
     tree of adds."""

@@ -15,18 +15,28 @@ positions and twiddle indices (`_pass_groups`, `_twiddle_index`), with
 canonical twiddles where the kernel holds them in Montgomery form.  `fft`,
 `ifft`, `lde`, `coset_fft` and `coset_ifft` take the plain version only
 for CPU tensors.
+
+`fft_four_step` is the JAX package's single-chip four-step FFT
+(plonky_tpu/poly/fft.py:198-262): n = n1 n2, two batched K3 transforms of
+n2 and of n1 points around `ntt_twiddle_transpose` launches
+(csrc/ntt_kernels.cu), which transpose the last two axes through shared
+memory and, in the middle step, multiply by the table of
+`four_step_twiddles`.  `twiddle_transpose_plain` is that kernel's plain
+version.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _cuda
+from ..device import resolve
 from ..fields import host as fhost
 from ..fields import ops as fops
-from ..fields.spec import LIMB_BITS, LIMBS, FieldSpec, require_eight_limbs
+from ..fields.spec import LIMBS, FieldSpec, require_eight_limbs
 from ..utils import log2_strict
 
 # Layers of one ntt_pass launch, and elements of one block's groups: the
@@ -34,14 +44,17 @@ from ..utils import log2_strict
 # same two values and sizes its shared memory by them.
 NTT_MAX_LAYERS = 7
 NTT_BLOCK_ELEMS = 512
-_MONT_R_BITS = LIMB_BITS * LIMBS   # Montgomery form: v 2^256 mod p
 
 
 @functools.lru_cache(maxsize=None)
 class FftPrecomputation:
     """Twiddle and scale tables for a size-n FFT over `spec` (n a power of
     two); the reference's FftPrecomputation (src/fft.rs:28-59).  Tables are
-    built on the host and uploaded once per device and form."""
+    made once per device and form, canonical or Montgomery (v 2^256 mod p,
+    one K1 multiply on the card): the twiddles on the device by K1 (a
+    Python-int build of both directions' [8, n - 1] tables and their first
+    transforms took 15 s at n = 2^22 on the host of an H100 machine), the
+    coset and inverse scales on the host."""
 
     def __init__(self, spec: FieldSpec, n: int):
         require_eight_limbs(spec, "FftPrecomputation")
@@ -51,67 +64,66 @@ class FftPrecomputation:
         self.g = fhost.primitive_root_of_unity(spec, self.lg_n)
         self.g_inv = pow(self.g, -1, spec.p)
         self.n_inv = pow(n, -1, spec.p)
-        self._device_tables = {}
+        self._tables = {}
 
-    def _twiddle_ints(self, inverse: bool):
-        """All layers in one list: layer ell (half-size m = 2^ell) holds
-        [w^j, j < m] with w = g^(n / 2m), starting at index m - 1."""
-        p = self.spec.p
-        root = self.g_inv if inverse else self.g
-        out = []
-        for ell in range(self.lg_n):
-            m = 1 << ell
-            w = pow(root, self.n // (2 * m), p)
-            cur = 1
-            for _ in range(m):
-                out.append(cur)
-                cur = cur * w % p
-        return out
-
-    def _powers_ints(self, base: int, scale: int = 1):
-        """[scale base^i, i < n] mod p."""
-        p = self.spec.p
-        out, cur = [], scale % p
-        for _ in range(self.n):
-            out.append(cur)
-            cur = cur * base % p
-        return out
-
-    def _upload(self, key, device, montgomery: bool, make):
-        """The table `make()` (python ints) as [LIMBS, len] on `device`,
-        in Montgomery form (v 2^256 mod p) when asked; cached."""
-        key = (key, str(device), bool(montgomery))
-        if key not in self._device_tables:
-            vals = make()
+    def _table(self, key, device, montgomery: bool, make):
+        """The canonical [LIMBS, len] table `make(device)`, or its
+        Montgomery form when asked; both cached."""
+        full = (key, str(device), bool(montgomery))
+        if full not in self._tables:
             if montgomery:
-                p = self.spec.p
-                vals = [(v << _MONT_R_BITS) % p for v in vals]
-            self._device_tables[key] = fops.from_ints(self.spec, vals, device)
-        return self._device_tables[key]
+                tab = fops.to_montgomery(
+                    self.spec, self._table(key, device, False, make))
+            else:
+                tab = make(torch.device(device)).contiguous()
+            self._tables[full] = tab
+        return self._tables[full]
+
+    def _powers(self, base: int, scale: int = 1):
+        """A maker of the table [scale base^i, i < n] mod p, built on the
+        host."""
+        p = self.spec.p
+
+        def make(device):
+            out, cur = [], scale % p
+            for _ in range(self.n):
+                out.append(cur)
+                cur = cur * base % p
+            return fops.from_ints(self.spec, out, device)
+        return make
 
     def twiddles(self, device, inverse: bool = False,
                  montgomery: bool = False) -> torch.Tensor:
-        """[LIMBS, n - 1]: layer of half-size m at column m - 1."""
-        return self._upload(("tw", bool(inverse)), device, montgomery,
-                            lambda: self._twiddle_ints(inverse))
+        """[LIMBS, n - 1]: layer ell (half-size m = 2^ell) holds [w^j, j <
+        m], w = g^(n / 2m), from column m - 1.  Built on `device` from the
+        powers g^i, i < n / 2 (`powers_dyn`, lg n - 1 doubling steps of
+        K1), of which layer m takes every (n / 2m)-th."""
+        def make(device):
+            half = self.n // 2
+            if half == 0:
+                return torch.zeros((LIMBS, 0), dtype=torch.int32, device=device)
+            root = self.g_inv if inverse else self.g
+            pw = powers_dyn(self.spec, fops.column(self.spec, root, device), half)
+            return torch.cat([pw[:, ::half >> ell] for ell in range(self.lg_n)],
+                             dim=1)
+        return self._table(("tw", bool(inverse)), device, montgomery, make)
 
     def coset_powers(self, device, shift: int,
                      montgomery: bool = False) -> torch.Tensor:
         """[LIMBS, n]: shift^i, the coset transform's input scale."""
-        return self._upload(("coset", shift % self.spec.p), device, montgomery,
-                            lambda: self._powers_ints(shift))
+        return self._table(("coset", shift % self.spec.p), device, montgomery,
+                           self._powers(shift))
 
     def inverse_scale(self, device, shift=None,
                       montgomery: bool = False) -> torch.Tensor:
         """The inverse transform's output scale: n^-1 as [LIMBS, 1], or
         n^-1 shift^-i as [LIMBS, n] for the inverse coset transform."""
         if shift is None:
-            return self._upload(("n_inv",), device, montgomery,
-                                lambda: [self.n_inv])
+            return self._table(("n_inv",), device, montgomery,
+                               lambda d: fops.column(self.spec, self.n_inv, d))
         shift_inv = pow(shift, -1, self.spec.p)
-        return self._upload(("coset_inv", shift % self.spec.p), device,
-                            montgomery,
-                            lambda: self._powers_ints(shift_inv, self.n_inv))
+        return self._table(("coset_inv", shift % self.spec.p), device,
+                           montgomery, self._powers(shift_inv, self.n_inv))
 
     @functools.cached_property
     def subgroup(self):
@@ -303,3 +315,115 @@ def coset_ifft(pre: FftPrecomputation, values: torch.Tensor,
     """Inverse of coset_fft: iFFT, then scale coeff i by shift^-i (in the
     transform's last pass, with the 1/n)."""
     return ntt(pre, values, inverse=True, shift=shift)
+
+
+class Twiddles(NamedTuple):
+    """A table of the four-step FFT's middle step in both forms: `canonical`
+    [8, r, s], the API's and the plain version's, and `montgomery` (w 2^256
+    mod p), which ntt_twiddle_transpose reads."""
+    canonical: torch.Tensor
+    montgomery: torch.Tensor
+
+    @classmethod
+    def of(cls, spec: FieldSpec, canonical: torch.Tensor) -> Twiddles:
+        canonical = canonical.contiguous()
+        return cls(canonical, fops.to_montgomery(spec, canonical))
+
+
+@functools.lru_cache(maxsize=8)
+def _four_step_table(spec: FieldSpec, n: int, lg_n1: int, inverse: bool,
+                     device: torch.device) -> Twiddles:
+    require_eight_limbs(spec, "four_step_twiddles")
+    n1 = 1 << lg_n1
+    n2 = n // n1
+    if n1 * n2 != n or n2 < 1:
+        raise ValueError(f"four_step_twiddles: n = {n}, lg_n1 = {lg_n1}")
+    g = fhost.primitive_root_of_unity(spec, log2_strict(n))
+    if inverse:
+        g = pow(g, -1, spec.p)
+    bases = powers_dyn(spec, fops.column(spec, g, device), n1)      # [8, n1]
+    acc = fops.constant(spec, 1, (n1, 1), device).contiguous()       # [8, n1, 1]
+    top = bases[..., None]           # invariant: top = base^(width of acc)
+    while acc.shape[-1] < n2:
+        acc = torch.cat([acc, fops.mul(spec, acc, top)], dim=-1)
+        if acc.shape[-1] < n2:
+            top = fops.square(spec, top)
+    return Twiddles.of(spec, acc)
+
+
+def four_step_twiddles(spec: FieldSpec, n: int, lg_n1: int,
+                       inverse: bool = False, device=None) -> Twiddles:
+    """The four-step FFT's middle table w_n^(+-i1 k2), [8, n1, n2] (n1 =
+    2^lg_n1, n2 = n / n1); plonky_tpu/poly/fft.py:204-225.  Built on
+    `device` (the card unless the CPU is asked for) by the same doubling:
+    the bases w_n^i1 (`powers_dyn`), then lg n2 batched K1 multiplies
+    along k2.  The eight latest tables are cached (256 MiB a table on the
+    card at n = 2^22)."""
+    return _four_step_table(spec, n, lg_n1, bool(inverse), resolve(device))
+
+
+def twiddle_transpose_plain(spec: FieldSpec, x: torch.Tensor,
+                            tw: Twiddles | None = None) -> torch.Tensor:
+    """x [8, *B, r, s] (times tw [8, r, s] when given) with its last two
+    axes swapped: [8, *B, s, r]."""
+    if tw is not None:
+        x = fops.mul_plain(spec, x, tw.canonical)
+    return x.transpose(-1, -2).contiguous()
+
+
+def twiddle_transpose(spec: FieldSpec, x: torch.Tensor,
+                      tw: Twiddles | None = None) -> torch.Tensor:
+    """`twiddle_transpose_plain` in one ntt_twiddle_transpose launch on the
+    card (tw read in its Montgomery form)."""
+    if not fops._dispatch(x):
+        return twiddle_transpose_plain(spec, x, tw)
+    require_eight_limbs(spec, "ntt_twiddle_transpose")
+    if x.dim() < 3:
+        raise ValueError(f"ntt_twiddle_transpose: x {tuple(x.shape)}")
+    r, s = x.shape[-2], x.shape[-1]
+    x4 = x.reshape(LIMBS, -1, r, s).contiguous()
+    _cuda.check("ntt_twiddle_transpose", x4, LIMBS)
+    y = torch.empty((LIMBS, *x.shape[1:-2], s, r), dtype=torch.int32,
+                    device=x.device)
+    if y.numel() == 0:
+        return y
+    mont = None
+    if tw is not None:
+        mont = tw.montgomery
+        if tuple(mont.shape) != (LIMBS, r, s):
+            raise ValueError(f"ntt_twiddle_transpose: tw {tuple(mont.shape)} "
+                             f"for x {tuple(x.shape)}")
+        _cuda.check("ntt_twiddle_transpose", mont, LIMBS)
+    _cuda.launch("ntt_twiddle_transpose", "pt_ntt_twiddle_transpose",
+                 y.data_ptr(), x4.data_ptr(),
+                 None if mont is None else mont.data_ptr(), x4.shape[1], r, s,
+                 spec.kernel_consts.ctypes.data, _cuda.stream())
+    return y
+
+
+def fft_four_step(spec: FieldSpec, x: torch.Tensor, tw: Twiddles,
+                  lg_n1: int, inverse: bool = False) -> torch.Tensor:
+    """The transform of `ntt` (forward, or with `inverse` the inverse) of
+    x [8, *B, n] factored as n = n1 n2 (plonky_tpu/poly/fft.py:228-262):
+
+        X[k2 + n2 k1] = sum_i1 w_n1^(i1 k1) [w_n^(i1 k2)
+                        sum_i2 w_n2^(i2 k2) C[i1, i2]],  C[i1, i2] = x[i1 + n1 i2]:
+
+    the transpose to C, K3 over the B n1 rows of n2, the twiddle product
+    with the transpose to [.., n2, n1], K3 over the B n2 rows of n1, the
+    transpose back.  `tw` is four_step_twiddles(spec, n, lg_n1, inverse);
+    the inverse's 1/n is the sub-transforms' 1/n2 1/n1."""
+    n = x.shape[-1]
+    n1 = 1 << lg_n1
+    n2 = n // n1
+    if n1 * n2 != n:
+        raise ValueError(f"fft_four_step: n = {n}, lg_n1 = {lg_n1}")
+    if tuple(tw.canonical.shape) != (LIMBS, n1, n2):
+        raise ValueError(f"fft_four_step: tw {tuple(tw.canonical.shape)} for "
+                         f"n1 = {n1}, n2 = {n2}")
+    pre1, pre2 = FftPrecomputation(spec, n1), FftPrecomputation(spec, n2)
+    c = twiddle_transpose(spec, x.reshape(*x.shape[:-1], n2, n1))  # [.., n1, n2]
+    inner = ntt(pre2, c, inverse)
+    y = twiddle_transpose(spec, inner, tw)                           # [.., n2, n1]
+    out = twiddle_transpose(spec, ntt(pre1, y, inverse))             # [.., n1, n2]
+    return out.reshape(x.shape)

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Compare ptxas's register, stack and spill lines of two trees' kernels,
-object by object (plonky_tpu_torch/_build/build.log, one "== object"
-section each), to show that a change left a build's machine code as it
-was.
+entry function by entry function within each object
+(plonky_tpu_torch/_build/build.log, one "== object" section each), to
+show that a change left a build's machine code as it was.
 
     python3 ptxas_compare.py OLD NEW
 
 Builds each tree's kernels in a process of its own (from the tree's
 directory; OLD is an unpacked earlier commit, e.g. under the gitignored
 .cache/), prints one JSON line per object of OLD (equal or not, with both
-sides' lines where they differ) and one for every object only NEW has,
-then the card's nvidia-smi name/power line.  Exits 1 unless every object
-of OLD has the same lines in NEW.  Needs nvcc; the card is not used.
+sides' lines of each entry that differs) and one for every object or
+entry only NEW has, then the card's nvidia-smi name/power line.  Exits 1
+unless every entry of OLD has the same lines in NEW (an entry NEW adds
+beside them is reported, not counted against it).  Needs nvcc; the card
+is not used.
 """
 
 from __future__ import annotations
@@ -24,20 +26,26 @@ import sys
 
 
 def ptxas_lines(tree: str) -> dict:
-    """Build `tree`'s kernels and read its build log: object -> the ptxas
-    lines naming an entry function, registers, stack or spills."""
+    """Build `tree`'s kernels and read its build log: object -> function
+    (an entry, or a device function ptxas reports properties for) -> its
+    ptxas lines (registers, stack and spills)."""
     subprocess.run([sys.executable, "-c",
                     "from plonky_tpu_torch import _cuda; _cuda.build()"],
                    cwd=tree, check=True)
-    out, obj = {}, None
+    out, obj, entry = {}, None, ""
     with open(os.path.join(tree, "plonky_tpu_torch", "_build", "build.log")) as f:
         for ln in f:
             m = re.match(r"== (\S+)", ln)
             if m:
-                obj = m.group(1).replace(".cu", "")
-                out[obj] = []
-            elif obj and re.search(r"registers|spill|stack|Compiling entry", ln):
-                out[obj].append(ln.strip())
+                obj, entry = m.group(1).replace(".cu", ""), ""
+                out[obj] = {}
+                continue
+            m = re.search(r"Compiling entry function '([^']+)'|Function properties "
+                          r"for (\S+)", ln)
+            if obj and m:
+                entry = m.group(1) or m.group(2)
+            if obj and re.search(r"registers|spill|stack|Compiling entry", ln):
+                out[obj].setdefault(entry, []).append(ln.strip())
     return out
 
 
@@ -45,15 +53,21 @@ def main() -> int:
     old_tree, new_tree = (os.path.abspath(a) for a in sys.argv[1:3])
     old, new = ptxas_lines(old_tree), ptxas_lines(new_tree)
     same = True
-    for obj, lines in old.items():
-        equal = new.get(obj) == lines
-        same &= equal
-        rec = {"object": obj, "equal": equal, "lines": len(lines)}
-        if not equal:
-            rec.update(old=lines, new=new.get(obj))
+    for obj, entries in old.items():
+        now = new.get(obj, {})
+        differ = {e: {"old": lines, "new": now.get(e)}
+                  for e, lines in entries.items() if now.get(e) != lines}
+        same &= not differ
+        rec = {"object": obj, "equal": not differ, "entries": len(entries),
+               "lines": sum(len(v) for v in entries.values())}
+        if differ:
+            rec["differ"] = differ
+        added = sorted(now.keys() - entries.keys())
+        if added:
+            rec["only_new"] = {e: now[e] for e in added}
         print(json.dumps(rec), flush=True)
     for obj in new.keys() - old.keys():
-        print(json.dumps({"object": obj, "only_new": True, "lines": new[obj]}),
+        print(json.dumps({"object": obj, "only_new": True, "entries": new[obj]}),
               flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

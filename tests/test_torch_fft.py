@@ -153,7 +153,7 @@ def test_fft_family_batches_match_jax(n, batch):
 def test_pass_plan(max_layers):
     """Every layer of 2^lg points in exactly one pass, in order, at most
     max_layers a pass, in ceil(lg / max_layers) passes, spread evenly."""
-    for lg in range(0, 21):
+    for lg in range(0, 23):
         plan = pfft.pass_plan(lg, max_layers)
         assert len(plan) == -(-lg // max_layers)
         layers = [l0 + d for l0, kp in plan for d in range(kp)]
@@ -178,15 +178,16 @@ def _kernel_defines():
 @pytest.mark.parametrize("batch", [1, 3, 9])
 def test_ntt_launches_fit_the_kernel(batch):
     """ntt_kernels.cu sizes its static shared memory by the same two limits
-    as fft.py, and every pass that ntt() launches (n = 2 .. 2^20) stays
+    as fft.py, and every pass that ntt() launches (n = 2 .. 2^22) stays
     inside them: at most NTT_MAX_LAYERS layers, a block's groups at most
     NTT_BLOCK_ELEMS elements and, with their padding, at most the shared
-    array; no block beyond the groups but the last one's tail."""
+    array; no block beyond the groups but the last one's tail; a launch's
+    blocks within the grid's 2^31 - 1."""
     defines = _kernel_defines()
     assert defines["NTT_MAX_LAYERS"] == pfft.NTT_MAX_LAYERS
     assert defines["NTT_BLOCK_ELEMS"] == pfft.NTT_BLOCK_ELEMS
     smem_elems = pfft.NTT_BLOCK_ELEMS + (1 << pfft.NTT_MAX_LAYERS)
-    for lg in range(1, 21):
+    for lg in range(1, 23):
         for _l0, kp in pfft.pass_plan(lg):
             lg_groups = pfft.block_groups(batch, lg, kp)
             size, groups = 1 << kp, 1 << lg_groups
@@ -194,6 +195,7 @@ def test_ntt_launches_fit_the_kernel(batch):
             assert size * groups <= defines["NTT_BLOCK_ELEMS"]
             assert size * (groups + 1) <= smem_elems
             assert groups < 2 * (batch << (lg - kp))
+            assert -(-(batch << (lg - kp)) // groups) < 1 << 31
 
 
 def _layers_reference(pre, x, inverse, shift):
@@ -255,6 +257,19 @@ def test_pass_groups_cover_every_position(lg):
             assert torch.equal(rev, src)
 
 
+def _twiddle_ints(pre, inverse):
+    """The twiddle table as python ints, layer by layer: layer ell
+    (half-size m = 2^ell) holds [w^j, j < m], w = g^(n / 2m)."""
+    p = SPEC.p
+    root = pre.g_inv if inverse else pre.g
+    out = []
+    for ell in range(pre.lg_n):
+        m = 1 << ell
+        w = pow(root, pre.n // (2 * m), p)
+        out += [pow(w, j, p) for j in range(m)]
+    return out
+
+
 def test_montgomery_tables():
     """The kernel's tables: twiddles w 2^256, coset powers shift^i 2^256
     and inverse scales n^-1 (shift^-i) 2^256, all mod p."""
@@ -265,7 +280,7 @@ def test_montgomery_tables():
         plain = [int(v) for v in fops.to_ints(SPEC, pre.twiddles("cpu", inverse)).reshape(-1)]
         mont = [int(v) for v in fops.to_ints(
             SPEC, pre.twiddles("cpu", inverse, montgomery=True)).reshape(-1)]
-        assert plain == pre._twiddle_ints(inverse)
+        assert plain == _twiddle_ints(pre, inverse)
         assert mont == [w * R % p for w in plain]
     coset = fops.to_ints(SPEC, pre.coset_powers("cpu", shift, montgomery=True))
     assert [int(v) for v in coset.reshape(-1)] == [
@@ -275,3 +290,19 @@ def test_montgomery_tables():
         pre.n_inv * pow(shift, -i, p) * R % p for i in range(n)]
     col = fops.to_ints(SPEC, pre.inverse_scale("cpu", montgomery=True))
     assert [int(v) for v in col.reshape(-1)] == [pre.n_inv * R % p]
+
+
+@pytest.mark.parametrize("n", [2, 32, 1024])
+def test_device_twiddle_build_equals_host(n):
+    """The twiddle table as every device builds it (powers of the root by
+    K1's doubling, every (n / 2m)-th for layer m), run here with the plain
+    versions, equals the layer-by-layer python-int table in both forms and
+    directions."""
+    pre = pfft.FftPrecomputation(SPEC, n)
+    R = pow(2, 256, SPEC.p)
+    for inverse in (False, True):
+        want = _twiddle_ints(pre, inverse)
+        for montgomery in (False, True):
+            got = fops.to_ints(SPEC, pre.twiddles("cpu", inverse, montgomery))
+            assert [int(v) for v in got.reshape(-1)] == (
+                [w * R % SPEC.p for w in want] if montgomery else want)

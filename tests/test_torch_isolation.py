@@ -44,12 +44,15 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from plonky_tpu_torch.curves import TWEEDLEDEE
     from plonky_tpu_torch.curves import ops as cops
     from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.poly import fft as pfft
     from plonky_tpu_torch.protocol import verify_proof
     spec = TWEEDLEDEE.scalar
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fops.from_ints(spec, [1, 2, 3])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cops.identity(TWEEDLEDEE, (4,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pfft.four_step_twiddles(spec, 1 << 6, 3)
     builder = CircuitBuilder(TWEEDLEDEE, security_bits=128)
     builder.assert_zero(builder.sub(builder.one_wire(), builder.one_wire()))
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,7 +1,7 @@
 """The port's MSM (plonky_tpu_torch.curves.msm, plain versions on the CPU)
 against the JAX package's plonky_tpu.curves.msm at the window the main path
 picks (commit_window_bits), and against a naive host MSM at every window
-from 2 to 8."""
+from 2 to 12 (the reduction widens its segments above c = 9)."""
 
 import jax
 import jax.numpy as jnp
@@ -80,7 +80,7 @@ def test_msm_matches_jax(n, k):
     assert got[0] == _naive(pts, rows[0])
 
 
-@pytest.mark.parametrize("c", range(2, 9))
+@pytest.mark.parametrize("c", range(2, 13))
 def test_msm_windows_match_naive(c):
     n = 13
     pts, rows = _points(n), _scalars(2, n, c)
