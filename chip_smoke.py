@@ -6,9 +6,10 @@ against its plain PyTorch version on the card at the main path's shapes
 (exact equality: all of it is integer arithmetic; the NTT at every
 transform shape of the prove and the fixtures), drives the batch Rescue
 permutation's path (K5 against its plain version on a ragged batch of both
-Tweedle base fields at 128 and 64 security bits, one launch for 2^14
-permutations held against the host permutation at sampled lanes, timed at
-2^14 and 2^16 and held there against the plain version on every lane),
+Tweedle base fields and BLS12-377's scalar field at 128 and 64 security
+bits, one launch for 2^14 permutations held against the host permutation
+at sampled lanes, timed at 2^14 and 2^16 and held there against the plain
+version on every lane),
 drives BLS12-377 G1 (phase_bls12_377: the 12-limb builds of K1, K2 and K4
 held against their plain versions at ragged shapes, the JAX package's
 microbench sizes timed, the path driven once with the launch counts reset,
@@ -34,6 +35,12 @@ Every phase prints one JSON line.  The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit` line; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
 and the ok line is not printed.
+
+    python3 chip_smoke.py --k5-sweep
+
+builds K5 (rescue_permutation) at each launch shape of K5_SHAPES and times
+each at 2^14 and 2^16 permutations with 3- and 5-bit windows, sparse and
+dense reduction (k5_sweep), then prints the card's line; no check is run.
 """
 
 from __future__ import annotations
@@ -170,13 +177,27 @@ MUL_OPS = mul_ops(8)
 SQR_OPS = sqr_ops(8)
 ADD_OPS = add_ops(8)
 DBL_OPS = dbl_ops(8)
+# The reduction for p = 2^254 + c, c < 2^128, p = 1 mod 2^32 (both Tweedle
+# base fields; csrc/field.cuh, cc_redc's SPARSE rows): -p^-1 = -1 mod
+# 2^32, so a row's quotient digit m is a negation, not a multiply, and m p
+# is m + m c1 2^32 + m c2 2^64 + m c3 2^96 + m 2^254, three wide products
+# and a shift: 8 rows of 3 wide products, 48 slots where the dense
+# reduction takes 136.  A multiply is then 128 + 48 = 176 slots, a square
+# 72 + 48 = 120.  The other kernels' bounds keep the dense reduction on
+# these fields, which overstates their least work.
+SPARSE_REDC_OPS = 8 * 3 * WIDE
+SPARSE_MUL_OPS = PRODUCT_OPS + SPARSE_REDC_OPS
+SPARSE_SQR_OPS = 8 * 9 // 2 * WIDE + SPARSE_REDC_OPS
 # A batch of n Rescue permutations of width 4 (rescue_work): per round, each
-# element's inverse S-box x^e (e = kth_root_exponent(p, 5), 254 bits) and
-# forward S-box x^5, each counted by the shortest of the sliding-window
-# chains of 1 to 8 bits (window_pow: for e, 5-bit windows, 250 squares and
-# 56 multiplies on TweedledeeBase, 55 on TweedledumBase; for 5, 2 squares
-# and 1 multiply), and the two MDS mixes (4 products and one reduction an
-# output element); 4 elements read and written per permutation.
+# element's inverse S-box x^e (e = kth_root_exponent(p, alpha), 254 bits)
+# and forward S-box x^alpha, each counted by the cheapest of the
+# sliding-window chains of 1 to 8 bits (sbox_ops: for e, 5-bit windows,
+# 250 squares and 56 multiplies on TweedledeeBase, 55 on TweedledumBase;
+# for 5, 2 squares and 1 multiply), and the two MDS mixes (4 products and
+# one reduction an output element), at the field's costs (rescue_costs:
+# 120-slot squares, 176-slot multiplies and 48-slot reductions on the
+# Tweedle base fields, ~41,400 slots an element and round; 208, 264 and
+# 136 on others); 4 elements read and written per permutation.
 # A whole NTT of B rows of n = 2^lg: B (n / 2) (lg - 1) twiddle products
 # (layer 0's twiddles are all 1), plus B n scale products where the
 # transform scales (coset input, inverse output); it reads the data, the
@@ -388,38 +409,25 @@ def horner_work(ws, c, nl: int = 8):
             k * (n_windows - 1) * (c * dbl_ops(nl) + add_ops(nl)))
 
 
-def window_pow(x: int, e: int, w: int, p: int):
-    """x^e mod p by a left-to-right sliding window of up to w bits:
-    (x^e mod p, squares, multiplies).  The table x^1, x^3, ...,
-    x^(2^w - 1) costs one square (x^2) and 2^(w-1) - 1 multiplies; the
-    first window is read from it, and every later bit costs a square and
-    every later window a multiply."""
-    bits = bin(e)[2:]
-    table = {1: x % p}
-    squares = mults = 0
-    if w > 1:
-        x2 = x * x % p
-        squares += 1
-        for k in range(3, 1 << w, 2):
-            table[k] = table[k - 2] * x2 % p
-            mults += 1
-    acc, i = None, 0
-    while i < len(bits):
-        if bits[i] == "0":
-            acc, squares, i = acc * acc % p, squares + 1, i + 1
-            continue
-        j = min(i + w, len(bits))
-        while bits[j - 1] == "0":
-            j -= 1
-        if acc is None:
-            acc = table[int(bits[i:j], 2)]
-        else:
-            for _ in range(j - i):
-                acc = acc * acc % p
-            acc = acc * table[int(bits[i:j], 2)] % p
-            squares, mults = squares + j - i, mults + 1
-        i = j
-    return acc, squares, mults
+def sbox_ops(spec, e: int) -> int:
+    """IMAD slots of the least work for x^e: the cheapest of the sliding
+    window chains of 1 to 8 bits (hashing/rescue.py:sbox_schedule, the
+    builder of K5's own chains), its squares and multiplies at the field's
+    costs (rescue_costs)."""
+    from plonky_tpu_torch.hashing import rescue as hr
+    sqr, mul, _redc = rescue_costs(spec)
+    return min(sq * sqr + m * mul for sq, m in
+               (hr.schedule_counts(hr.sbox_schedule(e, w)) for w in range(1, 9)))
+
+
+def rescue_costs(spec) -> tuple:
+    """(square, multiply, reduction) in IMAD slots for K5's field: the
+    sparse REDC's where p = 2^254 + c (hashing/rescue.py:sparse_prime),
+    else the dense ones."""
+    from plonky_tpu_torch.hashing.rescue import sparse_prime
+    if sparse_prime(spec):
+        return SPARSE_SQR_OPS, SPARSE_MUL_OPS, SPARSE_REDC_OPS
+    return SQR_OPS, MUL_OPS, REDC_OPS
 
 
 def rescue_work(spec, security_bits: int, n: int):
@@ -427,12 +435,10 @@ def rescue_work(spec, security_bits: int, n: int):
     file)."""
     from plonky_tpu_torch.fields.host import kth_root_exponent
     from plonky_tpu_torch.hashing.rescue import recommended_rounds
-
-    def sbox(e):
-        return min(sq * SQR_OPS + m * MUL_OPS for _x, sq, m in
-                   (window_pow(2, e, w, spec.p) for w in range(1, 9)))
-    per_round = (4 * (sbox(kth_root_exponent(spec, spec.alpha)) + sbox(spec.alpha))
-                 + 2 * 4 * (4 * PRODUCT_OPS + REDC_OPS))
+    _sqr, _mul, redc = rescue_costs(spec)
+    per_round = (4 * (sbox_ops(spec, kth_root_exponent(spec, spec.alpha))
+                      + sbox_ops(spec, spec.alpha))
+                 + 2 * 4 * (4 * PRODUCT_OPS + redc))
     return 2 * 4 * 32 * n, n * recommended_rounds(4, security_bits) * per_round
 
 
@@ -851,7 +857,10 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
                     lambda x=x, table=table: pfft.twiddle_transpose(fs, x, table),
                     lambda x=x, table=table: pfft.twiddle_transpose_plain(fs, x, table),
                     (96 if table is not None else 64) * elems,
-                    MUL_OPS * elems if table is not None else 0, plain_reps=1)})
+                    MUL_OPS * elems if table is not None else 0, plain_reps=1),
+                    # without twiddles the function is one PyTorch call
+                    "library_ms": None if table is not None else ck.queued_ms(
+                        lambda x=x: x.transpose(-1, -2).contiguous(), 20)})
     ck.record("ntt_twiddle_transpose", {
         "main": "[8, 1, 2^11, 2^11] with twiddles (2^22, lg n1 = 11)",
         "checked": ["[8, 1, 2^3, 2^3]", "[8, 3, 2^5, 2^7]", "[8, 1, 2^11, 2^11]",
@@ -971,7 +980,8 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
 
 def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
     """K5 against its plain version on a ragged batch of 2^10 + 3 for both
-    Tweedle base fields at 128 and 64 security bits; the batch entry
+    Tweedle base fields (its sparse instance) and BLS12-377's scalar field
+    (alpha = 11, its dense one) at 128 and 64 security bits; the batch entry
     point's path (rescue_permutation on 2^14 states, the JAX package's bench
     size) driven with the launch counts reset, which must show one K5
     launch and nothing else, and held against the host permutation at 8
@@ -980,17 +990,19 @@ def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
     held against the plain version's output from its timing.  Returns the
     path's K5 launches."""
     from plonky_tpu_torch import _cuda
-    from plonky_tpu_torch.fields import TWEEDLEDEE_BASE, TWEEDLEDUM_BASE
+    from plonky_tpu_torch.fields import (BLS12_377_SCALAR, TWEEDLEDEE_BASE,
+                                         TWEEDLEDUM_BASE)
     from plonky_tpu_torch.fields import ops as fops
     from plonky_tpu_torch.hashing import rescue as hr
 
     rng = np.random.default_rng(1337)
 
     def states(spec, n):
-        return [with_edges(fops, spec, rand_field(np, torch, rng, (n,), dev))
+        return [with_edges(fops, spec, rand_field(np, torch, rng, (n,), dev,
+                                                  spec))
                 for _ in range(4)]
 
-    for spec in (TWEEDLEDEE_BASE, TWEEDLEDUM_BASE):
+    for spec in (TWEEDLEDEE_BASE, TWEEDLEDUM_BASE, BLS12_377_SCALAR):
         for bits in (128, 64):
             state = states(spec, (1 << 10) + 3)
             ck.compare("rescue_permutation",
@@ -1043,11 +1055,141 @@ def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
               str(b["N"]): b["perms_per_s"] for b in by_n}})
     ck.record("rescue_permutation", {
         "main": "2^14, TweedledeeBase, 128 bits", "lanes_vs_host": lanes,
-        "checked": ["N = 2^10 + 3 x {TweedledeeBase, TweedledumBase} x "
-                    "{128, 64} bits", "N = 2^14 and 2^16, TweedledeeBase, "
-                    "128 bits, every lane"]},
+        "checked": ["N = 2^10 + 3 x {TweedledeeBase, TweedledumBase, "
+                    "Bls12377Scalar} x {128, 64} bits", "N = 2^14 and 2^16, "
+                    "TweedledeeBase, 128 bits, every lane"]},
         by_shape=by_n, measured=by_n[0])
     return launches["rescue_permutation"]
+
+
+# K5's launch shapes (k5_sweep, `python3 chip_smoke.py --k5-sweep`): threads
+# a permutation (RESCUE_LANES: 4, one element each, or 1 with the four
+# elements' chains side by side), threads a block, the __launch_bounds__
+# minimum of blocks (0: none; else the one that caps a thread at 128
+# registers) and extra nvcc flags (PT_REDC_OVERLAP: the sparse REDC rows
+# without their wait for the product, field.cuh); the chains' widest
+# window and the reduction (sparse or dense) are the constant buffer's.
+# The first shape is the one rescue_kernels.cu builds by default.
+K5_SHAPES = ((4, 256, 0, ()), (4, 64, 0, ()), (4, 128, 0, ()), (4, 64, 8, ()),
+             (4, 128, 4, ()), (4, 256, 2, ()), (1, 64, 0, ()), (1, 128, 0, ()),
+             (1, 256, 0, ()), (4, 256, 0, ("-DPT_REDC_OVERLAP",)))
+K5_WINDOWS = (3, 5)
+
+
+def sass_loops(lib_path: str, symbol: str) -> list:
+    """The loops of each kernel whose name holds `symbol` in a library's
+    SASS (cuobjdump): per backward branch, the kernel, the loop's first
+    and last address, its instruction count and most frequent opcodes (an
+    outer loop counts the inner ones it holds)."""
+    import re
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    code, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if symbol in m.group(1) else None
+            if name:
+                code[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);",
+                     line)
+        if name and m:
+            code[name].append((int(m.group(1), 16), m.group(3), m.group(4)))
+    loops = []
+    for name, ins in code.items():
+        for addr, op, args in ins:
+            m = re.search(r"0x([0-9a-f]+)", args)
+            if op == "BRA" and m and int(m.group(1), 16) < addr:
+                body = [o for a, o, _ in ins if int(m.group(1), 16) <= a <= addr]
+                loops.append({"kernel": name, "from": hex(int(m.group(1), 16)),
+                              "to": hex(addr), "instructions": len(body),
+                              "opcodes": collections.Counter(body).most_common(8)})
+    return loops
+
+
+def k5_sweep(ck: Checker, torch, np, dev, name_power: str) -> None:
+    """Builds K5 at every shape of K5_SHAPES, each from csrc/rescue_kernels.cu
+    into a library of its own (one nvcc each, all started together), and
+    times each at 2^14 and 2^16 TweedledeeBase permutations at 128 bits
+    with windows of up to 3 and 5 bits, sparse and dense REDC: device ms
+    (CUDA events over launches queued behind a sleep, L2 warm) and the
+    share of rescue_work's bound, every output held against the package's
+    kernel.  One line a shape, with ptxas's register and spill lines, the
+    kernels' SASS bytes and most frequent opcodes, and each loop's
+    instructions (sass_loops; cuobjdump); a launch the card refuses
+    (shared memory) is reported as such."""
+    import ctypes
+
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.fields import TWEEDLEDEE_BASE
+    from plonky_tpu_torch.hashing import rescue as hr
+    from profile_prove import sass_listing
+
+    out_dir = os.path.join(_cuda.BUILD_DIR, "k5_sweep")
+    os.makedirs(out_dir, exist_ok=True)
+    builds = {}
+    for i, (lanes, threads, min_blocks, flags) in enumerate(K5_SHAPES):
+        lib = os.path.join(out_dir, f"k5_{i}.so")
+        builds[(lanes, threads, min_blocks, flags)] = (lib, subprocess.Popen(
+            [_cuda.nvcc_path(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared",
+             f"-DRESCUE_LANES={lanes}", f"-DRESCUE_THREADS={threads}",
+             f"-DRESCUE_MIN_BLOCKS={min_blocks}", *flags, "-o", lib,
+             os.path.join(_cuda.CSRC, "rescue_kernels.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    spec, bits = TWEEDLEDEE_BASE, 128
+    rng = np.random.default_rng(2025)
+    inputs = {}
+    for n in (1 << 14, 1 << 16):
+        st = torch.stack([rand_field(np, torch, rng, (n,), dev)
+                          for _ in range(4)]).contiguous()
+        inputs[n] = (st, torch.stack(hr.rescue_permutation(spec, list(st), bits)))
+    for (lanes, threads, min_blocks, flags), (lib_path, proc) in builds.items():
+        log, _ = proc.communicate()
+        row = {"phase": "k5_sweep", "nvidia_smi": name_power, "lanes": lanes,
+               "threads": threads, "min_blocks": min_blocks,
+               "flags": list(flags), "build_rc": proc.returncode,
+               "ptxas": [ln.strip() for ln in log.splitlines()
+                         if "registers" in ln or "spill" in ln], "runs": []}
+        if proc.returncode:
+            row["log"] = log[-2000:]
+            emit(row)
+            continue
+        row["sass"] = {k: v for k, v in sass_listing(lib_path).items()
+                       if "rescue_permutation_kernel" in k}
+        row["loops"] = sass_loops(lib_path, "rescue_permutation_kernel")
+        fn = ctypes.CDLL(lib_path).pt_rescue_permutation
+        fn.argtypes = _cuda._SIGNATURES["pt_rescue_permutation"]
+        fn.restype = ctypes.c_int
+        for window in K5_WINDOWS:
+            for sparse in (True, False):
+                consts = hr.kernel_consts(spec, bits, window, sparse)
+                for n, (st, want) in inputs.items():
+                    out = torch.empty_like(st)
+
+                    def call(n=n, st=st, out=out, consts=consts):
+                        rc = fn(out.data_ptr(), st.data_ptr(), n,
+                                consts.ctypes.data, consts.size, _cuda.stream())
+                        if rc:
+                            raise RuntimeError(f"CUDA error {rc} at launch")
+                    run = {"window": window, "sparse": sparse, "N": n}
+                    try:
+                        call()
+                        torch.cuda.synchronize()
+                    except RuntimeError as err:
+                        row["runs"].append({**run, "refused": str(err)})
+                        continue
+                    if not torch.equal(out, want):
+                        raise AssertionError(f"K5 at {lanes}, {threads}, "
+                                             f"{min_blocks}, {flags}, {run} "
+                                             "differs")
+                    ms = ck.queued_ms(call, 10 if n == 1 << 14 else 4)
+                    bound = rescue_work(spec, bits, n)[1] / ck.rate * 1e3
+                    row["runs"].append({**run, "ms": ms, "share": bound / ms})
+        emit(row)
 
 
 # BLS12-377 G1 (phase_bls12_377): msm_chunked at 2^16 .. 2^22 points in
@@ -2100,10 +2242,14 @@ def card(torch):
     return name_power, clock_hz, sms, 64.0 * sms * clock_hz
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sweep = argv == ["--k5-sweep"]
+    if argv and not sweep:
+        print("usage: python3 chip_smoke.py [--k5-sweep]", file=sys.stderr)
         return 2
     import numpy as np
     from plonky_tpu_torch import _cuda
@@ -2132,6 +2278,10 @@ def main() -> int:
           "built_now": _cuda.BUILD_SECONDS[0] is not None, "ptxas": ptxas})
 
     ck = Checker(torch, clock_hz, int_rate)
+    if sweep:
+        k5_sweep(ck, torch, np, dev, name_power)
+        print(name_power, flush=True)
+        return 0
     seconds = {}
 
     def timed(name, fn, *args, **kwargs):
@@ -2166,4 +2316,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

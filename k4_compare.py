@@ -27,7 +27,9 @@ to back, host included), each with the sha256 of its output; the product
 sums of every launch shape of chip_smoke.product_sum_shapes (device time
 of one launch's sums, as one `product_sums` call or, in a tree without
 it, one `product_sum` launch a sum; L2 warm and flushed; the sha256 of
-the outputs); then chip_smoke.py's pinned prove line.  Last, one line compares the
+the outputs); K5 (rescue_permutation) on 2^14 and 2^16 TweedledeeBase
+states at 128 bits (device ms of a launch, L2 warm, and the sha256 of the
+output); then chip_smoke.py's pinned prove line.  Last, one line compares the
 trees: every hash must agree (the pinned proof's too), or the exit code is
 not 0.
 """
@@ -198,6 +200,26 @@ def _product_sum_rows(smoke, ck, np, torch, dev):
     return rows
 
 
+def _k5_rows(smoke, ck, np, torch, dev):
+    """K5 (rescue_permutation) on 2^14 and 2^16 TweedledeeBase states at
+    128 security bits: device ms of a launch (CUDA events over launches
+    queued behind a sleep, L2 warm) and the sha256 of the output."""
+    from plonky_tpu_torch.fields import TWEEDLEDEE_BASE
+    from plonky_tpu_torch.hashing import rescue as hr
+    rng = np.random.default_rng(55)
+    rows = []
+    for lg in (14, 16):
+        state = [smoke.rand_field(np, torch, rng, (1 << lg,), dev) for _ in range(4)]
+
+        def call(state=state):
+            return hr.rescue_permutation(TWEEDLEDEE_BASE, state, 128)
+        rows.append({"name": "rescue_permutation", "shape": f"2^{lg}",
+                     "sha256": hashlib.sha256(torch.cat(call()).cpu().numpy()
+                                              .tobytes()).hexdigest(),
+                     "ms": ck.queued_ms(call, 10 if lg == 14 else 4)})
+    return rows
+
+
 def run_tree(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
@@ -251,7 +273,8 @@ def run_tree(root: str) -> int:
                 "shapes": rows_out, "elementwise": _elementwise_rows(
                     smoke, ck, np, torch, cops, TWEEDLEDEE, dev),
                 "k1_k3": _k1_k3_rows(smoke, ck, np, torch, dev),
-                "product_sum": _product_sum_rows(smoke, ck, np, torch, dev)})
+                "product_sum": _product_sum_rows(smoke, ck, np, torch, dev),
+                "k5": _k5_rows(smoke, ck, np, torch, dev)})
     smoke.phase_prove(torch, want_sha256=smoke.PROOF_2E14_SHA256,
                       check_launches=False)
     return 0
@@ -275,7 +298,8 @@ def main(argv) -> int:
                 hashes[-1].update({(r["name"], r["shape"][1]): r["sha256"]
                                    for r in rec["elementwise"]})
                 hashes[-1].update({(r["name"], str(r["shape"])): r["sha256"]
-                                   for r in rec["k1_k3"] + rec["product_sum"]})
+                                   for r in rec["k1_k3"] + rec["product_sum"]
+                                   + rec["k5"]})
     equal = len(hashes) == len(argv or [HERE]) and all(h == hashes[0] for h in hashes)
     print(json.dumps({"phase": "k4_compare_trees", "trees": len(hashes),
                       "hashes_equal": equal}), flush=True)

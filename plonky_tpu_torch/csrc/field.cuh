@@ -593,6 +593,250 @@ __device__ __forceinline__ void cc_sum_mod(uint32_t r[PT_LIMBS],
   // q3's low limbs = columns 10..17 = u[2..9]
   cc_barrett_finish(r, s, u + 2, c.f);
 }
+
+// ---------------------------------------------------------------------------
+// Separated Montgomery products (K5, 8 limbs only): the 512-bit product or
+// square first (cc_product, cc_square), then one Montgomery reduction of it
+// (cc_redc), r = T / 2^256 mod p.  A square forms each cross product a_i a_j
+// (i < j) once and doubles the sum, then adds the 8 diagonal products: 36
+// limb products where a product takes 64.
+//
+// Every limb product a_i b_j goes to one of two accumulators by the parity
+// of its limb i + j, e (even) or o (odd), T = e + o, so that its low and
+// high halves sit on a pair of limbs (2k, 2k + 1) of e or (2k + 1, 2k + 2)
+// of o and one chain runs over a row's products of one parity
+// (cc_mac_pairs): ptxas fuses each mad.lo.cc / madc.hi.cc pair into one
+// IMAD.WIDE.U32.X, where products on the rows of cc_mac_row take an IMAD, an
+// IMAD.HI and two IADD3.X.
+//
+// cc_redc runs the 8 REDC rows over (e, o): row I makes limb I zero by
+// adding m p 2^(32 I), m = -limb_I p^-1 mod 2^32, its products on pairs in
+// the accumulator of their parity.  Each chain ends in a counter, cnt[k]
+// holding carries pending into limb k, instead of rippling to the top; row
+// I first folds e[I] + o[I] + cnt[I] into the exact limb I (overflows into
+// cnt[I + 1]).  The value e + o + sum_k cnt[k] 2^(32 k) is T + sum_(j < I)
+// m_j p 2^(32 j) throughout.  In the end limbs 8..15 of e, o and the
+// counters give r = (T + M p) / 2^256 < T / 2^256 + p: below 2p for a
+// product of values below p, not yet canonical.
+//
+// The sparse rows (SPARSE) are for p = 2^254 + c with c < 2^128 and
+// p = 1 mod 2^32 (the Tweedle base fields: limbs [1, c1, c2, c3, 0, 0, 0,
+// 2^30]; the host checks the shape, hashing/rescue.py:sparse_prime).
+// Then limb I + m p_0 = limb I + m is 0 mod 2^32 with a carry unless limb I
+// is 0, and m p's other limbs are the three products m c1, m c2, m c3: a
+// row takes 3 limb products where the dense one takes 8.  The rows' m
+// 2^254 terms (m 2^30 at limb I + 7) are added once at the end, as M 2^30
+// at limb 7 (M = sum_I m_I 2^(32 I), a funnel shift a limb): only m_0's
+// low part reaches a limb that a later row reads (limb 7), and it is added
+// after row 0.  The quotient digit is s (-p^-1 mod 2^32) on either kind of
+// row, an IMAD.  tests/test_torch_barrett.py models the product, the square
+// and both kinds of row limb by limb.
+// ---------------------------------------------------------------------------
+
+#define PT_PRODUCT_LIMBS (2 * PT_LIMBS + 1)   // a product's limbs and a zero
+
+// acc[0 .. 2N - 1] += sum_k x y[2k] 2^(64 k), the chain's carry added to
+// `carry` (acc[2N] or a counter): each product's low and high halves on
+// neighbouring limbs of one chain, which ptxas fuses into one
+// IMAD.WIDE.U32.X (carry in and out).
+template <int N>
+__device__ __forceinline__ void cc_mac_pairs(uint32_t* acc, uint32_t x, const uint32_t* y,
+                                             uint32_t& carry) {
+  const uint32_t zero = 0;
+  acc[0] = cc_mad_lo(x, y[0], acc[0]);
+  acc[1] = cc_madc_hi(x, y[0], acc[1]);
+#pragma unroll
+  for (int k = 1; k < N; k++) {
+    acc[2 * k] = cc_madc_lo(x, y[2 * k], acc[2 * k]);
+    acc[2 * k + 1] = cc_madc_hi(x, y[2 * k], acc[2 * k + 1]);
+  }
+  carry = cc_addc_end(carry, zero);
+}
+
+// t[0 .. 15] = e + o (o[0] is 0; what leaves limb 15 is 0).
+__device__ __forceinline__ void cc_merge(uint32_t t[PT_PRODUCT_LIMBS], const uint32_t* e,
+                                         const uint32_t* o) {
+  t[0] = e[0];
+  t[1] = cc_add(e[1], o[1]);
+#pragma unroll
+  for (int k = 2; k < 2 * PT_LIMBS - 1; k++) t[k] = cc_addc(e[k], o[k]);
+  t[2 * PT_LIMBS - 1] = cc_addc_end(e[2 * PT_LIMBS - 1], o[2 * PT_LIMBS - 1]);
+  t[2 * PT_LIMBS] = 0;
+}
+
+// Row I of a b: a_I b_j at limb I + j goes to e where I + j is even, to o
+// where it is odd, so that every product's halves sit on a pair of limbs
+// (2k, 2k + 1) of e or (2k + 1, 2k + 2) of o.  Each chain's carry lands on
+// a limb that only carries have reached so far (a later row's chain covers
+// it), so no carry is lost.
+template <int I>
+__device__ __forceinline__ void cc_product_rows(uint32_t* e, uint32_t* o, const uint32_t* a,
+                                                const uint32_t* b) {
+  if constexpr (I < PT_LIMBS) {
+    if constexpr (I % 2 == 0) {
+      cc_mac_pairs<PT_LIMBS / 2>(e + I, a[I], b, e[I + PT_LIMBS]);
+      cc_mac_pairs<PT_LIMBS / 2>(o + I + 1, a[I], b + 1, o[I + PT_LIMBS + 1]);
+    } else {
+      cc_mac_pairs<PT_LIMBS / 2>(e + I + 1, a[I], b + 1, e[I + PT_LIMBS + 1]);
+      cc_mac_pairs<PT_LIMBS / 2>(o + I, a[I], b, o[I + PT_LIMBS]);
+    }
+    cc_product_rows<I + 1>(e, o, a, b);
+  }
+}
+
+// a b = e + o for a, b below 2^256 (the limbs above 15 are 0).
+__device__ __forceinline__ void cc_product(uint32_t e[PT_PRODUCT_LIMBS],
+                                           uint32_t o[PT_PRODUCT_LIMBS],
+                                           const uint32_t a[PT_LIMBS],
+                                           const uint32_t b[PT_LIMBS]) {
+#pragma unroll
+  for (int k = 0; k < PT_PRODUCT_LIMBS; k++) e[k] = o[k] = 0;
+  cc_product_rows<0>(e, o, a, b);
+}
+
+// The cross products a_I a_j, j > I, split by the parity of I + j as in
+// cc_product_rows: j = I + 1, I + 3, ... into o at limb 2 I + 1, j = I + 2,
+// I + 4, ... into e at limb 2 I + 2.
+template <int I>
+__device__ __forceinline__ void cc_cross_rows(uint32_t* e, uint32_t* o, const uint32_t* a) {
+  if constexpr (I < PT_LIMBS - 1) {
+    constexpr int NO = (PT_LIMBS - I) / 2, NE = (PT_LIMBS - I - 1) / 2;
+    cc_mac_pairs<NO>(o + 2 * I + 1, a[I], a + I + 1, o[2 * I + 1 + 2 * NO]);
+    if constexpr (NE > 0) cc_mac_pairs<NE>(e + 2 * I + 2, a[I], a + I + 2, e[2 * I + 2 + 2 * NE]);
+    cc_cross_rows<I + 1>(e, o, a);
+  }
+}
+
+// t = a^2 for a below 2^256: the cross products (below a^2 / 2 < 2^511),
+// doubled by a shift, then the diagonal a_i^2 at limb 2 i on one chain.
+__device__ __forceinline__ void cc_square(uint32_t t[PT_PRODUCT_LIMBS],
+                                          const uint32_t a[PT_LIMBS]) {
+  uint32_t e[PT_PRODUCT_LIMBS], o[PT_PRODUCT_LIMBS];
+#pragma unroll
+  for (int k = 0; k < PT_PRODUCT_LIMBS; k++) e[k] = o[k] = 0;
+  cc_cross_rows<0>(e, o, a);
+  cc_merge(t, e, o);
+#pragma unroll
+  for (int k = 2 * PT_LIMBS - 1; k > 0; k--) t[k] = __funnelshift_l(t[k - 1], t[k], 1);
+  t[0] <<= 1;
+  t[0] = cc_mad_lo(a[0], a[0], t[0]);
+  t[1] = cc_madc_hi(a[0], a[0], t[1]);
+#pragma unroll
+  for (int i = 1; i < PT_LIMBS - 1; i++) {
+    t[2 * i] = cc_madc_lo(a[i], a[i], t[2 * i]);
+    t[2 * i + 1] = cc_madc_hi(a[i], a[i], t[2 * i + 1]);
+  }
+  t[2 * PT_LIMBS - 2] = cc_madc_lo(a[PT_LIMBS - 1], a[PT_LIMBS - 1], t[2 * PT_LIMBS - 2]);
+  t[2 * PT_LIMBS - 1] = cc_madc_hi_end(a[PT_LIMBS - 1], a[PT_LIMBS - 1],
+                                       t[2 * PT_LIMBS - 1]);
+}
+
+// REDC rows I .. 7 over t = e + o (see the top of this section); m[I]
+// keeps row I's quotient digit.  Row I's products at limbs of the parity
+// of I go to y, the others to x, on pairs of limbs as in cc_product_rows;
+// its limb I, e[I] + o[I] + cnt[I], is folded first (overflow into
+// cnt[I + 1]), and the chains' carries go to counters.
+template <int I, bool SPARSE>
+__device__ __forceinline__ void cc_redc_rows(uint32_t* e, uint32_t* o, uint32_t* cnt,
+                                             uint32_t* m, const FieldConsts& c) {
+  if constexpr (I < PT_LIMBS) {
+    uint32_t* y = I % 2 == 0 ? e : o;
+    uint32_t* x = I % 2 == 0 ? o : e;
+    const uint32_t zero = 0;
+    uint32_t s = cc_add(y[I], x[I]);                   // limb I, exact
+    cnt[I + 1] = cc_addc_end(cnt[I + 1], zero);
+    s = cc_add(s, cnt[I]);
+    cnt[I + 1] = cc_addc_end(cnt[I + 1], zero);
+    m[I] = s * c.pinv;
+    if constexpr (SPARSE) {
+      (void)cc_add(s, m[I]);                           // limb I + m p_0: 0, carry
+      x[I + 1] = cc_madc_lo(m[I], c.p[1], x[I + 1]);
+      x[I + 2] = cc_madc_hi(m[I], c.p[1], x[I + 2]);
+      x[I + 3] = cc_madc_lo(m[I], c.p[3], x[I + 3]);
+      x[I + 4] = cc_madc_hi(m[I], c.p[3], x[I + 4]);
+      cnt[I + 5] = cc_addc_end(cnt[I + 5], zero);
+      y[I + 2] = cc_mad_lo(m[I], c.p[2], y[I + 2]);
+      y[I + 3] = cc_madc_hi(m[I], c.p[2], y[I + 3]);
+      cnt[I + 4] = cc_addc_end(cnt[I + 4], zero);
+      if constexpr (I == 0) {                          // m_0 2^254's limb 7
+        o[7] = cc_add(o[7], m[0] << 30);
+        cnt[8] = cc_addc_end(cnt[8], zero);
+      }
+    } else {
+      y[I] = s;                                        // + m p_0 makes it 0
+      cc_mac_pairs<PT_LIMBS / 2>(y + I, m[I], c.p, cnt[I + PT_LIMBS]);
+      cc_mac_pairs<PT_LIMBS / 2>(x + I + 1, m[I], c.p + 1, cnt[I + PT_LIMBS + 1]);
+    }
+    cc_redc_rows<I + 1, SPARSE>(e, o, cnt, m, c);
+  }
+}
+
+// r = (e + o) / 2^256 mod p, in [0, (e + o) / 2^256 + p) (see the top of
+// this section).
+template <bool SPARSE>
+__device__ __forceinline__ void cc_redc(uint32_t r[PT_LIMBS], uint32_t e[PT_PRODUCT_LIMBS],
+                                        uint32_t o[PT_PRODUCT_LIMBS], const FieldConsts& c) {
+  uint32_t cnt[PT_PRODUCT_LIMBS], m[PT_LIMBS];
+#pragma unroll
+  for (int k = 0; k < PT_PRODUCT_LIMBS; k++) cnt[k] = 0;
+#ifndef PT_REDC_OVERLAP
+  if constexpr (SPARSE) {
+    // Row 0 waits for the product's top limb (+ its product with a zero
+    // that the compiler cannot see: -p^-1 p_0 = -1 mod 2^32).  Left to
+    // itself (built with -DPT_REDC_OVERLAP, as chip_smoke.py's K5 sweep
+    // does once), ptxas starts the rows while the product's chains run,
+    // keeps more carries alive than it has predicates and spills them
+    // (LOP3, P2R, ISETP in the square's loop; PERF.md §6).  The dense rows
+    // gain from the overlap.
+    const uint32_t zero = c.pinv * c.p[0] + 1u;
+    e[0] += (e[2 * PT_LIMBS - 1] + o[2 * PT_LIMBS - 1]) * zero;
+  }
+#endif
+  cc_redc_rows<0, SPARSE>(e, o, cnt, m, c);
+  r[0] = cc_add(e[PT_LIMBS], o[PT_LIMBS]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS - 1; k++) r[k] = cc_addc(e[PT_LIMBS + k], o[PT_LIMBS + k]);
+  r[PT_LIMBS - 1] = cc_addc_end(e[2 * PT_LIMBS - 1], o[2 * PT_LIMBS - 1]);
+  r[0] = cc_add(r[0], cnt[PT_LIMBS]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS - 1; k++) r[k] = cc_addc(r[k], cnt[PT_LIMBS + k]);
+  r[PT_LIMBS - 1] = cc_addc_end(r[PT_LIMBS - 1], cnt[2 * PT_LIMBS - 1]);
+  if constexpr (SPARSE) {   // + M 2^30 at limb 7, its limbs 1 .. 8 (limb 0 is in)
+    r[0] = cc_add(r[0], __funnelshift_l(m[0], m[1], 30));
+#pragma unroll
+    for (int k = 1; k < PT_LIMBS - 1; k++) r[k] = cc_addc(r[k], __funnelshift_l(m[k], m[k + 1], 30));
+    r[PT_LIMBS - 1] = cc_addc_end(r[PT_LIMBS - 1], m[PT_LIMBS - 1] >> 2);
+  }
+}
+
+// The lazy products of an exponent chain (K5's S-boxes): no conditional
+// subtraction, r = a b / 2^256 (mod p) below (a b + (2^256 - 1) p) /
+// 2^256.  From inputs below p, a chain of n such products stays below the
+// bound B_n, B_0 = p, B_(k+1) = (B_k - 1)^2 / 2^256 + p; where B_n <= 2p
+// one cc_csub after the chain makes it canonical.  Both Tweedle base
+// fields (p = 2^254 (1 + 2^-132)) keep B_n below 2p for more than 10^5
+// products, and any p < 2^254 for every n; the host checks a field's
+// chains (hashing/rescue.py:lazy_chain_bound).
+
+// r = a b / 2^256 (mod p), lazily (above).
+template <bool SPARSE>
+__device__ __forceinline__ void cc_mont_mul_sos(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                                const uint32_t b[PT_LIMBS], const FieldConsts& c) {
+  uint32_t e[PT_PRODUCT_LIMBS], o[PT_PRODUCT_LIMBS];
+  cc_product(e, o, a, b);
+  cc_redc<SPARSE>(r, e, o, c);
+}
+
+// r = a^2 / 2^256 (mod p), lazily (above).
+template <bool SPARSE>
+__device__ __forceinline__ void cc_mont_sqr(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                            const FieldConsts& c) {
+  uint32_t t[PT_PRODUCT_LIMBS], zero[PT_PRODUCT_LIMBS];
+  cc_square(t, a);
+#pragma unroll
+  for (int k = 0; k < PT_PRODUCT_LIMBS; k++) zero[k] = 0;
+  cc_redc<SPARSE>(r, t, zero, c);
+}
 #endif  // PT_LIMBS == 8
 
 // r = k a for a small constant k >= 1 (double and add over k's bits; the

@@ -9,150 +9,292 @@
 // memory; here a permutation's state stays in registers from its first
 // round to its last, and one launch runs the whole batch.
 //
-// What bounds it: the inverse S-box x^(1/5) is a 254-bit exponent, 377
-// modular multiplies an element a round by this kernel's square-and-multiply
-// (~306 by 5-bit sliding windows), against 3 for the forward S-box and 8
-// for the two MDS products; a permutation reads and writes 256 bytes and
-// needs at least ~4.4e6 IMAD issue slots of products at 16 rounds
-// (chip_smoke.py:rescue_work), so it is bound by operations, ~97% of them
-// in the inverse S-box.
+// What bounds it: operations.  The inverse S-box x^(1/alpha) has a 254-bit
+// exponent: ~97% of the work is its ~250 squares and ~65 multiplies an
+// element a round, against 2 squares and a multiply for x^5 and 8 products
+// for the two MDS mixes; a permutation reads and writes 256 bytes
+// (chip_smoke.py:rescue_work counts the least work).  On the card the
+// integer ALU pipe (the carry chains' IADD3.X) and the instruction issue
+// are the limits, so the design cuts instructions, not only products.
 //
-// The design: 4 threads a permutation, thread r of a quad holding state
-// element r in Montgomery form (x 2^256 mod p, canonical).  Each S-box is
-// a rolled square-and-multiply loop over the exponent's bits with ONE
-// multiply site (cc_mont_mul, the unrolled carry-chain CIOS product of
-// field.cuh); the exponent is the same for every thread, so the loop is
-// uniform across the warp.  The MDS row r = sum_c M[r][c] s_c reads the
-// quad's other elements by __shfl_sync, one rolled loop with a second
-// multiply site.  The constants (field, exponents, Montgomery MDS matrix
-// and round constants) are one __grid_constant__ parameter of each launch
-// (~17 KB at RESCUE_MAX_ROUNDS; Hopper takes up to 32 KB of parameters), so
-// any 8-limb field and any round count up to RESCUE_MAX_ROUNDS runs without
-// a rebuild, and launches of different fields on different streams share
-// no state.  Threads past the batch keep running (zeros) so that every
-// shuffle has its whole warp, and store nothing.
+// The design: 4 threads a permutation (RESCUE_LANES), thread r of a quad
+// holding state element r in Montgomery form (x 2^256 mod p, canonical
+// between S-boxes).
+// - Each S-box runs the exponent chain that the host built
+//   (hashing/rescue.py:sbox_schedule): a list of steps, each "load a table
+//   slot, square k times, multiply by a table slot, store to a slot", the
+//   same for every thread, so the loop is uniform across the warp and has
+//   no per-bit select.  The chain is a sliding window of up to 3 bits
+//   (hashing/rescue.py:KERNEL_WINDOW); the table of odd powers x, x^3, ...
+//   and x^2 lives in dynamic shared memory, one column a thread.
+// - A square is cc_mont_sqr (36 limb products), a multiply cc_mont_mul_sos
+//   (64), both separated: the 512-bit product on pairs of limbs that ptxas
+//   fuses into one IMAD.WIDE.U32.X a limb product, then one REDC
+//   (field.cuh), left below 2p (lazy) until the chain's end.  For
+//   p = 2^254 + c, c < 2^128 (both Tweedle base fields) the REDC takes 3
+//   limb products a row instead of 8: the kernel's SPARSE instance, chosen
+//   from p's limbs by the host.  Every other 8-limb field (BLS12-377's
+//   scalar field) runs the dense one.
+// - The MDS row r = sum_c M[r][c] s_c reads the quad's elements by
+//   __shfl_sync, adds the four 512-bit products into one accumulator
+//   (cc_acc_product) and reduces once.
+// The constants (field, table size, chains, Montgomery MDS matrix and round
+// constants) are one __grid_constant__ parameter of each launch (~18 KB at
+// RESCUE_MAX_ROUNDS; Hopper takes up to 32 KB of parameters), so any 8-limb
+// field and any round count up to RESCUE_MAX_ROUNDS runs without a rebuild.
+// Threads past the batch keep running (zeros) so that every shuffle has its
+// whole warp, and store nothing.
+//
+// The launch shape is set at build time: RESCUE_THREADS a block (256, the
+// fastest at 2^14), RESCUE_MIN_BLOCKS for __launch_bounds__ (0: none), and
+// RESCUE_LANES = 1 maps a permutation to one thread that runs its 4
+// elements' chains side by side (chip_smoke.py --k5-sweep builds and times
+// each; PERF.md §6 has the sweep).
+#include <cstddef>
 #include <cstring>
 
 #include "field.cuh"
 
 #define RESCUE_WIDTH 4
 #define RESCUE_MAX_ROUNDS 64
-#define RESCUE_THREADS 128
+#define RESCUE_MAX_STEPS 128     // steps of one S-box's chain
+#define RESCUE_MAX_SLOTS 17      // table slots an element: windows up to 5 bits
+#define RESCUE_NO_SLOT 31        // a step field that names no slot
+#ifndef RESCUE_THREADS
+#define RESCUE_THREADS 256
+#endif
+#ifndef RESCUE_MIN_BLOCKS
+#define RESCUE_MIN_BLOCKS 0
+#endif
+#ifndef RESCUE_LANES
+#define RESCUE_LANES 4
+#endif
+static_assert(RESCUE_LANES == 4 || RESCUE_LANES == 1, "RESCUE_LANES is 4 or 1");
+#define RESCUE_ELEMS (RESCUE_WIDTH / RESCUE_LANES)   // elements a thread
+#if RESCUE_MIN_BLOCKS > 0
+#define RESCUE_BOUNDS __launch_bounds__(RESCUE_THREADS, RESCUE_MIN_BLOCKS)
+#else
+#define RESCUE_BOUNDS __launch_bounds__(RESCUE_THREADS)
+#endif
 
 // The words of hashing/rescue.py:kernel_consts, in order.
 struct RescueConsts {
   FieldConsts f;                                        // p, -p^-1 mod 2^32
   uint32_t r2[PT_LIMBS];                                // 2^512 mod p
-  uint32_t exp[2][PT_LIMBS];                            // 1/alpha, alpha
-  uint32_t exp_top[2];                                  // index of the top bit
+  uint32_t sparse;                                      // 1: p = 2^254 + c
   uint32_t rounds;
+  uint32_t slots;                                       // table slots an element
+  uint32_t n_steps[2];                                  // x^(1/alpha), x^alpha
+  uint32_t steps[2][RESCUE_MAX_STEPS];
   uint32_t mds[RESCUE_WIDTH][RESCUE_WIDTH][PT_LIMBS];   // Montgomery form
   uint32_t rc[RESCUE_MAX_ROUNDS][2][RESCUE_WIDTH][PT_LIMBS];
 };
 
-#define RESCUE_HEADER_WORDS \
-  (PT_FIELD_WORDS + 3 * PT_LIMBS + 3 + RESCUE_WIDTH * RESCUE_WIDTH * PT_LIMBS)
+#define RESCUE_HEADER_WORDS                                            \
+  (PT_FIELD_WORDS + PT_LIMBS + 5 + 2 * RESCUE_MAX_STEPS +              \
+   RESCUE_WIDTH * RESCUE_WIDTH * PT_LIMBS)
+#define RESCUE_ROUNDS_WORD (PT_FIELD_WORDS + PT_LIMBS + 1)
 #define RESCUE_ROUND_WORDS (2 * RESCUE_WIDTH * PT_LIMBS)
 
 static_assert(sizeof(RescueConsts) ==
                   4 * (RESCUE_HEADER_WORDS + RESCUE_MAX_ROUNDS * RESCUE_ROUND_WORDS),
               "RescueConsts must match the host buffer's word layout");
+static_assert(offsetof(RescueConsts, rounds) == 4 * RESCUE_ROUNDS_WORD,
+              "the round count's word");
 static_assert(sizeof(RescueConsts) <= 32764,
               "RescueConsts must fit the kernel parameter space (CUDA 12.1+)");
 
-// s = s^e for the exponent exp[half] (Montgomery form in and out): left to
-// right, a square for every bit below the top one and a multiply by the
-// input after each set bit, all through one multiply site.
-__device__ __forceinline__ void rescue_sbox(uint32_t s[PT_LIMBS], int half,
-                                            const RescueConsts& cs) {
-  const FieldConsts& f = cs.f;
-  uint32_t x[PT_LIMBS];
-  fe_copy(x, s);
-  int i = (int)cs.exp_top[half] - 1;
-  bool mul_step = false;
-#pragma unroll 1
-  while (i >= 0) {
-    uint32_t y[PT_LIMBS];
+// Slot `slot` of element e's table: limb k of this thread's column.
+__device__ __forceinline__ void slot_load(uint32_t v[PT_LIMBS], const uint32_t* tab,
+                                          uint32_t slot, int e) {
 #pragma unroll
-    for (int k = 0; k < PT_LIMBS; k++) y[k] = mul_step ? x[k] : s[k];
-    cc_mont_mul(s, s, y, f);
-    if (mul_step) {
-      mul_step = false;
-      i--;
-    } else if ((cs.exp[half][i >> 5] >> (i & 31)) & 1) {
-      mul_step = true;
-    } else {
-      i--;
-    }
-  }
+  for (int k = 0; k < PT_LIMBS; k++)
+    v[k] = tab[((slot * RESCUE_ELEMS + e) * PT_LIMBS + k) * RESCUE_THREADS];
 }
 
-// s = sum_c M[r][c] s_c + rc[round][half][r], the quad's elements s_c read
-// from lanes (lane & ~3) + c.
-__device__ __forceinline__ void rescue_mds_add(uint32_t s[PT_LIMBS], int r, int round,
-                                               int half, const RescueConsts& cs) {
-  const FieldConsts& f = cs.f;
-  const int base = (threadIdx.x & 31) & ~3;
-  uint32_t acc[PT_LIMBS];
-  fe_copy(acc, cs.rc[round][half][r]);
-#pragma unroll 1
-  for (int c = 0; c < RESCUE_WIDTH; c++) {
-    uint32_t v[PT_LIMBS], t[PT_LIMBS];
+__device__ __forceinline__ void slot_store(uint32_t* tab, uint32_t slot, int e,
+                                           const uint32_t v[PT_LIMBS]) {
 #pragma unroll
-    for (int k = 0; k < PT_LIMBS; k++) v[k] = __shfl_sync(0xffffffffu, s[k], base + c);
-    cc_mont_mul(t, v, cs.mds[r][c], f);
-    cc_add_mod(acc, acc, t, f);
+  for (int k = 0; k < PT_LIMBS; k++)
+    tab[((slot * RESCUE_ELEMS + e) * PT_LIMBS + k) * RESCUE_THREADS] = v[k];
+}
+
+// s = s^e for the S-box `half` (Montgomery form, canonical in and out):
+// the host's chain, one step a word (load slot bits 0-4, multiply slot
+// 5-9, store slot 10-14, squares 16-31), through one square site and one
+// multiply site, both lazy (below 2p, field.cuh), and one conditional
+// subtraction at the end.  tab is this thread's column of the block's
+// table.
+template <bool SPARSE>
+__device__ __forceinline__ void rescue_sbox(uint32_t s[RESCUE_ELEMS][PT_LIMBS], int half,
+                                            const RescueConsts& cs, uint32_t* tab) {
+  const FieldConsts& f = cs.f;
+  const int n_steps = (int)cs.n_steps[half];
+#pragma unroll 1
+  for (int j = 0; j < n_steps; j++) {
+    const uint32_t step = cs.steps[half][j];
+    const uint32_t load = step & 31, mul = (step >> 5) & 31, store = (step >> 10) & 31;
+    const uint32_t squares = step >> 16;
+    if (load != RESCUE_NO_SLOT) {
+#pragma unroll
+      for (int e = 0; e < RESCUE_ELEMS; e++) slot_load(s[e], tab, load, e);
+    }
+#pragma unroll 1
+    for (uint32_t q = 0; q < squares; q++) {
+#pragma unroll
+      for (int e = 0; e < RESCUE_ELEMS; e++) cc_mont_sqr<SPARSE>(s[e], s[e], f);
+    }
+    if (mul != RESCUE_NO_SLOT) {
+#pragma unroll
+      for (int e = 0; e < RESCUE_ELEMS; e++) {
+        uint32_t y[PT_LIMBS];
+        slot_load(y, tab, mul, e);
+        cc_mont_mul_sos<SPARSE>(s[e], s[e], y, f);
+      }
+    }
+    if (store != RESCUE_NO_SLOT) {
+#pragma unroll
+      for (int e = 0; e < RESCUE_ELEMS; e++) slot_store(tab, store, e, s[e]);
+    }
   }
-  fe_copy(s, acc);
+#pragma unroll
+  for (int e = 0; e < RESCUE_ELEMS; e++) cc_csub(s[e], f);
+}
+
+// y = sum_c M[r][c] x_c + rc[round][half][r] for canonical x_c: the four
+// products in one accumulator, one REDC (below 4 p^2 / 2^256 + p < 3p,
+// and below 2^256: kernel_consts refuses a field where it is not), two
+// conditional subtractions.
+template <bool SPARSE>
+__device__ __forceinline__ void rescue_mds_row(uint32_t y[PT_LIMBS], const uint32_t x[RESCUE_WIDTH][PT_LIMBS],
+                                               int r, int round, int half,
+                                               const RescueConsts& cs) {
+  uint32_t acc[PT_ACC_LIMBS], cnt[PT_ACC_CARRIES], t[PT_PRODUCT_LIMBS], zero[PT_PRODUCT_LIMBS];
+#pragma unroll
+  for (int k = 0; k < PT_ACC_LIMBS; k++) acc[k] = 0;
+#pragma unroll
+  for (int k = 0; k < PT_ACC_CARRIES; k++) cnt[k] = 0;
+#pragma unroll
+  for (int c = 0; c < RESCUE_WIDTH; c++) cc_acc_product(acc, cnt, x[c], cs.mds[r][c]);
+  cc_acc_fold(t, acc, cnt);
+#pragma unroll
+  for (int k = 0; k < PT_PRODUCT_LIMBS; k++) zero[k] = 0;
+  cc_redc<SPARSE>(y, t, zero, cs.f);
+  cc_csub(y, cs.f);
+  cc_csub(y, cs.f);
+  cc_add_mod(y, y, cs.rc[round][half][r], cs.f);
+}
+
+// The MDS mix and round constants of this thread's elements: under 4
+// lanes, row r = lane & 3 from the quad's elements read by __shfl_sync;
+// under 1 lane, all four rows from the thread's own registers.
+template <bool SPARSE>
+__device__ __forceinline__ void rescue_mds_add(uint32_t s[RESCUE_ELEMS][PT_LIMBS], int r0,
+                                               int round, int half, const RescueConsts& cs) {
+  uint32_t x[RESCUE_WIDTH][PT_LIMBS];
+#if RESCUE_LANES == 4
+  const int base = (threadIdx.x & 31) & ~3;
+#pragma unroll
+  for (int c = 0; c < RESCUE_WIDTH; c++) {
+#pragma unroll
+    for (int k = 0; k < PT_LIMBS; k++) x[c][k] = __shfl_sync(0xffffffffu, s[0][k], base + c);
+  }
+#else
+#pragma unroll
+  for (int c = 0; c < RESCUE_WIDTH; c++) fe_copy(x[c], s[c]);
+#endif
+#pragma unroll
+  for (int e = 0; e < RESCUE_ELEMS; e++) rescue_mds_row<SPARSE>(s[e], x, r0 + e, round, half, cs);
 }
 
 // state and out: [4, 8, n] int32, element r of permutation i, limb k at
-// (r 8 + k) n + i.  Four threads a permutation (see the top of the file).
-__global__ void __launch_bounds__(RESCUE_THREADS)
+// (r 8 + k) n + i.  RESCUE_LANES threads a permutation (see the top).
+template <bool SPARSE>
+__global__ void RESCUE_BOUNDS
 rescue_permutation_kernel(int32_t* out, const int32_t* state, int64_t n,
                           const __grid_constant__ RescueConsts cs) {
+  extern __shared__ uint32_t rescue_table[];
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t i = t >> 2;
-  const int r = (int)(t & 3);
+  const int64_t i = t / RESCUE_LANES;
+  const int r0 = RESCUE_LANES == 4 ? (int)(t & 3) : 0;
   const bool valid = i < n;
   const FieldConsts& f = cs.f;
-  uint32_t s[PT_LIMBS];
-  if (valid) fe_load(s, state + (int64_t)r * PT_LIMBS * n, n, i);
-  else fe_set_small(s, 0);
-  mf_mul(s, s, cs.r2, f);          // into Montgomery form
+  uint32_t* tab = rescue_table + threadIdx.x;
+  uint32_t s[RESCUE_ELEMS][PT_LIMBS];
+#pragma unroll
+  for (int e = 0; e < RESCUE_ELEMS; e++) {
+    if (valid) fe_load(s[e], state + (int64_t)(r0 + e) * PT_LIMBS * n, n, i);
+    else fe_set_small(s[e], 0);
+    mf_mul(s[e], s[e], cs.r2, f);          // into Montgomery form
+  }
   const int rounds = (int)cs.rounds;
 #pragma unroll 1
   for (int round = 0; round < rounds; round++) {
 #pragma unroll 1
     for (int half = 0; half < 2; half++) {
-      rescue_sbox(s, half, cs);
-      rescue_mds_add(s, r, round, half, cs);
+      rescue_sbox<SPARSE>(s, half, cs, tab);
+      rescue_mds_add<SPARSE>(s, r0, round, half, cs);
     }
   }
   uint32_t one[PT_LIMBS];
   fe_set_small(one, 1);
-  mf_mul(s, s, one, f);                  // back to canonical
-  if (valid) fe_store(out + (int64_t)r * PT_LIMBS * n, n, i, s);
+#pragma unroll
+  for (int e = 0; e < RESCUE_ELEMS; e++) {
+    mf_mul(s[e], s[e], one, f);            // back to canonical
+    if (valid) fe_store(out + (int64_t)(r0 + e) * PT_LIMBS * n, n, i, s[e]);
+  }
+}
+
+// p = 2^254 + c, c < 2^128, p = 1 mod 2^32: the sparse REDC's shape.
+static bool rescue_sparse_shape(const FieldConsts& f) {
+  return f.p[0] == 1u && f.p[4] == 0u && f.p[5] == 0u && f.p[6] == 0u &&
+         f.p[7] == (1u << 30) && f.pinv == 0xffffffffu;
+}
+
+// Every step of both chains names slots of the table, or none.
+static bool rescue_steps_valid(const RescueConsts& cs) {
+  if (cs.slots < 1 || cs.slots > RESCUE_MAX_SLOTS) return false;
+  for (int half = 0; half < 2; half++) {
+    if (cs.n_steps[half] > RESCUE_MAX_STEPS) return false;
+    for (uint32_t j = 0; j < cs.n_steps[half]; j++) {
+      const uint32_t step = cs.steps[half][j];
+      for (int shift = 0; shift < 15; shift += 5) {
+        const uint32_t slot = (step >> shift) & 31;
+        if (slot != RESCUE_NO_SLOT && slot >= cs.slots) return false;
+      }
+    }
+  }
+  return true;
 }
 
 extern "C" {
 
 // out, state: [4, 8, n] int32 device tensors; consts: the host buffer
 // hashing/rescue.py:kernel_consts of n_words uint32 words (its header and
-// its round constants), passed to the kernel by value.
+// its round constants), passed to the kernel by value.  The buffer's
+// sparse word picks the kernel's instance.
 int pt_rescue_permutation(void* out, const void* state, int64_t n, const void* consts,
                           int n_words, void* stream) {
   const uint32_t* words = (const uint32_t*)consts;
   if (n_words < RESCUE_HEADER_WORDS) return (int)cudaErrorInvalidValue;
-  const uint32_t rounds = words[PT_FIELD_WORDS + 3 * PT_LIMBS + 2];
+  const uint32_t rounds = words[RESCUE_ROUNDS_WORD];
   if (rounds < 1 || rounds > RESCUE_MAX_ROUNDS ||
       n_words != RESCUE_HEADER_WORDS + (int)rounds * RESCUE_ROUND_WORDS)
     return (int)cudaErrorInvalidValue;
   RescueConsts cs = {};
   memcpy(&cs, consts, 4 * (size_t)n_words);
-  const int64_t threads = RESCUE_WIDTH * n;
+  if (!rescue_steps_valid(cs) || (cs.sparse && !rescue_sparse_shape(cs.f)))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = cs.sparse ? rescue_permutation_kernel<true> : rescue_permutation_kernel<false>;
+  const size_t smem = (size_t)RESCUE_THREADS * RESCUE_ELEMS * cs.slots * PT_LIMBS * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t threads = RESCUE_LANES * n;
   const unsigned int blocks = (unsigned int)((threads + RESCUE_THREADS - 1) / RESCUE_THREADS);
-  rescue_permutation_kernel<<<blocks, RESCUE_THREADS, 0, (cudaStream_t)stream>>>(
+  kernel<<<blocks, RESCUE_THREADS, smem, (cudaStream_t)stream>>>(
       (int32_t*)out, (const int32_t*)state, n, cs);
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,14 @@ RESCUE_SPONGE_WIDTH = 4
 RESCUE_SPONGE_RATE = 3
 # Rounds K5 takes (csrc/rescue_kernels.cu, RESCUE_MAX_ROUNDS): 512 bits.
 KERNEL_MAX_ROUNDS = 64
+# K5's exponent chains (sbox_schedule, csrc/rescue_kernels.cu): steps an
+# S-box (RESCUE_MAX_STEPS), table slots an element (RESCUE_MAX_SLOTS:
+# windows of up to 5 bits), the field of a step that names no slot
+# (RESCUE_NO_SLOT), and the widest window the kernel's chains take.
+KERNEL_MAX_STEPS = 128
+KERNEL_MAX_SLOTS = 17
+NO_SLOT = 31
+KERNEL_WINDOW = 3
 
 
 def recommended_rounds(width: int, security_bits: int) -> int:
@@ -160,23 +168,155 @@ def rescue_permutation_plain(spec: FieldSpec, state, security_bits: int):
     return list(s.unbind(1))
 
 
+def sbox_schedule(e: int, w: int) -> tuple:
+    """x^e by a left-to-right sliding window of up to w bits, as K5 runs it:
+    a tuple of steps (load, squares, mul, store), each applied to the
+    running value s as: s = slot[load], then `squares` squares, then
+    s = s slot[mul], then slot[store] = s (NO_SLOT: the part is skipped).
+    s starts as x.  The table: slot 0 is x and, for w > 1, slots 1 ..
+    n - 1 (n = 2^(w-1)) x^3, x^5, ..., x^(2n - 1), built by one square
+    (x^2, kept in slot n) and n - 1 multiplies.  Then the first window is
+    loaded from the table, and every later bit costs a square and every
+    later window a multiply."""
+    bits = bin(e)[2:]
+    n = 1 << (w - 1)
+    steps = [(NO_SLOT, 0, NO_SLOT, 0)]
+    if n > 1:
+        steps += [(NO_SLOT, 1, NO_SLOT, n), (NO_SLOT, 0, 0, 1)]
+        steps += [(NO_SLOT, 0, n, j) for j in range(2, n)]
+    load, squares, i = None, 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            squares, i = squares + 1, i + 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        slot = int(bits[i:j], 2) >> 1
+        if load is None:
+            load = slot
+        else:
+            steps.append((load, squares + j - i, slot, NO_SLOT))
+            load, squares = NO_SLOT, 0
+        i = j
+    if load != NO_SLOT or squares:
+        steps.append((load, squares, NO_SLOT, NO_SLOT))
+    return tuple(steps)
+
+
+def schedule_counts(steps) -> tuple:
+    """(squares, multiplies) of a chain of sbox_schedule's steps."""
+    return (sum(sq for _l, sq, _m, _s in steps),
+            sum(m != NO_SLOT for _l, _sq, m, _s in steps))
+
+
+def schedule_slots(steps) -> int:
+    """Table slots a chain uses (1 + the highest slot it names)."""
+    return 1 + max(v for step in steps for v in (step[0], step[2], step[3])
+                   if v != NO_SLOT)
+
+
+def run_schedule(steps, x, mul, sqr):
+    """x^e by the chain `steps`, through mul(a, b) and sqr(a)."""
+    slots, s = {}, x
+    for load, squares, m, store in steps:
+        if load != NO_SLOT:
+            s = slots[load]
+        for _ in range(squares):
+            s = sqr(s)
+        if m != NO_SLOT:
+            s = mul(s, slots[m])
+        if store != NO_SLOT:
+            slots[store] = s
+    return s
+
+
+def step_word(step) -> int:
+    """One step as the kernel reads it: load slot in bits 0-4, multiply
+    slot 5-9, store slot 10-14, squares 16-31."""
+    load, squares, m, store = step
+    assert all(0 <= v <= NO_SLOT for v in (load, m, store)) and squares < 1 << 16
+    return load | m << 5 | store << 10 | squares << 16
+
+
+def decode_step(word: int) -> tuple:
+    return (word & 31, word >> 16, (word >> 5) & 31, (word >> 10) & 31)
+
+
+def kernel_schedule(e: int, window: int = KERNEL_WINDOW) -> tuple:
+    """The chain K5 runs for x^e: sbox_schedule's with the fewest squares
+    and multiplies over windows of 1 to `window` bits (the smaller window
+    where two tie): 3 bits for the 254-bit inverse exponents, 1 for x^5."""
+    return min((sbox_schedule(e, w) for w in range(1, window + 1)),
+               key=lambda steps: sum(schedule_counts(steps)))
+
+
+def lazy_chain_bound(p: int, n: int) -> int:
+    """A strict bound on the values of a chain of n lazy Montgomery products
+    (csrc/field.cuh: cc_mont_sqr, cc_mont_mul_sos, no conditional
+    subtraction; R = 2^256) from inputs below p: B_0 = p, B_(k+1) =
+    floor(((B_k - 1)^2 + (R - 1) p) / R) + 1.  K5 makes a chain canonical
+    with one subtraction, so it needs B_n <= 2p."""
+    r = 1 << (LIMB_BITS * LIMBS)
+    b = p
+    for _ in range(n):
+        b = ((b - 1) ** 2 + (r - 1) * p) // r + 1
+    return b
+
+
+def sparse_prime(spec: FieldSpec) -> bool:
+    """p = 2^254 + c with c < 2^128 and p = 1 mod 2^32 (32-bit limbs [1,
+    c1, c2, c3, 0, 0, 0, 2^30]): the shape whose REDC K5 runs with 3 limb
+    products a row (csrc/field.cuh, cc_redc's SPARSE rows).  Both Tweedle
+    base fields have it."""
+    c = spec.p - (1 << 254)
+    return 0 <= c < 1 << 128 and spec.p % (1 << LIMB_BITS) == 1
+
+
 @functools.lru_cache(maxsize=None)
-def kernel_consts(spec: FieldSpec, security_bits: int) -> np.ndarray:
+def kernel_consts(spec: FieldSpec, security_bits: int,
+                  window: int = KERNEL_WINDOW,
+                  sparse: bool | None = None) -> np.ndarray:
     """K5's constant buffer (csrc/rescue_kernels.cu, RescueConsts), uint32
     words: the field's [p, -p^-1 mod 2^32] (FieldSpec.kernel_consts),
-    R^2 = 2^512 mod p, the two S-box exponents (x^(1/alpha) first, then
-    x^alpha; 8 limbs each) and the index of each one's top bit, the round
-    count, the MDS matrix [row][column] and the round constants
-    [round][half][element], these two in Montgomery form (v 2^256 mod p)."""
+    R^2 = 2^512 mod p (R = 2^256), the sparse flag (sparse_prime unless
+    `sparse` is False: the dense REDC runs any field), the round count, the
+    table slots an element, the two S-boxes' step counts and their chains
+    (kernel_schedule with windows of up to `window` bits, x^(1/alpha)
+    first, KERNEL_MAX_STEPS words each, step_word), the MDS matrix
+    [row][column] and the round constants [round][half][element], these
+    two in Montgomery form (v R mod p).  The MDS mix reduces a sum of four
+    products once, to below 4 p^2 / R + p, which must fit 256 bits, and
+    each chain's values must stay below 2p (lazy_chain_bound)."""
     require_eight_limbs(spec, "rescue_permutation")
+    if (1 << (window - 1)) + 1 > KERNEL_MAX_SLOTS:
+        raise ValueError(f"rescue_permutation: windows of {window} bits need "
+                         f"more than the kernel's {KERNEL_MAX_SLOTS} table slots")
     p = spec.p
     width = RESCUE_SPONGE_WIDTH
     consts = rescue_constants(spec, width, security_bits)
     if len(consts) > KERNEL_MAX_ROUNDS:
         raise ValueError(f"rescue_permutation: {len(consts)} rounds, the "
                          f"kernel takes at most {KERNEL_MAX_ROUNDS}")
-    exps = (host.kth_root_exponent(spec, spec.alpha), spec.alpha)
     mont = 1 << (LIMB_BITS * LIMBS)
+    if 4 * p * p + p * mont >= mont * mont:
+        raise ValueError(f"rescue_permutation: {spec.name}'s MDS sums "
+                         "overflow 256 bits")
+    sparse = sparse_prime(spec) if sparse is None else sparse
+    if sparse and not sparse_prime(spec):
+        raise ValueError(f"rescue_permutation: {spec.name} is not 2^254 + c")
+    chains = [kernel_schedule(e, window) for e in
+              (host.kth_root_exponent(spec, spec.alpha), spec.alpha)]
+    if max(map(len, chains)) > KERNEL_MAX_STEPS:
+        raise ValueError("rescue_permutation: an exponent chain longer than "
+                         f"{KERNEL_MAX_STEPS} steps")
+    slots = max(map(schedule_slots, chains))
+    if lazy_chain_bound(p, max(sum(schedule_counts(c)) for c in chains)) > 2 * p:
+        raise ValueError(f"rescue_permutation: {spec.name}'s exponent chains "
+                         "may leave [0, 2p) without reductions")
+    steps = np.zeros((2, KERNEL_MAX_STEPS), dtype=np.uint32)
+    for half, chain in enumerate(chains):
+        steps[half, :len(chain)] = [step_word(st) for st in chain]
 
     def limbs(values):
         return [int_to_limbs(v * mont % p) for v in values]
@@ -184,10 +324,9 @@ def kernel_consts(spec: FieldSpec, security_bits: int) -> np.ndarray:
     rc = [v for step_a, step_b in consts for v in (*step_a, *step_b)]
     return np.concatenate([
         spec.kernel_consts, int_to_limbs(mont * mont % p),
-        *[int_to_limbs(e) for e in exps],
-        np.array([e.bit_length() - 1 for e in exps] + [len(consts)],
+        np.array([int(sparse), len(consts), slots, *map(len, chains)],
                  dtype=np.uint32),
-        *limbs(mds), *limbs(rc)])
+        steps.reshape(-1), *limbs(mds), *limbs(rc)])
 
 
 def rescue_permutation(spec: FieldSpec, state, security_bits: int):

@@ -257,3 +257,271 @@ def test_fields_outside_both_ranges_are_refused(p, error):
     assert _is_prime(p)
     with pytest.raises(error):
         spec.mul_consts
+
+
+# ---------------------------------------------------------------------------
+# K5's separated Montgomery products (csrc/field.cuh: cc_square, cc_redc,
+# cc_mont_sqr, cc_mont_mul_sos; 8 limbs)
+# ---------------------------------------------------------------------------
+
+RESCUE_SPECS = [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE, BLS12_377_SCALAR]
+
+
+def _window_add(limbs, at: int, width: int, add: int) -> int:
+    """limbs[at .. at + width - 1] += add as one carry chain; returns the
+    chain's carry out (which the kernel puts in a counter)."""
+    win = _value(limbs[at:at + width]) + add
+    limbs[at:at + width] = _limbs(win % B32 ** width, width)
+    return win >> (32 * width)
+
+
+def _pairs_chain(acc, at: int, x: int, ys) -> None:
+    """cc_mac_pairs: acc[at ..] += x y_k 2^(64 k) on one chain, each
+    product's halves on a pair of limbs, the carry into acc[at + 2n]; that
+    limb has only been reached by carries so far, so it cannot wrap."""
+    n = len(ys)
+    assert acc[at + 2 * n] < 8
+    carry = _window_add(acc, at, 2 * n,
+                        sum(x * y << (64 * k) for k, y in enumerate(ys)))
+    acc[at + 2 * n] += carry
+
+
+def _merge(e, o) -> int:
+    """cc_merge: e + o over limbs 0..15, nothing above."""
+    assert o[0] == 0
+    total = _value(e) + _value(o)
+    assert total < B32 ** 16
+    return total
+
+
+def product_model(a: int, b: int) -> tuple:
+    """cc_product: row i's products a_i b_j into e where i + j is even, o
+    where it is odd (cc_product_rows: two chains a row of 4 pairs each);
+    returns (e, o) as values, e + o = a b."""
+    al, bl = _limbs(a, 8), _limbs(b, 8)
+    e, o = [0] * 17, [0] * 17
+    for i in range(8):
+        if i % 2 == 0:
+            _pairs_chain(e, i, al[i], bl[0::2])
+            _pairs_chain(o, i + 1, al[i], bl[1::2])
+        else:
+            _pairs_chain(e, i + 1, al[i], bl[1::2])
+            _pairs_chain(o, i, al[i], bl[0::2])
+    assert o[0] == 0 and _merge(e, o) == a * b
+    return _value(e), _value(o)
+
+
+def square_model(a: int) -> int:
+    """cc_square: the cross products a_i a_j (j > i) split as in
+    product_model (cc_cross_rows: j = i + 1, i + 3, ... into o at limb
+    2 i + 1, j = i + 2, i + 4, ... into e at limb 2 i + 2), merged,
+    doubled by a shift, then the diagonal a_i^2 at limb 2 i on one chain."""
+    al = _limbs(a, 8)
+    e, o = [0] * 17, [0] * 17
+    for i in range(7):
+        _pairs_chain(o, 2 * i + 1, al[i], al[i + 1::2])
+        if i < 6:
+            _pairs_chain(e, 2 * i + 2, al[i], al[i + 2::2])
+    t = _merge(e, o)
+    assert t == sum(al[i] * al[j] << (32 * (i + j))
+                    for i in range(8) for j in range(i + 1, 8))
+    assert t < 1 << 511                 # the shift drops no bit
+    t = (t << 1) + sum(al[i] * al[i] << (64 * i) for i in range(8))
+    assert t < B32 ** 16                # the diagonal chain's carry out is 0
+    return t
+
+
+def redc_model(t: int, spec, sparse: bool, o_value: int = 0) -> dict:
+    """cc_redc limb by limb over T = e + o (e holds t, o o_value): row I
+    folds limb I (e[I] + o[I] + cnt[I], overflow into cnt[I + 1]), takes
+    m, and adds m p's products on pairs of limbs of the accumulator of
+    their parity (y: that of I, x: the other), the chains' carries into
+    the counters cnt; then limbs 8..15 of e + o + the counters (+ the
+    sparse rows' deferred m 2^254 terms).  Returns r (not yet canonical),
+    the m of each row and each row's limb products."""
+    p, nl = spec.p, spec.limbs
+    assert nl == 8 and t + o_value < B32 ** 16
+    acc = {"e": _limbs(t, 17), "o": _limbs(o_value, 17)}
+    cnt = [0] * 17
+    pl = _limbs(p, 8)
+    total = t + o_value
+    ms, products = [], []
+    for i in range(8):
+        y, x = (acc["e"], acc["o"]) if i % 2 == 0 else (acc["o"], acc["e"])
+        s = y[i] + x[i] + cnt[i]                   # limb I, exact
+        x[i] = y[i] = cnt[i] = 0
+        cnt[i + 1] += s >> 32
+        s %= B32
+        m = s * spec.p_inv_neg % B32
+        if sparse:
+            assert spec.p_inv_neg == B32 - 1 and m == -s % B32
+            assert pl[0] == 1 and pl[4:7] == [0, 0, 0] and pl[7] == 1 << 30
+            carry_in = (s + m) >> 32               # limb I + m p_0
+            assert (s + m) % B32 == 0
+            cnt[i + 5] += _window_add(x, i + 1, 4, carry_in + (m * pl[1] << 0)
+                                      + (m * pl[3] << 64))
+            cnt[i + 4] += _window_add(y, i + 2, 2, m * pl[2])
+            if i == 0:                             # m_0 2^254's part in limb 7
+                cnt[8] += _window_add(acc["o"], 7, 1, (m << 30) % B32)
+            products.append(3)
+        else:
+            y[i] = s
+            cnt[i + 8] += _window_add(y, i, 8, sum(m * pl[k] << (32 * (k - 0))
+                                                   for k in (0, 2, 4, 6)))
+            assert y[i] == 0
+            cnt[i + 9] += _window_add(x, i + 1, 8, sum(m * pl[k] << (32 * (k - 1))
+                                                       for k in (1, 3, 5, 7)))
+            products.append(8)
+        assert max(cnt) < 8
+        ms.append(m)
+        # the sparse rows' m 2^254 terms wait for the end, but m_0's low
+        # part (in limb 7, read by row 7)
+        deferred = (sum(mj << (32 * j) for j, mj in enumerate(ms)) << 254
+                    if sparse else 0) - (ms[0] << 254) % B32 ** 8 * sparse
+        value = (_value(acc["e"]) + _value(acc["o"])
+                 + sum(c << (32 * k) for k, c in enumerate(cnt)) + deferred)
+        assert value == total + sum(mj * p << (32 * j) for j, mj in enumerate(ms))
+    top = sum((acc["e"][k] + acc["o"][k] + cnt[k]) << (32 * (k - 8))
+              for k in range(8, 17))
+    if sparse:     # + M 2^30's limbs 1 .. 8: funnel shifts of m pairs
+        mm = ms + [0]
+        top += sum(((mm[k] >> 2) | (mm[k + 1] << 30)) % B32 << (32 * k)
+                   for k in range(8))
+    assert top < B32 ** 8, "the result leaves 256 bits"
+    r = top % B32 ** 8
+    assert r == (total + _value(ms) * p) >> 256 and r < total // B32 ** 8 + p
+    return {"r": r, "m": ms, "products": products}
+
+
+def _mont_inputs(p: int, rng, n: int):
+    """What K5's products take: canonical values (the state, the MDS
+    entries) and the lazy chain's values below 2p: the edges, 2p - 1 and
+    p + 1, and a seeded sweep below 2p."""
+    return _edges(p) + [2 * p - 1, p + 1] + [
+        int.from_bytes(rng.bytes(40), "little") % (2 * p) for _ in range(n)]
+
+
+@pytest.mark.parametrize("spec", RESCUE_SPECS, ids=lambda s: s.name)
+def test_mont_sqr_model_matches_python(spec):
+    """cc_mont_sqr = cc_square + cc_redc, lazy: a^2 2^-256 (mod p), below
+    2p, at 0, 1, p - 1, the other edges and random values below 2p, by the
+    field's REDC (sparse where hashing/rescue.py:sparse_prime); one
+    conditional subtraction makes it canonical."""
+    from plonky_tpu_torch.hashing.rescue import sparse_prime
+    p = spec.p
+    r_inv = pow(1 << 256, -1, p)
+    for a in _mont_inputs(p, np.random.default_rng(21), 300):
+        t = square_model(a)
+        assert t == a * a
+        m = redc_model(t, spec, sparse_prime(spec))
+        assert m["r"] < 2 * p
+        assert (m["r"] - p if m["r"] >= p else m["r"]) == a * a * r_inv % p
+
+
+@pytest.mark.parametrize("spec", RESCUE_SPECS, ids=lambda s: s.name)
+def test_lazy_chains_stay_below_2p(spec):
+    """hashing/rescue.py:lazy_chain_bound is the REDC's own bound applied
+    step by step (r <= (T + (2^256 - 1) p) / 2^256, T below the square of
+    the last bound), it stays at most 2p over 10^4 products on every
+    field K5 runs (its chains take ~320) and over K5's chains, which
+    kernel_consts checks; a field just below 2^255 leaves 2p within a few
+    products and is refused."""
+    from plonky_tpu_torch.fields.host import kth_root_exponent
+    from plonky_tpu_torch.hashing import rescue as hr
+    p = spec.p
+    r_big = 1 << 256
+    b = p
+    for n in range(1, 6):
+        worst = redc_model((b - 1) ** 2, spec, False)["r"]
+        b = ((b - 1) ** 2 + (r_big - 1) * p) // r_big + 1
+        assert hr.lazy_chain_bound(p, n) == b and worst < b <= 2 * p
+    assert hr.lazy_chain_bound(p, 10_000) <= 2 * p
+    e = kth_root_exponent(spec, spec.alpha)
+    chain = hr.kernel_schedule(e)
+    assert hr.lazy_chain_bound(p, sum(hr.schedule_counts(chain))) <= 2 * p
+    big = (1 << 255) - 19
+    assert hr.lazy_chain_bound(big, 4) > 2 * big
+
+
+@pytest.mark.parametrize("spec", RESCUE_SPECS, ids=lambda s: s.name)
+def test_redc_rows_sparse_and_dense(spec):
+    """cc_product's model on pairs of values below 2p, and both kinds of
+    REDC row on their products (cc_mont_mul_sos; the result within the
+    REDC's bound, below 2p from canonical
+    values) and on the MDS mix's sum of four canonical products (below
+    4 p^2: the result below 4 p^2 / 2^256 + p, under 3p and 2^256): the
+    dense rows on every field,
+    the sparse ones on the 2^254 + c fields, the same r; every counter
+    small, every row's carries kept."""
+    from plonky_tpu_torch.hashing.rescue import sparse_prime
+    p = spec.p
+    r_inv = pow(1 << 256, -1, p)
+    rng = np.random.default_rng(22)
+    vals = _mont_inputs(p, rng, 40)
+    kinds = (False, True) if sparse_prime(spec) else (False,)
+    pairs = [(a, b) for a in vals[:12] for b in vals[:12]]
+    pairs += [(vals[rng.integers(len(vals))], vals[rng.integers(len(vals))])
+              for _ in range(200)]
+    for a, b in pairs:
+        e, o = product_model(a, b)
+        for sparse in kinds:
+            r = redc_model(e, spec, sparse, o)["r"]
+            assert r % p == a * b * r_inv % p
+            assert r <= (a * b + ((1 << 256) - 1) * p) >> 256
+            assert r < 2 * p or max(a, b) >= p
+    for _ in range(100):
+        xs = [vals[rng.integers(len(vals))] % p for _ in range(8)]
+        total = sum(xs[c] * xs[4 + c] for c in range(4))
+        for sparse in kinds:
+            r = redc_model(total, spec, sparse)["r"]
+            assert r < 3 * p and r % p == total * r_inv % p
+    worst = redc_model(4 * (p - 1) ** 2, spec, False)["r"]
+    assert worst < 3 * p
+
+
+@pytest.mark.parametrize("spec", RESCUE_SPECS, ids=lambda s: s.name)
+def test_sparse_redc_shape_and_counts(spec):
+    """sparse_prime holds exactly for the 2^254 + c fields (limbs [1, c1,
+    c2, c3, 0, 0, 0, 2^30]); there -p^-1 mod 2^32 = 0xffffffff, so each
+    row's m is -limb_I; -p^-1 p_0 + 1 is 0 mod 2^32 on every field (the
+    zero cc_redc's sparse rows multiply the top limb by); each sparse row
+    takes 3 limb products and each
+    dense one 8, as chip_smoke.py's bounds count them (48 and 136 IMAD
+    slots a reduction with the dense rows' low-half multiplies)."""
+    from chip_smoke import REDC_OPS, SPARSE_REDC_OPS, WIDE
+    from plonky_tpu_torch.hashing.rescue import sparse_prime
+    p = spec.p
+    pl = _limbs(p, 8)
+    shape = pl[0] == 1 and pl[4:7] == [0, 0, 0] and pl[7] == 1 << 30
+    assert sparse_prime(spec) == shape == (spec is not BLS12_377_SCALAR)
+    if shape:
+        assert spec.p_inv_neg == 0xFFFFFFFF
+    # the sparse REDC's row 0 waits for the product's top limb through a
+    # product with -p^-1 p_0 + 1, a zero the compiler cannot see
+    assert (spec.p_inv_neg * pl[0] + 1) % B32 == 0
+    t = (p - 1) * (p - 2)
+    for sparse in ((False, True) if shape else (False,)):
+        m = redc_model(t, spec, sparse)
+        if sparse:
+            assert m["m"][0] == -(t % B32) % B32
+            assert sum(m["products"]) * WIDE == SPARSE_REDC_OPS == 48
+        else:
+            assert sum(m["products"]) * WIDE + 8 == REDC_OPS == 136
+
+
+if given is not None:
+    @pytest.mark.parametrize("spec", RESCUE_SPECS, ids=lambda s: s.name)
+    @settings(max_examples=200, deadline=None, database=None)
+    @given(data=st.data())
+    def test_mont_sqr_and_mul_sos_models_match_python(spec, data):
+        from plonky_tpu_torch.hashing.rescue import sparse_prime
+        p = spec.p
+        elem = st.one_of(st.sampled_from(_edges(p)), st.integers(0, p - 1),
+                         st.integers(p - (1 << 64), p - 1))
+        a, b = data.draw(elem), data.draw(elem)
+        r_inv = pow(1 << 256, -1, p)
+        for (t, o), want in (((square_model(a), 0), a * a),
+                             (product_model(a, b), a * b)):
+            assert t + o == want
+            r = redc_model(t, spec, sparse_prime(spec), o)["r"]
+            assert r < 2 * p and r % p == want * r_inv % p

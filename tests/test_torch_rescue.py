@@ -27,7 +27,8 @@ from plonky_tpu.fields import ops as jfops
 from plonky_tpu.hashing import pseudorandom as jprf
 from plonky_tpu_torch import hashing as phash
 from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
-from plonky_tpu_torch.fields import TWEEDLEDEE_BASE, TWEEDLEDUM_BASE
+from plonky_tpu_torch.fields import (BLS12_377_SCALAR, TWEEDLEDEE_BASE,
+                                     TWEEDLEDUM_BASE)
 from plonky_tpu_torch.fields import ops as fops
 from plonky_tpu_torch.fields.spec import LIMBS
 from plonky_tpu_torch.hashing import pseudorandom as pprf
@@ -119,69 +120,95 @@ def test_rescue_permutation_broadcasts_and_checks_width():
 # A model of K5 (csrc/rescue_kernels.cu) over its constant buffer
 # ---------------------------------------------------------------------------
 
+# Every field K5 runs: both Tweedle base fields (the sparse reduction) and
+# BLS12-377's scalar field (alpha = 11, the dense one).
+KERNEL_FIELDS = {"dee": TWEEDLEDEE_BASE, "dum": TWEEDLEDUM_BASE,
+                 "bls_scalar": BLS12_377_SCALAR}
+KERNEL_CASES = [(name, bits) for name in KERNEL_FIELDS for bits in (128, 64)]
+KERNEL_IDS = [f"{name}-{bits}" for name, bits in KERNEL_CASES]
+
+
 def _defines():
     text = (CSRC / "rescue_kernels.cu").read_text()
-    return {k: int(v) for k, v in re.findall(r"#define (RESCUE_\w+) (\d+)\n", text)}
+    return {k: int(v) for k, v in re.findall(r"#define (RESCUE_\w+) (\d+)\b", text)}
 
 
 def _word_value(words) -> int:
     return sum(int(w) << (32 * k) for k, w in enumerate(words))
 
 
+def buffer_layout(words) -> dict:
+    """The fields of a RescueConsts buffer, read at the kernel's offsets:
+    p and -p^-1 (9 words), R^2 (8), sparse, rounds, slots, the two step
+    counts, the two chains (KERNEL_MAX_STEPS words each), the MDS matrix
+    (16 x 8) and the round constants (8 x 8 a round)."""
+    steps_at = 9 + 8 + 5
+    max_steps = prescue.KERNEL_MAX_STEPS
+    head = steps_at + 2 * max_steps
+    n_steps = [int(words[20]), int(words[21])]
+    return {
+        "p": _word_value(words[:8]), "pinv": int(words[8]),
+        "r2": _word_value(words[9:17]), "sparse": int(words[17]),
+        "rounds": int(words[18]), "slots": int(words[19]),
+        "chains": [tuple(prescue.decode_step(int(w)) for w in
+                         words[steps_at + h * max_steps:
+                               steps_at + h * max_steps + n_steps[h]])
+                   for h in range(2)],
+        "mds": [[_word_value(words[head + 8 * (4 * r + c):head + 8 * (4 * r + c + 1)])
+                 for c in range(4)] for r in range(4)],
+        "rc_at": head + 128, "header_words": head + 128}
+
+
 def kernel_model(spec, words, state):
     """rescue_permutation_kernel's rounds on python ints, every constant read
     from the buffer `words` at the RescueConsts offsets: Montgomery form
-    (R = 2^256) in and out, each S-box the kernel's loop of one multiply
-    site (a square, then a multiply by the input after each set bit), each
-    MDS row the sum of the quad's four products and the round constant."""
+    (R = 2^256) in and out, each S-box the chain of steps read from the
+    buffer (load a slot, square, multiply by a slot, store to a slot) over
+    a table of `slots` slots, each MDS row one reduction of the sum of the
+    four products, then the round constant."""
     p = spec.p
     r_inv = pow(1 << 256, -1, p)
+    lay = buffer_layout(words)
+    assert lay["p"] == p
 
     def mont(a, b):
         return a * b * r_inv % p
 
-    assert _word_value(words[:8]) == p
-    r2 = _word_value(words[9:17])
-    exps = [_word_value(words[17 + 8 * h:25 + 8 * h]) for h in range(2)]
-    tops = [int(words[33]), int(words[34])]
-    rounds = int(words[35])
-    head = 36
-    mds = [[_word_value(words[head + 8 * (4 * r + c):head + 8 * (4 * r + c + 1)])
-            for c in range(4)] for r in range(4)]
-    rc_at = head + 128
-
-    def rc(rnd, half, r):
-        k = rc_at + 8 * (8 * rnd + 4 * half + r)
-        return _word_value(words[k:k + 8])
-
     def sbox(s, half):
-        x, i, mul_step = s, tops[half] - 1, False
-        while i >= 0:
-            s = mont(s, x if mul_step else s)
-            if mul_step:
-                mul_step, i = False, i - 1
-            elif (exps[half] >> i) & 1:
-                mul_step = True
-            else:
-                i -= 1
+        slots = {}
+        for load, squares, mul, store in lay["chains"][half]:
+            if load != prescue.NO_SLOT:
+                s = slots[load]
+            for _ in range(squares):
+                s = mont(s, s)
+            if mul != prescue.NO_SLOT:
+                s = mont(s, slots[mul])
+            if store != prescue.NO_SLOT:
+                assert store < lay["slots"]
+                slots[store] = s
         return s
 
-    s = [mont(v, r2) for v in state]
-    for rnd in range(rounds):
+    def rc(rnd, half, r):
+        k = lay["rc_at"] + 8 * (8 * rnd + 4 * half + r)
+        return _word_value(words[k:k + 8])
+
+    s = [mont(v, lay["r2"]) for v in state]
+    for rnd in range(lay["rounds"]):
         for half in range(2):
             y = [sbox(v, half) for v in s]
-            s = [(rc(rnd, half, r) + sum(mont(y[c], mds[r][c]) for c in range(4))) % p
-                 for r in range(4)]
+            s = [(sum(y[c] * lay["mds"][r][c] for c in range(4)) * r_inv
+                  + rc(rnd, half, r)) % p for r in range(4)]
     return [mont(v, 1) for v in s]
 
 
-@pytest.mark.parametrize("name,bits", CASES, ids=IDS)
+@pytest.mark.parametrize("name,bits", KERNEL_CASES, ids=KERNEL_IDS)
 def test_kernel_model_matches_host(name, bits):
-    spec = FIELDS[name][0]
+    spec = KERNEL_FIELDS[name]
     words = prescue.kernel_consts(spec, bits)
     rounds = prescue.recommended_rounds(4, bits)
     assert words.dtype == np.uint32
-    assert words.size == 36 + 16 * LIMBS + rounds * 8 * LIMBS
+    assert words.size == buffer_layout(words)["header_words"] + rounds * 8 * LIMBS
+    assert buffer_layout(words)["sparse"] == int(name != "bls_scalar")
     rng = np.random.default_rng(bits)
     for state in ([0, 0, 0, 0], [spec.p - 1] * 4, _values(spec, rng, 4)):
         assert kernel_model(spec, words, state) == \
@@ -189,42 +216,116 @@ def test_kernel_model_matches_host(name, bits):
 
 
 def test_kernel_limits_match_the_wrapper():
-    """The round limit and block shape of rescue_kernels.cu against the
-    wrapper's; the largest constant buffer fits the 32,764 bytes of kernel
-    parameters it is passed in; the round count words; a round count past
-    the limit is refused before any launch."""
+    """The limits and block shape of rescue_kernels.cu against the
+    wrapper's; RescueConsts's header (sizeof, the round count's word) as
+    the kernel source counts it, and the largest buffer within the 32,764
+    bytes of kernel parameters it is passed in; the round count words; a
+    round count past the limit, or a window past the table's slots, is
+    refused before any launch."""
     d = _defines()
     assert d["RESCUE_MAX_ROUNDS"] == prescue.KERNEL_MAX_ROUNDS
-    header_words = 36 + 16 * LIMBS
-    assert 4 * (header_words + d["RESCUE_MAX_ROUNDS"] * 8 * LIMBS) <= 32764
+    assert d["RESCUE_MAX_STEPS"] == prescue.KERNEL_MAX_STEPS
+    assert d["RESCUE_MAX_SLOTS"] == prescue.KERNEL_MAX_SLOTS == (1 << 4) + 1
+    assert d["RESCUE_NO_SLOT"] == prescue.NO_SLOT
     assert d["RESCUE_WIDTH"] == prescue.RESCUE_SPONGE_WIDTH
-    assert d["RESCUE_THREADS"] % 32 == 0
+    assert d["RESCUE_THREADS"] % 32 == 0 and d["RESCUE_LANES"] == 4
     spec = TWEEDLEDUM_BASE
-    assert int(prescue.kernel_consts(spec, 128)[35]) == 16
-    assert int(prescue.kernel_consts(spec, 64)[35]) == 10
+    words = prescue.kernel_consts(spec, 128)
+    header = buffer_layout(words)["header_words"]
+    # PT_FIELD_WORDS + PT_LIMBS + 5 + 2 RESCUE_MAX_STEPS + 16 PT_LIMBS
+    assert header == 9 + 8 + 5 + 2 * d["RESCUE_MAX_STEPS"] + 16 * LIMBS
+    assert 4 * (header + d["RESCUE_MAX_ROUNDS"] * 8 * LIMBS) <= 32764
+    assert int(words[9 + 8 + 1]) == 16      # RESCUE_ROUNDS_WORD
+    assert int(prescue.kernel_consts(spec, 64)[18]) == 10
+    assert buffer_layout(words)["slots"] == 1 + (1 << (prescue.KERNEL_WINDOW - 1))
     bits = 2 * 4 * (prescue.KERNEL_MAX_ROUNDS + 1)
     with pytest.raises(ValueError, match="at most"):
         prescue.kernel_consts(spec, bits)
+    with pytest.raises(ValueError, match="table slots"):
+        prescue.kernel_consts(spec, 128, window=6)
+    with pytest.raises(ValueError, match="2\\^254"):
+        prescue.kernel_consts(BLS12_377_SCALAR, 128, sparse=True)
 
 
-@pytest.mark.parametrize("name", list(FIELDS))
-def test_sbox_bound_counts_a_real_chain(name):
-    """chip_smoke.py's operations bound for K5 counts each S-box by the
-    shortest sliding-window chain (window_pow, windows of 1 to 8 bits):
-    every window's chain computes x^e, and the chain counted for the inverse
-    S-box is shorter than the kernel's square-and-multiply."""
-    from chip_smoke import MUL_OPS, SQR_OPS, window_pow
+@pytest.mark.parametrize("name", list(KERNEL_FIELDS))
+def test_host_schedule_is_the_counted_chain(name):
+    """For every field, sbox_schedule's chain at every window of 1 to 8 bits
+    computes x^e for the inverse and the forward exponent, and the squares
+    and multiplies it runs are those schedule_counts reports; the bound
+    (chip_smoke.sbox_ops) is the cheapest of those chains at the field's
+    costs (chip_smoke.rescue_costs), and rescue_work adds them up."""
+    import chip_smoke
     from plonky_tpu_torch.fields.host import kth_root_exponent
 
-    spec = FIELDS[name][0]
+    spec = KERNEL_FIELDS[name]
+    p = spec.p
+    rng = np.random.default_rng(5)
+    exps = (kth_root_exponent(spec, spec.alpha), spec.alpha)
+    sqr_c, mul_c, redc_c = chip_smoke.rescue_costs(spec)
+    for e in exps:
+        costs = []
+        for w in range(1, 9):
+            chain = prescue.sbox_schedule(e, w)
+            ran = {"sq": 0, "mul": 0}
+
+            def mul(a, b, ran=ran):
+                ran["mul"] += 1
+                return a * b % p
+
+            def sqr(a, ran=ran):
+                ran["sq"] += 1
+                return a * a % p
+            for x in _values(spec, rng, 3):
+                ran.update(sq=0, mul=0)
+                assert prescue.run_schedule(chain, x, mul, sqr) == pow(x, e, p)
+                assert (ran["sq"], ran["mul"]) == prescue.schedule_counts(chain)
+            costs.append(ran["sq"] * sqr_c + ran["mul"] * mul_c)
+        assert chip_smoke.sbox_ops(spec, e) == min(costs)
+    _bytes, ops = chip_smoke.rescue_work(spec, 128, 3)
+    assert ops == 3 * 16 * (4 * sum(chip_smoke.sbox_ops(spec, e) for e in exps)
+                            + 8 * (4 * chip_smoke.PRODUCT_OPS + redc_c))
+    assert redc_c == (48 if name != "bls_scalar" else 136)
+
+
+@pytest.mark.parametrize("name", list(KERNEL_FIELDS))
+def test_sbox_bound_counts_a_real_chain(name):
+    """chip_smoke.py's operations bound for K5 counts each S-box by the
+    cheapest sliding-window chain (windows of 1 to 8 bits); the kernel's
+    own chains, read from its constant buffer, compute x^e and x^alpha, are
+    kernel_schedule's (windows of up to KERNEL_WINDOW bits), cost no less
+    than the bound's, and the inverse one is cheaper than the
+    square-and-multiply of the kernel before them."""
+    from chip_smoke import rescue_costs, sbox_ops
+    from plonky_tpu_torch.fields.host import kth_root_exponent
+
+    spec = KERNEL_FIELDS[name]
+    p = spec.p
+    sqr_c, mul_c, _redc = rescue_costs(spec)
     e = kth_root_exponent(spec, spec.alpha)
+    chains = buffer_layout(prescue.kernel_consts(spec, 64))["chains"]
     rng = np.random.default_rng(7)
-    for x in _values(spec, rng, 4):
-        for exp in (e, spec.alpha):
-            for w in range(1, 9):
-                assert window_pow(x, exp, w, spec.p)[0] == pow(x, exp, spec.p)
-    _v, sq1, m1 = window_pow(2, e, 1, spec.p)
+    for exp, chain in zip((e, spec.alpha), chains):
+        assert chain == prescue.kernel_schedule(exp)
+        for x in _values(spec, rng, 4):
+            assert prescue.run_schedule(chain, x, lambda a, b: a * b % p,
+                                        lambda a: a * a % p) == pow(x, exp, p)
+        sq, m = prescue.schedule_counts(chain)
+        assert sq * sqr_c + m * mul_c >= sbox_ops(spec, exp)
+    sq1, m1 = prescue.schedule_counts(prescue.sbox_schedule(e, 1))
     assert (sq1, m1) == (e.bit_length() - 1, bin(e).count("1") - 1)
-    best = min(sq * SQR_OPS + m * MUL_OPS
-               for _v, sq, m in (window_pow(2, e, w, spec.p) for w in range(1, 9)))
-    assert best < sq1 * SQR_OPS + m1 * MUL_OPS
+    sq, m = prescue.schedule_counts(chains[0])
+    assert sq <= sq1 and m < m1
+    assert sbox_ops(spec, e) < sq1 * sqr_c + m1 * mul_c
+
+
+def test_bls12_377_scalar_plain_matches_host():
+    """The plain version on BLS12-377's scalar field (alpha = 11, K5's dense
+    instance), 3 states against the host permutation at 64 bits."""
+    spec = BLS12_377_SCALAR
+    rng = np.random.default_rng(11)
+    cols = [_values(spec, rng, 3) for _ in range(4)]
+    got = prescue.rescue_permutation(
+        spec, [fops.from_ints(spec, c, "cpu") for c in cols], 64)
+    host = [prescue.rescue_permutation_host(spec, s, 64) for s in zip(*cols)]
+    assert [fops.to_ints(spec, g).tolist() for g in got] == [
+        list(c) for c in zip(*host)]
