@@ -35,12 +35,6 @@ Every phase prints one JSON line.  The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit` line; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
 and the ok line is not printed.
-
-    python3 chip_smoke.py --k5-sweep
-
-builds K5 (rescue_permutation) at each launch shape of K5_SHAPES and times
-each at 2^14 and 2^16 permutations with 3- and 5-bit windows, sparse and
-dense reduction (k5_sweep), then prints the card's line; no check is run.
 """
 
 from __future__ import annotations
@@ -1060,136 +1054,6 @@ def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
                     "TweedledeeBase, 128 bits, every lane"]},
         by_shape=by_n, measured=by_n[0])
     return launches["rescue_permutation"]
-
-
-# K5's launch shapes (k5_sweep, `python3 chip_smoke.py --k5-sweep`): threads
-# a permutation (RESCUE_LANES: 4, one element each, or 1 with the four
-# elements' chains side by side), threads a block, the __launch_bounds__
-# minimum of blocks (0: none; else the one that caps a thread at 128
-# registers) and extra nvcc flags (PT_REDC_OVERLAP: the sparse REDC rows
-# without their wait for the product, field.cuh); the chains' widest
-# window and the reduction (sparse or dense) are the constant buffer's.
-# The first shape is the one rescue_kernels.cu builds by default.
-K5_SHAPES = ((4, 256, 0, ()), (4, 64, 0, ()), (4, 128, 0, ()), (4, 64, 8, ()),
-             (4, 128, 4, ()), (4, 256, 2, ()), (1, 64, 0, ()), (1, 128, 0, ()),
-             (1, 256, 0, ()), (4, 256, 0, ("-DPT_REDC_OVERLAP",)))
-K5_WINDOWS = (3, 5)
-
-
-def sass_loops(lib_path: str, symbol: str) -> list:
-    """The loops of each kernel whose name holds `symbol` in a library's
-    SASS (cuobjdump): per backward branch, the kernel, the loop's first
-    and last address, its instruction count and most frequent opcodes (an
-    outer loop counts the inner ones it holds)."""
-    import re
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                             "bin", "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    code, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1) if symbol in m.group(1) else None
-            if name:
-                code[name] = []
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);",
-                     line)
-        if name and m:
-            code[name].append((int(m.group(1), 16), m.group(3), m.group(4)))
-    loops = []
-    for name, ins in code.items():
-        for addr, op, args in ins:
-            m = re.search(r"0x([0-9a-f]+)", args)
-            if op == "BRA" and m and int(m.group(1), 16) < addr:
-                body = [o for a, o, _ in ins if int(m.group(1), 16) <= a <= addr]
-                loops.append({"kernel": name, "from": hex(int(m.group(1), 16)),
-                              "to": hex(addr), "instructions": len(body),
-                              "opcodes": collections.Counter(body).most_common(8)})
-    return loops
-
-
-def k5_sweep(ck: Checker, torch, np, dev, name_power: str) -> None:
-    """Builds K5 at every shape of K5_SHAPES, each from csrc/rescue_kernels.cu
-    into a library of its own (one nvcc each, all started together), and
-    times each at 2^14 and 2^16 TweedledeeBase permutations at 128 bits
-    with windows of up to 3 and 5 bits, sparse and dense REDC: device ms
-    (CUDA events over launches queued behind a sleep, L2 warm) and the
-    share of rescue_work's bound, every output held against the package's
-    kernel.  One line a shape, with ptxas's register and spill lines, the
-    kernels' SASS bytes and most frequent opcodes, and each loop's
-    instructions (sass_loops; cuobjdump); a launch the card refuses
-    (shared memory) is reported as such."""
-    import ctypes
-
-    from plonky_tpu_torch import _cuda
-    from plonky_tpu_torch.fields import TWEEDLEDEE_BASE
-    from plonky_tpu_torch.hashing import rescue as hr
-    from profile_prove import sass_listing
-
-    out_dir = os.path.join(_cuda.BUILD_DIR, "k5_sweep")
-    os.makedirs(out_dir, exist_ok=True)
-    builds = {}
-    for i, (lanes, threads, min_blocks, flags) in enumerate(K5_SHAPES):
-        lib = os.path.join(out_dir, f"k5_{i}.so")
-        builds[(lanes, threads, min_blocks, flags)] = (lib, subprocess.Popen(
-            [_cuda.nvcc_path(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared",
-             f"-DRESCUE_LANES={lanes}", f"-DRESCUE_THREADS={threads}",
-             f"-DRESCUE_MIN_BLOCKS={min_blocks}", *flags, "-o", lib,
-             os.path.join(_cuda.CSRC, "rescue_kernels.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    spec, bits = TWEEDLEDEE_BASE, 128
-    rng = np.random.default_rng(2025)
-    inputs = {}
-    for n in (1 << 14, 1 << 16):
-        st = torch.stack([rand_field(np, torch, rng, (n,), dev)
-                          for _ in range(4)]).contiguous()
-        inputs[n] = (st, torch.stack(hr.rescue_permutation(spec, list(st), bits)))
-    for (lanes, threads, min_blocks, flags), (lib_path, proc) in builds.items():
-        log, _ = proc.communicate()
-        row = {"phase": "k5_sweep", "nvidia_smi": name_power, "lanes": lanes,
-               "threads": threads, "min_blocks": min_blocks,
-               "flags": list(flags), "build_rc": proc.returncode,
-               "ptxas": [ln.strip() for ln in log.splitlines()
-                         if "registers" in ln or "spill" in ln], "runs": []}
-        if proc.returncode:
-            row["log"] = log[-2000:]
-            emit(row)
-            continue
-        row["sass"] = {k: v for k, v in sass_listing(lib_path).items()
-                       if "rescue_permutation_kernel" in k}
-        row["loops"] = sass_loops(lib_path, "rescue_permutation_kernel")
-        fn = ctypes.CDLL(lib_path).pt_rescue_permutation
-        fn.argtypes = _cuda._SIGNATURES["pt_rescue_permutation"]
-        fn.restype = ctypes.c_int
-        for window in K5_WINDOWS:
-            for sparse in (True, False):
-                consts = hr.kernel_consts(spec, bits, window, sparse)
-                for n, (st, want) in inputs.items():
-                    out = torch.empty_like(st)
-
-                    def call(n=n, st=st, out=out, consts=consts):
-                        rc = fn(out.data_ptr(), st.data_ptr(), n,
-                                consts.ctypes.data, consts.size, _cuda.stream())
-                        if rc:
-                            raise RuntimeError(f"CUDA error {rc} at launch")
-                    run = {"window": window, "sparse": sparse, "N": n}
-                    try:
-                        call()
-                        torch.cuda.synchronize()
-                    except RuntimeError as err:
-                        row["runs"].append({**run, "refused": str(err)})
-                        continue
-                    if not torch.equal(out, want):
-                        raise AssertionError(f"K5 at {lanes}, {threads}, "
-                                             f"{min_blocks}, {flags}, {run} "
-                                             "differs")
-                    ms = ck.queued_ms(call, 10 if n == 1 << 14 else 4)
-                    bound = rescue_work(spec, bits, n)[1] / ck.rate * 1e3
-                    row["runs"].append({**run, "ms": ms, "share": bound / ms})
-        emit(row)
 
 
 # BLS12-377 G1 (phase_bls12_377): msm_chunked at 2^16 .. 2^22 points in
@@ -2242,14 +2106,10 @@ def card(torch):
     return name_power, clock_hz, sms, 64.0 * sms * clock_hz
 
 
-def main(argv) -> int:
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sweep = argv == ["--k5-sweep"]
-    if argv and not sweep:
-        print("usage: python3 chip_smoke.py [--k5-sweep]", file=sys.stderr)
         return 2
     import numpy as np
     from plonky_tpu_torch import _cuda
@@ -2278,10 +2138,6 @@ def main(argv) -> int:
           "built_now": _cuda.BUILD_SECONDS[0] is not None, "ptxas": ptxas})
 
     ck = Checker(torch, clock_hz, int_rate)
-    if sweep:
-        k5_sweep(ck, torch, np, dev, name_power)
-        print(name_power, flush=True)
-        return 0
     seconds = {}
 
     def timed(name, fn, *args, **kwargs):
@@ -2316,4 +2172,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

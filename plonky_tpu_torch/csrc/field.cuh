@@ -779,19 +779,16 @@ __device__ __forceinline__ void cc_redc(uint32_t r[PT_LIMBS], uint32_t e[PT_PROD
   uint32_t cnt[PT_PRODUCT_LIMBS], m[PT_LIMBS];
 #pragma unroll
   for (int k = 0; k < PT_PRODUCT_LIMBS; k++) cnt[k] = 0;
-#ifndef PT_REDC_OVERLAP
   if constexpr (SPARSE) {
     // Row 0 waits for the product's top limb (+ its product with a zero
     // that the compiler cannot see: -p^-1 p_0 = -1 mod 2^32).  Left to
-    // itself (built with -DPT_REDC_OVERLAP, as chip_smoke.py's K5 sweep
-    // does once), ptxas starts the rows while the product's chains run,
-    // keeps more carries alive than it has predicates and spills them
-    // (LOP3, P2R, ISETP in the square's loop; PERF.md §6).  The dense rows
-    // gain from the overlap.
+    // itself, ptxas starts the rows while the product's chains run, keeps
+    // more carries alive than it has predicates and spills them (LOP3,
+    // P2R, ISETP in the square's loop; PERF.md §6).  The dense rows gain
+    // from the overlap.
     const uint32_t zero = c.pinv * c.p[0] + 1u;
     e[0] += (e[2 * PT_LIMBS - 1] + o[2 * PT_LIMBS - 1]) * zero;
   }
-#endif
   cc_redc_rows<0, SPARSE>(e, o, cnt, m, c);
   r[0] = cc_add(e[PT_LIMBS], o[PT_LIMBS]);
 #pragma unroll

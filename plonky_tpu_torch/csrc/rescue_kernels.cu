@@ -19,7 +19,7 @@
 //
 // The design: 4 threads a permutation (RESCUE_LANES), thread r of a quad
 // holding state element r in Montgomery form (x 2^256 mod p, canonical
-// between S-boxes).
+// between S-boxes), 256 threads a block (RESCUE_THREADS).
 // - Each S-box runs the exponent chain that the host built
 //   (hashing/rescue.py:sbox_schedule): a list of steps, each "load a table
 //   slot, square k times, multiply by a table slot, store to a slot", the
@@ -45,11 +45,10 @@
 // Threads past the batch keep running (zeros) so that every shuffle has its
 // whole warp, and store nothing.
 //
-// The launch shape is set at build time: RESCUE_THREADS a block (256, the
-// fastest at 2^14), RESCUE_MIN_BLOCKS for __launch_bounds__ (0: none), and
-// RESCUE_LANES = 1 maps a permutation to one thread that runs its 4
-// elements' chains side by side (chip_smoke.py --k5-sweep builds and times
-// each; PERF.md §6 has the sweep).
+// The launch shape is the fastest of a sweep at 2^14 (PERF.md §6): 64 and
+// 128 threads a block, a __launch_bounds__ minimum of blocks, and one
+// thread a permutation running its 4 elements' chains side by side were
+// all slower.
 #include <cstddef>
 #include <cstring>
 
@@ -58,24 +57,12 @@
 #define RESCUE_WIDTH 4
 #define RESCUE_MAX_ROUNDS 64
 #define RESCUE_MAX_STEPS 128     // steps of one S-box's chain
-#define RESCUE_MAX_SLOTS 17      // table slots an element: windows up to 5 bits
+#define RESCUE_MAX_SLOTS 5       // table slots an element: windows up to 3 bits
 #define RESCUE_NO_SLOT 31        // a step field that names no slot
-#ifndef RESCUE_THREADS
 #define RESCUE_THREADS 256
-#endif
-#ifndef RESCUE_MIN_BLOCKS
-#define RESCUE_MIN_BLOCKS 0
-#endif
-#ifndef RESCUE_LANES
-#define RESCUE_LANES 4
-#endif
-static_assert(RESCUE_LANES == 4 || RESCUE_LANES == 1, "RESCUE_LANES is 4 or 1");
-#define RESCUE_ELEMS (RESCUE_WIDTH / RESCUE_LANES)   // elements a thread
-#if RESCUE_MIN_BLOCKS > 0
-#define RESCUE_BOUNDS __launch_bounds__(RESCUE_THREADS, RESCUE_MIN_BLOCKS)
-#else
-#define RESCUE_BOUNDS __launch_bounds__(RESCUE_THREADS)
-#endif
+#define RESCUE_LANES 4           // threads a permutation, one element each
+static_assert(RESCUE_THREADS * RESCUE_MAX_SLOTS * PT_LIMBS * 4 <= 48 * 1024,
+              "the table must fit the default dynamic shared memory");
 
 // The words of hashing/rescue.py:kernel_consts, in order.
 struct RescueConsts {
@@ -104,19 +91,17 @@ static_assert(offsetof(RescueConsts, rounds) == 4 * RESCUE_ROUNDS_WORD,
 static_assert(sizeof(RescueConsts) <= 32764,
               "RescueConsts must fit the kernel parameter space (CUDA 12.1+)");
 
-// Slot `slot` of element e's table: limb k of this thread's column.
+// Slot `slot` of the table: limb k of this thread's column.
 __device__ __forceinline__ void slot_load(uint32_t v[PT_LIMBS], const uint32_t* tab,
-                                          uint32_t slot, int e) {
+                                          uint32_t slot) {
 #pragma unroll
-  for (int k = 0; k < PT_LIMBS; k++)
-    v[k] = tab[((slot * RESCUE_ELEMS + e) * PT_LIMBS + k) * RESCUE_THREADS];
+  for (int k = 0; k < PT_LIMBS; k++) v[k] = tab[(slot * PT_LIMBS + k) * RESCUE_THREADS];
 }
 
-__device__ __forceinline__ void slot_store(uint32_t* tab, uint32_t slot, int e,
+__device__ __forceinline__ void slot_store(uint32_t* tab, uint32_t slot,
                                            const uint32_t v[PT_LIMBS]) {
 #pragma unroll
-  for (int k = 0; k < PT_LIMBS; k++)
-    tab[((slot * RESCUE_ELEMS + e) * PT_LIMBS + k) * RESCUE_THREADS] = v[k];
+  for (int k = 0; k < PT_LIMBS; k++) tab[(slot * PT_LIMBS + k) * RESCUE_THREADS] = v[k];
 }
 
 // s = s^e for the S-box `half` (Montgomery form, canonical in and out):
@@ -126,7 +111,7 @@ __device__ __forceinline__ void slot_store(uint32_t* tab, uint32_t slot, int e,
 // subtraction at the end.  tab is this thread's column of the block's
 // table.
 template <bool SPARSE>
-__device__ __forceinline__ void rescue_sbox(uint32_t s[RESCUE_ELEMS][PT_LIMBS], int half,
+__device__ __forceinline__ void rescue_sbox(uint32_t s[PT_LIMBS], int half,
                                             const RescueConsts& cs, uint32_t* tab) {
   const FieldConsts& f = cs.f;
   const int n_steps = (int)cs.n_steps[half];
@@ -135,30 +120,17 @@ __device__ __forceinline__ void rescue_sbox(uint32_t s[RESCUE_ELEMS][PT_LIMBS], 
     const uint32_t step = cs.steps[half][j];
     const uint32_t load = step & 31, mul = (step >> 5) & 31, store = (step >> 10) & 31;
     const uint32_t squares = step >> 16;
-    if (load != RESCUE_NO_SLOT) {
-#pragma unroll
-      for (int e = 0; e < RESCUE_ELEMS; e++) slot_load(s[e], tab, load, e);
-    }
+    if (load != RESCUE_NO_SLOT) slot_load(s, tab, load);
 #pragma unroll 1
-    for (uint32_t q = 0; q < squares; q++) {
-#pragma unroll
-      for (int e = 0; e < RESCUE_ELEMS; e++) cc_mont_sqr<SPARSE>(s[e], s[e], f);
-    }
+    for (uint32_t q = 0; q < squares; q++) cc_mont_sqr<SPARSE>(s, s, f);
     if (mul != RESCUE_NO_SLOT) {
-#pragma unroll
-      for (int e = 0; e < RESCUE_ELEMS; e++) {
-        uint32_t y[PT_LIMBS];
-        slot_load(y, tab, mul, e);
-        cc_mont_mul_sos<SPARSE>(s[e], s[e], y, f);
-      }
+      uint32_t y[PT_LIMBS];
+      slot_load(y, tab, mul);
+      cc_mont_mul_sos<SPARSE>(s, s, y, f);
     }
-    if (store != RESCUE_NO_SLOT) {
-#pragma unroll
-      for (int e = 0; e < RESCUE_ELEMS; e++) slot_store(tab, store, e, s[e]);
-    }
+    if (store != RESCUE_NO_SLOT) slot_store(tab, store, s);
   }
-#pragma unroll
-  for (int e = 0; e < RESCUE_ELEMS; e++) cc_csub(s[e], f);
+  cc_csub(s, f);
 }
 
 // y = sum_c M[r][c] x_c + rc[round][half][r] for canonical x_c: the four
@@ -185,64 +157,51 @@ __device__ __forceinline__ void rescue_mds_row(uint32_t y[PT_LIMBS], const uint3
   cc_add_mod(y, y, cs.rc[round][half][r], cs.f);
 }
 
-// The MDS mix and round constants of this thread's elements: under 4
-// lanes, row r = lane & 3 from the quad's elements read by __shfl_sync;
-// under 1 lane, all four rows from the thread's own registers.
+// The MDS mix and round constants of this thread's element: row r =
+// lane & 3 from the quad's elements read by __shfl_sync.
 template <bool SPARSE>
-__device__ __forceinline__ void rescue_mds_add(uint32_t s[RESCUE_ELEMS][PT_LIMBS], int r0,
-                                               int round, int half, const RescueConsts& cs) {
+__device__ __forceinline__ void rescue_mds_add(uint32_t s[PT_LIMBS], int r, int round,
+                                               int half, const RescueConsts& cs) {
   uint32_t x[RESCUE_WIDTH][PT_LIMBS];
-#if RESCUE_LANES == 4
   const int base = (threadIdx.x & 31) & ~3;
 #pragma unroll
   for (int c = 0; c < RESCUE_WIDTH; c++) {
 #pragma unroll
-    for (int k = 0; k < PT_LIMBS; k++) x[c][k] = __shfl_sync(0xffffffffu, s[0][k], base + c);
+    for (int k = 0; k < PT_LIMBS; k++) x[c][k] = __shfl_sync(0xffffffffu, s[k], base + c);
   }
-#else
-#pragma unroll
-  for (int c = 0; c < RESCUE_WIDTH; c++) fe_copy(x[c], s[c]);
-#endif
-#pragma unroll
-  for (int e = 0; e < RESCUE_ELEMS; e++) rescue_mds_row<SPARSE>(s[e], x, r0 + e, round, half, cs);
+  rescue_mds_row<SPARSE>(s, x, r, round, half, cs);
 }
 
 // state and out: [4, 8, n] int32, element r of permutation i, limb k at
 // (r 8 + k) n + i.  RESCUE_LANES threads a permutation (see the top).
 template <bool SPARSE>
-__global__ void RESCUE_BOUNDS
+__global__ void __launch_bounds__(RESCUE_THREADS)
 rescue_permutation_kernel(int32_t* out, const int32_t* state, int64_t n,
                           const __grid_constant__ RescueConsts cs) {
   extern __shared__ uint32_t rescue_table[];
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t i = t / RESCUE_LANES;
-  const int r0 = RESCUE_LANES == 4 ? (int)(t & 3) : 0;
+  const int r = (int)(t & 3);
   const bool valid = i < n;
   const FieldConsts& f = cs.f;
   uint32_t* tab = rescue_table + threadIdx.x;
-  uint32_t s[RESCUE_ELEMS][PT_LIMBS];
-#pragma unroll
-  for (int e = 0; e < RESCUE_ELEMS; e++) {
-    if (valid) fe_load(s[e], state + (int64_t)(r0 + e) * PT_LIMBS * n, n, i);
-    else fe_set_small(s[e], 0);
-    mf_mul(s[e], s[e], cs.r2, f);          // into Montgomery form
-  }
+  uint32_t s[PT_LIMBS];
+  if (valid) fe_load(s, state + (int64_t)r * PT_LIMBS * n, n, i);
+  else fe_set_small(s, 0);
+  mf_mul(s, s, cs.r2, f);                  // into Montgomery form
   const int rounds = (int)cs.rounds;
 #pragma unroll 1
   for (int round = 0; round < rounds; round++) {
 #pragma unroll 1
     for (int half = 0; half < 2; half++) {
       rescue_sbox<SPARSE>(s, half, cs, tab);
-      rescue_mds_add<SPARSE>(s, r0, round, half, cs);
+      rescue_mds_add<SPARSE>(s, r, round, half, cs);
     }
   }
   uint32_t one[PT_LIMBS];
   fe_set_small(one, 1);
-#pragma unroll
-  for (int e = 0; e < RESCUE_ELEMS; e++) {
-    mf_mul(s[e], s[e], one, f);            // back to canonical
-    if (valid) fe_store(out + (int64_t)(r0 + e) * PT_LIMBS * n, n, i, s[e]);
-  }
+  mf_mul(s, s, one, f);                    // back to canonical
+  if (valid) fe_store(out + (int64_t)r * PT_LIMBS * n, n, i, s);
 }
 
 // p = 2^254 + c, c < 2^128, p = 1 mod 2^32: the sparse REDC's shape.
@@ -286,12 +245,7 @@ int pt_rescue_permutation(void* out, const void* state, int64_t n, const void* c
   if (!rescue_steps_valid(cs) || (cs.sparse && !rescue_sparse_shape(cs.f)))
     return (int)cudaErrorInvalidValue;
   auto kernel = cs.sparse ? rescue_permutation_kernel<true> : rescue_permutation_kernel<false>;
-  const size_t smem = (size_t)RESCUE_THREADS * RESCUE_ELEMS * cs.slots * PT_LIMBS * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const size_t smem = (size_t)RESCUE_THREADS * cs.slots * PT_LIMBS * 4;
   const int64_t threads = RESCUE_LANES * n;
   const unsigned int blocks = (unsigned int)((threads + RESCUE_THREADS - 1) / RESCUE_THREADS);
   kernel<<<blocks, RESCUE_THREADS, smem, (cudaStream_t)stream>>>(

@@ -33,14 +33,14 @@ RESCUE_SPONGE_WIDTH = 4
 RESCUE_SPONGE_RATE = 3
 # Rounds K5 takes (csrc/rescue_kernels.cu, RESCUE_MAX_ROUNDS): 512 bits.
 KERNEL_MAX_ROUNDS = 64
-# K5's exponent chains (sbox_schedule, csrc/rescue_kernels.cu): steps an
-# S-box (RESCUE_MAX_STEPS), table slots an element (RESCUE_MAX_SLOTS:
-# windows of up to 5 bits), the field of a step that names no slot
-# (RESCUE_NO_SLOT), and the widest window the kernel's chains take.
-KERNEL_MAX_STEPS = 128
-KERNEL_MAX_SLOTS = 17
-NO_SLOT = 31
+# K5's exponent chains (sbox_schedule, csrc/rescue_kernels.cu): the widest
+# window the kernel's chains take, steps an S-box (RESCUE_MAX_STEPS), table
+# slots an element (RESCUE_MAX_SLOTS: x, x^3, x^5, x^7 and x^2), and the
+# field of a step that names no slot (RESCUE_NO_SLOT).
 KERNEL_WINDOW = 3
+KERNEL_MAX_STEPS = 128
+KERNEL_MAX_SLOTS = 1 + (1 << (KERNEL_WINDOW - 1))
+NO_SLOT = 31
 
 
 def recommended_rounds(width: int, security_bits: int) -> int:
@@ -216,21 +216,6 @@ def schedule_slots(steps) -> int:
                    if v != NO_SLOT)
 
 
-def run_schedule(steps, x, mul, sqr):
-    """x^e by the chain `steps`, through mul(a, b) and sqr(a)."""
-    slots, s = {}, x
-    for load, squares, m, store in steps:
-        if load != NO_SLOT:
-            s = slots[load]
-        for _ in range(squares):
-            s = sqr(s)
-        if m != NO_SLOT:
-            s = mul(s, slots[m])
-        if store != NO_SLOT:
-            slots[store] = s
-    return s
-
-
 def step_word(step) -> int:
     """One step as the kernel reads it: load slot in bits 0-4, multiply
     slot 5-9, store slot 10-14, squares 16-31."""
@@ -239,15 +224,12 @@ def step_word(step) -> int:
     return load | m << 5 | store << 10 | squares << 16
 
 
-def decode_step(word: int) -> tuple:
-    return (word & 31, word >> 16, (word >> 5) & 31, (word >> 10) & 31)
-
-
-def kernel_schedule(e: int, window: int = KERNEL_WINDOW) -> tuple:
+def kernel_schedule(e: int) -> tuple:
     """The chain K5 runs for x^e: sbox_schedule's with the fewest squares
-    and multiplies over windows of 1 to `window` bits (the smaller window
-    where two tie): 3 bits for the 254-bit inverse exponents, 1 for x^5."""
-    return min((sbox_schedule(e, w) for w in range(1, window + 1)),
+    and multiplies over windows of 1 to KERNEL_WINDOW bits (the smaller
+    window where two tie): 3 bits for the 254-bit inverse exponents, 1 for
+    x^5."""
+    return min((sbox_schedule(e, w) for w in range(1, KERNEL_WINDOW + 1)),
                key=lambda steps: sum(schedule_counts(steps)))
 
 
@@ -274,24 +256,18 @@ def sparse_prime(spec: FieldSpec) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_consts(spec: FieldSpec, security_bits: int,
-                  window: int = KERNEL_WINDOW,
-                  sparse: bool | None = None) -> np.ndarray:
+def kernel_consts(spec: FieldSpec, security_bits: int) -> np.ndarray:
     """K5's constant buffer (csrc/rescue_kernels.cu, RescueConsts), uint32
     words: the field's [p, -p^-1 mod 2^32] (FieldSpec.kernel_consts),
-    R^2 = 2^512 mod p (R = 2^256), the sparse flag (sparse_prime unless
-    `sparse` is False: the dense REDC runs any field), the round count, the
-    table slots an element, the two S-boxes' step counts and their chains
-    (kernel_schedule with windows of up to `window` bits, x^(1/alpha)
-    first, KERNEL_MAX_STEPS words each, step_word), the MDS matrix
+    R^2 = 2^512 mod p (R = 2^256), the sparse flag (sparse_prime: the
+    kernel's instance), the round count, the table slots an element, the
+    two S-boxes' step counts and their chains (kernel_schedule,
+    x^(1/alpha) first, KERNEL_MAX_STEPS words each, step_word), the MDS matrix
     [row][column] and the round constants [round][half][element], these
     two in Montgomery form (v R mod p).  The MDS mix reduces a sum of four
     products once, to below 4 p^2 / R + p, which must fit 256 bits, and
     each chain's values must stay below 2p (lazy_chain_bound)."""
     require_eight_limbs(spec, "rescue_permutation")
-    if (1 << (window - 1)) + 1 > KERNEL_MAX_SLOTS:
-        raise ValueError(f"rescue_permutation: windows of {window} bits need "
-                         f"more than the kernel's {KERNEL_MAX_SLOTS} table slots")
     p = spec.p
     width = RESCUE_SPONGE_WIDTH
     consts = rescue_constants(spec, width, security_bits)
@@ -302,15 +278,15 @@ def kernel_consts(spec: FieldSpec, security_bits: int,
     if 4 * p * p + p * mont >= mont * mont:
         raise ValueError(f"rescue_permutation: {spec.name}'s MDS sums "
                          "overflow 256 bits")
-    sparse = sparse_prime(spec) if sparse is None else sparse
-    if sparse and not sparse_prime(spec):
-        raise ValueError(f"rescue_permutation: {spec.name} is not 2^254 + c")
-    chains = [kernel_schedule(e, window) for e in
+    chains = [kernel_schedule(e) for e in
               (host.kth_root_exponent(spec, spec.alpha), spec.alpha)]
     if max(map(len, chains)) > KERNEL_MAX_STEPS:
         raise ValueError("rescue_permutation: an exponent chain longer than "
                          f"{KERNEL_MAX_STEPS} steps")
     slots = max(map(schedule_slots, chains))
+    if slots > KERNEL_MAX_SLOTS:
+        raise ValueError(f"rescue_permutation: the chains need {slots} table "
+                         f"slots, the kernel has {KERNEL_MAX_SLOTS}")
     if lazy_chain_bound(p, max(sum(schedule_counts(c)) for c in chains)) > 2 * p:
         raise ValueError(f"rescue_permutation: {spec.name}'s exponent chains "
                          "may leave [0, 2p) without reductions")
@@ -324,7 +300,7 @@ def kernel_consts(spec: FieldSpec, security_bits: int,
     rc = [v for step_a, step_b in consts for v in (*step_a, *step_b)]
     return np.concatenate([
         spec.kernel_consts, int_to_limbs(mont * mont % p),
-        np.array([int(sparse), len(consts), slots, *map(len, chains)],
+        np.array([int(sparse_prime(spec)), len(consts), slots, *map(len, chains)],
                  dtype=np.uint32),
         steps.reshape(-1), *limbs(mds), *limbs(rc)])
 

@@ -137,6 +137,27 @@ def _word_value(words) -> int:
     return sum(int(w) << (32 * k) for k, w in enumerate(words))
 
 
+def decode_step(word: int) -> tuple:
+    """One step word of a chain (hashing/rescue.py:step_word) as (load,
+    squares, mul, store)."""
+    return (word & 31, word >> 16, (word >> 5) & 31, (word >> 10) & 31)
+
+
+def run_schedule(steps, x, mul, sqr):
+    """x^e by the chain `steps`, through mul(a, b) and sqr(a)."""
+    slots, s = {}, x
+    for load, squares, m, store in steps:
+        if load != prescue.NO_SLOT:
+            s = slots[load]
+        for _ in range(squares):
+            s = sqr(s)
+        if m != prescue.NO_SLOT:
+            s = mul(s, slots[m])
+        if store != prescue.NO_SLOT:
+            slots[store] = s
+    return s
+
+
 def buffer_layout(words) -> dict:
     """The fields of a RescueConsts buffer, read at the kernel's offsets:
     p and -p^-1 (9 words), R^2 (8), sparse, rounds, slots, the two step
@@ -150,7 +171,7 @@ def buffer_layout(words) -> dict:
         "p": _word_value(words[:8]), "pinv": int(words[8]),
         "r2": _word_value(words[9:17]), "sparse": int(words[17]),
         "rounds": int(words[18]), "slots": int(words[19]),
-        "chains": [tuple(prescue.decode_step(int(w)) for w in
+        "chains": [tuple(decode_step(int(w)) for w in
                          words[steps_at + h * max_steps:
                                steps_at + h * max_steps + n_steps[h]])
                    for h in range(2)],
@@ -220,15 +241,17 @@ def test_kernel_limits_match_the_wrapper():
     wrapper's; RescueConsts's header (sizeof, the round count's word) as
     the kernel source counts it, and the largest buffer within the 32,764
     bytes of kernel parameters it is passed in; the round count words; a
-    round count past the limit, or a window past the table's slots, is
-    refused before any launch."""
+    round count past the limit is refused before any launch."""
     d = _defines()
     assert d["RESCUE_MAX_ROUNDS"] == prescue.KERNEL_MAX_ROUNDS
     assert d["RESCUE_MAX_STEPS"] == prescue.KERNEL_MAX_STEPS
-    assert d["RESCUE_MAX_SLOTS"] == prescue.KERNEL_MAX_SLOTS == (1 << 4) + 1
+    assert d["RESCUE_MAX_SLOTS"] == prescue.KERNEL_MAX_SLOTS == \
+        1 + (1 << (prescue.KERNEL_WINDOW - 1))
     assert d["RESCUE_NO_SLOT"] == prescue.NO_SLOT
     assert d["RESCUE_WIDTH"] == prescue.RESCUE_SPONGE_WIDTH
     assert d["RESCUE_THREADS"] % 32 == 0 and d["RESCUE_LANES"] == 4
+    # the table (RESCUE_THREADS columns of slots) in the default 48 KB
+    assert d["RESCUE_THREADS"] * d["RESCUE_MAX_SLOTS"] * LIMBS * 4 <= 48 * 1024
     spec = TWEEDLEDUM_BASE
     words = prescue.kernel_consts(spec, 128)
     header = buffer_layout(words)["header_words"]
@@ -241,10 +264,6 @@ def test_kernel_limits_match_the_wrapper():
     bits = 2 * 4 * (prescue.KERNEL_MAX_ROUNDS + 1)
     with pytest.raises(ValueError, match="at most"):
         prescue.kernel_consts(spec, bits)
-    with pytest.raises(ValueError, match="table slots"):
-        prescue.kernel_consts(spec, 128, window=6)
-    with pytest.raises(ValueError, match="2\\^254"):
-        prescue.kernel_consts(BLS12_377_SCALAR, 128, sparse=True)
 
 
 @pytest.mark.parametrize("name", list(KERNEL_FIELDS))
@@ -277,7 +296,7 @@ def test_host_schedule_is_the_counted_chain(name):
                 return a * a % p
             for x in _values(spec, rng, 3):
                 ran.update(sq=0, mul=0)
-                assert prescue.run_schedule(chain, x, mul, sqr) == pow(x, e, p)
+                assert run_schedule(chain, x, mul, sqr) == pow(x, e, p)
                 assert (ran["sq"], ran["mul"]) == prescue.schedule_counts(chain)
             costs.append(ran["sq"] * sqr_c + ran["mul"] * mul_c)
         assert chip_smoke.sbox_ops(spec, e) == min(costs)
@@ -307,7 +326,7 @@ def test_sbox_bound_counts_a_real_chain(name):
     for exp, chain in zip((e, spec.alpha), chains):
         assert chain == prescue.kernel_schedule(exp)
         for x in _values(spec, rng, 4):
-            assert prescue.run_schedule(chain, x, lambda a, b: a * b % p,
+            assert run_schedule(chain, x, lambda a, b: a * b % p,
                                         lambda a: a * a % p) == pow(x, exp, p)
         sq, m = prescue.schedule_counts(chain)
         assert sq * sqr_c + m * mul_c >= sbox_ops(spec, exp)
