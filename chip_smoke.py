@@ -27,7 +27,12 @@ checks the steady proof's sha256, and shows that the steady prove launched
 every kernel of the main path (curve_add and curve_double, checked here,
 are off it: the MSM's Horner runs in curve_horner; rescue_permutation,
 the 12-limb kernels, the signed accumulate and ntt_twiddle_transpose have
-their own paths).
+their own paths), and last drives the reference's recursion workload
+(phase_recursion: a 2^14-gate inner proof, the level-1 recursion circuit
+that verifies it and its proof, the level-2 circuit that verifies that
+proof and consumes the inner proof's OldProof, each recursive prove at a
+pinned sha256 and launching every kernel of the main path, every shape
+they give a kernel held against its plain version).
 
     python3 chip_smoke.py
 
@@ -62,6 +67,20 @@ PROOF_2E14_SHA256 = ("7eddf299bab9296d33bb070c11a7d95a"
 # (gadget_circuits) under a fresh gadget_random() (phase_gadgets).
 PROOF_2E10_SHA256 = ("cc27a990e8184516d14e8afb4345d269"
                      "6e3b5831cba7813b9f9755be5e904df7")
+# sha256 of proof_to_bytes of phase_recursion's level-1 and level-2 proofs
+# (the recursion circuits over Tweedledee and Tweedledum that verify the
+# 2^RECURSION_INNER_LG-gate inner proof, then the level-1 proof) under one
+# pinned_random(): the port's own values, taken on the H100; the JAX
+# package has not made these proofs.
+RECURSION_INNER_LG = 14
+RECURSION_L1_SHA256 = ("3bdbaf42974da9a08778b53e3fc5c0ea"
+                       "c5a0590b92cbb7aa6a44c549b134c05a")
+RECURSION_L2_SHA256 = ("f26dcfb2e35904b845dbcb3d9359f40e"
+                       "00e0def73f7285bf54a9383aece646e0")
+# The fields of each shape the recursion phase holds against its plain
+# version (PathRecorder.hold), as its recursion_shapes line lists them.
+RECURSION_SHAPE_KEYS = ("shape", "launches_level1", "launches_level2", "ms",
+                        "cold_ms", "plain_ms", "bound_ms", "bound_by", "share")
 GADGET_PROOF_SHA256 = {
     "rescue": ("cd0dab38016dd9235dfa82f1f59f170a"
                "ec35ed6c854250f2a3982e908db4c63f"),
@@ -210,6 +229,14 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def share(timing: dict) -> float:
+    """bound_ms over the kernel's time: the L2-flushed time where the bound
+    is device-memory bytes (an L2-warm launch can beat that bound), the
+    warm time where it is operations."""
+    cold = timing["bound_by"] == "bytes"
+    return timing["bound_ms"] / timing["cold_ms" if cold else "ms"]
+
+
 class Checker:
     """Times kernels with CUDA events and compares them with their plain
     versions; collects one record per kernel."""
@@ -295,6 +322,27 @@ class Checker:
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
+    def hold(self, name: str, kernel_fn, plain_fn, bytes_, ops, reps=10) -> dict:
+        """kernel_fn's output held against plain_fn's, the plain call run
+        (and timed) once; then measure()'s device times of kernel_fn."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain_fn()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        self.compare(name, kernel_fn(), want)
+        del want
+        flush = self.flush.zero_
+        cold = self.queued_ms(lambda: (flush(), kernel_fn()), reps)
+        ms = self.queued_ms(kernel_fn, reps)
+        t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / self.rate
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        out = {"ms": ms, "cold_ms": cold - self.queued_ms(flush, reps),
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        return {**out, "share": share(out)}
+
     def compare(self, name: str, got, want) -> None:
         """Exact equality of a kernel's output with its plain version's;
         keeps the largest limb difference seen per kernel."""
@@ -330,7 +378,7 @@ class Checker:
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": None,
                "max_abs_err": self.errors[name], **timing,
-               "share": timing["bound_ms"] / timing["ms"],
+               "share": share(timing),
                "library_ms": None, "checked": True, "shapes": shapes}
         if by_shape is not None:
             rec["by_shape"] = by_shape
@@ -2097,6 +2145,365 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
     return launches, {}
 
 
+class PathRecorder:
+    """While open, wraps the kernel wrappers a prove runs (K1's elementwise
+    launch and its product sums, a whole NTT, K4's two stages and the
+    Horner) and counts their calls by shape under `level`; the first call
+    of each shape keeps its arguments, so that `hold` can run it again
+    beside its plain version.  A shape is the kernel, the field or curve and
+    every size the launch takes."""
+
+    def __init__(self):
+        self.level = None
+        self.counts = collections.Counter()      # (level, key) -> calls
+        self.calls = {}                          # key -> (kernel, plain, work)
+
+    def _note(self, key, launches, kernel_fn, plain_fn, work):
+        self.counts[(self.level, key)] += launches
+        if key not in self.calls:
+            self.calls[key] = (kernel_fn, plain_fn, work)
+
+    def __enter__(self):
+        from plonky_tpu_torch.curves import msm as cmsm
+        from plonky_tpu_torch.fields import ops as fops
+        from plonky_tpu_torch.poly import fft as pfft
+        wrapped = ((fops, "_launch_binary"), (fops, "_product_sums_launch"),
+                   (pfft, "ntt"), (cmsm, "bucket_accumulate"),
+                   (cmsm, "bucket_reduce"), (cmsm, "horner"))
+        self.saved = [(m, name, getattr(m, name)) for m, name in wrapped]
+        orig = {name: fn for _m, name, fn in self.saved}
+        plain_binary = {"field_add": fops.add_plain, "field_sub": fops.sub_plain,
+                        "field_mul": fops.mul_plain}
+
+        def binary(kernel, spec, a, b):
+            out = orig["_launch_binary"](kernel, spec, a, b)
+            n = out[0].numel()
+            full = [x[0].numel() > 1 for x in (a, b)]
+            self._note((kernel, spec.name, *("full" if f else "col" for f in full), n), 1,
+                       lambda: orig["_launch_binary"](kernel, spec, a, b),
+                       lambda: plain_binary[kernel](spec, a, b),
+                       lambda: (32 * (n * (1 + sum(full)) + 2 - sum(full)),
+                                MUL_OPS * n if kernel == "field_mul" else 0))
+            return out
+
+        def product_sums(spec, sums, batch, splits=None):
+            out = orig["_product_sums_launch"](spec, sums, batch, splits)
+            n = out[0][0].numel()
+            terms = [t for sum_ in sums for t in sum_]
+            operands = {id(x): x for a, b, _s in terms for x in (a, b) if x is not None}
+            full = sum(x[0].numel() > 1 for x in operands.values())
+            products = sum(b is not None for _a, b, _s in terms)
+            key = ("field_product_sum", spec.name, n, len(sums), products,
+                   len(terms) - products, full, sum(s < 0 for _a, _b, s in terms))
+            self._note(key, 1,
+                       lambda: tuple(orig["_product_sums_launch"](spec, sums, batch, splits)),
+                       lambda: tuple(fops.product_sums_plain(spec, sums)),
+                       lambda: (32 * (n * (full + len(sums)) + len(operands) - full),
+                                n * (products * PRODUCT_OPS + len(sums) * REDC_OPS)))
+            return out
+
+        def ntt(pre, x, inverse=False, shift=None):
+            out = orig["ntt"](pre, x, inverse, shift)
+            batch = x[0].numel() // pre.n
+            coset = shift is not None
+            self._note(("ntt_pass", pre.spec.name, batch, pre.lg_n, inverse, coset),
+                       len(pfft.pass_plan(pre.lg_n)),
+                       lambda: orig["ntt"](pre, x, inverse, shift),
+                       lambda: pfft.ntt_plain(pre, x, inverse, shift),
+                       lambda: ntt_work(batch, pre.lg_n, inverse, coset))
+            return out
+
+        def accumulate(curve, basis, digits, order, starts, signs=None):
+            out = orig["bucket_accumulate"](curve, basis, digits, order, starts, signs)
+            name = "msm_bucket_accumulate" + ("" if signs is None else "_signed")
+            self._note((name, curve.name, basis.n, *starts.shape), 1,
+                       lambda: orig["bucket_accumulate"](curve, basis, digits, order,
+                                                         starts, signs),
+                       lambda: cmsm.bucket_accumulate_plain(curve, basis, digits, order,
+                                                            starts, signs=signs),
+                       lambda: k4_work(digits, starts, out)[:2])
+            return out
+
+        def reduce(curve, buckets, carries, starts):
+            out = orig["bucket_reduce"](curve, buckets, carries, starts)
+            self._note(("msm_bucket_reduce", curve.name, *starts.shape), 1,
+                       lambda: orig["bucket_reduce"](curve, buckets, carries, starts),
+                       lambda: cmsm.bucket_reduce_plain(curve, buckets, carries, starts),
+                       lambda: reduce_work(starts, (buckets, carries)))
+            return out
+
+        def horner(curve, ws, c):
+            out = orig["horner"](curve, ws, c)
+            self._note(("curve_horner", curve.name, *ws[0].shape[1:], c), 1,
+                       lambda: orig["horner"](curve, ws, c),
+                       lambda: cmsm.horner_plain(curve, ws, c),
+                       lambda: horner_work(ws, c))
+            return out
+
+        for (m, name), fn in zip(wrapped, (binary, product_sums, ntt, accumulate,
+                                           reduce, horner)):
+            setattr(m, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+    def by_shape(self, level) -> list:
+        """[kernel, shape, calls, launches] of one level's prove, launches
+        counting an NTT's passes."""
+        return [[key[0], list(key[1:]), n] for (lv, key), n in
+                sorted(self.counts.items(), key=str) if lv == level]
+
+    def hold(self, ck: Checker, levels) -> dict:
+        """Every recorded shape's first call run again, held against its
+        plain version (the plain call timed once) and timed: kernel ->
+        [record]; each record carries the launches of each level's
+        prove."""
+        out = {}
+        for key, (kernel_fn, plain_fn, work) in self.calls.items():
+            nbytes, nops = work()
+            rec = {"shape": list(key[1:]),
+                   **{f"launches_{lv}": self.counts[(lv, key)] for lv in levels},
+                   **ck.hold(key[0], kernel_fn, plain_fn, nbytes, nops)}
+            out.setdefault(key[0], []).append(rec)
+        self.calls.clear()
+        return out
+
+
+def reduce_work(starts, acc, nl: int = 8):
+    """Bytes and IMAD slots of msm_bucket_reduce's bounds (k4_work's
+    reduction) from the run starts and the accumulation's output."""
+    nonempty = int(((starts[:, 2:] - starts[:, 1:-1]) > 0).sum().item())
+    out_bytes = 4 * sum(t.numel() for t in acc)
+    return (out_bytes + 4 * starts.numel() + 12 * nl * starts.shape[0],
+            add_ops(nl) * 2 * nonempty)
+
+
+def recursion_path_kernels() -> set:
+    """The kernels a prove must launch: every kernel of KERNELS but
+    OFF_PATH."""
+    return {k for k in KERNELS if k not in OFF_PATH}
+
+
+def check_path_launches(launches: dict, what: str) -> None:
+    missing = sorted(k for k in recursion_path_kernels() if not launches[k])
+    if missing:
+        raise AssertionError(f"{what} launched no {missing}")
+    off = {k: launches[k] for k in OFF_PATH if launches[k]}
+    if off:
+        raise AssertionError(f"{what} launched {off} off its path")
+
+
+def busy_share(torch, fn) -> dict:
+    """One call of fn under torch.profiler: its wall seconds, the device
+    seconds by kernel of KERNELS and of torch's own kernels, and the share
+    of the wall time the card was busy (profile_prove.py's measure)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()       # the tracer's start-up, not timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ours, other = kernel_device_ms(prof)
+    ours.pop("torch_sort", None)
+    busy_s = (sum(ours.values()) + other) / 1e3
+    return {"profiled_wall_s": wall_s, "device_s": busy_s,
+            "kernel_device_s": {k: v / 1e3 for k, v in ours.items()},
+            "other_device_s": other / 1e3, "busy_share": busy_s / wall_s}
+
+
+def phase_recursion(ck: Checker, torch) -> None:
+    """The reference's recursion workload (src/bin/recursion.rs) through the
+    port's entry points on the card, under one pinned_random() from the
+    inner build to the level-2 proof:
+    level 1: a 2^RECURSION_INNER_LG-gate BufferGate circuit over
+    Tweedledum, proved
+    and verified natively without the G check (its OldProof old0 kept);
+    the recursion circuit over Tweedledee with the real inner vk, its
+    witness, the host constraint checks, the proof, verified
+    with the G check; level 2: the recursion circuit over Tweedledum that
+    verifies the level-1 proof and re-checks level 1's deferred values,
+    its proof consuming old0, verified with the G check, and the chain
+    ended by verify_assumptions_native on its public inputs.  The two
+    recursive proofs' sha256 must be RECURSION_L1_SHA256 and
+    RECURSION_L2_SHA256; each recursive prove must launch every kernel of
+    the main path (the counts reset just before it).  Afterwards every
+    shape the two proves gave a kernel (PathRecorder) is held against its
+    plain version and timed, and each recursive prove is run once more
+    under torch.profiler for the card's busy share, after a steady prove
+    timed with its phases.  Prints the held shapes' line and one line per
+    level.  tests/fixtures/recursion_l1_* hold the level-1 proof, its vk
+    and public inputs, as this phase made them."""
+    import hashlib
+
+    import plonky_tpu_torch.circuit.builder as builder_mod
+    import plonky_tpu_torch.protocol.halo as halo_mod
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.circuit import PartialWitness
+    from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
+    from plonky_tpu_torch.protocol import circuit as pcircuit
+    from plonky_tpu_torch.protocol import generate_proof, verify_proof
+    from plonky_tpu_torch.protocol.checks import (check_circuit_constraints,
+                                                  check_copy_constraints)
+    from plonky_tpu_torch.protocol.recursion import (
+        recursive_verification_circuit, verify_assumptions_native)
+    from plonky_tpu_torch.protocol.serialization import proof_to_bytes
+    from plonky_tpu_torch.recursion_demo import buffer_inner_circuit
+    from plonky_tpu_torch.utils.timing import record_phases
+
+    bases_s = [0.0]
+    bases = pcircuit.pedersen_bases
+
+    def timed_bases(curve, degree):
+        t0 = time.perf_counter()
+        out = bases(curve, degree)
+        bases_s[0] += time.perf_counter() - t0
+        return out
+
+    def clock(out, key, fn, *args, **kwargs):
+        """fn's result; its seconds, the card synchronized, under out[key],
+        less the Pedersen hashing it did (under out["bases_s"])."""
+        bases_s[0] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0 - bases_s[0]
+        if bases_s[0]:
+            out["bases_s"] = out.get("bases_s", 0.0) + bases_s[0]
+        return res
+
+    def checks(circuit, witness):
+        check_circuit_constraints(circuit, witness)
+        check_copy_constraints(circuit, witness)
+
+    def sha(curve, proof):
+        return hashlib.sha256(proof_to_bytes(curve, proof)).hexdigest()
+
+    inner, l1, l2 = {}, {"phase": "recursion_level1"}, {"phase": "recursion_level2"}
+    rec = PathRecorder()
+    saved = (builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE)
+    builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = pinned_random()
+    pcircuit.pedersen_bases = timed_bases
+    try:
+        # the inner proof over Tweedledum; its G check deferred (old0)
+        inner_circuit = clock(inner, "build_s", buffer_inner_circuit,
+                              RECURSION_INNER_LG, "cuda")
+        inner_witness = clock(inner, "witness_s", inner_circuit.generate_witness,
+                              PartialWitness())
+        inner_proof = clock(inner, "prove_s", generate_proof, inner_circuit,
+                            inner_witness, old_proofs=[], blinding=True)
+        inner_vk = inner_circuit.to_vk()
+        old0 = clock(inner, "verify_s", verify_proof, [], inner_proof, [], inner_vk,
+                     TWEEDLEDEE, verify_g=False)
+        inner["degree"] = inner_circuit.degree()
+
+        # level 1 over Tweedledee
+        rc1 = clock(l1, "build_s", recursive_verification_circuit, TWEEDLEDEE,
+                    TWEEDLEDUM, RECURSION_INNER_LG, 128, num_public_inputs=0,
+                    num_old_proofs=0, inner_vk=inner_vk)
+        inputs = PartialWitness()
+        rc1.proof.populate_witness(inputs, inner_proof, [])
+        w1 = clock(l1, "witness_s", rc1.circuit.generate_witness, inputs)
+        clock(l1, "check_s", checks, rc1.circuit, w1)
+        pis1 = rc1.circuit.get_public_inputs(w1)
+        _cuda.reset_launches()
+        rec.level = "level1"
+        with rec, record_phases() as phases:
+            proof1 = clock(l1, "prove_s", generate_proof, rc1.circuit, w1,
+                           old_proofs=[], blinding=True)
+        l1["prove_phases_s"] = phases
+        l1["launches"] = dict(_cuda.LAUNCHES)
+        check_path_launches(l1["launches"], "the level-1 recursive prove")
+        vk1 = rc1.circuit.to_vk()
+        clock(l1, "verify_s", verify_proof, pis1, proof1, [], vk1, TWEEDLEDUM,
+              verify_g=True)
+
+        # level 2 over Tweedledum: verifies proof1, re-checks level 1's
+        # deferred values, consumes old0
+        rc2 = clock(l2, "build_s", recursive_verification_circuit, TWEEDLEDUM,
+                    TWEEDLEDEE, rc1.circuit.degree_pow(), 128,
+                    num_public_inputs=len(pis1), num_old_proofs=0, inner_vk=vk1,
+                    inner_recursion={
+                        "degree_pow": RECURSION_INNER_LG, "num_old_proofs": 0,
+                        "num_inner_pis": 0,
+                        "num_gates_without_pis": inner_vk.num_gates_without_pis})
+        inputs = PartialWitness()
+        rc2.proof.populate_witness(inputs, proof1, pis1)
+        w2 = clock(l2, "witness_s", rc2.circuit.generate_witness, inputs)
+        clock(l2, "check_s", checks, rc2.circuit, w2)
+        pis2 = rc2.circuit.get_public_inputs(w2)
+        _cuda.reset_launches()
+        rec.level = "level2"
+        with rec, record_phases() as phases:
+            proof2 = clock(l2, "prove_s", generate_proof, rc2.circuit, w2,
+                           old_proofs=[old0], blinding=True)
+        l2["prove_phases_s"] = phases
+        l2["launches"] = dict(_cuda.LAUNCHES)
+        check_path_launches(l2["launches"], "the level-2 recursive prove")
+        clock(l2, "verify_s", verify_proof, pis2, proof2, [old0], rc2.circuit.to_vk(),
+              TWEEDLEDEE, verify_g=True)
+        clock(l2, "verify_assumptions_native_s", verify_assumptions_native, pis2,
+              TWEEDLEDEE, TWEEDLEDUM, rc1.circuit.degree_pow(),
+              num_inner_pis=len(pis1),
+              num_gates_without_pis=vk1.num_gates_without_pis)
+    finally:
+        builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
+        pcircuit.pedersen_bases = bases
+
+    for out, rc, proof, curve in ((l1, rc1, proof1, TWEEDLEDEE),
+                                  (l2, rc2, proof2, TWEEDLEDUM)):
+        out.update({"gates": rc.circuit.num_gates_without_pis,
+                    "degree": rc.circuit.degree(),
+                    "public_inputs": rc.circuit.num_public_inputs,
+                    "proof_sha256": sha(curve, proof), "verified": True})
+    l1["inner"] = inner
+    l2["old_proofs"] = 1
+    l2["verify_assumptions_native"] = True
+
+    # every shape of the two proves against its plain version, timed: one
+    # line of them all, and a summary in each kernel's record
+    held = rec.hold(ck, ("level1", "level2"))
+    emit({"phase": "recursion_shapes", "keys": RECURSION_SHAPE_KEYS,
+          "by_kernel": {name: [[r[k] for k in RECURSION_SHAPE_KEYS] for r in rows]
+                        for name, rows in held.items()}})
+    for name, rows in held.items():
+        top = max(rows, key=lambda r: r["bound_ms"])
+        ck.records[name]["recursion"] = {
+            "shapes": len(rows),
+            **{f"launches_{lv}": sum(r[f"launches_{lv}"] for r in rows)
+               for lv in ("level1", "level2")},
+            "largest": {k: top[k] for k in RECURSION_SHAPE_KEYS}}
+    for out, level in ((l1, "level1"), (l2, "level2")):
+        out["launches_by_shape"] = rec.by_shape(level)
+        seen = collections.Counter()
+        for name, _shape, n in out["launches_by_shape"]:
+            seen[name] += n
+        if any(seen[k] != out["launches"][k] for k in recursion_path_kernels()):
+            raise AssertionError(f"{level}: launches by shape {dict(seen)} "
+                                 f"do not add up to {out['launches']}")
+    # each recursive prove again (the random source no longer pinned): a
+    # steady prove timed with its phases, then one under torch.profiler for
+    # the card's busy share
+    for out, rc, w, olds in ((l1, rc1, w1, []), (l2, rc2, w2, [old0])):
+        def prove(rc=rc, w=w, olds=olds):
+            return generate_proof(rc.circuit, w, old_proofs=olds, blinding=True)
+        with record_phases() as phases:
+            clock(out, "steady_prove_s", prove)
+        out["phases_s"] = phases
+        out.update(busy_share(torch, prove))
+    emit(l1)
+    emit(l2)
+    for out, want in ((l1, RECURSION_L1_SHA256), (l2, RECURSION_L2_SHA256)):
+        if out["proof_sha256"] != want:
+            raise AssertionError(f"{out['phase']}: proof sha256 "
+                                 f"{out['proof_sha256']}, pinned {want}")
+
+
 def card(torch):
     """The card's nvidia-smi name/power line, its max SM clock in Hz, and
     its 32-bit IMAD issue rate (64 per SM per clock)."""
@@ -2154,6 +2561,7 @@ def main() -> int:
     timed("ladder", phase_ladder)
     launches, ps_by_label = timed("prove", phase_prove, torch,
                                   want_sha256=PROOF_2E14_SHA256)
+    timed("recursion", phase_recursion, ck, torch)
     launches["rescue_permutation"] = rescue_launches
     launches.update(bls_launches)
     launches.update(probe_launches)

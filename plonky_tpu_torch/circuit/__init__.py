@@ -29,4 +29,4 @@ from .gates import (
     RescueStepBGate,
     evaluate_all_constraints,
 )
-from .algebra import BatchAlgebra, HostAlgebra
+from .algebra import BatchAlgebra, BuilderAlgebra, HostAlgebra

@@ -1,12 +1,14 @@
 """Evaluation algebras for gate constraints.
 
 Each gate's constraints are written ONCE against this interface
-(circuit/gates.py) and instantiated twice here:
+(circuit/gates.py) and instantiated three times here:
 
-* HostAlgebra  -- python ints mod p (the verifier's evaluation at zeta)
-* BatchAlgebra -- canonical limb tensors [LIMBS, *batch] (the prover's
+* HostAlgebra    -- python ints mod p (the verifier's evaluation at zeta)
+* BatchAlgebra   -- canonical limb tensors [LIMBS, *batch] (the prover's
   vanishing-polynomial evaluation over all 8n points); every operation is
   one field-kernel launch.
+* BuilderAlgebra -- circuit targets (the recursive verification circuit's
+  re-evaluation of the gates, protocol/recursion.py).
 """
 
 from __future__ import annotations
@@ -79,3 +81,32 @@ class BatchAlgebra:
 
     def one(self):
         return self.constant(1)
+
+
+class BuilderAlgebra:
+    """Emits circuit gates; values are Targets.  Used to build the
+    recursive verification circuit (reference's `_recursively` methods)."""
+
+    def __init__(self, builder):
+        self.builder = builder
+
+    def constant(self, c: int):
+        return self.builder.constant_wire(c)
+
+    def add(self, a, b):
+        return self.builder.add(a, b)
+
+    def sub(self, a, b):
+        return self.builder.sub(a, b)
+
+    def mul(self, a, b):
+        return self.builder.mul(a, b)
+
+    def mul_const(self, c: int, a):
+        return self.builder.mul(self.builder.constant_wire(c), a)
+
+    def zero(self):
+        return self.builder.zero_wire()
+
+    def one(self):
+        return self.builder.one_wire()

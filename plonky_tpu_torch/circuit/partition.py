@@ -78,8 +78,12 @@ class TargetPartitions:
             yield i
             i = nxt[i]
 
+    def root(self, target) -> int:
+        """The id of the target's partition, shared by all its targets."""
+        return self._find(self._id[target])
+
     def get_partition(self, target) -> List[object]:
-        root = self._find(self._id[target])
+        root = self.root(target)
         targets = self._targets
         return [targets[i] for i in self._iter_ids(root)]
 

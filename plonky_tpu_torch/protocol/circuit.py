@@ -8,8 +8,10 @@ live on.
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import pickle
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -40,27 +42,54 @@ def commit_window_bits(n: int) -> int:
     return max(2, min(8, n.bit_length() - 3))
 
 
+# Below this many missing points the bases are hashed in this process.
+POOL_MIN_POINTS = 1 << 13
+
+
+def _hash_points(curve: CurveSpec, start: int, stop: int):
+    return [(q.x, q.y) for q in (blake_hash_usize_to_curve(curve, i)
+                                 for i in range(start, stop))]
+
+
+def hash_bases(curve: CurveSpec, start: int, stop: int):
+    """blake_hash_usize_to_curve(i) for i in [start, stop) as (x, y) pairs.
+    Many points are hashed in up to 8 spawned worker processes (one slice
+    each), which exit before this returns."""
+    n = stop - start
+    workers = min(len(os.sched_getaffinity(0)), 8)
+    if n < POOL_MIN_POINTS or workers <= 1:
+        return _hash_points(curve, start, stop)
+    cuts = [start + n * k // workers for k in range(workers + 1)]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        parts = [pool.submit(_hash_points, curve, a, b)
+                 for a, b in zip(cuts, cuts[1:])]
+        return [xy for part in parts for xy in part.result()]
+
+
 def pedersen_bases(curve: CurveSpec, degree: int):
     """pedersen_g[i] = blake_hash_usize_to_curve(i), plus H = hash(degree),
     U = hash(degree+1) (reference: src/circuit_builder.rs:1127-1129).
-    Disk-cached under <repo>/.cache/: the try-and-increment hashing is host
-    work.
+    The try-and-increment hashing is host work: the first points of each
+    curve, as many as any degree has needed, are cached under
+    <repo>/.cache/ and extended when a larger degree needs more.
     """
     os.makedirs(CACHE_DIR, exist_ok=True)
-    path = os.path.join(CACHE_DIR,
-                        f"torch_pedersen_{curve.name}_{degree + 2}.pkl")
-    pts: List = []
+    path = os.path.join(CACHE_DIR, f"torch_pedersen_{curve.name}.pkl")
+    xs, ys = [], []
     if os.path.exists(path):
         with open(path, "rb") as f:
             xs, ys = pickle.load(f)
-        pts = [chost.AffinePoint(curve, x, y) for x, y in zip(xs, ys)]
-    if len(pts) < degree + 2:
-        for i in range(len(pts), degree + 2):
-            pts.append(blake_hash_usize_to_curve(curve, i))
+    if len(xs) < degree + 2:
+        for x, y in hash_bases(curve, len(xs), degree + 2):
+            xs.append(x)
+            ys.append(y)
         tmp = f"{path}.tmp{os.getpid()}"
         with open(tmp, "wb") as f:
-            pickle.dump(([p.x for p in pts], [p.y for p in pts]), f)
+            pickle.dump((xs, ys), f)
         os.replace(tmp, path)
+    pts = [chost.AffinePoint(curve, x, y)
+           for x, y in zip(xs[:degree + 2], ys[:degree + 2])]
     return pts[:degree], pts[degree], pts[degree + 1]
 
 
@@ -220,10 +249,19 @@ class Circuit:
         return Witness.from_partial(pw, self.degree())
 
     def _generate_copies(self, witness: PartialWitness, targets) -> PartialWitness:
+        """Each target's value to the rest of its copy class.  A class is
+        walked once a call: that walk asserts every populated member equal
+        to the first, so its other members would only repeat it."""
         result = PartialWitness()
+        parts = self.routing_target_partitions
+        walked = set()
         for t in targets:
+            root = parts.root(t)
+            if root in walked:
+                continue
+            walked.add(root)
             value = witness.get_target(t)
-            for sibling in self.routing_target_partitions.get_partition(t):
+            for sibling in parts.get_partition(t):
                 if witness.contains_target(sibling):
                     assert witness.get_target(sibling) == value, \
                         f"copy constraint violated at {sibling}"

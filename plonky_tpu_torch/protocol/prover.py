@@ -122,7 +122,7 @@ def generate_proof(circuit: Circuit, witness: Witness,
         zeta * g % p,
         zeta * pow(g, GRID_WIDTH, p) % p,
     ]
-    old_g_polys = [ints_to_device_matrix(sf, [op.coeffs(sf)], dev)[:, 0]
+    old_g_polys = [ints_to_device_matrix(sf, [_old_coeffs(sf, op, n)], dev)[:, 0]
                    for op in old_proofs]
     all_polys = _stack_polys(circuit, wire_polys, z_poly, t_chunks,
                              old_g_polys, pi_quotient_poly)
@@ -345,6 +345,18 @@ def _pi_quotient(circuit: Circuit, wire_polys_no_pis: torch.Tensor,
         for j in range(NUM_WIRES)])
     vals = coset_fft(circuit.fft_n, vanishing_pis, shift)
     return coset_ifft(circuit.fft_n, fops.mul(sf, vals, dinv), shift)
+
+
+def _old_coeffs(sf, old_proof, n: int) -> List[int]:
+    """An old proof's g polynomial, halo_s(us), as n coefficients.  An old
+    proof of a smaller circuit has fewer (2^len(us)): the rest are zero,
+    and its halo_g stays the commitment, since the Pedersen bases of every
+    degree begin with the same points (protocol/circuit.py:pedersen_bases)."""
+    coeffs = old_proof.coeffs(sf)
+    if len(coeffs) > n:
+        raise ValueError(f"an old proof of degree {len(coeffs)} cannot ride a "
+                         f"proof of degree {n}")
+    return coeffs + [0] * (n - len(coeffs))
 
 
 def _stack_polys(circuit: Circuit, wire_polys, z_poly, t_chunks, old_g_polys,

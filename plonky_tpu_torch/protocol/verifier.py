@@ -24,6 +24,7 @@ from ..curves.spec import CurveSpec
 from ..device import resolve
 from ..fields import host as fhost
 from ..fields.spec import require_eight_limbs
+from ..hashing.hash_to_curve import blake_hash_usize_to_curve
 from ..utils import ceil_div, log2_strict
 from . import halo as halo_mod
 from .circuit import (commit_window_bits, device_point_to_host,
@@ -136,8 +137,11 @@ def verify_proof(public_inputs: List[int], proof: Proof,
         raise VerificationError(
             "Incorrect opening of the public inputs quotient polynomial.")
 
-    # IPA verification (verifier.rs:150-171)
-    pedersen_g, pedersen_h, u_curve = pedersen_bases(curve, vk.degree)
+    # IPA verification (verifier.rs:150-171).  H and U are the hashes of
+    # the degree and the degree + 1 (protocol/circuit.py:pedersen_bases);
+    # the basis G is needed only by the linear-time G check.
+    pedersen_h = blake_hash_usize_to_curve(curve, vk.degree)
+    u_curve = blake_hash_usize_to_curve(curve, vk.degree + 1)
     if not verify_all_ipas(curve, vk, subgroup_generator_n, u_curve,
                            pedersen_h, proof, old_proofs, challs):
         raise VerificationError("Invalid IPA proof.")
@@ -145,6 +149,7 @@ def verify_proof(public_inputs: List[int], proof: Proof,
     if verify_g:
         # O(n) check: halo_g == <s, G> (verifier.rs:173-186) -- a device MSM
         s_vec = halo_s(sf, challs.halo_us)
+        pedersen_g, _h, _u = pedersen_bases(curve, vk.degree)
         basis = cmsm.precompute_base(
             curve, points_to_device(curve, pedersen_g, dev))
         scal = ints_to_device_matrix(sf, [s_vec], dev)[:, 0]
