@@ -32,7 +32,16 @@ their own paths), and last drives the reference's recursion workload
 that verifies it and its proof, the level-2 circuit that verifies that
 proof and consumes the inner proof's OldProof, each recursive prove at a
 pinned sha256 and launching every kernel of the main path, every shape
-they give a kernel held against its plain version).
+they give a kernel held against its plain version), then the Pallas/Vesta
+cycle (phase_pasta: K1-K4 held against their plain versions on both Pasta
+fields and curves in phase_kernels, K5 in phase_rescue; the trivial and
+sum_pi proofs over both curves byte-equal to the JAX package's fixtures,
+and the 2^14 BufferGate circuit over Pallas proved and verified at a
+pinned sha256), and last plookup (phase_plookup: the reference test's
+n = 7 proof at the JAX package's sha256, then a 16-bit range check,
+n + 1 = 2^16, proved at a pinned sha256, verified, a changed opening
+rejected and a value outside the table refused; every shape of both new
+paths held against its plain version).
 
     python3 chip_smoke.py
 
@@ -77,6 +86,22 @@ RECURSION_L1_SHA256 = ("3bdbaf42974da9a08778b53e3fc5c0ea"
                        "c5a0590b92cbb7aa6a44c549b134c05a")
 RECURSION_L2_SHA256 = ("f26dcfb2e35904b845dbcb3d9359f40e"
                        "00e0def73f7285bf54a9383aece646e0")
+# phase_pasta: the 2^PASTA_LG BufferGate circuit over Pallas (Vesta the
+# inner curve); the sha256 of proof_to_bytes of its steady proof under
+# pinned_random(), the port's own value, taken on the H100.
+PASTA_LG = 14
+PROOF_PALLAS_2E14_SHA256 = ("5e4c3256b440faf0397de26bccd09e5f"
+                            "fee7a6f9abe9d611d89edd5ffcdb68db")
+# phase_plookup: a range check over [0, 2^PLOOKUP_LG) on Tweedledee; the
+# sha256 of PlookupProof.to_bytes of its proof under pinned_random() (the
+# port's own value, taken on the H100), and of the reference test's n = 7
+# proof (tests/test_plookup.py's inputs and random source), the JAX
+# package's value under tests/test_torch_plookup.py's adapter.
+PLOOKUP_LG = 16
+PLOOKUP_2E16_SHA256 = ("ebe68555ce38ea7525da40c1181e8c48"
+                       "01dd940c837581e03a0bf2c1d2335e3b")
+PLOOKUP_N7_SHA256 = ("1a80a1de3d9b53499aa018f38f65d491"
+                     "1d1218d95346ad1fac13e4194c6f8bf5")
 # The fields of each shape the recursion phase holds against its plain
 # version (PathRecorder.hold), as its recursion_shapes line lists them.
 RECURSION_SHAPE_KEYS = ("shape", "launches_level1", "launches_level2", "ms",
@@ -204,7 +229,7 @@ SPARSE_SQR_OPS = 8 * 9 // 2 * WIDE + SPARSE_REDC_OPS
 # A batch of n Rescue permutations of width 4 (rescue_work): per round, each
 # element's inverse S-box x^e (e = kth_root_exponent(p, alpha), 254 bits)
 # and forward S-box x^alpha, each counted by the cheapest of the
-# sliding-window chains of 1 to 8 bits (sbox_ops: for e, 5-bit windows,
+# sliding-window chains of 1 to 5 bits (sbox_ops: for e, 5-bit windows,
 # 250 squares and 56 multiplies on TweedledeeBase, 55 on TweedledumBase;
 # for 5, 2 squares and 1 multiply), and the two MDS mixes (4 products and
 # one reduction an output element), at the field's costs (rescue_costs:
@@ -453,13 +478,14 @@ def horner_work(ws, c, nl: int = 8):
 
 def sbox_ops(spec, e: int) -> int:
     """IMAD slots of the least work for x^e: the cheapest of the sliding
-    window chains of 1 to 8 bits (hashing/rescue.py:sbox_schedule, the
+    window chains of 1 to 5 bits (hashing/rescue.py:sbox_schedule, the
     builder of K5's own chains), its squares and multiplies at the field's
     costs (rescue_costs)."""
     from plonky_tpu_torch.hashing import rescue as hr
     sqr, mul, _redc = rescue_costs(spec)
     return min(sq * sqr + m * mul for sq, m in
-               (hr.schedule_counts(hr.sbox_schedule(e, w)) for w in range(1, 9)))
+               (hr.schedule_counts(hr.sbox_schedule(e, w))
+                for w in range(1, hr.SBOX_MAX_WINDOW + 1)))
 
 
 def rescue_costs(spec) -> tuple:
@@ -764,6 +790,26 @@ def check_product_sums(ck: Checker, torch, np, dev, fops, sf) -> None:
         measured=next(b for b in by_shape if b["shape"] == "#8 alpha_fold"))
 
 
+def check_twiddle_tables(torch, spec, lg: int, dev) -> None:
+    """The twiddle tables the card builds at n = 2^lg, forward and
+    inverse, against python ints: layer ell (half-size m = 2^ell) holds
+    w^j, j < m, w = g^(n / 2m), in Montgomery form."""
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.poly import fft as pfft
+    pre = pfft.FftPrecomputation(spec, 1 << lg)
+    for inverse in (False, True):
+        root, ints = pre.g_inv if inverse else pre.g, []
+        for ell in range(pre.lg_n):
+            w, cur = pow(root, pre.n >> (ell + 1), spec.p), 1 << 256
+            for _ in range(1 << ell):
+                ints.append(cur % spec.p)
+                cur = cur % spec.p * w
+        if not torch.equal(pre.twiddles(dev, inverse, montgomery=True),
+                           fops.from_ints(spec, ints, dev)):
+            raise AssertionError(f"{spec.name}: the card's twiddle table is "
+                                 "not the host's")
+
+
 def phase_kernels(ck: Checker, torch, np, dev) -> None:
     from plonky_tpu_torch.curves import TWEEDLEDEE
     from plonky_tpu_torch.curves import msm as cmsm
@@ -856,19 +902,7 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
                 lambda pre=pre, x=x, inverse=inverse, shift=shift:
                     pfft.ntt_plain(pre, x, inverse, shift),
                 nb, nops, reps=10, plain_reps=1)})
-    # the twiddle tables the card builds, against python ints at 2^17:
-    # layer ell (half-size m = 2^ell) holds w^j, j < m, w = g^(n / 2m)
-    pre = pfft.FftPrecomputation(sf, 1 << 17)
-    for inverse in (False, True):
-        root, ints = pre.g_inv if inverse else pre.g, []
-        for ell in range(pre.lg_n):
-            w, cur = pow(root, pre.n >> (ell + 1), sf.p), 1 << 256
-            for _ in range(1 << ell):
-                ints.append(cur % sf.p)
-                cur = cur % sf.p * w
-        host = fops.from_ints(sf, ints, dev)
-        if not torch.equal(pre.twiddles(dev, inverse, montgomery=True), host):
-            raise AssertionError("the card's twiddle table is not the host's")
+    check_twiddle_tables(torch, sf, 17, dev)
     # the headline numbers are at the wires' LDE, [9, 2^17] forward
     ck.record("ntt_pass", {"main": "2^14 wire_lde", "checked": [
         c[0] for c in ntt_cases()]}, by_shape=ntt_by,
@@ -1019,21 +1053,29 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
               lambda: cops.double_plain(TWEEDLEDEE, acc), 6 * 32 * 2,
               DBL_OPS * 2, by_shape=dbl_by)
 
+    # the same kernels on the Pallas/Vesta cycle's fields and curves
+    t0 = time.perf_counter()
+    pasta = pasta_kernel_checks(ck, torch, np, dev)
+    emit({"phase": "kernels_pasta", "checked": pasta,
+          "seconds": time.perf_counter() - t0})
+
 
 def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
     """K5 against its plain version on a ragged batch of 2^10 + 3 for both
     Tweedle base fields (its sparse instance) and BLS12-377's scalar field
-    (alpha = 11, its dense one) at 128 and 64 security bits; the batch entry
-    point's path (rescue_permutation on 2^14 states, the JAX package's bench
-    size) driven with the launch counts reset, which must show one K5
+    (alpha = 11, its dense one) at 128 and 64 security bits and both Pasta
+    base fields (sparse) at 128; the batch entry point's path
+    (rescue_permutation on 2^14 states, the JAX package's bench size)
+    driven with the launch counts reset, which must show one K5
     launch and nothing else, and held against the host permutation at 8
     lanes (the states 0 and p - 1 among them); then timed at 2^14 and 2^16
     beside its bound, and each whole batch (the path's output at 2^14)
     held against the plain version's output from its timing.  Returns the
     path's K5 launches."""
     from plonky_tpu_torch import _cuda
-    from plonky_tpu_torch.fields import (BLS12_377_SCALAR, TWEEDLEDEE_BASE,
-                                         TWEEDLEDUM_BASE)
+    from plonky_tpu_torch.fields import (BLS12_377_SCALAR, PALLAS_BASE,
+                                         TWEEDLEDEE_BASE, TWEEDLEDUM_BASE,
+                                         VESTA_BASE)
     from plonky_tpu_torch.fields import ops as fops
     from plonky_tpu_torch.hashing import rescue as hr
 
@@ -1050,6 +1092,13 @@ def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
             ck.compare("rescue_permutation",
                        tuple(hr.rescue_permutation(spec, state, bits)),
                        tuple(hr.rescue_permutation_plain(spec, state, bits)))
+    pasta_rng = np.random.default_rng(1338)
+    for spec in (PALLAS_BASE, VESTA_BASE):
+        state = [with_edges(fops, spec, rand_field(
+            np, torch, pasta_rng, ((1 << 10) + 3,), dev, spec)) for _ in range(4)]
+        ck.compare("rescue_permutation",
+                   tuple(hr.rescue_permutation(spec, state, 128)),
+                   tuple(hr.rescue_permutation_plain(spec, state, 128)))
     spec, bits, n = TWEEDLEDEE_BASE, 128, 1 << 14
     state = states(spec, n)
     lanes = [0, 1, 2, 3, n // 3, n // 2, n - 2, n - 1]
@@ -1098,7 +1147,9 @@ def phase_rescue(ck: Checker, torch, np, dev, name_power: str) -> int:
     ck.record("rescue_permutation", {
         "main": "2^14, TweedledeeBase, 128 bits", "lanes_vs_host": lanes,
         "checked": ["N = 2^10 + 3 x {TweedledeeBase, TweedledumBase, "
-                    "Bls12377Scalar} x {128, 64} bits", "N = 2^14 and 2^16, "
+                    "Bls12377Scalar} x {128, 64} bits and {PallasBase, "
+                    "VestaBase} x 128 bits",
+                    "N = 2^14 and 2^16, "
                     "TweedledeeBase, 128 bits, every lane"]},
         by_shape=by_n, measured=by_n[0])
     return launches["rescue_permutation"]
@@ -1805,19 +1856,22 @@ def pinned_random():
     return lambda p: int.from_bytes(rng.bytes(40), "little") % p
 
 
-def pinned_proof(build, source, device=None) -> dict:
+def pinned_proof(build, source, device=None, curve=None) -> dict:
     """With RANDOM_SOURCE (builder and halo) set to `source` throughout:
     build() -> (circuit, witness inputs), the witness and one prove; the
     proof verified with the G check on `device` (the card by default).
-    Returns the circuit, public inputs, proof, its bytes and sha256, and
-    the seconds taken."""
+    `curve` is the circuit's (Tweedledee by default).  Returns the circuit,
+    public inputs, proof, its bytes and sha256, and the seconds taken."""
     import hashlib
 
     import plonky_tpu_torch.circuit.builder as builder_mod
     import plonky_tpu_torch.protocol.halo as halo_mod
-    from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
+    from plonky_tpu_torch.curves import TWEEDLEDEE
     from plonky_tpu_torch.protocol import generate_proof, verify_proof
+    from plonky_tpu_torch.protocol.circuit import cycle_partner
     from plonky_tpu_torch.protocol.serialization import proof_to_bytes
+
+    curve = curve or TWEEDLEDEE
 
     saved = (builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE)
     builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = source
@@ -1831,30 +1885,28 @@ def pinned_proof(build, source, device=None) -> dict:
         builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
     pis = circuit.get_public_inputs(witness)
     t0 = time.perf_counter()
-    verify_proof(pis, proof, [], circuit.to_vk(), TWEEDLEDUM, verify_g=True,
-                 device=device)
-    data = proof_to_bytes(TWEEDLEDEE, proof)
+    verify_proof(pis, proof, [], circuit.to_vk(), cycle_partner(curve),
+                 verify_g=True, device=device)
+    data = proof_to_bytes(curve, proof)
     return {"circuit": circuit, "pis": pis, "proof": proof, "bytes": data,
             "sha256": hashlib.sha256(data).hexdigest(), "build_prove_s": prove_s,
             "verify_s": time.perf_counter() - t0}
 
 
-def phase_fixtures() -> None:
-    """The three committed fixtures (tests/test_proof_fixture.py) proved on
-    the card under a fresh pinned_random(): proof and vk byte-equal to the
-    files, and verified with the G check."""
+def small_circuits(curve) -> dict:
+    """name -> make() -> (builder, witness inputs) of the fixtures' two
+    small circuits (tests/test_proof_fixture.py) over `curve`: `trivial`
+    (42 - 42 = 0) and `sum_pi` (3 + 39 = 42, three public inputs)."""
     from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
-    from plonky_tpu_torch.curves import TWEEDLEDEE
-    from plonky_tpu_torch.protocol.serialization import vk_to_bytes
 
     def trivial():
-        b = CircuitBuilder(TWEEDLEDEE, security_bits=128)
+        b = CircuitBuilder(curve, security_bits=128)
         t = b.constant_wire(42)
         b.assert_zero(b.sub(t, b.constant_wire(42)))
         return b, PartialWitness()
 
     def sum_pi():
-        b = CircuitBuilder(TWEEDLEDEE, security_bits=128)
+        b = CircuitBuilder(curve, security_bits=128)
         x, y = b.add_public_input(), b.add_public_input()
         z = b.add(x, y)
         out = b.add_public_input()
@@ -1864,29 +1916,47 @@ def phase_fixtures() -> None:
         w.set_target(y, 39)
         w.set_target(out, 42)
         return b, w
+    return {"trivial": trivial, "sum_pi": sum_pi}
 
-    def curve_add():
-        return gadget_circuits(port_modules())["curve_add"]()[:2]
 
-    result = {"phase": "fixtures"}
-    for name, make in (("trivial", trivial), ("sum_pi", sum_pi),
-                       ("curve_add", curve_add)):
+def fixture_proofs(curve, makes, suffix: str = "") -> dict:
+    """Each circuit of `makes` (name -> make()) proved on the card under a
+    fresh pinned_random() and verified with the G check; its proof and vk
+    must equal tests/fixtures/{proof,vk}_<name><suffix>.hex byte for byte.
+    Returns each one's seconds."""
+    from plonky_tpu_torch.protocol.serialization import vk_to_bytes
+
+    result = {}
+    for name, make in makes.items():
         def build(make=make):
             builder, inputs = make()
             return builder.build(), inputs
-        got = pinned_proof(build, pinned_random())
-        with open(os.path.join(FIXTURES, f"proof_{name}.hex")) as f:
+        got = pinned_proof(build, pinned_random(), curve=curve)
+        with open(os.path.join(FIXTURES, f"proof_{name}{suffix}.hex")) as f:
             want_proof = f.read().strip()
-        with open(os.path.join(FIXTURES, f"vk_{name}.hex")) as f:
+        with open(os.path.join(FIXTURES, f"vk_{name}{suffix}.hex")) as f:
             want_vk = f.read().strip()
         if got["bytes"].hex() != want_proof:
-            raise AssertionError(f"{name}: proof bytes differ from the fixture")
+            raise AssertionError(f"{name}{suffix}: proof bytes differ from "
+                                 "the fixture")
         if vk_to_bytes(got["circuit"].to_vk()).hex() != want_vk:
-            raise AssertionError(f"{name}: vk bytes differ from the fixture")
-        result[name] = {"bytes_equal": True, "verified": True,
-                        "build_prove_s": got["build_prove_s"],
-                        "verify_s": got["verify_s"]}
-    emit(result)
+            raise AssertionError(f"{name}{suffix}: vk bytes differ from the "
+                                 "fixture")
+        result[name + suffix] = {"bytes_equal": True, "verified": True,
+                                 "build_prove_s": got["build_prove_s"],
+                                 "verify_s": got["verify_s"]}
+    return result
+
+
+def phase_fixtures() -> None:
+    """The three committed fixtures (tests/test_proof_fixture.py) proved on
+    the card under a fresh pinned_random(): proof and vk byte-equal to the
+    files, and verified with the G check."""
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+
+    makes = small_circuits(TWEEDLEDEE)
+    makes["curve_add"] = lambda: gadget_circuits(port_modules())["curve_add"]()[:2]
+    emit({"phase": "fixtures", **fixture_proofs(TWEEDLEDEE, makes)})
 
 
 def phase_gadgets() -> None:
@@ -2014,14 +2084,14 @@ def gadget_random():
     return lambda p: int.from_bytes(rng.bytes(40), "little") % p
 
 
-def buffer_circuit(lg: int, device=None):
-    """The reference workload: a 2^lg-gate BufferGate circuit on Tweedledee
-    (as bench.py builds it), built on `device` (the card by default), and
-    its witness's inputs."""
+def buffer_circuit(lg: int, device=None, curve=None):
+    """The reference workload: a 2^lg-gate BufferGate circuit on `curve`
+    (Tweedledee by default; as bench.py builds it), built on `device` (the
+    card by default), and its witness's inputs."""
     from plonky_tpu_torch.circuit import CircuitBuilder, PartialWitness
     from plonky_tpu_torch.circuit.gates import BufferGate
     from plonky_tpu_torch.curves import TWEEDLEDEE
-    builder = CircuitBuilder(TWEEDLEDEE, security_bits=128)
+    builder = CircuitBuilder(curve or TWEEDLEDEE, security_bits=128)
     while builder.num_gates() < (1 << lg) - 3:
         builder.add_gate_no_constants(BufferGate(builder.num_gates()))
     return builder.build(device=device), PartialWitness()
@@ -2280,6 +2350,40 @@ def reduce_work(starts, acc, nl: int = 8):
             add_ops(nl) * 2 * nonempty)
 
 
+def hold_path(ck: Checker, rec: PathRecorder, path: str, levels) -> None:
+    """Every shape `rec` recorded held against its plain version and timed
+    (PathRecorder.hold): one `<path>_shapes` line of them all, keyed as
+    RECURSION_SHAPE_KEYS with one launches column a level, and in each
+    kernel's record under `path` its shape count, launches by level and
+    costliest shape."""
+    keys = ("shape", *(f"launches_{lv}" for lv in levels),
+            *RECURSION_SHAPE_KEYS[3:])
+    held = rec.hold(ck, levels)
+    emit({"phase": f"{path}_shapes", "keys": keys,
+          "by_kernel": {name: [[r[k] for k in keys] for r in rows]
+                        for name, rows in held.items()}})
+    for name, rows in held.items():
+        top = max(rows, key=lambda r: r["bound_ms"])
+        ck.records[name][path] = {
+            "shapes": len(rows),
+            **{f"launches_{lv}": sum(r[f"launches_{lv}"] for r in rows)
+               for lv in levels},
+            "largest": {k: top[k] for k in keys}}
+
+
+def shapes_add_up(rec: PathRecorder, level: str, launches: dict) -> list:
+    """rec's launches by shape at `level`, which must add up to the
+    launch counts of that run for every kernel of the main path."""
+    by_shape = rec.by_shape(level)
+    seen = collections.Counter()
+    for name, _shape, n in by_shape:
+        seen[name] += n
+    if any(seen[k] != launches[k] for k in recursion_path_kernels()):
+        raise AssertionError(f"{level}: launches by shape {dict(seen)} do "
+                             f"not add up to {launches}")
+    return by_shape
+
+
 def recursion_path_kernels() -> set:
     """The kernels a prove must launch: every kernel of KERNELS but
     OFF_PATH."""
@@ -2467,25 +2571,9 @@ def phase_recursion(ck: Checker, torch) -> None:
 
     # every shape of the two proves against its plain version, timed: one
     # line of them all, and a summary in each kernel's record
-    held = rec.hold(ck, ("level1", "level2"))
-    emit({"phase": "recursion_shapes", "keys": RECURSION_SHAPE_KEYS,
-          "by_kernel": {name: [[r[k] for k in RECURSION_SHAPE_KEYS] for r in rows]
-                        for name, rows in held.items()}})
-    for name, rows in held.items():
-        top = max(rows, key=lambda r: r["bound_ms"])
-        ck.records[name]["recursion"] = {
-            "shapes": len(rows),
-            **{f"launches_{lv}": sum(r[f"launches_{lv}"] for r in rows)
-               for lv in ("level1", "level2")},
-            "largest": {k: top[k] for k in RECURSION_SHAPE_KEYS}}
+    hold_path(ck, rec, "recursion", ("level1", "level2"))
     for out, level in ((l1, "level1"), (l2, "level2")):
-        out["launches_by_shape"] = rec.by_shape(level)
-        seen = collections.Counter()
-        for name, _shape, n in out["launches_by_shape"]:
-            seen[name] += n
-        if any(seen[k] != out["launches"][k] for k in recursion_path_kernels()):
-            raise AssertionError(f"{level}: launches by shape {dict(seen)} "
-                                 f"do not add up to {out['launches']}")
+        out["launches_by_shape"] = shapes_add_up(rec, level, out["launches"])
     # each recursive prove again (the random source no longer pinned): a
     # steady prove timed with its phases, then one under torch.profiler for
     # the card's busy share
@@ -2502,6 +2590,301 @@ def phase_recursion(ck: Checker, torch) -> None:
         if out["proof_sha256"] != want:
             raise AssertionError(f"{out['phase']}: proof sha256 "
                                  f"{out['proof_sha256']}, pinned {want}")
+
+
+def path_prove(torch, rec: PathRecorder, level: str, fn, what: str):
+    """fn() (a prove) with the launch counts reset just before it and
+    read just after, its shapes recorded under `level`: (its result, its
+    seconds, its phases, its launches); every kernel of the main path
+    must have launched."""
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.utils.timing import record_phases
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    rec.level = level
+    t0 = time.perf_counter()
+    with rec, record_phases() as phases:
+        out = fn()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    check_path_launches(launches, what)
+    return out, seconds, phases, launches
+
+
+def pasta_kernel_checks(ck: Checker, torch, np, dev) -> dict:
+    """K1 and K3 on both Pasta base fields and K2 and K4 on both Pasta
+    curves against their plain versions at ragged shapes: K1's add, sub
+    and mul at N = 9 2^14 + 1 (full and column operands) and a product sum
+    with negative terms and singles; the card's twiddle tables at 2^17
+    against the host; K3 at B = 3 and 5 (n = 2 and 2^10) in all four kinds
+    and [1, 2^17] on a coset; K2's add and double at the 2^12 + 5 points of
+    sweep_basis (P + P, P + (-P) and the identity among them); K4 (k4_sweep,
+    each MSM against the discrete-log oracle) at K = 1, 2 and 9 with c = 8,
+    K = 1 with c = 5 and signed c = 8; and every Horner step of the K = 2
+    window sums through K2 (check_horner).  Returns what was checked."""
+    from plonky_tpu_torch.curves import PALLAS, VESTA
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.curves import ops as cops
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.poly import fft as pfft
+
+    rng = np.random.default_rng(31415)
+    done = {}
+    for curve in (PALLAS, VESTA):
+        sf = curve.base                  # the other curve's scalar field
+        n = (9 << 14) + 1
+        a, b, c = (with_edges(fops, sf, rand_field(np, torch, rng, (n,), dev, sf))
+                   for _ in range(3))
+        col = rand_field(np, torch, rng, (1,), dev, sf)
+        for name, fn, plain in (("field_add", fops.add, fops.add_plain),
+                                ("field_sub", fops.sub, fops.sub_plain),
+                                ("field_mul", fops.mul, fops.mul_plain)):
+            for x, y in ((a, b), (col, b), (b, b), (a, col)):
+                ck.compare(name, fn(sf, x, y), plain(sf, x, y))
+        terms = [(col, a, 1), (b, c, -1), (a, None, 1), (c, None, -1)]
+        ck.compare("field_product_sum", fops.product_sum(sf, terms),
+                   fops.product_sum_plain(sf, terms))
+
+        check_twiddle_tables(torch, sf, 17, dev)
+        ntt_shapes = [(bt, lg, inv, cos) for bt, lg in ((3, 1), (5, 10))
+                      for inv in (False, True) for cos in (False, True)]
+        ntt_shapes.append((1, 17, False, True))
+        for batch, lg, inverse, coset in ntt_shapes:
+            pre = pfft.FftPrecomputation(sf, 1 << lg)
+            x = with_edges(fops, sf, rand_field(np, torch, rng, (batch, 1 << lg),
+                                                dev, sf))
+            shift = sf.generator if coset else None
+            ck.compare("ntt_pass", pfft.ntt(pre, x, inverse, shift),
+                       pfft.ntt_plain(pre, x, inverse, shift))
+
+        a_log = int(rng.integers(2, 1 << 62))
+        _chain, chain_dev = doubling_chain(curve, a_log, dev)
+        pts, _logs = sweep_basis(torch, curve, chain_dev)
+        rolled = tuple(torch.roll(t, 1, dims=1).contiguous() for t in pts)
+        ck.compare("curve_add", cops.add(curve, pts, rolled),
+                   cops.add_plain(curve, pts, rolled))
+        ck.compare("curve_add", cops.add(curve, pts, pts),
+                   cops.add_plain(curve, pts, pts))
+        summed = cops.add(curve, pts, rolled)
+        ck.compare("curve_double", cops.double(curve, summed),
+                   cops.double_plain(curve, summed))
+        cases = ((1, 8, False), (2, 8, False), (9, 8, False), (1, 5, False),
+                 (1, 8, True))
+        nbs = k4_sweep(ck, torch, np, dev, curve, chain_dev, a_log, rng, cases)
+        scal = rand_field(np, torch, rng, (2, SWEEP_N), dev, curve.scalar)
+        digits, order, starts, signs, w = cmsm.window_rows(curve, scal, 8)
+        basis = cmsm.precompute_base(curve, pts)
+        ws = cmsm.bucket_reduce(curve, *cmsm.bucket_accumulate(
+            curve, basis, digits, order, starts, signs), starts)
+        check_horner(ck, cops, cmsm, curve, tuple(t.reshape(8, 2, w) for t in ws), 8)
+        done[curve.name] = {"field": sf.name, "k1_N": n, "ntt": ntt_shapes,
+                            "k2_N": SWEEP_N, "k4_cases": [list(c) for c in cases],
+                            "k4_buckets": nbs, "horner": [8, 2, w]}
+    return done
+
+
+def phase_pasta(ck: Checker, torch, name_power: str) -> None:
+    """The Pallas/Vesta cycle through the port's entry points: the trivial
+    and sum_pi circuits over Pallas and over Vesta under a fresh
+    pinned_random() each, proof and vk byte-equal to the JAX package's
+    (tests/fixtures/{proof,vk}_{trivial,sum_pi}_{pallas,vesta}.hex) and
+    verified with the G check; then the 2^14 BufferGate circuit over Pallas
+    (Vesta the inner curve) with the random source pinned from its build,
+    proved first and steady (its launches counted by shape, every kernel of
+    the main path launched), verified with the G check, its proof at
+    PROOF_PALLAS_2E14_SHA256, and every shape of the steady prove held
+    against its plain version."""
+    import hashlib
+
+    import plonky_tpu_torch.circuit.builder as builder_mod
+    import plonky_tpu_torch.protocol.halo as halo_mod
+    from plonky_tpu_torch.curves import PALLAS, VESTA
+    from plonky_tpu_torch.protocol import circuit as pcircuit
+    from plonky_tpu_torch.protocol import generate_proof, verify_proof
+    from plonky_tpu_torch.protocol.serialization import proof_to_bytes
+
+    out = {"phase": f"pasta_2e{PASTA_LG}", "nvidia_smi": name_power,
+           "fixtures": {}}
+    for curve in (PALLAS, VESTA):
+        out["fixtures"].update(fixture_proofs(
+            curve, small_circuits(curve), "_" + curve.name.lower()))
+
+    rec = PathRecorder()
+    saved = (builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE)
+    builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = pinned_random()
+    try:
+        t0 = time.perf_counter()
+        pcircuit.pedersen_bases(PALLAS, 1 << PASTA_LG)
+        out["bases_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        circuit, inputs = buffer_circuit(PASTA_LG, curve=PALLAS)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        witness = circuit.generate_witness(inputs)
+        out["witness_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        generate_proof(circuit, witness, old_proofs=[], blinding=True)
+        torch.cuda.synchronize()
+        out["first_prove_s"] = time.perf_counter() - t0
+        proof, out["steady_prove_s"], out["phases_s"], out["launches"] = \
+            path_prove(torch, rec, "pallas", lambda: generate_proof(
+                circuit, witness, old_proofs=[], blinding=True),
+                "the steady Pallas prove")
+    finally:
+        builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
+    out["proof_sha256"] = hashlib.sha256(proof_to_bytes(PALLAS, proof)).hexdigest()
+    t0 = time.perf_counter()
+    verify_proof(circuit.get_public_inputs(witness), proof, [], circuit.to_vk(),
+                 VESTA, verify_g=True)
+    out["verify_s"] = time.perf_counter() - t0
+    out["verified"] = True
+    out["degree"] = circuit.degree()
+    out["launches_by_shape"] = shapes_add_up(rec, "pallas", out["launches"])
+    hold_path(ck, rec, "pasta", ("pallas",))
+    emit(out)
+    if out["proof_sha256"] != PROOF_PALLAS_2E14_SHA256:
+        raise AssertionError(f"the pinned Pallas 2^{PASTA_LG} proof's sha256 is "
+                             f"{out['proof_sha256']}, not {PROOF_PALLAS_2E14_SHA256}")
+
+
+def plookup_range_check(np):
+    """A 16-bit range check: (f, t) with t = [0, 2^16) and f 2^16 - 1
+    values drawn from t by a seeded generator (repeats among them), so
+    that n + 1 = 2^16."""
+    t = list(range(1 << PLOOKUP_LG))
+    rng = np.random.default_rng(PLOOKUP_LG)
+    f = [int(v) for v in rng.integers(0, 1 << PLOOKUP_LG, (1 << PLOOKUP_LG) - 1)]
+    return f, t
+
+
+def changed_opening_proof(f, t, device=None):
+    """A 2^16 plookup proof whose f opening at zeta is one more than the
+    polynomial's, made by the prover itself, so that its transcript (the
+    changed opening observed, the IPA blinded until each n(r) is a square)
+    replays: only the verifier's quotient check can reject it."""
+    import plonky_tpu_torch.plookup.plookup as plookup_mod
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+
+    honest = plookup_mod._open_all
+    p = TWEEDLEDEE.scalar.p
+
+    def changed(*args):
+        o = honest(*args)
+        o.f = plookup_mod.Opening((o.f.local + 1) % p, o.f.right)
+        return o
+    plookup_mod._open_all = changed
+    try:
+        return plookup_mod.prove(TWEEDLEDEE, f, t, device=device)
+    finally:
+        plookup_mod._open_all = honest
+
+
+def rejected(curve, t, bad, message: str, device=None) -> str:
+    """plookup.verify's message for `bad`, whose transcript must replay:
+    the rejection must be the check named by `message`."""
+    from plonky_tpu_torch import plookup
+
+    bad.get_challenges(curve)
+    try:
+        plookup.verify(curve, t, bad, device=device)
+    except ValueError as e:
+        if message not in str(e):
+            raise AssertionError(f"plookup.verify rejected with {e!r}, "
+                                 f"not {message!r}") from e
+        return str(e)
+    raise AssertionError(f"plookup.verify accepted a proof that must fail "
+                         f"with {message!r}")
+
+
+def phase_plookup(ck: Checker, torch, np, name_power: str) -> None:
+    """plookup's entry points on the card.  The reference test's case (n =
+    7, tests/test_plookup.py's random source) first: its proof's sha256
+    (PlookupProof.to_bytes) must be PLOOKUP_N7_SHA256, the JAX package's
+    (tests/test_torch_plookup.py).  Then the 16-bit range check of
+    plookup_range_check over Tweedledee (2^17 Pedersen bases hashed first,
+    timed apart), with pinned_random(): one prove (launches counted by
+    shape, every kernel of the main path launched; the host setup, the sort,
+    the grand product and the Lagrange constants, timed apart), its sha256
+    at PLOOKUP_2E16_SHA256, verified; a proof with one changed opening
+    and a valid transcript must fail the quotient check, one with a changed
+    Schnorr z1 the IPA check, and a value outside the table must raise; a
+    steady prove under torch.profiler for the card's busy share; every
+    shape of the first prove held against its plain version.  The twiddle
+    tables are dropped before the counted prove, so that its launches are
+    its own and not those left by earlier phases."""
+    import dataclasses
+    import hashlib
+
+    import plonky_tpu_torch.protocol.halo as halo_mod
+    from plonky_tpu_torch import plookup
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    from plonky_tpu_torch.poly.fft import FftPrecomputation
+    from plonky_tpu_torch.protocol.circuit import pedersen_bases
+
+    def sha(proof):
+        return hashlib.sha256(proof.to_bytes(TWEEDLEDEE)).hexdigest()
+
+    out = {"phase": f"plookup_2e{PLOOKUP_LG}", "nvidia_smi": name_power}
+    saved = halo_mod.RANDOM_SOURCE
+    try:
+        rng = np.random.default_rng(99)
+        halo_mod.RANDOM_SOURCE = lambda p: int.from_bytes(rng.bytes(40), "little") % p
+        t_small = [1, 2, 3, 5, 7, 11, 13]
+        small = plookup.prove(TWEEDLEDEE, [2, 2, 5, 11], t_small)
+        plookup.verify(TWEEDLEDEE, t_small, small)
+        out["n7_sha256"] = sha(small)
+        if out["n7_sha256"] != PLOOKUP_N7_SHA256:
+            raise AssertionError(f"the n = 7 plookup proof's sha256 is "
+                                 f"{out['n7_sha256']}, the JAX package's is "
+                                 f"{PLOOKUP_N7_SHA256}")
+
+        f, t = plookup_range_check(np)
+        n = (1 << PLOOKUP_LG) - 1
+        t0 = time.perf_counter()
+        pedersen_bases(TWEEDLEDEE, 2 * n + 2)
+        out["bases_s"] = time.perf_counter() - t0
+        rec = PathRecorder()
+        halo_mod.RANDOM_SOURCE = pinned_random()
+        FftPrecomputation.cache_clear()
+        proof, out["prove_s"], phases, out["launches"] = path_prove(
+            torch, rec, "plookup", lambda: plookup.prove(TWEEDLEDEE, f, t),
+            "the plookup prove")
+        out["prove_phases_s"] = phases
+        out["host_setup_s"] = {k: phases[f"plookup.{k}"] for k in
+                               ("sort", "grand_product", "vanishing_consts")}
+        out["proof_sha256"] = sha(proof)
+        t0 = time.perf_counter()
+        plookup.verify(TWEEDLEDEE, t, proof)
+        out["verify_s"] = time.perf_counter() - t0
+        out["changed_opening_rejected"] = rejected(
+            TWEEDLEDEE, t, changed_opening_proof(f, t),
+            "Incorrect quotient opening")
+        hp = proof.halo_proof
+        bad_ipa = dataclasses.replace(proof, halo_proof=dataclasses.replace(
+            hp, schnorr_proof=dataclasses.replace(
+                hp.schnorr_proof,
+                z1=(hp.schnorr_proof.z1 + 1) % TWEEDLEDEE.scalar.p)))
+        out["changed_z1_rejected"] = rejected(TWEEDLEDEE, t, bad_ipa,
+                                              "Invalid IPA proof")
+        try:
+            plookup.prove(TWEEDLEDEE, f[:-1] + [1 << PLOOKUP_LG], t)
+        except KeyError as e:
+            out["outside_table_raised"] = f"KeyError {e}"
+        else:
+            raise AssertionError("plookup.prove took a value outside the table")
+        out.update(busy_share(torch, lambda: plookup.prove(TWEEDLEDEE, f, t)))
+    finally:
+        halo_mod.RANDOM_SOURCE = saved
+    out["n"] = proof.n
+    out["launches_by_shape"] = shapes_add_up(rec, "plookup", out["launches"])
+    hold_path(ck, rec, "plookup", ("plookup",))
+    emit(out)
+    if out["proof_sha256"] != PLOOKUP_2E16_SHA256:
+        raise AssertionError(f"the 2^{PLOOKUP_LG} plookup proof's sha256 is "
+                             f"{out['proof_sha256']}, not {PLOOKUP_2E16_SHA256}")
 
 
 def card(torch):
@@ -2562,6 +2945,8 @@ def main() -> int:
     launches, ps_by_label = timed("prove", phase_prove, torch,
                                   want_sha256=PROOF_2E14_SHA256)
     timed("recursion", phase_recursion, ck, torch)
+    timed("pasta", phase_pasta, ck, torch, name_power)
+    timed("plookup", phase_plookup, ck, torch, np, name_power)
     launches["rescue_permutation"] = rescue_launches
     launches.update(bls_launches)
     launches.update(probe_launches)

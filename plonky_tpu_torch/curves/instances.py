@@ -1,13 +1,15 @@
-"""The Tweedledee/Tweedledum 2-cycle (the recursion pair), and BLS12-377's
-G1 (no endomorphism constants: it is not a Halo curve).
+"""The Tweedledee/Tweedledum 2-cycle (the recursion pair), the
+Pallas/Vesta 2-cycle, and BLS12-377's G1 (no endomorphism constants: it
+is not a Halo curve).
 
 Constants converted to canonical form from the reference's Montgomery-form
 curve files (reference: src/curve/tweedledee_curve.rs,
-tweedledum_curve.rs).
+tweedledum_curve.rs, pallas_curve.rs, vesta_curve.rs).
 """
 
 from ..fields.instances import (BLS12_377_BASE, BLS12_377_SCALAR,
-                                TWEEDLEDEE_BASE, TWEEDLEDUM_BASE)
+                                PALLAS_BASE, TWEEDLEDEE_BASE,
+                                TWEEDLEDUM_BASE, VESTA_BASE)
 from .spec import CurveSpec
 
 # reference: src/curve/tweedledee_curve.rs:7-38
@@ -35,6 +37,28 @@ TWEEDLEDUM = CurveSpec(
     zeta_scalar=0x093992C5E1FB65A7785274A0068CE00199BB1340487D58084097ED16EB705B03,
 )
 
+# reference: src/curve/pallas_curve.rs:7-35
+PALLAS = CurveSpec(
+    name="Pallas",
+    base=PALLAS_BASE,
+    scalar=VESTA_BASE,
+    b=5,
+    generator_affine=(PALLAS_BASE.p - 1, 2),
+    zeta=0x2D33357CB532458ED3552A23A8554E5005270D29D19FC7D27B7FD22F0201B547,
+    zeta_scalar=0x397E65A7D7C1AD71AEE24B27E308F0A61259527EC1D4752E619D1840AF55F1B1,
+)
+
+# reference: src/curve/vesta_curve.rs:7-33
+VESTA = CurveSpec(
+    name="Vesta",
+    base=VESTA_BASE,
+    scalar=PALLAS_BASE,
+    b=5,
+    generator_affine=(VESTA_BASE.p - 1, 2),
+    zeta=0x397E65A7D7C1AD71AEE24B27E308F0A61259527EC1D4752E619D1840AF55F1B1,
+    zeta_scalar=0x2D33357CB532458ED3552A23A8554E5005270D29D19FC7D27B7FD22F0201B547,
+)
+
 # reference: src/curve/bls12_377_curve.rs:13-33 (decimal constants in comments)
 BLS12_377 = CurveSpec(
     name="Bls12377",
@@ -47,4 +71,5 @@ BLS12_377 = CurveSpec(
     ),
 )
 
-ALL_CURVES = [TWEEDLEDEE, TWEEDLEDUM, BLS12_377]
+ALL_CURVES = [TWEEDLEDEE, TWEEDLEDUM, PALLAS, VESTA, BLS12_377]
+HALO_CURVES = [TWEEDLEDEE, TWEEDLEDUM, PALLAS, VESTA]

@@ -187,3 +187,27 @@ def to_affine(curve: CurveSpec, p: Point):
     X, Y, Z = p
     zinv = fops.inverse(f, Z)
     return (fops.mul(f, X, zinv), fops.mul(f, Y, zinv), fops.is_zero(f, Z))
+
+
+def scalar_mul_bits(curve: CurveSpec, p: Point, bits: torch.Tensor) -> Point:
+    """[e] p with e given on the device as little-endian bits [nbits,
+    *batch] (0/1): right-to-left double and add (K2's add and double on
+    the card), every bit's sum taken and kept where the bit is set."""
+    acc = identity(curve, p[0].shape[1:], p[0].device)
+    cur = p
+    for i, bit in enumerate(bits):
+        acc = select(bit, add(curve, acc, cur), acc)
+        if i + 1 < len(bits):
+            cur = double(curve, cur)
+    return acc
+
+
+def eq_points(curve: CurveSpec, p1: Point, p2: Point) -> torch.Tensor:
+    """Projective equality over the batch: X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1
+    for two finite points, or both the identity."""
+    f = curve.base
+    x_eq = fops.eq(f, fops.mul(f, p1[0], p2[2]), fops.mul(f, p2[0], p1[2]))
+    y_eq = fops.eq(f, fops.mul(f, p1[1], p2[2]), fops.mul(f, p2[1], p1[2]))
+    z1z = fops.is_zero(f, p1[2])
+    z2z = fops.is_zero(f, p2[2])
+    return (x_eq & y_eq & ~z1z & ~z2z) | (z1z & z2z)

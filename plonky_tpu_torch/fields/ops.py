@@ -28,6 +28,7 @@ import torch
 
 from .. import _cuda
 from ..device import resolve
+from .host import kth_root_exponent
 from .spec import LIMB_BITS, MAX_TERMS, FieldSpec, int_to_limbs, require_eight_limbs
 
 _M16 = 0xFFFF
@@ -507,9 +508,29 @@ def exp_const(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
     return acc
 
 
+def exp_dyn(spec: FieldSpec, x: torch.Tensor, e_bits: torch.Tensor) -> torch.Tensor:
+    """x^e with e given on the device, little-endian bits [nbits, *batch]
+    (0/1): right-to-left square and multiply, every bit's product taken
+    and kept where the bit is set."""
+    acc = constant(spec, 1, x.shape[1:], x.device).contiguous()
+    cur = x
+    for i, bit in enumerate(e_bits):
+        acc = select(bit, mul(spec, acc, cur), acc)
+        if i + 1 < len(e_bits):
+            cur = square(spec, cur)
+    return acc
+
+
 def inverse(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     """x^(p-2) (Fermat); inverse(0) = 0, which the prover relies on."""
     return exp_const(spec, x, spec.p - 2)
+
+
+def kth_root(spec: FieldSpec, x: torch.Tensor, k: int) -> torch.Tensor:
+    """x^(1/k) where x -> x^k is a permutation: one exponentiation by the
+    host's exponent, the root the reference picks (src/field/field.rs:
+    346-375)."""
+    return exp_const(spec, x, kth_root_exponent(spec, k))
 
 
 def is_zero(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:

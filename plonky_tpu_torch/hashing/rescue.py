@@ -41,6 +41,9 @@ KERNEL_WINDOW = 3
 KERNEL_MAX_STEPS = 128
 KERNEL_MAX_SLOTS = 1 + (1 << (KERNEL_WINDOW - 1))
 NO_SLOT = 31
+# The widest window sbox_schedule builds: a w-bit window's table takes
+# slots 0 .. 2^(w-1), which must stay below NO_SLOT.
+SBOX_MAX_WINDOW = 5
 
 
 def recommended_rounds(width: int, security_bits: int) -> int:
@@ -177,7 +180,12 @@ def sbox_schedule(e: int, w: int) -> tuple:
     n - 1 (n = 2^(w-1)) x^3, x^5, ..., x^(2n - 1), built by one square
     (x^2, kept in slot n) and n - 1 multiplies.  Then the first window is
     loaded from the table, and every later bit costs a square and every
-    later window a multiply."""
+    later window a multiply.  w is at most SBOX_MAX_WINDOW: a wider
+    window's table would name the slot NO_SLOT."""
+    if not 1 <= w <= SBOX_MAX_WINDOW:
+        raise ValueError(f"sbox_schedule: a {w}-bit window; windows of 1 "
+                         f"to {SBOX_MAX_WINDOW} bits keep every table slot "
+                         f"below NO_SLOT = {NO_SLOT}")
     bits = bin(e)[2:]
     n = 1 << (w - 1)
     steps = [(NO_SLOT, 0, NO_SLOT, 0)]

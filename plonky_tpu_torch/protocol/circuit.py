@@ -139,6 +139,14 @@ class CommitmentEngine:
         self.h = h_point
         self.n = len(g_points)
 
+    def prefix(self, k: int) -> "CommitmentEngine":
+        """An engine over the first k bases of this one (a view of its
+        basis, nothing converted again)."""
+        out = CommitmentEngine.__new__(CommitmentEngine)
+        out.curve, out.h, out.n = self.curve, self.h, k
+        out.g_dev = self.g_dev.slice(0, k)
+        return out
+
     def commit_many(self, coeffs: torch.Tensor, blinding: bool,
                     rand_source=None) -> List[PolynomialCommitment]:
         """coeffs: [LIMBS, k, n].  One multi-MSM over the shared basis for
@@ -294,8 +302,9 @@ def _takes_ctx(g) -> bool:
 
 def cycle_partner(curve: CurveSpec) -> CurveSpec:
     """The other curve of the 2-cycle (the default InnerC for proofs)."""
-    from ..curves.instances import TWEEDLEDEE, TWEEDLEDUM
-    return {"Tweedledee": TWEEDLEDUM, "Tweedledum": TWEEDLEDEE}[curve.name]
+    from ..curves.instances import PALLAS, TWEEDLEDEE, TWEEDLEDUM, VESTA
+    return {"Tweedledee": TWEEDLEDUM, "Tweedledum": TWEEDLEDEE,
+            "Pallas": VESTA, "Vesta": PALLAS}[curve.name]
 
 
 def build_circuit(builder, inner_curve: Optional[CurveSpec] = None,

@@ -27,8 +27,9 @@ from plonky_tpu.fields import ops as jfops
 from plonky_tpu.hashing import pseudorandom as jprf
 from plonky_tpu_torch import hashing as phash
 from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
-from plonky_tpu_torch.fields import (BLS12_377_SCALAR, TWEEDLEDEE_BASE,
-                                     TWEEDLEDUM_BASE)
+from plonky_tpu_torch.fields import (BLS12_377_SCALAR, PALLAS_BASE,
+                                     TWEEDLEDEE_BASE, TWEEDLEDUM_BASE,
+                                     VESTA_BASE)
 from plonky_tpu_torch.fields import ops as fops
 from plonky_tpu_torch.fields.spec import LIMBS
 from plonky_tpu_torch.hashing import pseudorandom as pprf
@@ -120,9 +121,10 @@ def test_rescue_permutation_broadcasts_and_checks_width():
 # A model of K5 (csrc/rescue_kernels.cu) over its constant buffer
 # ---------------------------------------------------------------------------
 
-# Every field K5 runs: both Tweedle base fields (the sparse reduction) and
-# BLS12-377's scalar field (alpha = 11, the dense one).
+# Every field K5 runs: both Tweedle and both Pasta base fields (the sparse
+# reduction) and BLS12-377's scalar field (alpha = 11, the dense one).
 KERNEL_FIELDS = {"dee": TWEEDLEDEE_BASE, "dum": TWEEDLEDUM_BASE,
+                 "pallas": PALLAS_BASE, "vesta": VESTA_BASE,
                  "bls_scalar": BLS12_377_SCALAR}
 KERNEL_CASES = [(name, bits) for name in KERNEL_FIELDS for bits in (128, 64)]
 KERNEL_IDS = [f"{name}-{bits}" for name, bits in KERNEL_CASES]
@@ -268,9 +270,11 @@ def test_kernel_limits_match_the_wrapper():
 
 @pytest.mark.parametrize("name", list(KERNEL_FIELDS))
 def test_host_schedule_is_the_counted_chain(name):
-    """For every field, sbox_schedule's chain at every window of 1 to 8 bits
-    computes x^e for the inverse and the forward exponent, and the squares
-    and multiplies it runs are those schedule_counts reports; the bound
+    """For every field, sbox_schedule's chain at every window of 1 to 5 bits
+    (SBOX_MAX_WINDOW; a wider one is refused: its table would name the
+    slot NO_SLOT) computes x^e for the inverse and the forward exponent,
+    and the squares and multiplies it runs are those schedule_counts
+    reports; the bound
     (chip_smoke.sbox_ops) is the cheapest of those chains at the field's
     costs (chip_smoke.rescue_costs), and rescue_work adds them up."""
     import chip_smoke
@@ -283,7 +287,9 @@ def test_host_schedule_is_the_counted_chain(name):
     sqr_c, mul_c, redc_c = chip_smoke.rescue_costs(spec)
     for e in exps:
         costs = []
-        for w in range(1, 9):
+        with pytest.raises(ValueError, match="window"):
+            prescue.sbox_schedule(e, prescue.SBOX_MAX_WINDOW + 1)
+        for w in range(1, prescue.SBOX_MAX_WINDOW + 1):
             chain = prescue.sbox_schedule(e, w)
             ran = {"sq": 0, "mul": 0}
 
@@ -309,7 +315,7 @@ def test_host_schedule_is_the_counted_chain(name):
 @pytest.mark.parametrize("name", list(KERNEL_FIELDS))
 def test_sbox_bound_counts_a_real_chain(name):
     """chip_smoke.py's operations bound for K5 counts each S-box by the
-    cheapest sliding-window chain (windows of 1 to 8 bits); the kernel's
+    cheapest sliding-window chain (windows of 1 to 5 bits); the kernel's
     own chains, read from its constant buffer, compute x^e and x^alpha, are
     kernel_schedule's (windows of up to KERNEL_WINDOW bits), cost no less
     than the bound's, and the inverse one is cheaper than the
