@@ -19,7 +19,14 @@ every window width from 2 to 12, signed and unsigned, at both widths
 (k4_sweep), runs the probe (phase_probe: the flat NTT against the
 four-step FFT at 2^20 and 2^22, the Tweedledee MSM at 2^18 unsigned
 against signed windows, every result checked, both paths' launches
-asserted), reproduces the three committed fixture proofs byte
+asserted), drives plonky_tpu_torch/parallel (phase_parallel: the cards
+counted and named, the domain-sharded FFT at 2^22 over 4 shards, the
+batch-sharded FFT of [9, 2^17] over 3, the sharded MSM at 2^18 over 4 and
+at 5 x 256 over 5, on virtual shards of the first card and, with two
+cards or more, over the cards, each equal to the one-card result and
+timed beside it, every mesh card launched on, a launch on two cards
+refused, every shape held against its plain version; then the
+distributed step in NCCL processes), reproduces the three committed fixture proofs byte
 for byte, proves and verifies the gadget circuits and the 2^10 BufferGate
 circuit, each at the JAX package's sha256, then builds, proves (twice) and
 verifies the 2^14-gate BufferGate circuit with the random source pinned,
@@ -1178,9 +1185,9 @@ def bls_scalars(np, torch, rng, spec, n, dev):
 
 def chain_oracle(np, r, limbs, a: int) -> int:
     """e with sum_i s_i P_i = e G for P_i = 2^(i mod 2^12) (a G): e = a
-    sum_i s_i 2^(i mod 2^12) mod r, from the scalars' limbs [8, n] (n a
-    multiple of 2^12; the residue classes summed in numpy, each below
-    2^42)."""
+    sum_i s_i 2^(i mod 2^12) mod r, from the scalars' limbs [8, n] (the
+    residue classes summed in numpy, each below 2^42)."""
+    limbs = np.pad(limbs, ((0, 0), (0, -limbs.shape[1] % BLS_CHAIN)))
     n = limbs.shape[1]
     sums = limbs.astype(np.uint64).reshape(8, n // BLS_CHAIN, BLS_CHAIN).sum(1)
     e = 0
@@ -1223,17 +1230,23 @@ def doubling_chain(curve, a: int, dev):
 
 def median_s(torch, fn, reps: int = 3) -> tuple:
     """(median seconds, all seconds, the last call's result) of `reps`
-    calls, each ended by a synchronize (host clock: what a caller waits);
-    the caller makes the warm call, and checks its result."""
+    calls, each ended by every card's synchronize (host clock: what a
+    caller waits); the caller makes the warm call, and checks its
+    result."""
     import statistics
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync_cards(torch)
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync_cards(torch)
         times.append(time.perf_counter() - t0)
     return statistics.median(times), times, out
+
+
+def sync_cards(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def profiled(torch, fn, tries: int = 3) -> tuple:
@@ -1560,6 +1573,307 @@ def phase_probe(ck: Checker, torch, np, dev, name_power: str) -> dict:
     ck.records["msm_bucket_reduce"]["by_shape"].extend(red_by)
     emit({"phase": "probe_msm_bucket_reduce", "by_shape": red_by})
     return launches
+
+
+# The parallel phase (phase_parallel): plonky_tpu_torch/parallel's sharded
+# FFTs and MSM on meshes of virtual shards of the first card and, with two
+# cards or more, on meshes over the cards (default_mesh cycles them, a
+# mesh of m entries using up to m cards); then the distributed step
+# (dist_worker) in 2 processes under NCCL where there are two cards, else
+# in 1.
+PAR_DOMAIN_LG = 22          # fft_sharded_domain over PAR_DOMAIN_MESH shards
+PAR_DOMAIN_MESH = 4
+PAR_BATCH = (9, 17)         # fft_sharded_batch of [9, 2^17] (the wires' LDE)
+PAR_BATCH_MESH = 3
+PAR_MSM_LOG = 18            # msm_sharded at the probe's size and points
+PAR_MSM_MESH = 4
+PAR_RAGGED = (5, 256)       # N = 5 x 256 over a mesh of 5 (tests/test_parallel.py)
+PAR_WINDOW = 8
+DIST_MSM_LOG = 16           # the distributed step: 2 local shards a process,
+DIST_FFT_LG = 20            # an MSM of 2^16 points and an FFT of 2^20
+
+
+def ragged_scalars(np, torch, rng, spec, n, dev) -> tuple:
+    """bls_scalars made identity-heavy as tests/test_parallel.py makes
+    them: every fourth zero, the ones after them repeating others."""
+    _s, limbs = bls_scalars(np, torch, rng, spec, n, dev)
+    limbs[:, 0::4] = 0
+    limbs[:, 1::4] = limbs[:, (np.arange(1, n, 4) + 4) % n]
+    return torch.from_numpy(limbs.view(np.int32).copy()).to(dev), limbs
+
+
+def phase_parallel(ck: Checker, torch, np, dev, name_power: str) -> dict:
+    """plonky_tpu_torch/parallel on the card.  Prints the cards (count,
+    names).  One-card references first: `fft` of one 2^22 domain and of
+    [9, 2^17], `msm` at 2^18 Tweedledee points (the probe's chain and
+    scalars, held against its discrete-log oracle) and at 5 x 256 with
+    identity-heavy scalars (held against the chain's oracle); each timed
+    (median of three calls, host clock to every card's synchronize).  Then
+    for each mesh kind (4 virtual shards of the first card; with two cards
+    or more also default_mesh over the cards): the counts reset, one
+    counted run of fft_sharded_domain (4 shards), fft_sharded_batch (3),
+    msm_sharded (4) and the ragged msm_sharded (5), each equal to its
+    reference, with its seconds and memory by card (`first_call`), every
+    card of the meshes launched on; then each timed.
+    With two cards, a launch whose operands lie on two cards must raise.
+    Every shape the phase gave a kernel is held against its plain version
+    (PathRecorder).  Last the distributed step (dist_worker's processes,
+    each exit code checked).  Returns the counted runs' curve_add
+    launches (the MSM's tree)."""
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.curves import TWEEDLEDEE as C
+    from plonky_tpu_torch.curves import host as chost
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.parallel import (default_mesh, fft_sharded_batch,
+                                           fft_sharded_domain, msm_sharded,
+                                           shard_basis)
+    from plonky_tpu_torch.poly import fft as pfft
+    from plonky_tpu_torch.protocol.circuit import device_points_to_host
+
+    count = torch.cuda.device_count()
+    cards = {"count": count,
+             "names": [torch.cuda.get_device_name(i) for i in range(count)]}
+    emit({"phase": "parallel_cards", "nvidia_smi": name_power, **cards})
+    rng = np.random.default_rng(1212)
+    spec = C.base
+    x_dom = rand_field(np, torch, rng, (1 << PAR_DOMAIN_LG,), dev)
+    k, lg = PAR_BATCH
+    x_bat = rand_field(np, torch, rng, (k, 1 << lg), dev)
+    pre_dom = pfft.FftPrecomputation(spec, 1 << PAR_DOMAIN_LG)
+    pre_bat = pfft.FftPrecomputation(spec, 1 << lg)
+    a = int(rng.integers(2, 1 << 62))
+    _chain, chain_dev = doubling_chain(C, a, dev)
+    n = 1 << PAR_MSM_LOG
+    basis = cmsm.precompute_base(C, tuple(t.repeat(1, n // BLS_CHAIN)
+                                          for t in chain_dev))
+    scal, limbs = bls_scalars(np, torch, rng, C.scalar, n, dev)
+    want_msm = chost.mul(chost.generator(C), chain_oracle(np, C.scalar.p, limbs, a))
+    m_r, per = PAR_RAGGED
+    rbasis = cmsm.precompute_base(C, tuple(t[:, :m_r * per].contiguous()
+                                           for t in chain_dev))
+    rscal, rlimbs = ragged_scalars(np, torch, rng, C.scalar, m_r * per, dev)
+    want_ragged = chost.mul(chost.generator(C),
+                            chain_oracle(np, C.scalar.p, rlimbs, a))
+
+    sizes = {"fft_domain": PAR_DOMAIN_MESH, "fft_batch": PAR_BATCH_MESH,
+             "msm": PAR_MSM_MESH, "msm_ragged": m_r}
+    one_card = {"fft_domain": lambda: pfft.fft(pre_dom, x_dom),
+                "fft_batch": lambda: pfft.fft(pre_bat, x_bat),
+                "msm": lambda: cmsm.msm(C, basis, scal, PAR_WINDOW),
+                "msm_ragged": lambda: cmsm.msm(C, rbasis, rscal, PAR_WINDOW)}
+
+    def sharded(name, mesh):
+        if name == "fft_domain":
+            return lambda: fft_sharded_domain(mesh, spec, x_dom)
+        if name == "fft_batch":
+            return lambda: fft_sharded_batch(mesh, pre_bat, x_bat)
+        b, s = (basis, scal) if name == "msm" else (rbasis, rscal)
+        shards = shard_basis(mesh, b)
+        return lambda: msm_sharded(mesh, C, shards, s, PAR_WINDOW)
+
+    def check(name, got, want):
+        if name.startswith("msm"):
+            if device_points_to_host(C, got) != [want_msm if name == "msm"
+                                                 else want_ragged]:
+                raise AssertionError(f"{name}: not the oracle's point")
+        elif not torch.equal(got, want):
+            raise AssertionError(f"{name}: the sharded transform is not the "
+                                 "one-card transform")
+
+    rec = PathRecorder()
+    out = {"phase": "parallel", "nvidia_smi": name_power, "cards": cards}
+    kinds = [("virtual", lambda m: default_mesh(m, dev))]
+    if count >= 2:
+        kinds.append(("cards", default_mesh))
+    levels = ["reference"]
+    with rec:
+        rec.level = "reference"
+        refs = {name: fn() for name, fn in one_card.items()}
+        for name, ref in refs.items():
+            check(name, ref, ref)
+        rec.level = "timing"
+        one_card_s = {name: median_s(torch, fn)[0]
+                      for name, fn in one_card.items()}
+        for kind, mk in kinds:
+            meshes = {name: mk(size) for name, size in sizes.items()}
+            fns = {name: sharded(name, mesh) for name, mesh in meshes.items()}
+            used = sorted({d.index for mesh in meshes.values()
+                           for d in mesh.devices})
+            sync_cards(torch)
+            rec.level = kind
+            levels.append(kind)
+            _cuda.reset_launches()
+            first = {}
+            for name, fn in fns.items():
+                first[name], got = first_call(torch, fn, used)
+                check(name, got, refs[name])
+            path = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+            by_card = dict(_cuda.DEVICE_LAUNCHES)
+            if any(not by_card.get(i) for i in used):
+                raise AssertionError(f"{kind}: cards {used} received launches "
+                                     f"{by_card}")
+            seen = collections.Counter()
+            for kname, _shape, calls in rec.by_shape(kind):
+                seen[kname] += calls
+            if dict(seen) != path:
+                raise AssertionError(f"{kind}: launches by shape {dict(seen)} "
+                                     f"are not the run's {path}")
+            rec.level = "timing"
+            timed = {}
+            for name, fn in fns.items():
+                med, times, got = median_s(torch, fn)
+                check(name, got, refs[name])
+                timed[name] = {"shards": sizes[name], "s": med, "seconds": times,
+                               "one_card_s": one_card_s[name]}
+            out[kind] = {"cards": used, "launches": path,
+                         "launches_by_card": by_card, "first_call": first,
+                         "timed": timed}
+    if count >= 2:
+        a0 = x_bat[:, 0, :64].contiguous()
+        try:
+            fops.mul(spec, a0, a0.to("cuda:1"))
+        except ValueError as err:
+            out["two_card_launch_refused"] = str(err)
+        else:
+            raise AssertionError("a launch on two cards did not raise")
+    emit(out)
+    hold_path(ck, rec, "parallel", levels)
+    emit(distributed_step(name_power, count))
+    return {"curve_add": out["virtual"]["launches"]["curve_add"]}
+
+
+def first_call(torch, fn, cards) -> tuple:
+    """(record, result) of one call of fn, its first on its mesh: host
+    seconds to every card's synchronize, and for each card of `cards` the
+    MiB allocated above the call's start at its peak and after it (the
+    tables it cached, and the result on the card that holds it)."""
+    sync_cards(torch)
+    start = {}
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+        start[i] = torch.cuda.memory_allocated(i)
+    t0 = time.perf_counter()
+    out = fn()
+    sync_cards(torch)
+    sec = time.perf_counter() - t0
+    mib = float(1 << 20)
+    return {"s": sec,
+            "peak_mib": {i: (torch.cuda.max_memory_allocated(i) - start[i]) / mib
+                         for i in cards},
+            "kept_mib": {i: (torch.cuda.memory_allocated(i) - start[i]) / mib
+                         for i in cards}}, out
+
+
+def distributed_step(name_power: str, count: int) -> dict:
+    """dist_worker in 2 processes under NCCL (ranks on cuda:0 and cuda:1)
+    where there are two cards, else in 1; each must exit 0 and print its
+    checks' line."""
+    import socket
+    world = 2 if count >= 2 else 1
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.dist_worker()"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    rec = {"phase": "parallel_distributed", "nvidia_smi": name_power,
+           "world": world, "seconds": time.perf_counter() - t0, "ranks": []}
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed rank {rank} exited {p.returncode}:"
+                                 f"\n{text[-4000:]}")
+        rec["ranks"].append(json.loads(text.strip().splitlines()[-1]))
+    if world == 1:
+        rec["untested"] = ("one card: the distributed step ran at world size 1 "
+                           "under NCCL; copies between cards and an exchange "
+                           "between two processes went untested")
+    return rec
+
+
+def dist_worker(device=None) -> None:
+    """One rank of the distributed step (run by distributed_step with
+    torchrun's variables set): joins the NCCL group on cuda:LOCAL_RANK,
+    runs 2 local shards of the card, and checks a sum over the whole mesh,
+    the MSM of every process's share of 2^16 chain points (against the
+    discrete-log oracle) and the domain-sharded FFT of 2^20 points across
+    the processes (against the one-card `fft`); every shape the checked
+    runs gave a kernel is held against its plain version (PathRecorder);
+    prints one JSON line with the checks and their times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from plonky_tpu_torch.curves import TWEEDLEDEE as C
+    from plonky_tpu_torch.curves import host as chost
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.parallel import distributed
+    from plonky_tpu_torch.parallel import msm as pmsm
+    from plonky_tpu_torch.poly import fft as pfft
+    from plonky_tpu_torch.protocol.circuit import device_points_to_host
+
+    dev = distributed.initialize(device)
+    mesh = distributed.hybrid_mesh(2, device=dev)
+    out = {"rank": mesh.rank, "world": mesh.processes, "device": str(dev),
+           "backend": dist.get_backend(), "mesh": list(mesh.shape)}
+    nloc = mesh.local.size
+    rng = np.random.default_rng(1213)          # the same on every rank
+    a = int(rng.integers(2, 1 << 62))
+    _chain, chain_dev = doubling_chain(C, a, dev)
+    n = 1 << DIST_MSM_LOG
+    basis = cmsm.precompute_base(C, tuple(t.repeat(1, n // BLS_CHAIN)
+                                          for t in chain_dev))
+    scal, limbs = bls_scalars(np, torch, rng, C.scalar, n, dev)
+    want = chost.mul(chost.generator(C), chain_oracle(np, C.scalar.p, limbs, a))
+    lo, hi = distributed.process_local_slice(n)
+    shards = pmsm.shard_basis(mesh.local, basis.slice(lo, hi))
+    spec = C.base
+    x = rand_field(np, torch, rng, (1 << DIST_FFT_LG,), dev)
+
+    def msm():
+        return distributed.msm_sharded(mesh, C, shards, scal[:, lo:hi], PAR_WINDOW)
+
+    def fft():
+        return distributed.fft_sharded_domain(mesh, spec, x)
+
+    rec = PathRecorder()
+    with rec:
+        rec.level = "distributed"
+        parts = [torch.full((1,), mesh.rank * nloc + l + 1, dtype=torch.int64,
+                            device=d) for l, d in enumerate(mesh.local.devices)]
+        out["psum"] = int(distributed.psum(mesh, parts).item())
+        if out["psum"] != mesh.size * (mesh.size + 1) // 2:
+            raise AssertionError(f"psum gave {out['psum']}")
+        if device_points_to_host(C, msm()) != [want]:
+            raise AssertionError("the distributed MSM is not the oracle's point")
+        if not torch.equal(fft(), pfft.fft(pfft.FftPrecomputation(
+                spec, 1 << DIST_FFT_LG), x)):
+            raise AssertionError("the distributed FFT is not the one-card fft")
+    out["msm_s"] = median_s(torch, msm)[0]
+    out["fft_s"] = median_s(torch, fft)[0]
+    dist.destroy_process_group()
+    for key, (kernel_fn, plain_fn, _work, _device) in rec.calls.items():
+        got, plain = kernel_fn(), plain_fn()
+        got = got if isinstance(got, tuple) else (got,)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        if len(got) != len(plain) or not all(
+                torch.equal(g, w) for g, w in zip(got, plain)):
+            raise AssertionError(f"{key}: the kernel differs from its plain "
+                                 "version")
+    out["shapes_held"] = len(rec.calls)
+    out["launches_by_shape"] = rec.by_shape("distributed")
+    print(json.dumps(out), flush=True)
 
 
 def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
@@ -2228,18 +2542,20 @@ class PathRecorder:
         self.counts = collections.Counter()      # (level, key) -> calls
         self.calls = {}                          # key -> (kernel, plain, work)
 
-    def _note(self, key, launches, kernel_fn, plain_fn, work):
+    def _note(self, key, launches, kernel_fn, plain_fn, work, device):
         self.counts[(self.level, key)] += launches
         if key not in self.calls:
-            self.calls[key] = (kernel_fn, plain_fn, work)
+            self.calls[key] = (kernel_fn, plain_fn, work, device)
 
     def __enter__(self):
         from plonky_tpu_torch.curves import msm as cmsm
+        from plonky_tpu_torch.curves import ops as cops
         from plonky_tpu_torch.fields import ops as fops
         from plonky_tpu_torch.poly import fft as pfft
         wrapped = ((fops, "_launch_binary"), (fops, "_product_sums_launch"),
                    (pfft, "ntt"), (cmsm, "bucket_accumulate"),
-                   (cmsm, "bucket_reduce"), (cmsm, "horner"))
+                   (cmsm, "bucket_reduce"), (cmsm, "horner"),
+                   (cops, "_launch_point"))
         self.saved = [(m, name, getattr(m, name)) for m, name in wrapped]
         orig = {name: fn for _m, name, fn in self.saved}
         plain_binary = {"field_add": fops.add_plain, "field_sub": fops.sub_plain,
@@ -2253,7 +2569,8 @@ class PathRecorder:
                        lambda: orig["_launch_binary"](kernel, spec, a, b),
                        lambda: plain_binary[kernel](spec, a, b),
                        lambda: (32 * (n * (1 + sum(full)) + 2 - sum(full)),
-                                MUL_OPS * n if kernel == "field_mul" else 0))
+                                MUL_OPS * n if kernel == "field_mul" else 0),
+                       out.device)
             return out
 
         def product_sums(spec, sums, batch, splits=None):
@@ -2269,7 +2586,8 @@ class PathRecorder:
                        lambda: tuple(orig["_product_sums_launch"](spec, sums, batch, splits)),
                        lambda: tuple(fops.product_sums_plain(spec, sums)),
                        lambda: (32 * (n * (full + len(sums)) + len(operands) - full),
-                                n * (products * PRODUCT_OPS + len(sums) * REDC_OPS)))
+                                n * (products * PRODUCT_OPS + len(sums) * REDC_OPS)),
+                       out[0].device)
             return out
 
         def ntt(pre, x, inverse=False, shift=None):
@@ -2280,7 +2598,7 @@ class PathRecorder:
                        len(pfft.pass_plan(pre.lg_n)),
                        lambda: orig["ntt"](pre, x, inverse, shift),
                        lambda: pfft.ntt_plain(pre, x, inverse, shift),
-                       lambda: ntt_work(batch, pre.lg_n, inverse, coset))
+                       lambda: ntt_work(batch, pre.lg_n, inverse, coset), out.device)
             return out
 
         def accumulate(curve, basis, digits, order, starts, signs=None):
@@ -2291,7 +2609,7 @@ class PathRecorder:
                                                          starts, signs),
                        lambda: cmsm.bucket_accumulate_plain(curve, basis, digits, order,
                                                             starts, signs=signs),
-                       lambda: k4_work(digits, starts, out)[:2])
+                       lambda: k4_work(digits, starts, out)[:2], out[0].device)
             return out
 
         def reduce(curve, buckets, carries, starts):
@@ -2299,7 +2617,7 @@ class PathRecorder:
             self._note(("msm_bucket_reduce", curve.name, *starts.shape), 1,
                        lambda: orig["bucket_reduce"](curve, buckets, carries, starts),
                        lambda: cmsm.bucket_reduce_plain(curve, buckets, carries, starts),
-                       lambda: reduce_work(starts, (buckets, carries)))
+                       lambda: reduce_work(starts, (buckets, carries)), out[0].device)
             return out
 
         def horner(curve, ws, c):
@@ -2307,11 +2625,24 @@ class PathRecorder:
             self._note(("curve_horner", curve.name, *ws[0].shape[1:], c), 1,
                        lambda: orig["horner"](curve, ws, c),
                        lambda: cmsm.horner_plain(curve, ws, c),
-                       lambda: horner_work(ws, c))
+                       lambda: horner_work(ws, c), out[0].device)
+            return out
+
+        def point(kernel, curve, coords):
+            out = orig["_launch_point"](kernel, curve, coords)
+            n, nl = out[0][0].numel(), curve.base.limbs
+            add = kernel == "curve_add"
+            self._note((kernel, curve.name, n), 1,
+                       lambda: orig["_launch_point"](kernel, curve, coords),
+                       lambda: (cops.add_plain(curve, coords[:3], coords[3:]) if add
+                                else cops.double_plain(curve, coords)),
+                       lambda: (4 * nl * n * (len(coords) + 3),
+                                n * (add_ops(nl) if add else dbl_ops(nl))),
+                       out[0].device)
             return out
 
         for (m, name), fn in zip(wrapped, (binary, product_sums, ntt, accumulate,
-                                           reduce, horner)):
+                                           reduce, horner, point)):
             setattr(m, name, fn)
         return self
 
@@ -2331,11 +2662,13 @@ class PathRecorder:
         [record]; each record carries the launches of each level's
         prove."""
         out = {}
-        for key, (kernel_fn, plain_fn, work) in self.calls.items():
+        for key, (kernel_fn, plain_fn, work, device) in self.calls.items():
             nbytes, nops = work()
+            with ck.torch.cuda.device(device):
+                held = ck.hold(key[0], kernel_fn, plain_fn, nbytes, nops)
             rec = {"shape": list(key[1:]),
                    **{f"launches_{lv}": self.counts[(lv, key)] for lv in levels},
-                   **ck.hold(key[0], kernel_fn, plain_fn, nbytes, nops)}
+                   **held}
             out.setdefault(key[0], []).append(rec)
         self.calls.clear()
         return out
@@ -2939,6 +3272,8 @@ def main() -> int:
     rescue_launches = timed("rescue", phase_rescue, ck, torch, np, dev, name_power)
     bls_launches = timed("bls12_377", phase_bls12_377, ck, torch, np, dev, name_power)
     probe_launches = timed("probe", phase_probe, ck, torch, np, dev, name_power)
+    parallel_launches = timed("parallel", phase_parallel, ck, torch, np, dev,
+                              name_power)
     timed("fixtures", phase_fixtures)
     timed("gadgets", phase_gadgets)
     timed("ladder", phase_ladder)
@@ -2950,6 +3285,7 @@ def main() -> int:
     launches["rescue_permutation"] = rescue_launches
     launches.update(bls_launches)
     launches.update(probe_launches)
+    launches.update(parallel_launches)
     emit({"phase": "seconds", "build_s": build_s, **seconds,
           "total_s": time.perf_counter() - t_start})
     for name, rec in ck.records.items():

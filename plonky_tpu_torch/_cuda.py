@@ -9,11 +9,15 @@ fields, and with ``-DPT_LIMBS=12`` for 12-limb ones, whose C entries and
 launch counts carry the suffix ``_l12`` (`kernel`).  Every C entry
 launches one kernel on the stream it is given and returns
 ``cudaGetLastError()``; `launch` raises when that is not 0 and counts the
-launch under the kernel's name.
+launch under the kernel's name and its card.  A launch runs on the card
+that holds its tensors, on that card's current stream, with the card made
+current for the call (a `__constant__` such as csrc/curve.cuh's `c_curve`
+is one copy a card, set on that stream); tensors on two cards raise.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -52,6 +56,9 @@ LAUNCHES = {name: 0 for name in (
     "ntt_twiddle_transpose", "msm_bucket_accumulate",
     "msm_bucket_accumulate_signed", "msm_bucket_reduce", "rescue_permutation",
     *(width_name(k, WIDE_LIMBS) for k in WIDE_KERNELS))}
+
+# Launches per card index, counted with LAUNCHES (reset with reset_launches).
+DEVICE_LAUNCHES = collections.Counter()
 
 # Seconds the last build took (None: the library was up to date).
 BUILD_SECONDS = [None]
@@ -180,22 +187,41 @@ def library() -> ctypes.CDLL:
     return _LIB[0]
 
 
-def launch(name: str, entry: str, *args) -> None:
-    """Call one C entry (which launches one kernel on the current stream),
-    raise on a CUDA error, and count the launch."""
-    rc = getattr(library(), entry)(*args)
+def device_of(name: str, tensors) -> torch.device:
+    """The one device of the tensors a launch reads or writes (None entries
+    skipped); raises where they lie on more than one."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: one launch takes tensors on one device, "
+                         f"got {sorted(map(str, devices))}")
+    return devices.pop()
+
+
+def launch(name: str, entry: str, tensors, *args) -> None:
+    """Call one C entry, which launches one kernel on the stream passed
+    after `args`: the current stream of the card that holds `tensors`
+    (every tensor the kernel reads or writes), with that card current for
+    the call (switched to and back only where another card is current).
+    Raises on tensors on two cards or a CUDA error; counts the launch under
+    the kernel's name and its card's index."""
+    dev = device_of(name, tensors)
+    fn = getattr(library(), entry)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch on {dev}")
     LAUNCHES[name] += 1
+    DEVICE_LAUNCHES[dev.index] += 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    DEVICE_LAUNCHES.clear()
 
 
 def host_array(values, dtype) -> np.ndarray:

@@ -453,10 +453,10 @@ def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
     carries = torch.zeros((rows, ntiles, w), dtype=torch.int32, device=basis.device)
     if rows * n == 0:
         return buckets, carries
-    _cuda.launch(name, entry, buckets.data_ptr(),
-                 carries.data_ptr(), basis.mont.data_ptr(), digits.data_ptr(),
-                 order.data_ptr(), starts.data_ptr(), rows, n, nb, CHUNK, tile,
-                 cops._consts_host(curve).ctypes.data, _cuda.stream())
+    _cuda.launch(name, entry, (buckets, carries, basis.mont, digits, order, starts),
+                 buckets.data_ptr(), carries.data_ptr(), basis.mont.data_ptr(),
+                 digits.data_ptr(), order.data_ptr(), starts.data_ptr(), rows, n,
+                 nb, CHUNK, tile, cops._consts_host(curve).ctypes.data)
     return buckets, carries
 
 
@@ -481,10 +481,11 @@ def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor
             for _ in range(3)]
     if rows == 0:
         return tuple(outs)
-    _cuda.launch(name, entry, *[t.data_ptr() for t in outs],
+    _cuda.launch(name, entry, (*outs, buckets, carries, starts),
+                 *[t.data_ptr() for t in outs],
                  buckets.data_ptr(), carries.data_ptr(), starts.data_ptr(), rows, nb,
                  carries.shape[1], CHUNK * tile_for(nl), reduce_seg(nb),
-                 cops._consts_host(curve).ctypes.data, _cuda.stream())
+                 cops._consts_host(curve).ctypes.data)
     return tuple(outs)
 
 
@@ -519,9 +520,9 @@ def horner(curve: CurveSpec, ws: cops.Point, c: int) -> cops.Point:
             for _ in range(3)]
     if k == 0:
         return tuple(outs)
-    _cuda.launch(name, entry, *[t.data_ptr() for t in outs],
+    _cuda.launch(name, entry, (*outs, *ws), *[t.data_ptr() for t in outs],
                  *[t.data_ptr() for t in ws], k, n_windows, c,
-                 cops._consts_host(curve).ctypes.data, _cuda.stream())
+                 cops._consts_host(curve).ctypes.data)
     return tuple(outs)
 
 

@@ -147,9 +147,9 @@ def _launch_point(kernel: str, curve: CurveSpec, coords) -> Point:
     ins = [fops._expand(c, batch).contiguous() for c in coords]
     for t in ins:
         _cuda.check(name, t, nl)
-    _cuda.launch(name, entry, *[t.data_ptr() for t in outs],
+    _cuda.launch(name, entry, (*outs, *ins), *[t.data_ptr() for t in outs],
                  *[t.data_ptr() for t in ins], n,
-                 _consts_host(curve).ctypes.data, _cuda.stream())
+                 _consts_host(curve).ctypes.data)
     return tuple(outs)
 
 

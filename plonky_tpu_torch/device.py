@@ -8,6 +8,9 @@ import torch
 
 
 def resolve(device=None) -> torch.device:
+    """The device to run on: the card unless `device` names another; a
+    card always with its index (a bare "cuda" is the current card), so
+    that a table cached under the device belongs to one card."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -15,4 +18,6 @@ def resolve(device=None) -> torch.device:
             "run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

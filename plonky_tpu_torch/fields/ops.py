@@ -292,8 +292,8 @@ def _launch_binary(kernel: str, spec: FieldSpec, a, b):
     (ta, fa), (tb, fb) = _operand(a, batch), _operand(b, batch)
     for t in (ta, tb):
         _cuda.check(name, t, spec.limbs)
-    _cuda.launch(name, entry, out.data_ptr(), ta.data_ptr(), fa, tb.data_ptr(),
-                 fb, n, spec.mul_consts.ctypes.data, _cuda.stream())
+    _cuda.launch(name, entry, (out, ta, tb), out.data_ptr(), ta.data_ptr(), fa,
+                 tb.data_ptr(), fb, n, spec.mul_consts.ctypes.data)
     return out
 
 
@@ -395,9 +395,9 @@ def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
     bufs = [_cuda.host_array(a_ptrs, np.uint64),
             _cuda.host_array(b_ptrs, np.uint64),
             _cuda.host_array(flags, np.int32), _cuda.host_array(first, np.int32)]
-    _cuda.launch("field_product_sum", "pt_field_product_sum", out.data_ptr(),
-                 *[buf.ctypes.data for buf in bufs], len(sums), splits, n,
-                 spec.mul_consts.ctypes.data, _cuda.stream())
+    _cuda.launch("field_product_sum", "pt_field_product_sum", (out, *keep),
+                 out.data_ptr(), *[buf.ctypes.data for buf in bufs], len(sums),
+                 splits, n, spec.mul_consts.ctypes.data)
     return list(out)
 
 

@@ -331,6 +331,6 @@ def rescue_permutation(spec: FieldSpec, state, security_bits: int):
     if n:
         consts = kernel_consts(spec, security_bits)
         _cuda.launch("rescue_permutation", "pt_rescue_permutation",
-                     out.data_ptr(), stacked.data_ptr(), n,
-                     consts.ctypes.data, consts.size, _cuda.stream())
+                     (out, stacked), out.data_ptr(), stacked.data_ptr(), n,
+                     consts.ctypes.data, consts.size)
     return list(out)

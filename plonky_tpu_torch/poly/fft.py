@@ -68,14 +68,16 @@ class FftPrecomputation:
 
     def _table(self, key, device, montgomery: bool, make):
         """The canonical [LIMBS, len] table `make(device)`, or its
-        Montgomery form when asked; both cached."""
+        Montgomery form when asked; both cached by card (a bare "cuda"
+        names the current one)."""
+        device = resolve(device)
         full = (key, str(device), bool(montgomery))
         if full not in self._tables:
             if montgomery:
                 tab = fops.to_montgomery(
                     self.spec, self._table(key, device, False, make))
             else:
-                tab = make(torch.device(device)).contiguous()
+                tab = make(device).contiguous()
             self._tables[full] = tab
         return self._tables[full]
 
@@ -256,12 +258,12 @@ def ntt(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
         lg_groups = block_groups(batch, lg, kp)
         last = i == len(plan) - 1
         _cuda.launch(
-            "ntt_pass", "pt_ntt_pass", y.data_ptr(), src.data_ptr(),
-            tw.data_ptr(),
+            "ntt_pass", "pt_ntt_pass", (y, src, tw, pre_tab, post), y.data_ptr(),
+            src.data_ptr(), tw.data_ptr(),
             pre_tab.data_ptr() if i == 0 and pre_tab is not None else None,
             post.data_ptr() if last and post is not None else None,
             int(post is not None and post.shape[1] == 1), batch, lg, l0, kp,
-            lg_groups, spec.kernel_consts.ctypes.data, _cuda.stream())
+            lg_groups, spec.kernel_consts.ctypes.data)
         src = y
     return y.reshape(shape)
 
@@ -291,16 +293,16 @@ def lde(pre: FftPrecomputation, coeffs: torch.Tensor) -> torch.Tensor:
 
 
 def powers_dyn(spec: FieldSpec, base_col: torch.Tensor, n: int) -> torch.Tensor:
-    """[base^0 .. base^(n-1)] as [LIMBS, n] from a [LIMBS, 1] device base:
-    a doubling construction, log2(n) batched multiplies."""
+    """[base^0 .. base^(n-1)] as [LIMBS, *B, n] from [LIMBS, *B, 1] device
+    bases: a doubling construction, log2(n) batched multiplies."""
     require_eight_limbs(spec, "powers_dyn")
-    acc = fops.column(spec, 1, base_col.device)
+    acc = fops.constant(spec, 1, base_col.shape[1:], base_col.device).contiguous()
     top = base_col   # invariant: top = base^(width of acc)
     while acc.shape[-1] < n:
         acc = torch.cat([acc, fops.mul(spec, acc, top)], dim=-1)
         if acc.shape[-1] < n:
             top = fops.square(spec, top)
-    return acc[:, :n]
+    return acc[..., :n]
 
 
 def coset_fft(pre: FftPrecomputation, coeffs: torch.Tensor,
@@ -395,9 +397,9 @@ def twiddle_transpose(spec: FieldSpec, x: torch.Tensor,
                              f"for x {tuple(x.shape)}")
         _cuda.check("ntt_twiddle_transpose", mont, LIMBS)
     _cuda.launch("ntt_twiddle_transpose", "pt_ntt_twiddle_transpose",
-                 y.data_ptr(), x4.data_ptr(),
+                 (y, x4, mont), y.data_ptr(), x4.data_ptr(),
                  None if mont is None else mont.data_ptr(), x4.shape[1], r, s,
-                 spec.kernel_consts.ctypes.data, _cuda.stream())
+                 spec.kernel_consts.ctypes.data)
     return y
 
 

@@ -33,7 +33,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 54          # every module of the package was imported
+    assert int(count) >= 60          # every module of the package was imported
     assert bad == "[]"
 
 
@@ -59,5 +59,13 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         builder.build()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         verify_proof([], None, [], None, None, verify_g=True)
+    from plonky_tpu_torch import msms_bench
+    from plonky_tpu_torch.parallel import default_mesh, hybrid_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hybrid_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        msms_bench.main(["--log-n", "2"])
     # asked for the CPU, the same calls run
     assert fops.to_ints(spec, fops.from_ints(spec, [5], "cpu")).tolist() == [5]

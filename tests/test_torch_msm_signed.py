@@ -282,9 +282,8 @@ def test_reduce_seg_is_one_choice_for_kernel_and_plain(monkeypatch):
     monkeypatch.setattr(cmsm, "reduce_seg", spy)
     monkeypatch.setattr(fops, "_dispatch", lambda t: True)
     monkeypatch.setattr(_cuda, "check", lambda *a, **k: None)
-    monkeypatch.setattr(_cuda, "stream", lambda: 0)
-    monkeypatch.setattr(_cuda, "launch",
-                        lambda name, entry, *args: launched.append(args[10]))
+    monkeypatch.setattr(_cuda, "launch", lambda name, entry, tensors, *args:
+                        launched.append(args[10]))
     w = cmsm.words(CURVE)
     for c in range(2, 13):
         for nb in (1 << c, (1 << (c - 1)) + 1):
@@ -322,9 +321,8 @@ def test_signs_ride_in_bit_31_of_order(monkeypatch):
     seen = []
     monkeypatch.setattr(fops, "_dispatch", lambda t: True)
     monkeypatch.setattr(_cuda, "check", lambda *a, **k: None)
-    monkeypatch.setattr(_cuda, "stream", lambda: 0)
-    monkeypatch.setattr(_cuda, "launch",
-                        lambda name, entry, *args: seen.append((name, entry)))
+    monkeypatch.setattr(_cuda, "launch", lambda name, entry, tensors, *args:
+                        seen.append((name, entry)))
     digits = torch.tensor([[0, 1, 1, 2, 3, 3]], dtype=torch.int32)
     starts = cmsm._run_starts(digits.to(torch.int64), 5)
     cmsm.bucket_accumulate(CURVE, basis, digits, order, starts, signs)
