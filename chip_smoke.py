@@ -1548,7 +1548,7 @@ def phase_probe(ck: Checker, torch, np, dev, name_power: str) -> dict:
         shape = {"shape": f"2^{MSM_PROBE_LOG} c={c}" + (" signed" if signed else ""),
                  "N": n, "K": 1, "c": c, "signed": signed, "rows": digits.shape[0],
                  "nb": starts.shape[1] - 1,
-                 "seg": cmsm.reduce_seg(starts.shape[1] - 1)}
+                 "seg": cmsm.reduce_seg(starts.shape[1] - 1, digits.shape[0])}
         acc_b, acc_ops, red_b, red_ops = k4_work(digits, starts, acc)
         if signed:
             ck.compare("msm_bucket_accumulate_signed", acc,
@@ -1895,8 +1895,11 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     warm call and three timed ones (median, ended by a synchronize), each
     result held against ((a sum_i s_i 2^(i mod 2^12)) mod r) G on the host
     for the basis P_i = 2^(i mod 2^12) (a G), and one call profiled for
-    its per-kernel device ms and launches.  Returns the path's launches
-    of the 12-limb kernels."""
+    its per-kernel device ms and launches, which must be each slice's
+    accumulate, ONE reduce, ONE Horner and a tree of ceil(log2 slices)
+    curve_adds; at 2^22 the reduce over the call's 2,048 rows is held
+    against its plain version and timed (the reduce's second shape).
+    Returns the path's launches of the 12-limb kernels."""
     from plonky_tpu_torch import _cuda
     from plonky_tpu_torch.curves import BLS12_377 as C
     from plonky_tpu_torch.curves import host as chost
@@ -1983,8 +1986,9 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
         raise AssertionError(f"{what} ran on a 12-limb field")
     checked = {"K1": "N = 2^12 + 3, edges, [12, 1] either side, squares",
                "K2": "[12, 2^10 + 3], identity, P + P, P + (-P)",
-               "K4": "N = 2^12 + 5, K = 1, 3, c = 8, 5",
-               "curve_horner": "K = 1, 3, W = 32 (c = 8), 51 (c = 5)"}
+               "K4": "N = 2^12 + 5, K = 1, 3, c = 8, 5; the reduce also at "
+                     "2,048 and 2,112 rows (2^22)",
+               "curve_horner": "K = 1, 3, 64, W = 32, 33 (c = 8), 51 (c = 5)"}
 
     # timed at the microbench sizes: K1 at 2^16 on both fields
     nf = 1 << 16
@@ -2043,14 +2047,24 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     ws = tuple(t.reshape(nl, 1, -1) for t in ws)
     acc_b, acc_ops, red_b, red_ops = k4_work(rows, starts, acc, nl)
     shape = {"main": f"N = 2^16, K = 1, c = {BLS_WINDOW}", "checked": checked["K4"]}
+    slices22 = 1 << (BLS_LADDER[-1] - BLS_CHUNK_LOG)   # the top call's slices
     ck.record("msm_bucket_accumulate_l12", shape,
               lambda: cmsm.bucket_accumulate(C, basis16, digits, order, starts),
               lambda: cmsm.bucket_accumulate_plain(C, basis16, digits, order, starts),
               acc_b, acc_ops, reps=10, plain_reps=1)
-    ck.record("msm_bucket_reduce_l12", shape,
-              lambda: cmsm.bucket_reduce(C, *acc, starts),
-              lambda: cmsm.bucket_reduce_plain(C, *acc, starts),
-              red_b, red_ops, reps=10, plain_reps=1)
+    red32 = ck.measure(lambda: cmsm.bucket_reduce(C, *acc, starts),
+                       lambda: cmsm.bucket_reduce_plain(C, *acc, starts),
+                       red_b, red_ops, 10, 1)
+    ck.record("msm_bucket_reduce_l12",
+              {"main": f"{rows.shape[0]} rows (one slice: N = 2^16, K = 1, "
+                       f"c = {BLS_WINDOW}); "
+                       f"{rows.shape[0] * slices22} rows and "
+                       f"{(rows.shape[0] + 1) * slices22} signed (msm_chunked at "
+                       f"2^{BLS_LADDER[-1]}, by_shape)",
+               "checked": checked["K4"]},
+              by_shape=[{"rows": rows.shape[0], "seg": cmsm.reduce_seg(
+                  starts.shape[1] - 1, rows.shape[0]), "signed": False, **red32,
+                  "share": share(red32)}], measured=red32)
     # the signed accumulate at the same slice
     s_digits, s_order, s_starts, s_signs, _w = cmsm.window_rows(
         C, scal16, BLS_WINDOW, signed=True)
@@ -2073,12 +2087,14 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     ck.compare("curve_horner_l12", cmsm.horner(C, ws, BLS_WINDOW),
                cmsm.horner_plain(C, ws, BLS_WINDOW))
     hb, hops = horner_work(ws, BLS_WINDOW, nl)
+    hor1 = ck.measure(lambda: cmsm.horner(C, ws, BLS_WINDOW),
+                      lambda: cmsm.horner_plain(C, ws, BLS_WINDOW), hb, hops, 10, 1)
     ck.record("curve_horner_l12", {"main": f"K = 1, W = {ws[0].shape[2]}, "
-                                   f"c = {BLS_WINDOW}",
+                                   f"c = {BLS_WINDOW}; K = {slices22} (msm_chunked "
+                                   f"at 2^{BLS_LADDER[-1]}, both signs, by_shape)",
                                    "checked": checked["curve_horner"]},
-              lambda: cmsm.horner(C, ws, BLS_WINDOW),
-              lambda: cmsm.horner_plain(C, ws, BLS_WINDOW), hb, hops,
-              reps=10, plain_reps=1)
+              by_shape=[{"K": 1, "W": ws[0].shape[2], "signed": False, **hor1,
+                         "share": share(hor1)}], measured=hor1)
 
     # the path, once, with the launch counts reset
     def chunked(basis, scal, signed=False):
@@ -2121,6 +2137,58 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
 
     # the ladder
     del basis16, scal16, acc
+
+    def chunked_launches(lg, signed, launches):
+        """One msm_chunked call's launches: each slice's accumulate, ONE
+        reduce and ONE Horner, a tree of ceil(log2 slices) curve_adds."""
+        slices = 1 << max(0, lg - BLS_CHUNK_LOG)
+        acc_name = ("msm_bucket_accumulate_signed_l12" if signed
+                    else "msm_bucket_accumulate_l12")
+        want = {acc_name: slices, "msm_bucket_reduce_l12": 1, "curve_horner_l12": 1}
+        if slices > 1:
+            want["curve_add_l12"] = (slices - 1).bit_length()
+        if launches != want:
+            raise AssertionError(f"msm_chunked(signed={signed}) at 2^{lg} launched "
+                                 f"{launches}, not {want}")
+
+    def spied(fn):
+        """fn()'s result, the arguments of its bucket_reduce call and the
+        window sums its horner call took."""
+        seen = {}
+        real_reduce, real_horner = cmsm.bucket_reduce, cmsm.horner
+
+        def reduce_spy(curve, buckets, carries, starts):
+            seen["reduce"] = (buckets, carries, starts)
+            return real_reduce(curve, buckets, carries, starts)
+
+        def horner_spy(curve, ws, c):
+            seen["horner"] = ws
+            return real_horner(curve, ws, c)
+        cmsm.bucket_reduce, cmsm.horner = reduce_spy, horner_spy
+        try:
+            res = fn()
+        finally:
+            cmsm.bucket_reduce, cmsm.horner = real_reduce, real_horner
+        return res, seen["reduce"], seen["horner"]
+
+    def hold_call(lg, signed, fn, want):
+        """The 2^lg call's reduce (over every slice's rows) and Horner (K =
+        its slices), each held against its plain version on the inputs the
+        call gave it and timed: one by_shape row each."""
+        tag = "(signed=True)" if signed else ""
+        res, (bk, cr, st), ws = spied(fn)
+        affine_is(res, want, f"msm_chunked{tag} at 2^{lg} (its reduce and Horner held)")
+        rb, rops = reduce_work(st, (bk, cr), nl)
+        red = ck.hold("msm_bucket_reduce_l12", lambda: cmsm.bucket_reduce(C, bk, cr, st),
+                      lambda: cmsm.bucket_reduce_plain(C, bk, cr, st), rb, rops)
+        ck.records["msm_bucket_reduce_l12"]["by_shape"].append(
+            {"rows": st.shape[0], "seg": cmsm.reduce_seg(st.shape[1] - 1, st.shape[0]),
+             "signed": signed, **red})
+        hb, hops = horner_work(ws, BLS_WINDOW, nl)
+        hor = ck.hold("curve_horner_l12", lambda: cmsm.horner(C, ws, BLS_WINDOW),
+                      lambda: cmsm.horner_plain(C, ws, BLS_WINDOW), hb, hops)
+        ck.records["curve_horner_l12"]["by_shape"].append(
+            {"K": ws[0].shape[1], "W": ws[0].shape[2], "signed": signed, **hor})
     ladder, signed_ladder = [], []
     for lg in BLS_LADDER:
         n = 1 << lg
@@ -2136,6 +2204,9 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
         med, times, res = median_s(torch, lambda: chunked(basis, scal))
         affine_is(res, want, f"msm_chunked at 2^{lg}")
         kernel_ms, other_ms, path_lg = profiled(torch, lambda: chunked(basis, scal))
+        chunked_launches(lg, False, path_lg)
+        if lg == BLS_LADDER[-1]:
+            hold_call(lg, False, lambda: chunked(basis, scal), want)
         ladder.append({"log_n": lg, "seconds": times, "median_s": med,
                        "points_per_s": n / med, "setup_s": setup_s,
                        "launches": path_lg, "kernel_device_ms": kernel_ms,
@@ -2149,6 +2220,9 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
         affine_is(res, want, f"msm_chunked(signed=True) at 2^{lg}")
         kernel_ms, other_ms, path_lg = profiled(
             torch, lambda: chunked(basis, scal, signed=True))
+        chunked_launches(lg, True, path_lg)
+        if lg == BLS_LADDER[-1]:
+            hold_call(lg, True, lambda: chunked(basis, scal, signed=True), want)
         signed_ladder.append({"log_n": lg, "seconds": times, "median_s": med,
                               "points_per_s": n / med, "launches": path_lg,
                               "kernel_device_ms": kernel_ms,
@@ -3258,7 +3332,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "sms": sms, "max_sm_clock_mhz": clock_hz / 1e6,
           "int32_imad_per_s": int_rate, "build_s": build_s,
-          "built_now": _cuda.BUILD_SECONDS[0] is not None, "ptxas": ptxas})
+          "built_now": _cuda.BUILD_SECONDS[0] is not None,
+          "object_s": dict(_cuda.OBJECT_SECONDS), "ptxas": ptxas})
 
     ck = Checker(torch, clock_hz, int_rate)
     seconds = {}

@@ -17,7 +17,8 @@ over launches queued behind a sleep, L2 warm and flushed, as chip_smoke.py
 takes them), the device time of the Horner of the shape's window sums
 (`msm.horner` where the tree has it, else the loop of `ops.double` /
 `ops.add` that `msm` ran before it; L2 warm), a whole `msm` call, and the
-sha256 of the Horner's projective result and of the MSM's affine result;
+sha256 of the Horner's and the MSM's affine results (the reduce's order,
+and so the window sums' projective coordinates, may differ between trees);
 the elementwise curve_add / curve_double at two shapes; `fops.mul` at
 N = 9 2^14, 2^14, 2^17 and 1 (L2 warm and flushed) and whole `pfft.fft` /
 `ifft` / `lde` / `coset_fft` / `coset_ifft` calls at the 2^14 prove's
@@ -29,9 +30,14 @@ of one launch's sums, as one `product_sums` call or, in a tree without
 it, one `product_sum` launch a sum; L2 warm and flushed; the sha256 of
 the outputs); K5 (rescue_permutation) on 2^14 and 2^16 TweedledeeBase
 states at 128 bits (device ms of a launch, L2 warm, and the sha256 of the
-output); then chip_smoke.py's pinned prove line.  Last, one line compares the
-trees: every hash must agree (the pinned proof's too), or the exit code is
-not 0.
+output); BLS12-377 G1 at 12 limbs at the bench's settings (chunk_log 16,
+c = 8; `_bls_rows`): both accumulate entries on one 2^16 slice, the reduce
+at that slice's 32 rows and at the 2,048 rows of all 64 slices of 2^22
+points (L2 warm and flushed), and whole `msm_chunked` calls at 2^22,
+unsigned and signed (median seconds of three, host clock to a
+synchronize), each result hashed as affine points; then chip_smoke.py's
+pinned prove line.  Last, one line compares the trees: every hash must
+agree (the pinned proof's too), or the exit code is not 0.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+BLS_LOG = 22         # points of _bls_rows's msm_chunked calls: 2^22
 
 
 def _smoke():
@@ -220,6 +227,99 @@ def _k5_rows(smoke, ck, np, torch, dev):
     return rows
 
 
+def _bls_rows(smoke, ck, np, torch, dev):
+    """BLS12-377 at 12 limbs (see the module's comment): per row its
+    name, rows or log n, the sha256 of its result as affine points (the
+    trees may add in other orders, so projective coordinates may differ:
+    the buckets and the window sums are compared by value), and its
+    device ms a launch (L2 warm and flushed) or its median seconds."""
+    from plonky_tpu_torch.curves import BLS12_377 as C
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.curves import ops as cops
+    flush = ck.flush.zero_
+    rng = np.random.default_rng(3770)
+    nl, c = C.base.limbs, smoke.BLS_WINDOW
+    n, size = 1 << BLS_LOG, 1 << smoke.BLS_CHUNK_LOG
+    _chain, chain_dev = smoke.doubling_chain(C, int(rng.integers(2, 1 << 62)), dev)
+    basis = cmsm.precompute_base(C, tuple(t.repeat(1, n // smoke.BLS_CHAIN)
+                                          for t in chain_dev))
+    scal, _limbs = smoke.bls_scalars(np, torch, rng, C.scalar, n, dev)
+
+    def affine_sha(pt):
+        x, y, zero = cops.to_affine(C, tuple(t.reshape(nl, -1) for t in pt))
+        both = torch.cat([x, y, zero[None].to(torch.int32)])
+        return hashlib.sha256(both.cpu().numpy().tobytes()).hexdigest()
+
+    tp = (cmsm.chunk_for(nl) if hasattr(cmsm, "chunk_for") else cmsm.CHUNK
+          ) * cmsm.tile_for(nl)
+
+    def buckets_sha(out, starts):
+        """The bucket sums B_j (each bucket plus its carries, as the
+        reduce adds them: the trees split runs at other tiles)."""
+        buckets, carries = out
+        rows, nb, w = buckets.shape
+        b = cmsm.unpack_points(C, buckets.reshape(-1, w))
+        cr = cmsm.unpack_points(C, carries.reshape(-1, w))
+        st = starts.to(torch.int64)
+        lo, hi = st[:, :-1].reshape(-1), st[:, 1:].reshape(-1)
+        t0 = lo // tp + 1
+        extra = torch.where(hi > lo, (hi - 1) // tp - t0 + 1, torch.zeros_like(lo))
+        brow = torch.arange(rows, device=dev).repeat_interleave(nb)
+        for e in range(int(extra.max().item())):
+            sel = (extra > e).nonzero().squeeze(1)
+            summed = cops.add(C, tuple(t[:, sel] for t in b), tuple(
+                t[:, brow[sel] * carries.shape[1] + t0[sel] + e] for t in cr))
+            for t, v in zip(b, summed):
+                t[:, sel] = v
+        return affine_sha(b)
+
+    def timed(fn, reps):
+        return {"ms": ck.queued_ms(fn, reps),
+                "cold_ms": (ck.queued_ms(lambda: (flush(), fn()), reps)
+                            - ck.queued_ms(flush, reps))}
+    rows = []
+    one = basis.slice(0, size)
+    for signed in (False, True):
+        digits, order, starts, signs, _w = cmsm.window_rows(
+            C, scal[:, :size], c, signed)
+
+        def acc(digits=digits, order=order, starts=starts, signs=signs):
+            return cmsm.bucket_accumulate(C, one, digits, order, starts, signs)
+        out = acc()
+        rows.append({"name": "accumulate" + (" signed" if signed else ""),
+                     "rows": digits.shape[0], "sha256": buckets_sha(out, starts),
+                     **timed(acc, 10)})
+        if not signed:
+            def red(out=out, starts=starts):
+                return cmsm.bucket_reduce(C, *out, starts)
+            rows.append({"name": "reduce", "rows": digits.shape[0],
+                         "sha256": affine_sha(red()), **timed(red, 10)})
+        del out
+    parts = []
+    for lo in range(0, n, size):
+        digits, order, starts, _s, _w = cmsm.window_rows(C, scal[:, lo:lo + size], c)
+        parts.append((*cmsm.bucket_accumulate(C, basis.slice(lo, lo + size),
+                                               digits, order, starts), starts))
+    bk, cr, st = (torch.cat(t) for t in zip(*parts))
+    del parts
+
+    def wide():
+        return cmsm.bucket_reduce(C, bk, cr, st)
+    rows.append({"name": "reduce", "rows": st.shape[0], "sha256": affine_sha(wide()),
+                 **timed(wide, 5)})
+    del bk, cr, st
+    for signed in (False, True):
+        def call(signed=signed):
+            return cmsm.msm_chunked(C, basis, scal, window_bits=c,
+                                    chunk_log=smoke.BLS_CHUNK_LOG, signed=signed)
+        call()
+        med, times, res = smoke.median_s(torch, call)
+        rows.append({"name": "msm_chunked" + (" signed" if signed else ""),
+                     "rows": f"2^{BLS_LOG}", "sha256": affine_sha(res), "median_s": med,
+                     "seconds": times, "points_per_s": n / med})
+    return rows
+
+
 def run_tree(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
@@ -256,9 +356,10 @@ def run_tree(root: str) -> int:
         horner, horner_reps = _horner_call(cmsm, cops, TWEEDLEDEE, ws, c)
         x, y, zero = cops.to_affine(TWEEDLEDEE, cmsm.msm(TWEEDLEDEE, sub, scal, c))
         affine = torch.cat([x, y, zero[None].to(torch.int32)]).cpu().numpy()
+        hx, hy, hzero = cops.to_affine(TWEEDLEDEE, horner())
         row = {"shape": label, "K": k, "N": scal.shape[2],
-               "horner_sha256": hashlib.sha256(
-                   torch.cat(horner()).cpu().numpy().tobytes()).hexdigest(),
+               "horner_sha256": hashlib.sha256(torch.cat(
+                   [hx, hy, hzero[None].to(torch.int32)]).cpu().numpy().tobytes()).hexdigest(),
                "msm_affine_sha256": hashlib.sha256(affine.tobytes()).hexdigest(),
                "horner_ms": ck.queued_ms(horner, horner_reps)}
         for name, fn in (("accumulate", acc), ("reduce", red)):
@@ -274,7 +375,8 @@ def run_tree(root: str) -> int:
                     smoke, ck, np, torch, cops, TWEEDLEDEE, dev),
                 "k1_k3": _k1_k3_rows(smoke, ck, np, torch, dev),
                 "product_sum": _product_sum_rows(smoke, ck, np, torch, dev),
-                "k5": _k5_rows(smoke, ck, np, torch, dev)})
+                "k5": _k5_rows(smoke, ck, np, torch, dev),
+                "bls12_377": _bls_rows(smoke, ck, np, torch, dev)})
     smoke.phase_prove(torch, want_sha256=smoke.PROOF_2E14_SHA256,
                       check_launches=False)
     return 0
@@ -300,6 +402,8 @@ def main(argv) -> int:
                 hashes[-1].update({(r["name"], str(r["shape"])): r["sha256"]
                                    for r in rec["k1_k3"] + rec["product_sum"]
                                    + rec["k5"]})
+                hashes[-1].update({("bls12_377", r["name"], str(r["rows"])): r["sha256"]
+                                   for r in rec["bls12_377"]})
     equal = len(hashes) == len(argv or [HERE]) and all(h == hashes[0] for h in hashes)
     print(json.dumps({"phase": "k4_compare_trees", "trees": len(hashes),
                       "hashes_equal": equal}), flush=True)

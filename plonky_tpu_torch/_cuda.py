@@ -2,7 +2,8 @@
 
 The kernels live in ``csrc/*.cu`` with a plain C interface.  At first use
 on a CUDA tensor each source is compiled by its own ``nvcc`` process (all
-started together) for ``sm_90a``, the objects are linked into one shared
+started together; the curve and MSM sources one process a kernel) for
+``sm_90a``, the objects are linked into one shared
 library under ``_build/``, and the library is loaded with ctypes.  The
 sources of K1, K2 and K4 (WIDE_SOURCES) are compiled twice: for 8-limb
 fields, and with ``-DPT_LIMBS=12`` for 12-limb ones, whose C entries and
@@ -18,6 +19,7 @@ is one copy a card, set on that stream); tensors on two cards raise.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import os
 import shutil
@@ -38,6 +40,10 @@ WIDE_SOURCES = ("field_kernels.cu", "curve_kernels.cu", "msm_kernels.cu")
 WIDE_KERNELS = ("field_add", "field_sub", "field_mul", "curve_add",
                 "curve_double", "curve_horner", "msm_bucket_accumulate",
                 "msm_bucket_accumulate_signed", "msm_bucket_reduce")
+# Sources built one object a kernel (their kernel count): one object of
+# either at 12 limbs took nvcc 35-41 s on the H100's machine, the whole
+# build's long pole (csrc/field.cuh:PT_ONLY).
+SPLIT_SOURCES = {"curve_kernels.cu": 3, "msm_kernels.cu": 3}
 HEADERS = ("field.cuh", "curve.cuh")
 LIB_NAME = "libplonky_kernels.so"
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -60,8 +66,10 @@ LAUNCHES = {name: 0 for name in (
 # Launches per card index, counted with LAUNCHES (reset with reset_launches).
 DEVICE_LAUNCHES = collections.Counter()
 
-# Seconds the last build took (None: the library was up to date).
+# Seconds the last build took (None: the library was up to date), and
+# each object's nvcc seconds in it (the objects compile in parallel).
 BUILD_SECONDS = [None]
+OBJECT_SECONDS = {}
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 
 _LIB = [None]
@@ -125,10 +133,21 @@ def _stale(lib_path: str) -> bool:
 
 def objects():
     """(label, source, extra nvcc flags) of every object of the library:
-    each source at 8 limbs, then WIDE_SOURCES at 12 (label `*_l12`)."""
-    objs = [(src.replace(".cu", ""), src, []) for src in SOURCES]
-    objs += [(src.replace(".cu", f"_l{WIDE_LIMBS}"), src,
-              [f"-DPT_LIMBS={WIDE_LIMBS}"]) for src in WIDE_SOURCES]
+    each source at 8 limbs, then WIDE_SOURCES at 12 (label `*_l12`); a
+    source of SPLIT_SOURCES gives one object a kernel (-DPT_ONLY=k, label
+    `*_k`), so that its kernels compile in parallel."""
+    objs = []
+    for srcs, suffix, flags in ((SOURCES, "", []),
+                                (WIDE_SOURCES, f"_l{WIDE_LIMBS}",
+                                 [f"-DPT_LIMBS={WIDE_LIMBS}"])):
+        for src in srcs:
+            label = src.replace(".cu", suffix)
+            parts = SPLIT_SOURCES.get(src)
+            if parts is None:
+                objs.append((label, src, flags))
+            else:
+                objs += [(f"{label}_{k}", src, flags + [f"-DPT_ONLY={k}"])
+                         for k in range(1, parts + 1)]
     return objs
 
 
@@ -143,24 +162,30 @@ def build() -> str:
     t0 = time.perf_counter()
     common = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-    procs = []
-    for label, src, flags in objects():
+
+    def compile_object(label, src, flags):
         obj = os.path.join(BUILD_DIR, label + ".o")
-        procs.append((label, obj, subprocess.Popen(
+        t = time.perf_counter()
+        proc = subprocess.run(
             common + flags + ["-c", os.path.join(CSRC, src), "-o", obj],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return label, obj, proc, time.perf_counter() - t
+    objs = objects()
+    with concurrent.futures.ThreadPoolExecutor(len(objs)) as pool:
+        done = list(pool.map(lambda o: compile_object(*o), objs))
     log = []
     failed = []
-    for label, _obj, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {label} (rc={proc.returncode})\n{out}")
+    OBJECT_SECONDS.clear()
+    for label, _obj, proc, seconds in done:
+        OBJECT_SECONDS[label] = seconds
+        log.append(f"== {label} (rc={proc.returncode}, {seconds:.1f} s)\n{proc.stdout}")
         if proc.returncode != 0:
             failed.append(label)
     if not failed:
         tmp = lib_path + f".tmp{os.getpid()}"
         link = subprocess.run(
             [nvcc, "-gencode", ARCH, "-shared", "-o", tmp]
-            + [obj for _s, obj, _p in procs],
+            + [obj for _l, obj, _p, _s in done],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.append(f"== link (rc={link.returncode})\n{link.stdout}")
         if link.returncode != 0:

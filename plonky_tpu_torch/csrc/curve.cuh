@@ -78,6 +78,46 @@ __device__ __forceinline__ void mpt_from_mont(Point& r, const MontCurveConsts& c
   mf_mul(r.z, r.z, one, cc.f);
 }
 
+// The point formulas' additions and subtractions: at 12 limbs on carry
+// chains (cc_add_mod, cc_sub_mod: branch-free, one PTX instruction a limb
+// and step, fewer instructions than fe_add / fe_sub's 64-bit adds, which
+// made the 12-limb accumulation faster on the H100), at 8 fe_add / fe_sub,
+// whose machine code the 8-limb kernels keep.
+__device__ __forceinline__ void pt_fadd(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                        const uint32_t b[PT_LIMBS], const FieldConsts& c) {
+#if PT_LIMBS == 12
+  cc_add_mod(r, a, b, c);
+#else
+  fe_add(r, a, b, c);
+#endif
+}
+
+__device__ __forceinline__ void pt_fsub(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                        const uint32_t b[PT_LIMBS], const FieldConsts& c) {
+#if PT_LIMBS == 12
+  cc_sub_mod(r, a, b, c);
+#else
+  fe_sub(r, a, b, c);
+#endif
+}
+
+// r = k a for a small constant k >= 1 (double and add over k's bits).
+__device__ __forceinline__ void pt_mul_small(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                             uint32_t k, const FieldConsts& c) {
+#if PT_LIMBS == 12
+  uint32_t x[PT_LIMBS];
+  fe_copy(x, a);
+#pragma unroll 1
+  for (int bit = 30 - __clz(k); bit >= 0; bit--) {
+    cc_add_mod(x, x, x, c);
+    if ((k >> bit) & 1) cc_add_mod(x, x, a, c);
+  }
+  fe_copy(r, x);
+#else
+  mf_mul_small(r, a, k, c);
+#endif
+}
+
 // RCB15 Algorithm 7 (a = 0): one Montgomery product per multiply, the two
 // multiplies by b3 done by additions.  r may alias p or q.
 __device__ __forceinline__ void mpt_add(Point& r, const Point& p, const Point& q,
@@ -88,36 +128,36 @@ __device__ __forceinline__ void mpt_add(Point& r, const Point& p, const Point& q
   mf_mul(t0, p.x, q.x, c);
   mf_mul(t1, p.y, q.y, c);
   mf_mul(t2, p.z, q.z, c);
-  fe_add(u, p.x, p.y, c);
-  fe_add(v, q.x, q.y, c);
+  pt_fadd(u, p.x, p.y, c);
+  pt_fadd(v, q.x, q.y, c);
   mf_mul(t3, u, v, c);
-  fe_sub(t3, t3, t0, c);
-  fe_sub(t3, t3, t1, c);          // t3 = X1 Y2 + X2 Y1
-  fe_add(u, p.y, p.z, c);
-  fe_add(v, q.y, q.z, c);
+  pt_fsub(t3, t3, t0, c);
+  pt_fsub(t3, t3, t1, c);          // t3 = X1 Y2 + X2 Y1
+  pt_fadd(u, p.y, p.z, c);
+  pt_fadd(v, q.y, q.z, c);
   mf_mul(t4, u, v, c);
-  fe_sub(t4, t4, t1, c);
-  fe_sub(t4, t4, t2, c);          // t4 = Y1 Z2 + Y2 Z1
-  fe_add(u, p.x, p.z, c);
-  fe_add(v, q.x, q.z, c);
+  pt_fsub(t4, t4, t1, c);
+  pt_fsub(t4, t4, t2, c);          // t4 = Y1 Z2 + Y2 Z1
+  pt_fadd(u, p.x, p.z, c);
+  pt_fadd(v, q.x, q.z, c);
   mf_mul(xz, u, v, c);
-  fe_sub(xz, xz, t0, c);
-  fe_sub(xz, xz, t2, c);          // xz = X1 Z2 + X2 Z1
-  fe_add(u, t0, t0, c);
-  fe_add(t0, u, t0, c);           // t0 <- 3 t0
-  mf_mul_small(t2, t2, cc.b3, c); // t2 <- b3 t2
-  fe_add(u, t1, t2, c);           // z3p = t1 + b3 t2
-  fe_sub(t1, t1, t2, c);          // t1m = t1 - b3 t2
-  mf_mul_small(xz, xz, cc.b3, c); // yb3 = b3 xz
+  pt_fsub(xz, xz, t0, c);
+  pt_fsub(xz, xz, t2, c);          // xz = X1 Z2 + X2 Z1
+  pt_fadd(u, t0, t0, c);
+  pt_fadd(t0, u, t0, c);           // t0 <- 3 t0
+  pt_mul_small(t2, t2, cc.b3, c); // t2 <- b3 t2
+  pt_fadd(u, t1, t2, c);           // z3p = t1 + b3 t2
+  pt_fsub(t1, t1, t2, c);          // t1m = t1 - b3 t2
+  pt_mul_small(xz, xz, cc.b3, c); // yb3 = b3 xz
   mf_mul(v, t3, t1, c);
   mf_mul(t2, t4, xz, c);
-  fe_sub(r.x, v, t2, c);          // X3 = t3 t1m - t4 yb3
+  pt_fsub(r.x, v, t2, c);          // X3 = t3 t1m - t4 yb3
   mf_mul(v, xz, t0, c);
   mf_mul(t2, t1, u, c);
-  fe_add(r.y, v, t2, c);          // Y3 = yb3 t0_3 + t1m z3p
+  pt_fadd(r.y, v, t2, c);          // Y3 = yb3 t0_3 + t1m z3p
   mf_mul(v, u, t4, c);
   mf_mul(t2, t0, t3, c);
-  fe_add(r.z, v, t2, c);          // Z3 = z3p t4 + t0_3 t3
+  pt_fadd(r.z, v, t2, c);          // Z3 = z3p t4 + t0_3 t3
 }
 
 // RCB15 Algorithm 9 (a = 0), as mpt_add.  r may alias p.
@@ -130,18 +170,18 @@ __device__ __forceinline__ void mpt_double(Point& r, const Point& p,
   mf_mul(t2, p.z, p.z, c);
   mf_mul(txy, p.x, p.y, c);
   uint32_t z3p[PT_LIMBS], x3p[PT_LIMBS], u[PT_LIMBS];
-  fe_add(z3p, t0, t0, c);
-  fe_add(z3p, z3p, z3p, c);
-  fe_add(z3p, z3p, z3p, c);       // 8 Y^2
-  mf_mul_small(t2, t2, cc.b3, c); // b3 Z^2
+  pt_fadd(z3p, t0, t0, c);
+  pt_fadd(z3p, z3p, z3p, c);
+  pt_fadd(z3p, z3p, z3p, c);       // 8 Y^2
+  pt_mul_small(t2, t2, cc.b3, c); // b3 Z^2
   mf_mul(x3p, t2, z3p, c);
   mf_mul(r.z, t1, z3p, c);        // Z3 = 8 Y^3 Z
-  fe_add(t1, t0, t2, c);          // y3p = Y^2 + b3 Z^2
-  fe_add(u, t2, t2, c);
-  fe_add(u, u, t2, c);            // 3 b3 Z^2
-  fe_sub(t0, t0, u, c);           // t0m = Y^2 - 3 b3 Z^2
+  pt_fadd(t1, t0, t2, c);          // y3p = Y^2 + b3 Z^2
+  pt_fadd(u, t2, t2, c);
+  pt_fadd(u, u, t2, c);            // 3 b3 Z^2
+  pt_fsub(t0, t0, u, c);           // t0m = Y^2 - 3 b3 Z^2
   mf_mul(u, t0, t1, c);
-  fe_add(r.y, u, x3p, c);         // Y3 = t0m y3p + x3p
-  fe_add(u, t0, t0, c);
+  pt_fadd(r.y, u, x3p, c);         // Y3 = t0m y3p + x3p
+  pt_fadd(u, t0, t0, c);
   mf_mul(r.x, u, txy, c);         // X3 = 2 t0m X Y
 }

@@ -34,6 +34,7 @@ PT_NAMESPACE_BEGIN
 #define HORNER_PAIRS 8      // products of one level at most (a double's 4
                             // and the 3 conversions of the next window)
 
+#if PT_BUILDS(1)  // curve_add
 __global__ void curve_add_kernel(int32_t* ox, int32_t* oy, int32_t* oz,
                                  const int32_t* ax, const int32_t* ay, const int32_t* az,
                                  const int32_t* bx, const int32_t* by, const int32_t* bz,
@@ -49,7 +50,9 @@ __global__ void curve_add_kernel(int32_t* ox, int32_t* oy, int32_t* oz,
   mpt_from_mont(p, c_curve);
   pt_store(ox, oy, oz, n, i, p);
 }
+#endif
 
+#if PT_BUILDS(2)  // curve_double
 __global__ void curve_double_kernel(int32_t* ox, int32_t* oy, int32_t* oz,
                                     const int32_t* ax, const int32_t* ay, const int32_t* az,
                                     int64_t n) {
@@ -62,7 +65,9 @@ __global__ void curve_double_kernel(int32_t* ox, int32_t* oy, int32_t* oz,
   mpt_from_mont(p, c_curve);
   pt_store(ox, oy, oz, n, i, p);
 }
+#endif
 
+#if PT_BUILDS(3)  // curve_horner
 // A warp's scratch: operand pairs (a, b) and their products, L limbs each.
 struct HornerScratch {
   uint32_t a[HORNER_PAIRS][PT_LIMBS];
@@ -261,9 +266,11 @@ __global__ void __launch_bounds__(HORNER_WARPS * 32) curve_horner_kernel(
     pt_store(ox, oy, oz, k, m, acc);
   }
 }
+#endif
 
 extern "C" {
 
+#if PT_BUILDS(1)
 int PT_ENTRY(pt_curve_add)(void* ox, void* oy, void* oz, const void* ax, const void* ay,
                            const void* az, const void* bx, const void* by,
                            const void* bz, int64_t n, const void* consts, void* stream) {
@@ -275,7 +282,9 @@ int PT_ENTRY(pt_curve_add)(void* ox, void* oy, void* oz, const void* ax, const v
       (const int32_t*)az, (const int32_t*)bx, (const int32_t*)by, (const int32_t*)bz, n);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if PT_BUILDS(2)
 int PT_ENTRY(pt_curve_double)(void* ox, void* oy, void* oz, const void* ax,
                               const void* ay, const void* az, int64_t n,
                               const void* consts, void* stream) {
@@ -287,7 +296,9 @@ int PT_ENTRY(pt_curve_double)(void* ox, void* oy, void* oz, const void* ax,
       (const int32_t*)az, n);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if PT_BUILDS(3)
 int PT_ENTRY(pt_curve_horner)(void* ox, void* oy, void* oz, const void* wx,
                               const void* wy, const void* wz, int64_t k, int64_t nw,
                               int c, const void* consts, void* stream) {
@@ -301,6 +312,7 @@ int PT_ENTRY(pt_curve_horner)(void* ox, void* oy, void* oz, const void* wx,
       (const int32_t*)wz, k, nw, c);
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"
 

@@ -24,6 +24,14 @@
 static_assert(PT_LIMBS == 8 || PT_LIMBS == 12, "PT_LIMBS is 8 or 12");
 #define PT_THREADS 256
 
+// -DPT_ONLY=k builds only a source's k-th kernel and its C entry, so that
+// the kernels of a large source compile in parallel, one object each
+// (_cuda.py:objects); 0, the default, builds them all.
+#ifndef PT_ONLY
+#define PT_ONLY 0
+#endif
+#define PT_BUILDS(k) (PT_ONLY == 0 || PT_ONLY == (k))
+
 // Both widths link into one library: the 12-limb build's C entries carry
 // the suffix _l12 (PT_ENTRY(pt_field_mul) is pt_field_mul_l12) and its
 // kernels live in namespace pt_l12, so that no symbol is defined twice.
@@ -128,10 +136,13 @@ __device__ __forceinline__ void fe_sub(uint32_t r[PT_LIMBS], const uint32_t a[PT
 // ---------------------------------------------------------------------------
 // Montgomery form (R = 2^(32 L)), used inside the point kernels only (K2,
 // K4; curve.cuh): an element x is held as x R mod p, canonical in [0, p).
-// Additions are the canonical ones; a product is one CIOS Montgomery
-// multiply (one L x L limb product interleaved with one REDC).
+// Additions are the canonical ones.  At 8 limbs a product is one CIOS
+// Montgomery multiply (one L x L limb product interleaved with one REDC),
+// kept rolled; at 12 it is the unrolled product and REDC of the carry-chain
+// section (mf_mul at the end of this file).
 // ---------------------------------------------------------------------------
 
+#if PT_LIMBS == 8
 // r = a b / 2^(32 L) mod p for a, b < p (p < 2^(32 L - 1), so every partial
 // sum fits L + 1 limbs and the result is below 2p before the final
 // subtraction).  The loop over a's limbs is kept rolled (a shifts down one
@@ -177,6 +188,7 @@ __device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a_in
   for (int k = 0; k < PT_LIMBS; k++) r[k] = t[k];
   fe_csub(r, c);
 }
+#endif  // PT_LIMBS == 8
 
 // ---------------------------------------------------------------------------
 // Carry-chain arithmetic (K1 and K3): the limb products and the carries run
@@ -593,13 +605,15 @@ __device__ __forceinline__ void cc_sum_mod(uint32_t r[PT_LIMBS],
   // q3's low limbs = columns 10..17 = u[2..9]
   cc_barrett_finish(r, s, u + 2, c.f);
 }
+#endif  // PT_LIMBS == 8
 
 // ---------------------------------------------------------------------------
-// Separated Montgomery products (K5, 8 limbs only): the 512-bit product or
-// square first (cc_product, cc_square), then one Montgomery reduction of it
-// (cc_redc), r = T / 2^256 mod p.  A square forms each cross product a_i a_j
-// (i < j) once and doubles the sum, then adds the 8 diagonal products: 36
-// limb products where a product takes 64.
+// Separated Montgomery products (K5 at 8 limbs; at 12 the point kernels'
+// mf_mul, dense rows only): the 64L-bit product or square first
+// (cc_product, cc_square), then one Montgomery reduction of it (cc_redc),
+// r = T / 2^(32 L) mod p.  A square forms each cross product a_i a_j
+// (i < j) once and doubles the sum, then adds the L diagonal products: 36
+// limb products where a product takes 64 (at 8 limbs).
 //
 // Every limb product a_i b_j goes to one of two accumulators by the parity
 // of its limb i + j, e (even) or o (odd), T = e + o, so that its low and
@@ -609,17 +623,19 @@ __device__ __forceinline__ void cc_sum_mod(uint32_t r[PT_LIMBS],
 // IMAD.WIDE.U32.X, where products on the rows of cc_mac_row take an IMAD, an
 // IMAD.HI and two IADD3.X.
 //
-// cc_redc runs the 8 REDC rows over (e, o): row I makes limb I zero by
+// cc_redc runs the L REDC rows over (e, o): row I makes limb I zero by
 // adding m p 2^(32 I), m = -limb_I p^-1 mod 2^32, its products on pairs in
 // the accumulator of their parity.  Each chain ends in a counter, cnt[k]
 // holding carries pending into limb k, instead of rippling to the top; row
 // I first folds e[I] + o[I] + cnt[I] into the exact limb I (overflows into
 // cnt[I + 1]).  The value e + o + sum_k cnt[k] 2^(32 k) is T + sum_(j < I)
-// m_j p 2^(32 j) throughout.  In the end limbs 8..15 of e, o and the
-// counters give r = (T + M p) / 2^256 < T / 2^256 + p: below 2p for a
-// product of values below p, not yet canonical.
+// m_j p 2^(32 j) throughout.  In the end limbs L..2L-1 of e, o and the
+// counters give r = (T + M p) / 2^(32 L) < T / 2^(32 L) + p: below 2p for
+// a product of values below p, not yet canonical.  (What the dropped limb
+// 2L and the carries out of limb 2L - 1 hold is a multiple of 2^(32 L):
+// the sum below 2p is exact mod 2^(32 L).)
 //
-// The sparse rows (SPARSE) are for p = 2^254 + c with c < 2^128 and
+// The sparse rows (SPARSE, 8 limbs) are for p = 2^254 + c with c < 2^128 and
 // p = 1 mod 2^32 (the Tweedle base fields: limbs [1, c1, c2, c3, 0, 0, 0,
 // 2^30]; the host checks the shape, hashing/rescue.py:sparse_prime).
 // Then limb I + m p_0 = limb I + m is 0 mod 2^32 with a carry unless limb I
@@ -684,7 +700,7 @@ __device__ __forceinline__ void cc_product_rows(uint32_t* e, uint32_t* o, const 
   }
 }
 
-// a b = e + o for a, b below 2^256 (the limbs above 15 are 0).
+// a b = e + o for a, b below 2^(32 L) (the limbs above 2L - 1 are 0).
 __device__ __forceinline__ void cc_product(uint32_t e[PT_PRODUCT_LIMBS],
                                            uint32_t o[PT_PRODUCT_LIMBS],
                                            const uint32_t a[PT_LIMBS],
@@ -707,7 +723,7 @@ __device__ __forceinline__ void cc_cross_rows(uint32_t* e, uint32_t* o, const ui
   }
 }
 
-// t = a^2 for a below 2^256: the cross products (below a^2 / 2 < 2^511),
+// t = a^2 for a below 2^(32 L): the cross products (below a^2 / 2),
 // doubled by a shift, then the diagonal a_i^2 at limb 2 i on one chain.
 __device__ __forceinline__ void cc_square(uint32_t t[PT_PRODUCT_LIMBS],
                                           const uint32_t a[PT_LIMBS]) {
@@ -771,7 +787,7 @@ __device__ __forceinline__ void cc_redc_rows(uint32_t* e, uint32_t* o, uint32_t*
   }
 }
 
-// r = (e + o) / 2^256 mod p, in [0, (e + o) / 2^256 + p) (see the top of
+// r = (e + o) / 2^(32 L) mod p, in [0, (e + o) / 2^(32 L) + p) (see the top of
 // this section).
 template <bool SPARSE>
 __device__ __forceinline__ void cc_redc(uint32_t r[PT_LIMBS], uint32_t e[PT_PRODUCT_LIMBS],
@@ -779,13 +795,14 @@ __device__ __forceinline__ void cc_redc(uint32_t r[PT_LIMBS], uint32_t e[PT_PROD
   uint32_t cnt[PT_PRODUCT_LIMBS], m[PT_LIMBS];
 #pragma unroll
   for (int k = 0; k < PT_PRODUCT_LIMBS; k++) cnt[k] = 0;
-  if constexpr (SPARSE) {
+  if constexpr (SPARSE || PT_LIMBS == 12) {
     // Row 0 waits for the product's top limb (+ its product with a zero
     // that the compiler cannot see: -p^-1 p_0 = -1 mod 2^32).  Left to
     // itself, ptxas starts the rows while the product's chains run, keeps
     // more carries alive than it has predicates and spills them (LOP3,
-    // P2R, ISETP in the square's loop; PERF.md §6).  The dense rows gain
-    // from the overlap.
+    // P2R, ISETP in the square's loop; PERF.md §6).  The 8-limb dense
+    // rows gain from the overlap; the 12-limb ones, whose point add
+    // inlines 12 products, lose more to the spills.
     const uint32_t zero = c.pinv * c.p[0] + 1u;
     e[0] += (e[2 * PT_LIMBS - 1] + o[2 * PT_LIMBS - 1]) * zero;
   }
@@ -806,6 +823,7 @@ __device__ __forceinline__ void cc_redc(uint32_t r[PT_LIMBS], uint32_t e[PT_PROD
   }
 }
 
+#if PT_LIMBS == 8
 // The lazy products of an exponent chain (K5's S-boxes): no conditional
 // subtraction, r = a b / 2^256 (mod p) below (a b + (2^256 - 1) p) /
 // 2^256.  From inputs below p, a chain of n such products stays below the
@@ -835,6 +853,27 @@ __device__ __forceinline__ void cc_mont_sqr(uint32_t r[PT_LIMBS], const uint32_t
   cc_redc<SPARSE>(r, t, zero, c);
 }
 #endif  // PT_LIMBS == 8
+
+#if PT_LIMBS == 12
+// The point kernels' Montgomery product at 12 limbs (K2 and K4 over
+// BLS12-377's base field): r = a b / 2^384 mod p for a, b < p, canonical.
+// The rolled CIOS loop of the 8-limb build is one long chain of dependent
+// 64-bit steps (~140 a product, each an IMAD.WIDE and 64-bit adds on the
+// previous carry), which left the MSM's accumulate at 28% of its bound and
+// its reduce and Horner bound by that chain's latency.  Here the 144 limb
+// products run as pairs on two carry chains (even and odd limbs, one
+// IMAD.WIDE.U32.X each), then the 12 dense REDC rows, then one conditional
+// subtraction (cc_redc's result is below 2p): more code than the rolled
+// loop, far shorter chains of dependent steps.  r may alias a or b (both
+// are read into e and o first).
+__device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                       const uint32_t b[PT_LIMBS], const FieldConsts& c) {
+  uint32_t e[PT_PRODUCT_LIMBS], o[PT_PRODUCT_LIMBS];
+  cc_product(e, o, a, b);
+  cc_redc<false>(r, e, o, c);
+  cc_csub(r, c);
+}
+#endif  // PT_LIMBS == 12
 
 // r = k a for a small constant k >= 1 (double and add over k's bits; the
 // multiply by b3 = 3b in the point formulas).

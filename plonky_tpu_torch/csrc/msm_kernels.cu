@@ -15,31 +15,39 @@
 // so both kernels are bound by the integer multiply pipe, and only if
 // enough threads run one add chain each.  The design keeps every chain
 // short whatever the digits are:
-//   - accumulate: one thread per chunk of `chunk` sorted positions, so the
-//     thread count is R N / chunk; a run of equal digits that crosses
+//   - accumulate: one thread per chunk of `chunk` sorted positions (32 at
+//     8 limbs, 64 at 12: curves/msm.py:chunk_for), so the thread count is
+//     R N / chunk; a run of equal digits that crosses
 //     chunks is merged by a pairwise tree in shared memory over the block's
 //     MSM_TILE chunks, and a run that crosses blocks leaves one carry per
 //     block, added by the reduction (at most N / (chunk MSM_TILE) of
 //     them);
-//   - reduce: one warp per window row; lane s walks segment s of `seg`
-//     buckets with the running-sum trick, and lane 0 combines the segments:
-//     ~2 seg + 2 (2^c / seg) + log2 seg dependent adds instead of 2^(c+1).
-//     seg is 16, or the smallest power of two that leaves at most 32
-//     segments (curves/msm.py:reduce_seg: 32 at c = 10, 128 at c = 12,
-//     64 for the signed 2^11 + 1 buckets of c = 12).
+//   - reduce: one block per window row (any number of rows a launch:
+//     msm_chunked reduces all its slices' rows in one); lane s walks
+//     segment s of `seg` buckets with the running-sum trick, a suffix scan
+//     and two pairwise trees over the lanes combine the segments: ~2 seg +
+//     2 log2 nseg + log2 seg dependent adds instead of 2^(c+1).  seg is
+//     the smallest power of two that leaves at most 128 segments (32 for
+//     more than 512 rows; curves/msm.py:reduce_seg).
 // The points stay in Montgomery form (R = 2^(32 L)) from the basis copy to
 // the reduction's output, which converts back to canonical coordinates
 // once.  The gathered basis points arrive by cp.async into a per-thread
 // double buffer in shared memory while the previous add runs.
 //
 // Built twice (_cuda.py): at 8 limbs, and at 12 (-DPT_LIMBS=12, BLS12-377
-// G1; entries pt_msm_bucket_accumulate_l12, ...).  A thread of the
+// G1; entries pt_msm_bucket_accumulate_l12, ...), where mf_mul is the
+// unrolled carry-chain product (field.cuh), the formulas' additions run on
+// carry chains (curve.cuh:pt_fadd) and the accumulation inlines one add,
+// its trees taking the out-of-line one (mpt_add_call).  A thread of the
 // accumulation holds four points in static shared memory (two staged, its
 // cont and head pieces): 128 x 4 x 96 bytes = 48 KB at 8 limbs, the static
 // limit, so the 12-limb build's points of 144 bytes take 64 chunks a block
-// (36 KB; curves/msm.py:tile_for).  Its blocks are half as wide; a
-// thread's registers (a 36-word point and the add's temporaries) limit
-// the SM to as many of its threads either way.
+// (36 KB; curves/msm.py:tile_for).  There a thread holds ~250 registers,
+// so an SM runs 4 blocks: 8 warps, whose chains of dependent products
+// leave the multiply pipe idle about half the time (~51% of the
+// operations bound on the H100).  Capping the registers for 5-8 blocks
+// spills and is slower, as are a CIOS product and an out-of-line add in
+// the loop.
 #include "curve.cuh"
 
 PT_NAMESPACE_BEGIN
@@ -50,7 +58,8 @@ PT_NAMESPACE_BEGIN
 #define MSM_TILE 64         // the same at 12 limbs (see above)
 #endif
 #define MSM_WORDS (3 * PT_LIMBS)   // a point: X, Y, Z, L limbs each
-#define MSM_WARP 32         // reduce: lanes, and the most segments per row
+#define MSM_WARP 32         // reduce: the fewest lanes a row
+#define REDUCE_MAX_LANES 128  // reduce: the most lanes a row, one a segment
 
 __device__ __forceinline__ int64_t i64_min(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t i64_max(int64_t a, int64_t b) { return a > b ? a : b; }
@@ -135,6 +144,15 @@ __device__ __forceinline__ void mpt_negate_y(Point& pt, const MontCurveConsts& c
   uint32_t zero[PT_LIMBS];
   fe_set_small(zero, 0);
   fe_sub(pt.y, zero, pt.y, cc.f);
+}
+
+// The add out of line: one copy of the add's code serves every call site
+// of the reduction (chains on few threads, where a call's moves through
+// local memory cost little against the add) and, at 12 limbs, the
+// accumulation's trees, so that the accumulation inlines one add (12
+// unrolled products, field.cuh's 12-limb mf_mul), in its loop.
+static __device__ __noinline__ void mpt_add_call(Point& r, const Point& p, const Point& q) {
+  mpt_add(r, p, q, c_curve);
 }
 
 template <bool SIGNED>
@@ -226,7 +244,11 @@ __device__ __forceinline__ void msm_bucket_accumulate_body(
       Point a, b;
       mpt_load(a, dst);
       mpt_load(b, cont[q + step]);
+#if PT_LIMBS == 12
+      mpt_add_call(a, a, b);        // one inlined add a kernel (see mpt_add_call)
+#else
       mpt_add(a, a, b, c_curve);
+#endif
       mpt_save(dst, a);
     }
     __syncthreads();
@@ -243,6 +265,7 @@ __device__ __forceinline__ void msm_bucket_accumulate_body(
   }
 }
 
+#if PT_BUILDS(1)
 __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
     uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
     const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
@@ -250,7 +273,9 @@ __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
   msm_bucket_accumulate_body<false>(buckets, carries, basis, digits, order, starts, n, nb,
                                     chunk, ntiles);
 }
+#endif
 
+#if PT_BUILDS(2)
 __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_signed_kernel(
     uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
     const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
@@ -258,13 +283,7 @@ __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_signed_kernel(
   msm_bucket_accumulate_body<true>(buckets, carries, basis, digits, order, starts, n, nb,
                                    chunk, ntiles);
 }
-
-// The reduction's add, out of line: one copy of the add's code serves
-// every call site (the reduction is a chain on few threads, where a call's
-// moves through local memory cost little against the add).
-__device__ __noinline__ void mpt_add_call(Point& r, const Point& p, const Point& q) {
-  mpt_add(r, p, q, c_curve);
-}
+#endif
 
 // acc (+)= x, where `has` says whether acc holds a point yet.
 __device__ __forceinline__ void mpt_accumulate(Point& acc, bool& has, const Point& x) {
@@ -276,30 +295,51 @@ __device__ __forceinline__ void mpt_accumulate(Point& acc, bool& has, const Poin
   }
 }
 
-// One warp per window row r.  Buckets 1 .. nb-1 fall into nseg segments of
-// `seg` buckets (a power of two; the last segment may be short): segment s
-// holds buckets s seg + i + 1, i < seg.  Lane s adds to each nonempty bucket
-// its carries (run [lo, hi): those of tiles lo/tp + 1 .. (hi-1)/tp, tp =
-// points per accumulate tile), then walks i from the top down keeping
-//   T_s = sum_i B_{s seg+i+1}   and   W_s = sum_i (i+1) B_{s seg+i+1}.
-// Then sum_j j B_j = sum_s W_s + seg sum_{s>=1} s T_s: the W_s by a pairwise
-// tree, sum_s s T_s by a running sum from the top on lane 0, seg times by
-// log2 seg doublings, one add, and a conversion to canonical coordinates
-// (an empty row gives the identity (0 : 1 : 0)).  buckets: [R, nb, 3L];
-// carries: [R, ntiles, 3L]; starts: [R, nb + 1]; out: [L, R] each.
-__global__ void __launch_bounds__(MSM_WARP) msm_bucket_reduce_kernel(
+// One block per window row r, of `lanes` threads: a power of two from 32
+// up, at least nseg (the C entry picks it; REDUCE_MAX_LANES at most).
+// Buckets 1 .. nb-1 fall into nseg segments of `seg` buckets (a power of
+// two; the last segment may be short): segment s holds buckets
+// s seg + i + 1, i < seg.
+//   1. Lane s adds to each nonempty bucket its carries (run [lo, hi):
+//      those of tiles lo/tp + 1 .. (hi-1)/tp, tp = points per accumulate
+//      tile), then walks i from the top down keeping
+//        T_s = sum_i B_{s seg+i+1}   and   W_s = sum_i (i+1) B_{s seg+i+1}.
+//   2. U_s = sum_{s' >= s} T_s', a suffix scan over the lanes: at distance
+//      d = 1, 2, 4, ... lane s adds U_{s+d} as it stood before the step.
+//   3. sum_j j B_j = sum_s W_s + seg sum_{s>=1} s T_s, and
+//      sum_{s>=1} s T_s = sum_{s>=1} U_s: two pairwise trees at once, one
+//      level a step, over the W_s (the receiving lane s adds) and over the
+//      U_s with U_0 left out (lane s + step adds into node s, a lane with
+//      no W work at that step).
+//   4. Lane 0 doubles the U sum log2 seg times, adds the W sum and converts
+//      to canonical coordinates (an empty row gives the identity
+//      (0 : 1 : 0)).
+// A row's chain is ~2 seg + 2 log2 nseg + log2 seg adds and doublings
+// (~20 at nb = 256, 128 lanes), for ~nseg log2 nseg more adds than the 2
+// a bucket of the walk.  curves/msm.py:reduce_seg trades the
+// two by the row count: 128 lanes a row for a few hundred rows (the
+// prove's msm, one slice), 32 for the 2,048 rows of msm_chunked's one
+// reduce over 64 slices.  buckets: [R, nb, 3L]; carries: [R, ntiles, 3L];
+// starts: [R, nb + 1]; out: [L, R] each.  Dynamic shared memory: the U_s
+// and W_s, lanes points each, then their flags.
+#if PT_BUILDS(3)
+__global__ void __launch_bounds__(REDUCE_MAX_LANES) msm_bucket_reduce_kernel(
     int32_t* ox, int32_t* oy, int32_t* oz, const uint32_t* buckets, const uint32_t* carries,
     const int32_t* starts, int64_t rows, int64_t nb, int64_t ntiles, int64_t tile_points,
     int seg, int nseg) {
-  __shared__ __align__(16) uint32_t tot[MSM_WARP][MSM_WORDS];
-  __shared__ __align__(16) uint32_t wsum[MSM_WARP][MSM_WORDS];
-  __shared__ int tot_ok[MSM_WARP], w_ok[MSM_WARP];
+  extern __shared__ __align__(16) uint32_t reduce_smem[];
+  const int lanes = blockDim.x;
+  uint32_t* usum = reduce_smem;
+  uint32_t* wsum = reduce_smem + lanes * MSM_WORDS;
+  int* u_ok = (int*)(wsum + lanes * MSM_WORDS);
+  int* w_ok = u_ok + lanes;
   const int s = threadIdx.x;
   const int64_t r = blockIdx.x;
   const int32_t* st = starts + r * (nb + 1);
   const uint32_t* brow = buckets + r * nb * MSM_WORDS;
   const uint32_t* crow = carries + r * ntiles * MSM_WORDS;
 
+  // 1. the segment walks
   Point running, acc;
   bool has_run = false, has_acc = false;
   if (s < nseg) {
@@ -320,54 +360,77 @@ __global__ void __launch_bounds__(MSM_WARP) msm_bucket_reduce_kernel(
       }
       if (has_run) mpt_accumulate(acc, has_acc, running);
     }
-    if (has_run) mpt_save(tot[s], running);
-    if (has_acc) mpt_save(wsum[s], acc);
   }
-  tot_ok[s] = has_run;
+  if (has_run) mpt_save(usum + s * MSM_WORDS, running);
+  if (has_acc) mpt_save(wsum + s * MSM_WORDS, acc);
+  u_ok[s] = has_run;
   w_ok[s] = has_acc;
   __syncthreads();
 
-  for (int step = 1; step < MSM_WARP; step <<= 1) {
-    if ((s & (2 * step - 1)) == 0 && s + step < nseg && w_ok[s + step]) {
+  // 2. the suffix scan, U_s kept in `running`
+  for (int d = 1; d < nseg; d <<= 1) {
+    Point b;
+    const bool take = s + d < nseg && u_ok[s + d];
+    if (take) mpt_load(b, usum + (s + d) * MSM_WORDS);
+    __syncthreads();
+    if (take) {
+      mpt_accumulate(running, has_run, b);
+      mpt_save(usum + s * MSM_WORDS, running);
+      u_ok[s] = 1;
+    }
+    __syncthreads();
+  }
+  if (s == 0) u_ok[0] = 0;                  // U_0 is not in the sum
+  __syncthreads();
+
+  // 3. the two trees
+  for (int step = 1; step < nseg; step <<= 1) {
+    const int pos = s & (2 * step - 1);
+    uint32_t* dst = nullptr;
+    const uint32_t* src = nullptr;
+    int* dst_ok = nullptr;
+    if (pos == 0 && s + step < nseg && w_ok[s + step]) {
+      dst = wsum + s * MSM_WORDS;
+      src = wsum + (s + step) * MSM_WORDS;
+      dst_ok = w_ok + s;
+    } else if (pos == step && s < nseg && u_ok[s]) {
+      dst = usum + (s - step) * MSM_WORDS;
+      src = usum + s * MSM_WORDS;
+      dst_ok = u_ok + s - step;
+    }
+    if (dst != nullptr) {
       Point a, b;
-      mpt_load(b, wsum[s + step]);
-      bool has = w_ok[s];
-      if (has) mpt_load(a, wsum[s]);
+      bool has = *dst_ok;
+      mpt_load(b, src);
+      if (has) mpt_load(a, dst);
       mpt_accumulate(a, has, b);
-      mpt_save(wsum[s], a);
-      w_ok[s] = 1;
+      mpt_save(dst, a);
+      *dst_ok = 1;
     }
     __syncthreads();
   }
   if (s != 0) return;
 
-  Point run2, acc2, res;
-  bool has_run2 = false, has_acc2 = false, has_res = false;
-  for (int k = nseg - 1; k >= 1; k--) {
-    if (tot_ok[k]) {
-      Point t;
-      mpt_load(t, tot[k]);
-      mpt_accumulate(run2, has_run2, t);
-    }
-    if (has_run2) mpt_accumulate(acc2, has_acc2, run2);
+  // 4. seg times the U sum, plus the W sum
+  Point res, u;
+  bool has_res = w_ok[0];
+  if (has_res) mpt_load(res, wsum);
+  if (u_ok[0]) {
+    mpt_load(u, usum);
+    for (int m = 1; m < seg; m <<= 1) mpt_double(u, u, c_curve);
+    mpt_accumulate(res, has_res, u);
   }
-  if (has_acc2)
-    for (int m = 1; m < seg; m <<= 1) mpt_double(acc2, acc2, c_curve);
-  if (w_ok[0]) {
-    mpt_load(res, wsum[0]);
-    has_res = true;
-  }
-  if (has_acc2) mpt_accumulate(res, has_res, acc2);
-
   if (has_res)
     mpt_from_mont(res, c_curve);
   else
     pt_identity(res);
   pt_store(ox, oy, oz, rows, r, res);
 }
+#endif
 
 extern "C" {
 
+#if PT_BUILDS(1)
 int PT_ENTRY(pt_msm_bucket_accumulate)(void* buckets, void* carries, const void* basis,
                                        const void* digits, const void* order,
                                        const void* starts, int64_t rows, int64_t n,
@@ -383,7 +446,9 @@ int PT_ENTRY(pt_msm_bucket_accumulate)(void* buckets, void* carries, const void*
       (const int32_t*)order, (const int32_t*)starts, n, nb, chunk, ntiles);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if PT_BUILDS(2)
 // As pt_msm_bucket_accumulate, with the signs in bit 31 of `order`.
 int PT_ENTRY(pt_msm_bucket_accumulate_signed)(void* buckets, void* carries,
                                               const void* basis, const void* digits,
@@ -401,23 +466,29 @@ int PT_ENTRY(pt_msm_bucket_accumulate_signed)(void* buckets, void* carries,
       (const int32_t*)order, (const int32_t*)starts, n, nb, chunk, ntiles);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if PT_BUILDS(3)
 int PT_ENTRY(pt_msm_bucket_reduce)(void* ox, void* oy, void* oz, const void* buckets,
                                    const void* carries, const void* starts, int64_t rows,
                                    int64_t nb, int64_t ntiles, int64_t tile_points,
                                    int64_t seg, const void* consts, void* stream) {
   const int64_t nseg = (nb - 1 + seg - 1) / seg;
-  if (seg < 1 || (seg & (seg - 1)) != 0 || nseg > MSM_WARP || tile_points < 1)
+  if (seg < 1 || (seg & (seg - 1)) != 0 || nseg > REDUCE_MAX_LANES || tile_points < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int rc = curve_set_consts((const uint32_t*)consts, st);
   if (rc != 0) return rc;
-  msm_bucket_reduce_kernel<<<(unsigned int)rows, MSM_WARP, 0, st>>>(
+  int lanes = MSM_WARP;
+  while (lanes < nseg) lanes <<= 1;
+  const size_t smem = (size_t)lanes * (2 * MSM_WORDS * sizeof(uint32_t) + 2 * sizeof(int));
+  msm_bucket_reduce_kernel<<<(unsigned int)rows, lanes, smem, st>>>(
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const uint32_t*)buckets,
       (const uint32_t*)carries, (const int32_t*)starts, rows, nb, ntiles, tile_points,
       (int)seg, (int)nseg);
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"
 

@@ -8,15 +8,16 @@ the Tweedle curves, 12 on BLS12-377; the kernels have a build for each):
      more, as magnitudes and signs (`scalar_window_digits_signed`),
   2. one stable argsort per (scalar, window) row and the start of every
      bucket's run in the sorted order (torch; `window_rows`),
-  3. bucket sums (K4 accumulation kernel): one thread per chunk of CHUNK
-     sorted positions sums the pieces of the runs in its chunk; runs that
-     cross chunks are merged by a tree over the `tile_for(L)` chunks of a
-     block, and runs that cross blocks leave one carry per block; signed,
-     `msm_bucket_accumulate_signed` negates Y of a point whose digit is
-     negative as it gathers it,
+  3. bucket sums (K4 accumulation kernel): one thread per chunk of
+     `chunk_for(L)` sorted positions sums the pieces of the runs in its
+     chunk; runs that cross chunks are merged by a tree over the
+     `tile_for(L)` chunks of a block, and runs that cross blocks leave one
+     carry per block; signed, `msm_bucket_accumulate_signed` negates Y of
+     a point whose digit is negative as it gathers it,
   4. window sums  sum_j j B_j  (K4 reduction kernel): the carries are added
-     to their buckets, segments of `reduce_seg(nb)` buckets are reduced by
-     running sums in parallel and then combined,
+     to their buckets, segments of `reduce_seg(nb, rows)` buckets are
+     reduced by running sums in parallel, one lane each, and combined by a
+     suffix scan and two trees over the lanes,
   5. Horner across windows: c doublings and one add per window, the
      whole chain of every MSM in one launch, one warp per MSM (K2's
      `curve_horner`, csrc/curve_kernels.cu; `horner_plain` is its plain
@@ -30,9 +31,11 @@ are its plain PyTorch versions, taken only for CPU tensors: they add the
 same points in the same grouping as the kernels, so their outputs equal
 the kernels' word for word.  The result is a projective point
 [L, *B]; only its affine value is defined (it matches the reference's
-MSM, not its coordinates).  `msm_chunked` sums the MSMs of 2^chunk_log
-slices of the basis with K2's `curve_add` (the JAX package's bench entry
-point for BLS12-377).
+MSM, not its coordinates).  `msm_chunked` (the JAX package's bench entry
+point for BLS12-377) splits the basis into slices of 2^chunk_log points,
+runs each slice's steps 1-3, then one reduction over every slice's rows,
+one Horner over every slice's window sums and a tree of K2's `curve_add`
+over the slices' points.
 """
 
 from __future__ import annotations
@@ -48,11 +51,13 @@ from . import ops as cops
 from .spec import CurveSpec
 
 
-CHUNK = 32           # sorted positions per accumulation thread
+CHUNK = 32           # sorted positions per accumulation thread at 8 limbs
+WIDE_CHUNK = 64      # the same at 12 limbs
 TILE = 128           # chunks per accumulation block at 8 limbs (MSM_TILE)
 WIDE_TILE = 64       # the same at 12 limbs (36-word points)
-SEG = 16             # least buckets per segment of the reduction
-REDUCE_LANES = 32    # most segments of a row: one warp lane each (MSM_WARP)
+REDUCE_LANES = 128   # most segments of a row: one lane each (REDUCE_MAX_LANES)
+REDUCE_FEW_LANES = 32  # the fewest lanes a row (MSM_WARP)
+REDUCE_THREADS = 1 << 16  # lanes a reduction launch takes at most, above 32 a row
 SIGN_BIT = -(1 << 31)  # bit 31 of an `order` word: the point enters negated
 
 
@@ -63,13 +68,36 @@ def tile_for(limbs: int) -> int:
     return TILE if limbs == 8 else WIDE_TILE
 
 
-def reduce_seg(nb: int) -> int:
-    """Buckets per segment of the reduction for nb buckets a row: the
-    smallest power of two from SEG up with ceil((nb - 1) / seg) segments
-    within the kernel's REDUCE_LANES (16 up to c = 9 unsigned; 32 at
-    c = 10, 128 at c = 12; 64 at signed c = 12, nb = 2049)."""
-    seg = SEG
-    while -(-(nb - 1) // seg) > REDUCE_LANES:
+def chunk_for(limbs: int) -> int:
+    """Sorted positions per accumulation thread at a base-field width: 32
+    at 8 limbs, 64 at 12.  A 12-limb thread holds ~250 registers, so an
+    SM runs 4 blocks of 64: a 2^16-point slice's 32 rows make 512 blocks
+    of 64-position chunks, one wave of 132 x 4, where 32 positions made
+    1,024 blocks, two waves with twice the trees (the runs' merges
+    across chunks) for the same adds (faster on the H100)."""
+    return CHUNK if limbs == 8 else WIDE_CHUNK
+
+
+def reduce_lanes(rows: int) -> int:
+    """The most segments (lanes) a row of a reduction over `rows` rows:
+    REDUCE_LANES, halved down to REDUCE_FEW_LANES while rows x lanes
+    exceeds REDUCE_THREADS (128 up to 512 rows, 32 from 2,048).  Few rows
+    leave the card idle, so their rows take short chains over many lanes;
+    many rows fill it, so they take fewer lanes and fewer scan adds."""
+    lanes = REDUCE_LANES
+    while lanes > REDUCE_FEW_LANES and rows * lanes > REDUCE_THREADS:
+        lanes //= 2
+    return lanes
+
+
+def reduce_seg(nb: int, rows: int = 1) -> int:
+    """Buckets per segment of the reduction for nb buckets a row and
+    `rows` rows: the smallest power of two with ceil((nb - 1) / seg)
+    segments within reduce_lanes(rows) (2 at c = 8 for up to 512 rows, 8
+    for 2,048; 32 at c = 12 and 512 rows or fewer)."""
+    lanes = reduce_lanes(rows)
+    seg = 1
+    while -(-(nb - 1) // seg) > lanes:
         seg *= 2
     return seg
 
@@ -223,7 +251,7 @@ def _empty(curve: CurveSpec, m: int, device) -> cops.Point:
 
 def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
                             order: torch.Tensor, starts: torch.Tensor,
-                            chunk: int = CHUNK, tile: int | None = None,
+                            chunk: int | None = None, tile: int | None = None,
                             signs: torch.Tensor | None = None):
     """(buckets [R, nb, 3L], carries [R, ntiles, 3L]) in Montgomery
     form, as the accumulation kernel leaves them (see its comment in
@@ -235,7 +263,9 @@ def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Ten
     With `signs` ([R, N] in the sorted order, as `digits`), a position
     whose sign is negative adds its point with Y negated (p - y, 0 for
     0), at the gather as the signed kernel does.  The kernel's grouping
-    is chunk = CHUNK, tile = tile_for(L) (the default)."""
+    is chunk = chunk_for(L), tile = tile_for(L) (the defaults)."""
+    if chunk is None:
+        chunk = chunk_for(curve.base.limbs)
     if tile is None:
         tile = tile_for(curve.base.limbs)
     w = words(curve)
@@ -332,21 +362,25 @@ def bucket_accumulate_plain(curve: CurveSpec, basis: MsmBasis, digits: torch.Ten
 
 
 def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor,
-                        starts: torch.Tensor, chunk: int = CHUNK,
+                        starts: torch.Tensor, chunk: int | None = None,
                         tile: int | None = None, seg: int | None = None) -> cops.Point:
     """Window sums [L, R] (canonical) of the accumulation's output:
     sum_j j B_j, with B_j the bucket plus its carries, as the reduction
     kernel forms it (see its comment in csrc/msm_kernels.cu): segments of
-    `seg` buckets by running sums, their W_s by a pairwise tree, sum s T_s
-    by a running sum, seg times by doublings.  An empty row gives the
-    identity.  chunk and tile are the accumulation's; the kernel's are
-    CHUNK, tile_for(L) (the default) and reduce_seg(nb) (the default)."""
+    `seg` buckets walked by running sums (T_s, W_s), the suffix sums U_s
+    of the T_s by a scan over the segments, the W_s and the U_s (s >= 1)
+    summed by two pairwise trees, the U sum doubled log2 seg times and
+    added to the W sum.  An empty row gives the identity.  chunk and tile
+    are the accumulation's; the kernel's are chunk_for(L), tile_for(L)
+    and reduce_seg(nb, R) (the defaults)."""
+    if chunk is None:
+        chunk = chunk_for(curve.base.limbs)
     if tile is None:
         tile = tile_for(curve.base.limbs)
     w = words(curve)
     rows, nb = buckets.shape[0], buckets.shape[1]
     if seg is None:
-        seg = reduce_seg(nb)
+        seg = reduce_seg(nb, rows)
     ntiles = carries.shape[1]
     dev = buckets.device
     tp = chunk * tile
@@ -367,6 +401,7 @@ def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.
         _put(b, sel, cops.add_plain(curve, _take(b, sel),
                                     _take(c, brow[sel] * ntiles + t0[sel] + e)))
 
+    # 1. the segment walks: T_s in `running`, W_s in `acc`
     lanes = rows * nseg
     lrow = torch.arange(rows, device=dev).repeat_interleave(nseg)
     lseg = torch.arange(nseg, device=dev).repeat(rows)
@@ -381,32 +416,39 @@ def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor, carries: torch.
         has_run = _accumulate(curve, running, has_run, _take(b, flat), present)
         has_acc = _accumulate(curve, acc, has_acc, running, has_run)
 
+    def combine(pt, has, recv, part):
+        """pt[recv] (+)= pt[part], every lane of the step reading the
+        values from before it."""
+        sub = _take(pt, recv)
+        sub_has = _accumulate(curve, sub, has[recv], _take(pt, part), has[part])
+        _put(pt, recv, sub)
+        has[recv] = sub_has
+
+    # 2. the suffix scan: U_s = sum_{s' >= s} T_s', in `running`
+    d = 1
+    while d < nseg:
+        recv = (lseg + d < nseg).nonzero().squeeze(1)
+        combine(running, has_run, recv, recv + d)
+        d *= 2
+    # 3. the trees over the W_s and over the U_s, s >= 1
+    has_run &= lseg != 0
     step = 1
     while step < nseg:
         recv = ((lseg % (2 * step) == 0) & (lseg + step < nseg)).nonzero().squeeze(1)
-        part = recv + step
-        sub = _take(acc, recv)
-        sub_has = _accumulate(curve, sub, has_acc[recv], _take(acc, part), has_acc[part])
-        _put(acc, recv, sub)
-        has_acc[recv] = sub_has
+        combine(acc, has_acc, recv, recv + step)
+        combine(running, has_run, recv, recv + step)
         step *= 2
-
-    run2, acc2 = _empty(curve, rows, dev), _empty(curve, rows, dev)
-    has_run2 = torch.zeros(rows, dtype=torch.bool, device=dev)
-    has_acc2 = torch.zeros_like(has_run2)
+    # 4. seg times the U sum, plus the W sum
     base = torch.arange(rows, device=dev) * nseg
-    for k in range(nseg - 1, 0, -1):
-        has_run2 = _accumulate(curve, run2, has_run2, _take(running, base + k),
-                               has_run[base + k])
-        has_acc2 = _accumulate(curve, acc2, has_acc2, run2, has_run2)
-    sel = has_acc2.nonzero().squeeze(1)
+    u, has_u = _take(running, base), has_run[base]
+    sel = has_u.nonzero().squeeze(1)
     if sel.numel():
-        pt = _take(acc2, sel)
+        pt = _take(u, sel)
         for _ in range(seg.bit_length() - 1):
             pt = cops.double_plain(curve, pt)
-        _put(acc2, sel, pt)
+        _put(u, sel, pt)
     res = _take(acc, base)
-    has_res = _accumulate(curve, res, has_acc[base], acc2, has_acc2)
+    has_res = _accumulate(curve, res, has_acc[base], u, has_u)
     sel = has_res.nonzero().squeeze(1)
     if sel.numel():
         _put(out, sel, _take(res, sel))
@@ -441,6 +483,7 @@ def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
                              f"{tuple(order.shape)}")
         order = signed_order(order, signs)
     w, tile = words(curve), tile_for(curve.base.limbs)
+    chunk = chunk_for(curve.base.limbs)
     rows, n = order.shape
     nb = starts.shape[1] - 1
     if (starts.dim() != 2 or starts.shape[0] != rows or n != basis.n
@@ -448,7 +491,7 @@ def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
             or basis.mont.shape != (n, w) or basis.mont.data_ptr() % 16):
         raise ValueError(f"{name}: order {tuple(order.shape)}, digits "
                          f"{tuple(digits.shape)}, basis {tuple(basis.mont.shape)}")
-    ntiles = -(-n // (CHUNK * tile))
+    ntiles = -(-n // (chunk * tile))
     buckets = torch.zeros((rows, nb, w), dtype=torch.int32, device=basis.device)
     carries = torch.zeros((rows, ntiles, w), dtype=torch.int32, device=basis.device)
     if rows * n == 0:
@@ -456,14 +499,15 @@ def bucket_accumulate(curve: CurveSpec, basis: MsmBasis, digits: torch.Tensor,
     _cuda.launch(name, entry, (buckets, carries, basis.mont, digits, order, starts),
                  buckets.data_ptr(), carries.data_ptr(), basis.mont.data_ptr(),
                  digits.data_ptr(), order.data_ptr(), starts.data_ptr(), rows, n,
-                 nb, CHUNK, tile, cops._consts_host(curve).ctypes.data)
+                 nb, chunk, tile, cops._consts_host(curve).ctypes.data)
     return buckets, carries
 
 
 def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor,
                   starts: torch.Tensor) -> cops.Point:
     """K4 reduction on the card: the accumulation's (buckets, carries) and
-    the run starts -> window sums [L, R], canonical."""
+    the run starts of R rows -> window sums [L, R], canonical; one launch
+    for any R (msm_chunked's rows of every slice)."""
     if not fops._dispatch(buckets):
         return bucket_reduce_plain(curve, buckets, carries, starts)
     nl = curve.base.limbs
@@ -484,7 +528,7 @@ def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, carries: torch.Tensor
     _cuda.launch(name, entry, (*outs, buckets, carries, starts),
                  *[t.data_ptr() for t in outs],
                  buckets.data_ptr(), carries.data_ptr(), starts.data_ptr(), rows, nb,
-                 carries.shape[1], CHUNK * tile_for(nl), reduce_seg(nb),
+                 carries.shape[1], chunk_for(nl) * tile_for(nl), reduce_seg(nb, rows),
                  cops._consts_host(curve).ctypes.data)
     return tuple(outs)
 
@@ -551,6 +595,53 @@ def window_rows(curve: CurveSpec, scalars: torch.Tensor, c: int,
             order.to(torch.int32).contiguous(), starts, signs, n_windows)
 
 
+def _msm_slices(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
+                c: int, signed: bool, size: int) -> cops.Point:
+    """`msm` and `msm_chunked`'s pipeline over slices of `size` points
+    (views; N at most `size` or a multiple of it): each slice's digits,
+    sort and accumulation in turn (its digits and order freed after its
+    accumulation, its buckets kept), then ONE reduction over every slice's
+    rows, ONE Horner over every slice's window sums (K = slices x MSMs) and
+    a pairwise tree of `cops.add` (ceil(log2 slices) launches) over the
+    slices' points."""
+    n = basis.n
+    if scalars.shape[-1] != n:
+        raise ValueError(f"{scalars.shape[-1]} scalars for {n} points")
+    if n > size and n % size:
+        raise ValueError(f"N={n} not a multiple of chunk {size}")
+    if signed and c < 2:
+        raise ValueError(f"signed windows need window_bits >= 2, not {c}")
+    lead = tuple(scalars.shape[1:-1])
+    k = 1
+    for d in lead:
+        k *= d
+    slices = n // size if n > size else 1
+    parts = []
+    for lo in range(0, max(n, 1), size):
+        digits, order, starts, signs, n_windows = window_rows(
+            curve, scalars[..., lo:lo + size], c, signed)
+        buckets, carries = bucket_accumulate(curve, basis.slice(lo, lo + size),
+                                             digits, order, starts, signs)
+        del digits, order, signs
+        parts.append((buckets, carries, starts))
+    buckets, carries, starts = (parts[0] if slices == 1
+                                else (torch.cat(ts) for ts in zip(*parts)))
+    del parts
+    nl = curve.base.limbs
+    ws = bucket_reduce(curve, buckets, carries, starts)   # [L, slices K W]
+    del buckets, carries, starts
+    acc = horner(curve, tuple(t.reshape(nl, slices * k, n_windows) for t in ws), c)
+    pts = tuple(t.reshape(nl, slices, k) for t in acc)
+    while slices > 1:
+        half = slices // 2
+        summed = cops.add(curve, tuple(t[:, :half].reshape(nl, -1) for t in pts),
+                          tuple(t[:, half:2 * half].reshape(nl, -1) for t in pts))
+        pts = tuple(torch.cat([t.reshape(nl, half, k), p[:, 2 * half:]], 1)
+                    for t, p in zip(summed, pts))
+        slices = half + slices % 2
+    return tuple(t.reshape(nl, *lead) for t in pts)
+
+
 def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
         window_bits: int, signed: bool = False) -> cops.Point:
     """sum_i scalars[..., i] * basis[i] for canonical scalars
@@ -560,42 +651,20 @@ def msm(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
     more."""
     if not isinstance(basis, MsmBasis):
         raise TypeError("msm takes an MsmBasis (see precompute_base)")
-    if scalars.shape[-1] != basis.n:
-        raise ValueError(f"{scalars.shape[-1]} scalars for {basis.n} points")
-    c = window_bits
-    if signed and c < 2:
-        raise ValueError(f"signed windows need window_bits >= 2, not {c}")
-    lead = tuple(scalars.shape[1:-1])
-    k = 1
-    for d in lead:
-        k *= d
-    digits, order, starts, signs, n_windows = window_rows(curve, scalars, c, signed)
-    buckets, carries = bucket_accumulate(curve, basis, digits, order, starts, signs)
-    nl = curve.base.limbs
-    ws = bucket_reduce(curve, buckets, carries, starts)   # [L, K W]
-    ws = tuple(t.reshape(nl, k, n_windows) for t in ws)
-    acc = horner(curve, ws, c)
-    return tuple(t.reshape(nl, *lead) for t in acc)
+    return _msm_slices(curve, basis, scalars, window_bits, signed, max(basis.n, 1))
 
 
 def msm_chunked(curve: CurveSpec, basis: MsmBasis, scalars: torch.Tensor,
                 window_bits: int = 8, chunk_log: int = 18,
                 signed: bool = False) -> cops.Point:
-    """`msm` over slices of 2^chunk_log points, summed by `cops.add` (K2's
-    curve_add on the card): the MSM is linear in its points, so the sum of
-    the slices' MSMs is the whole one (plonky_tpu/curves/msm.py:436-465,
-    whose bench runs BLS12-377 at chunk_log = 16).  N must be at most
-    2^chunk_log or a multiple of it."""
+    """`msm` over slices of 2^chunk_log points (plonky_tpu/curves/
+    msm.py:436-465, whose bench runs BLS12-377 at chunk_log = 16): the MSM
+    is linear in its points, so the sum of the slices' MSMs is the whole
+    one.  The slices' buckets are all kept (72 MiB at 2^22 BLS12-377
+    points, c = 8) for ONE reduction and ONE Horner a call: a slice's
+    reduction and Horner are chains that leave the card mostly idle, so
+    paying them once a call, not once a slice, is most of the gain at 2^22.
+    N must be at most 2^chunk_log or a multiple of it."""
     if not isinstance(basis, MsmBasis):
         raise TypeError("msm_chunked takes an MsmBasis (see precompute_base)")
-    n, size = basis.n, 1 << chunk_log
-    if n <= size:
-        return msm(curve, basis, scalars, window_bits, signed)
-    if n % size:
-        raise ValueError(f"N={n} not a multiple of chunk {size}")
-    acc = None
-    for lo in range(0, n, size):
-        part = msm(curve, basis.slice(lo, lo + size),
-                   scalars[..., lo:lo + size], window_bits, signed)
-        acc = part if acc is None else cops.add(curve, acc, part)
-    return acc
+    return _msm_slices(curve, basis, scalars, window_bits, signed, 1 << chunk_log)

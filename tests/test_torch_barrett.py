@@ -286,28 +286,28 @@ def _pairs_chain(acc, at: int, x: int, ys) -> None:
     acc[at + 2 * n] += carry
 
 
-def _merge(e, o) -> int:
-    """cc_merge: e + o over limbs 0..15, nothing above."""
+def _merge(e, o, nl: int = 8) -> int:
+    """cc_merge: e + o over limbs 0..2L-1, nothing above."""
     assert o[0] == 0
     total = _value(e) + _value(o)
-    assert total < B32 ** 16
+    assert total < B32 ** (2 * nl)
     return total
 
 
-def product_model(a: int, b: int) -> tuple:
-    """cc_product: row i's products a_i b_j into e where i + j is even, o
-    where it is odd (cc_product_rows: two chains a row of 4 pairs each);
-    returns (e, o) as values, e + o = a b."""
-    al, bl = _limbs(a, 8), _limbs(b, 8)
-    e, o = [0] * 17, [0] * 17
-    for i in range(8):
+def product_model(a: int, b: int, nl: int = 8) -> tuple:
+    """cc_product at L = nl limbs: row i's products a_i b_j into e where
+    i + j is even, o where it is odd (cc_product_rows: two chains a row of
+    L / 2 pairs each); returns (e, o) as values, e + o = a b."""
+    al, bl = _limbs(a, nl), _limbs(b, nl)
+    e, o = [0] * (2 * nl + 1), [0] * (2 * nl + 1)
+    for i in range(nl):
         if i % 2 == 0:
             _pairs_chain(e, i, al[i], bl[0::2])
             _pairs_chain(o, i + 1, al[i], bl[1::2])
         else:
             _pairs_chain(e, i + 1, al[i], bl[1::2])
             _pairs_chain(o, i, al[i], bl[0::2])
-    assert o[0] == 0 and _merge(e, o) == a * b
+    assert o[0] == 0 and _merge(e, o, nl) == a * b
     return _value(e), _value(o)
 
 
@@ -338,15 +338,17 @@ def redc_model(t: int, spec, sparse: bool, o_value: int = 0) -> dict:
     their parity (y: that of I, x: the other), the chains' carries into
     the counters cnt; then limbs 8..15 of e + o + the counters (+ the
     sparse rows' deferred m 2^254 terms).  Returns r (not yet canonical),
-    the m of each row and each row's limb products."""
+    the m of each row and each row's limb products.  At the field's width
+    L: 8 limbs, or 12 (dense rows only: the 12-limb point kernels' mf_mul
+    over BLS12-377's base field)."""
     p, nl = spec.p, spec.limbs
-    assert nl == 8 and t + o_value < B32 ** 16
-    acc = {"e": _limbs(t, 17), "o": _limbs(o_value, 17)}
-    cnt = [0] * 17
-    pl = _limbs(p, 8)
+    assert (nl == 8 or not sparse) and t + o_value < B32 ** (2 * nl)
+    acc = {"e": _limbs(t, 2 * nl + 1), "o": _limbs(o_value, 2 * nl + 1)}
+    cnt = [0] * (2 * nl + 1)
+    pl = _limbs(p, nl)
     total = t + o_value
     ms, products = [], []
-    for i in range(8):
+    for i in range(nl):
         y, x = (acc["e"], acc["o"]) if i % 2 == 0 else (acc["o"], acc["e"])
         s = y[i] + x[i] + cnt[i]                   # limb I, exact
         x[i] = y[i] = cnt[i] = 0
@@ -366,12 +368,12 @@ def redc_model(t: int, spec, sparse: bool, o_value: int = 0) -> dict:
             products.append(3)
         else:
             y[i] = s
-            cnt[i + 8] += _window_add(y, i, 8, sum(m * pl[k] << (32 * (k - 0))
-                                                   for k in (0, 2, 4, 6)))
+            cnt[i + nl] += _window_add(y, i, nl, sum(m * pl[k] << (32 * k)
+                                                     for k in range(0, nl, 2)))
             assert y[i] == 0
-            cnt[i + 9] += _window_add(x, i + 1, 8, sum(m * pl[k] << (32 * (k - 1))
-                                                       for k in (1, 3, 5, 7)))
-            products.append(8)
+            cnt[i + nl + 1] += _window_add(x, i + 1, nl, sum(
+                m * pl[k] << (32 * (k - 1)) for k in range(1, nl, 2)))
+            products.append(nl)
         assert max(cnt) < 8
         ms.append(m)
         # the sparse rows' m 2^254 terms wait for the end, but m_0's low
@@ -381,15 +383,16 @@ def redc_model(t: int, spec, sparse: bool, o_value: int = 0) -> dict:
         value = (_value(acc["e"]) + _value(acc["o"])
                  + sum(c << (32 * k) for k, c in enumerate(cnt)) + deferred)
         assert value == total + sum(mj * p << (32 * j) for j, mj in enumerate(ms))
-    top = sum((acc["e"][k] + acc["o"][k] + cnt[k]) << (32 * (k - 8))
-              for k in range(8, 17))
+    top = sum((acc["e"][k] + acc["o"][k] + cnt[k]) << (32 * (k - nl))
+              for k in range(nl, 2 * nl + 1))
     if sparse:     # + M 2^30's limbs 1 .. 8: funnel shifts of m pairs
         mm = ms + [0]
         top += sum(((mm[k] >> 2) | (mm[k + 1] << 30)) % B32 << (32 * k)
                    for k in range(8))
-    assert top < B32 ** 8, "the result leaves 256 bits"
-    r = top % B32 ** 8
-    assert r == (total + _value(ms) * p) >> 256 and r < total // B32 ** 8 + p
+    assert top < B32 ** nl, "the result leaves 32 L bits"
+    r = top % B32 ** nl
+    assert (r == (total + _value(ms) * p) >> (32 * nl)
+            and r < total // B32 ** nl + p)
     return {"r": r, "m": ms, "products": products}
 
 
@@ -507,6 +510,31 @@ def test_sparse_redc_shape_and_counts(spec):
             assert sum(m["products"]) * WIDE == SPARSE_REDC_OPS == 48
         else:
             assert sum(m["products"]) * WIDE + 8 == REDC_OPS == 136
+
+
+def test_mont_product_at_12_limbs():
+    """The 12-limb point kernels' mf_mul (field.cuh): cc_product's pairs
+    at 12 limbs, the 12 dense REDC rows and one conditional subtraction
+    give a b 2^-384 mod p on BLS12-377's base field, at the edges, at
+    values just below p and at random; every counter small, the value
+    before the subtraction below 2p.  (The field's p = 1 mod 2^46, so p_0 =
+    1 and -p^-1 = 2^32 - 1 mod 2^32; the dense rows do not rely on it.)"""
+    spec = BLS12_377_BASE
+    p, nl = spec.p, spec.limbs
+    assert nl == 12 and p % (1 << 46) == 1 and spec.p_inv_neg == B32 - 1
+    r_inv = pow(1 << 384, -1, p)
+    rng = np.random.default_rng(12)
+    vals = _edges(p) + [p - 1 - int(v) for v in rng.integers(0, 1 << 40, 6)] + [
+        int.from_bytes(rng.bytes(56), "little") % p for _ in range(40)]
+    pairs = [(a, b) for a in vals[:14] for b in vals[:14]]
+    pairs += [(vals[rng.integers(len(vals))], vals[rng.integers(len(vals))])
+              for _ in range(150)]
+    for a, b in pairs:
+        e, o = product_model(a, b, nl)
+        m = redc_model(e, spec, False, o)
+        assert m["r"] < 2 * p and m["products"] == [nl] * nl
+        r = m["r"] - p if m["r"] >= p else m["r"]
+        assert r == a * b * r_inv % p
 
 
 if given is not None:

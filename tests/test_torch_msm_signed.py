@@ -241,9 +241,11 @@ def test_signed_accumulation_matches_signed_bucket_sums(points, chunk, tile):
 
 @pytest.mark.parametrize("nb", [1025, 2049])
 def test_wide_reduce_matches_direct_sum(nb):
-    """The reduction at unsigned c = 10 (1,025 buckets a row, 32 a
-    segment) and signed c = 12 (2,049, 64 a segment): sum_j j B_j over a
-    few live buckets, the last bucket and its neighbours among them."""
+    """The reduction at unsigned c = 10 (1,025 buckets a row) and signed
+    c = 12 (2,049), at the segment widths of a few rows (8 and 16 a
+    segment, 128 lanes) and of 2,048 rows (32 and 64, 32 lanes): sum_j
+    j B_j over a few live buckets, the last bucket and its neighbours
+    among them."""
     live = [1, 2, 17, 31, 32, 33, 500, nb - 2, nb - 1]
     pts = _points(CURVE, len(live), nb)
     pts[3] = chost.mul(chost.generator(CURVE), 5)
@@ -255,30 +257,36 @@ def test_wide_reduce_matches_direct_sum(nb):
     buckets, carries = cmsm.bucket_accumulate_plain(
         CURVE, basis, sorted_digits.to(torch.int32), order.to(torch.int32),
         starts)
-    assert cmsm.reduce_seg(nb) == (32 if nb == 1025 else 64)
-    got = device_points_to_host(CURVE, cmsm.bucket_reduce_plain(
-        CURVE, buckets, carries, starts))
-    for r, row in enumerate(rows):
-        want = chost.zero_point(CURVE)
-        for pt, d in zip(pts, row):
-            if d:
-                want = chost.add(want, chost.mul(pt, d))
-        assert got[r] == want, r
+    assert cmsm.reduce_seg(nb) == (8 if nb == 1025 else 16)
+    assert cmsm.reduce_seg(nb, 2048) == (32 if nb == 1025 else 64)
+    for seg in (cmsm.reduce_seg(nb), cmsm.reduce_seg(nb, 2048)):
+        got = device_points_to_host(CURVE, cmsm.bucket_reduce_plain(
+            CURVE, buckets, carries, starts, seg=seg))
+        for r, row in enumerate(rows):
+            want = chost.zero_point(CURVE)
+            for pt, d in zip(pts, row):
+                if d:
+                    want = chost.add(want, chost.mul(pt, d))
+            assert got[r] == want, (seg, r)
 
 
 def test_reduce_seg_is_one_choice_for_kernel_and_plain(monkeypatch):
     """For every bucket count of c = 2 .. 12, unsigned (2^c) and signed
-    (2^(c-1) + 1), the segment width the kernel is launched with (its
-    launch arguments, read with the launch stubbed out) is the one the
-    plain version takes (read from its call of reduce_seg): 16 up to
-    c = 9, the smallest power of two from 16 up that leaves at most 32
-    segments (one a lane of the kernel's warp) above."""
+    (2^(c-1) + 1), at one row and at 513 (c <= 5), the segment width the
+    kernel is launched with (its launch arguments, read with the launch
+    stubbed out) is the one the plain version takes (read from its call of
+    reduce_seg): the smallest power of two that leaves at most
+    reduce_lanes(rows) segments (one a lane of the kernel's block): 128
+    lanes up to 512 rows, then halved down to 32 while rows x lanes
+    exceeds 2^16."""
+    assert [cmsm.reduce_lanes(r) for r in (1, 512, 513, 1024, 1025, 2048, 10 ** 6)] \
+        == [128, 128, 64, 64, 32, 32, 32]
     launched, planned = [], []
     real_seg = cmsm.reduce_seg
 
-    def spy(nb):
-        planned.append((nb, real_seg(nb)))
-        return real_seg(nb)
+    def spy(nb, rows=1):
+        planned.append((nb, rows, real_seg(nb, rows)))
+        return real_seg(nb, rows)
     monkeypatch.setattr(cmsm, "reduce_seg", spy)
     monkeypatch.setattr(fops, "_dispatch", lambda t: True)
     monkeypatch.setattr(_cuda, "check", lambda *a, **k: None)
@@ -287,22 +295,24 @@ def test_reduce_seg_is_one_choice_for_kernel_and_plain(monkeypatch):
     w = cmsm.words(CURVE)
     for c in range(2, 13):
         for nb in (1 << c, (1 << (c - 1)) + 1):
-            buckets = torch.zeros((1, nb, w), dtype=torch.int32)
-            carries = torch.zeros((1, 1, w), dtype=torch.int32)
-            starts = torch.zeros((1, nb + 1), dtype=torch.int32)
-            cmsm.bucket_reduce(CURVE, buckets, carries, starts)
-            kernel_seg = launched[-1]
-            planned.clear()
-            with monkeypatch.context() as m:
-                m.setattr(fops, "_dispatch", lambda t: False)
+            for rows in ((1, 513) if c <= 5 else (1,)):
+                buckets = torch.zeros((rows, nb, w), dtype=torch.int32)
+                carries = torch.zeros((rows, 1, w), dtype=torch.int32)
+                starts = torch.zeros((rows, nb + 1), dtype=torch.int32)
                 cmsm.bucket_reduce(CURVE, buckets, carries, starts)
-            assert planned == [(nb, kernel_seg)], (c, nb)
-            nseg = -(-(nb - 1) // kernel_seg)
-            assert nseg <= cmsm.REDUCE_LANES
-            assert kernel_seg == 16 or -(-(nb - 1) // (kernel_seg // 2)) > 32
-            assert kernel_seg & (kernel_seg - 1) == 0
-            if c <= 9:
-                assert kernel_seg == 16, (c, nb)
+                kernel_seg = launched[-1]
+                planned.clear()
+                with monkeypatch.context() as m:
+                    m.setattr(fops, "_dispatch", lambda t: False)
+                    cmsm.bucket_reduce(CURVE, buckets, carries, starts)
+                assert planned == [(nb, rows, kernel_seg)], (c, nb, rows)
+                lanes = cmsm.reduce_lanes(rows)
+                nseg = -(-(nb - 1) // kernel_seg)
+                assert nseg <= lanes <= cmsm.REDUCE_LANES
+                assert kernel_seg == 1 or -(-(nb - 1) // (kernel_seg // 2)) > lanes
+                assert kernel_seg & (kernel_seg - 1) == 0
+                if c <= 7 and rows == 1:
+                    assert kernel_seg == 1, (c, nb)
 
 
 def test_signs_ride_in_bit_31_of_order(monkeypatch):
