@@ -14,8 +14,14 @@ drives BLS12-377 G1 (phase_bls12_377: the 12-limb builds of K1, K2 and K4
 held against their plain versions at ragged shapes, the JAX package's
 microbench sizes timed, the path driven once with the launch counts reset,
 and `msm_chunked` at 2^16 to 2^22 points timed and held against a
-discrete-log oracle, with signed windows beside unsigned), sweeps K4 over
-every window width from 2 to 12, signed and unsigned, at both widths
+discrete-log oracle, with signed windows beside unsigned), drives the
+polynomial path over BLS12-377's base field (phase_bls12_377_poly: the
+12-limb NTT, four-step transpose, product sum and Rescue against their
+plain versions, then fft / ifft at 2^22 and [9, 2^20], the coset pair,
+divide_by_z_h and eval_at_dyn at 2^20, fft_four_step and the sharded FFT
+at 2^22, product sums at 2^20 and Rescue at 2^14 and 2^16 once with the
+launch counts reset, every result checked and each kernel timed), sweeps
+K4 over every window width from 2 to 12, signed and unsigned, at both widths
 (k4_sweep), runs the probe (phase_probe: the flat NTT against the
 four-step FFT at 2^20 and 2^22, the Tweedledee MSM at 2^18 unsigned
 against signed windows, every result checked, both paths' launches
@@ -162,24 +168,28 @@ KERNELS = {
                            "plonky_tpu/hashing/rescue.py:162",
                            "rescue_permutation_kernel"),
 }
-# The 12-limb builds of K1, K2 and K4 (BLS12-377's base field; the same
+# The 12-limb builds of every kernel (BLS12-377's base field; the same
 # sources built with -DPT_LIMBS=12, kernels in namespace pt_l12), which
 # replace the same TPU kernels instantiated at BLS12_377_BASE.
-WIDE_KERNELS = ("field_add", "field_sub", "field_mul", "curve_add",
-                "curve_double", "curve_horner", "msm_bucket_accumulate",
-                "msm_bucket_accumulate_signed", "msm_bucket_reduce")
-KERNELS.update({f"{k}_l12": (KERNELS[k][0], KERNELS[k][1],
-                             "pt_l12::" + KERNELS[k][2]) for k in WIDE_KERNELS})
-# The kernels of the unsigned BLS12-377 path (phase_bls12_377's path run);
-# the signed accumulate has a run of its own there.
-BLS_PATH = tuple(k for k in WIDE_KERNELS if k != "msm_bucket_accumulate_signed")
+KERNELS.update({f"{k}_l12": (source, replaces, "pt_l12::" + symbol)
+                for k, (source, replaces, symbol) in list(KERNELS.items())})
+# The kernels of the unsigned BLS12-377 G1 path (phase_bls12_377's path
+# run); the signed accumulate has a run of its own there.
+BLS_PATH = ("field_add", "field_sub", "field_mul", "curve_add", "curve_double",
+            "curve_horner", "msm_bucket_accumulate", "msm_bucket_reduce")
+# The 12-limb kernels of the polynomial path over BLS12-377's base field
+# (phase_bls12_377_poly): the NTT, the four-step transpose, the product
+# sum and Rescue.
+BLS_POLY_PATH = ("ntt_pass", "ntt_twiddle_transpose", "field_product_sum",
+                 "rescue_permutation")
 # Checked against their plain versions, but off the prove's path: the MSM's
 # Horner runs in curve_horner, the batch Rescue permutation has its own
-# path (phase_rescue), and so do the 12-limb kernels (phase_bls12_377), the
-# signed-window MSM and the four-step FFT (phase_probe).
+# path (phase_rescue), and so do the 12-limb kernels (phase_bls12_377 and
+# phase_bls12_377_poly), the signed-window MSM and the four-step FFT
+# (phase_probe).
 OFF_PATH = ("curve_add", "curve_double", "rescue_permutation",
             "msm_bucket_accumulate_signed", "ntt_twiddle_transpose",
-            *(f"{k}_l12" for k in WIDE_KERNELS))
+            *(k for k in KERNELS if k.endswith("_l12")))
 
 # The operations bound counts the multiplies a function needs at least, in
 # 32-bit IMAD issue slots (64 per SM per clock): a 32 x 32 -> 64-bit
@@ -498,23 +508,27 @@ def sbox_ops(spec, e: int) -> int:
 def rescue_costs(spec) -> tuple:
     """(square, multiply, reduction) in IMAD slots for K5's field: the
     sparse REDC's where p = 2^254 + c (hashing/rescue.py:sparse_prime),
-    else the dense ones."""
+    else the dense ones at the field's width (456, 588 and 300 at 12
+    limbs)."""
     from plonky_tpu_torch.hashing.rescue import sparse_prime
     if sparse_prime(spec):
         return SPARSE_SQR_OPS, SPARSE_MUL_OPS, SPARSE_REDC_OPS
-    return SQR_OPS, MUL_OPS, REDC_OPS
+    nl = spec.limbs
+    return sqr_ops(nl), mul_ops(nl), redc_ops(nl)
 
 
 def rescue_work(spec, security_bits: int, n: int):
     """Bytes and IMAD slots of K5's bounds for n permutations (top of
-    file)."""
+    file), at the field's width."""
     from plonky_tpu_torch.fields.host import kth_root_exponent
     from plonky_tpu_torch.hashing.rescue import recommended_rounds
     _sqr, _mul, redc = rescue_costs(spec)
+    nl = spec.limbs
     per_round = (4 * (sbox_ops(spec, kth_root_exponent(spec, spec.alpha))
                       + sbox_ops(spec, spec.alpha))
-                 + 2 * 4 * (4 * PRODUCT_OPS + redc))
-    return 2 * 4 * 32 * n, n * recommended_rounds(4, security_bits) * per_round
+                 + 2 * 4 * (4 * product_ops(nl) + redc))
+    return (2 * 4 * 4 * nl * n,
+            n * recommended_rounds(4, security_bits) * per_round)
 
 
 def ntt_cases():
@@ -545,14 +559,17 @@ def ntt_cases():
     return cases
 
 
-def ntt_work(batch, lg, inverse, coset):
-    """Bytes and IMAD slots of a whole transform's bounds (top of file)."""
+def ntt_work(batch, lg, inverse, coset, nl: int = 8):
+    """Bytes and IMAD slots of a whole transform's bounds (top of file) at
+    nl limbs (an element is 4 nl bytes, a product mul_ops(nl) slots: 588
+    at 12 limbs)."""
     n = 1 << lg
     scaled = inverse or coset
-    table = 32 * n if coset else (32 if inverse else 0)
-    return (2 * 32 * batch * n + 32 * max(n - 2, 0) + table,
-            MUL_OPS * (batch * (n // 2) * max(lg - 1, 0)
-                       + (batch * n if scaled else 0)))
+    elem = 4 * nl
+    table = elem * n if coset else (elem if inverse else 0)
+    return (2 * elem * batch * n + elem * max(n - 2, 0) + table,
+            mul_ops(nl) * (batch * (n // 2) * max(lg - 1, 0)
+                           + (batch * n if scaled else 0)))
 
 
 def product_sum_shapes():
@@ -647,13 +664,14 @@ def counting_product_sums(fops):
         fops._product_sums_launch = launch
 
 
-def product_sum_work(named, n):
-    """Bytes and IMAD slots of a product-sum launch's bounds: each distinct
-    operand read once, each sum's output written once; per element and sum
-    its products (PRODUCT_OPS each) and one reduction (REDC_OPS)."""
+def product_sum_work(named, n, nl: int = 8):
+    """Bytes and IMAD slots of a product-sum launch's bounds at nl limbs:
+    each distinct operand read once, each sum's output written once; per
+    element and sum its products (product_ops(nl) each: 128 at 8 limbs,
+    288 at 12) and one reduction (redc_ops(nl): 136, 300)."""
     c = product_sum_counts(named)
-    return (32 * (n * (c["full_operands"] + c["sums"]) + c["column_operands"]),
-            n * (c["products"] * PRODUCT_OPS + c["sums"] * REDC_OPS))
+    return (4 * nl * (n * (c["full_operands"] + c["sums"]) + c["column_operands"]),
+            n * (c["products"] * product_ops(nl) + c["sums"] * redc_ops(nl)))
 
 
 def k4_cases(np, torch, rng, dev):
@@ -1369,11 +1387,11 @@ def ntt_host_check(np, torch, spec, pre, x, flat, rng) -> list:
     2^52), and one random k by Horner over every input.  Returns the k
     checked."""
     from plonky_tpu_torch.fields import ops as fops
-    p, n = spec.p, pre.n
-    limbs = x.reshape(8, n).cpu().numpy().view(np.uint32)
+    p, n, nl = spec.p, pre.n, spec.limbs
+    limbs = x.reshape(nl, n).cpu().numpy().view(np.uint32)
     step = n // EVAL_CLASSES
-    sums = limbs.astype(np.uint64).reshape(8, step, EVAL_CLASSES).sum(1)
-    classes = [sum(int(sums[l, r]) << (32 * l) for l in range(8))
+    sums = limbs.astype(np.uint64).reshape(nl, step, EVAL_CLASSES).sum(1)
+    classes = [sum(int(sums[l, r]) << (32 * l) for l in range(nl))
                for r in range(EVAL_CLASSES)]
     ks = [0, n // 2, 3 * n // 4, step * (2 * int(rng.integers(0, EVAL_CLASSES // 2)) + 1)]
     want = {}
@@ -1385,12 +1403,12 @@ def ntt_host_check(np, torch, spec, pre, x, flat, rng) -> list:
         want[k] = acc
     k = int(rng.integers(1, n))
     z = pow(pre.g, k, p)
-    coeffs = np.ascontiguousarray(limbs.T).view(np.uint8).reshape(n, 32)
+    coeffs = np.ascontiguousarray(limbs.T).view(np.uint8).reshape(n, 4 * nl)
     acc = 0
     for row in coeffs[::-1]:
         acc = (acc * z + int.from_bytes(row.tobytes(), "little")) % p
     want[k] = acc
-    got = fops.to_ints(spec, flat.reshape(8, n)[:, list(want)])
+    got = fops.to_ints(spec, flat.reshape(nl, n)[:, list(want)])
     for (k, w), v in zip(want.items(), got):
         if int(v) != w:
             raise AssertionError(f"ntt at 2^{pre.lg_n}: X[{k}] is not the host's")
@@ -1884,7 +1902,8 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     P + (-P); K4 at N = 2^12 + 5, K = 1 and 3, c = 8 and 5 (51 windows,
     the last of 3 bits); curve_horner on those window sums (W = 32 and
     51); the 8-limb field_mul on the scalar field at N = 2^12 + 3; and the
-    product sum, the NTT and Rescue must raise for the 12-limb field.  Timed
+    12-limb product sum, NTT and Rescue on K1's operands (their path is
+    phase_bls12_377_poly's).  Timed
     at the JAX package's microbench sizes (bin/microbench.py: field ops at
     2^16 on both fields, G1 add and double at 2^14, the 150-point
     summation) and K4 and the Horner at one slice of the ladder (N = 2^16,
@@ -1972,18 +1991,19 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     for (k, c), ws in window_sums.items():
         ck.compare("curve_horner_l12", cmsm.horner(C, ws, c),
                    cmsm.horner_plain(C, ws, c))
-    # the kernels with no 12-limb build refuse the field on the card
+    # the 12-limb product sum, NTT and Rescue on the same operands (their
+    # paths and timings are phase_bls12_377_poly's)
     from plonky_tpu_torch.hashing import rescue as hr
     from plonky_tpu_torch.poly import fft as pfft
-    for what, call in (
-            ("field_product_sum", lambda: fops.product_sums(bf, [[(x, y, 1)]])),
-            ("ntt_pass", lambda: pfft.FftPrecomputation(bf, 1 << 4)),
-            ("rescue_permutation", lambda: hr.rescue_permutation(bf, [x] * 4, 128))):
-        try:
-            call()
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"{what} ran on a 12-limb field")
+    terms = [(x, y, 1), (col, y, -1), (x, None, -1)]
+    ck.compare("field_product_sum_l12", fops.product_sum(bf, terms),
+               fops.product_sum_plain(bf, terms))
+    pre12 = pfft.FftPrecomputation(bf, 1 << 12)
+    ck.compare("ntt_pass_l12", pfft.fft(pre12, x[:, :1 << 12]),
+               pfft.ntt_plain(pre12, x[:, :1 << 12]))
+    state = [t[:, :67] for t in (x, y, x.flip(1), y.flip(1))]
+    ck.compare("rescue_permutation_l12", tuple(hr.rescue_permutation(bf, state, 64)),
+               tuple(hr.rescue_permutation_plain(bf, state, 64)))
     checked = {"K1": "N = 2^12 + 3, edges, [12, 1] either side, squares",
                "K2": "[12, 2^10 + 3], identity, P + P, P + (-P)",
                "K4": "N = 2^12 + 5, K = 1, 3, c = 8, 5; the reduce also at "
@@ -2236,6 +2256,377 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
                                          for r in signed_ladder}
     emit(out)
     return {k: v for k, v in path.items() if k.endswith("_l12")}
+
+
+# The polynomial path over BLS12-377's base field (phase_bls12_377_poly):
+# the flat FFT at 2^22 and [9, 2^20] (the outer prover's transforms on the
+# BW6-761 side of the two-chain), the coset pair and the polynomial ops at
+# 2^20, the four-step FFT at 2^22 (lg n1 = 11), product sums at 2^20 and
+# Rescue at 2^14 and 2^16 permutations.
+POLY_LG = 22
+POLY_BATCH = (9, 20)
+POLY_COSET_LG = 20
+POLY_FOUR_STEP_N1 = 11
+POLY_PS_LG = 20
+POLY_PS_TERMS = (2, 9, 30, 33)
+POLY_RESCUE = (14, 16)
+POLY_MESH = 4
+# rows of the [9, 2^20] transforms a plain call holds (its digit columns
+# take ~14 GB a call at 3 rows)
+POLY_HOLD_ROWS = 3
+
+
+def poly_product_sums() -> dict:
+    """The product sums of phase_bls12_377_poly, one sum each, named as
+    product_sum_shapes names its operands ("F" a full [12, N] column, "C"
+    an [12, 1] one): terms from a pool of 34 full operands, signs
+    alternating by three, one [12, 1] operand and one single each."""
+    out = {}
+    for t in POLY_PS_TERMS:
+        terms = [("Cc" if i == 0 else f"F{i}", f"F{i + 1}",
+                  -1 if i % 3 == 1 else 1) for i in range(t - 1)]
+        out[f"{t} terms"] = [terms + [(f"F{t}", None, -1)]]
+    return out
+
+
+def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
+    """The 12-limb NTT (ntt_pass_l12, ntt_twiddle_transpose_l12), product
+    sum (field_product_sum_l12) and Rescue (rescue_permutation_l12) over
+    BLS12-377's base field Fq.  First each held against its plain version
+    at ragged shapes: the four transforms at [3, 2^11] and [5, 2^10], the
+    transpose at [12, 3, 2^5, 2^7] and [12, 2, 33, 65] with and without a
+    table, the product sums at N = 2^10 + 3 (2, 9, 30, 33 terms, splits 1,
+    2, 4 forced); Rescue's ragged hold is phase_bls12_377's (67
+    permutations at 64 bits).  Then the path once, with the launch counts
+    reset, through the entry points: fft and ifft at [1, 2^22] and [9, 2^20], coset_fft and
+    coset_ifft at [1, 2^20], fft_four_step at 2^22 (lg n1 = 11, its table
+    built on the card), product_sums of 2, 9, 30 and 33 terms at [12,
+    2^20], divide_by_z_h of a 2^20-coefficient multiple of Z_H (n = 2^19)
+    and eval_at_dyn at 2^20, rescue_permutation at 2^14 and 2^16 (128
+    bits), fft_sharded_domain at 2^22 over 4 virtual shards, and fft /
+    ifft over the scalar field Fr (8 limbs) at [1, 2^22]: each of the
+    four 12-limb kernels launched.  Every result checked: ifft(fft(x)) = x
+    on every lane, the flat transforms against the host at sampled points
+    (ntt_host_check), the four-step and the sharded FFT equal to the flat
+    one, the product sums against their plain versions and against python
+    ints at sampled lanes, the division by multiplying back, the
+    evaluation against the host's Horner, Rescue against its plain
+    version on every lane at 2^14 and on the last 2^10 + 3 lanes at 2^16
+    (the plain version at 12 limbs took 27 s at 2^14 and 96 s at 2^16 on
+    the H100), and against the host permutation at sampled lanes; the
+    coset pair and the 2^22 transposes against their plain versions.  Then
+    each kernel timed at the path's shapes beside its bound.  Returns the
+    path's launches of the four kernels."""
+    from plonky_tpu_torch import _cuda
+    from plonky_tpu_torch.fields import BLS12_377_BASE as Fq
+    from plonky_tpu_torch.fields import BLS12_377_SCALAR as Fr
+    from plonky_tpu_torch.fields import ops as fops
+    from plonky_tpu_torch.hashing import rescue as hr
+    from plonky_tpu_torch.parallel import default_mesh, fft_sharded_domain
+    from plonky_tpu_torch.poly import fft as pfft
+    from plonky_tpu_torch.poly import polynomial as ppoly
+
+    nl = Fq.limbs
+    rng = np.random.default_rng(3770)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3770)
+    out = {"phase": "bls12_377_poly", "nvidia_smi": name_power, "limbs": nl}
+    seconds = {}
+
+    def field(shape, spec=Fq):
+        """Canonical random elements below 2^(bits - 1) as [L, *shape],
+        made on the card from the seeded generator, the edge values
+        first."""
+        x = torch.randint(0, 1 << 32, (spec.limbs, *shape), generator=gen,
+                          dtype=torch.int64, device=dev)
+        x[-1] &= (1 << (spec.bits - 1 - 32 * (spec.limbs - 1))) - 1
+        x = torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+        return with_edges(fops, spec, x)
+
+    def ints(spec, x, lanes):
+        return [int(v) for v in fops.to_ints(spec, x.reshape(spec.limbs, -1)[:, lanes])]
+
+    # ragged shapes against the plain versions
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    for batch, lg in ((3, 11), (5, 10)):
+        pre = pfft.FftPrecomputation(Fq, 1 << lg)
+        x = field((batch, 1 << lg))
+        for inverse in (False, True):
+            for shift in (None, Fq.generator):
+                ck.compare("ntt_pass_l12", pfft.ntt(pre, x, inverse, shift),
+                           pfft.ntt_plain(pre, x, inverse, shift))
+    for batch, r, s_ in ((3, 32, 128), (2, 33, 65)):
+        x = field((batch, r, s_))
+        tw = pfft.Twiddles.of(Fq, field((r, s_)))
+        for table in (None, tw):
+            ck.compare("ntt_twiddle_transpose_l12", pfft.twiddle_transpose(Fq, x, table),
+                       pfft.twiddle_transpose_plain(Fq, x, table))
+    lap("ragged_ntt")
+    n_r = (1 << 10) + 3
+    named_ps = poly_product_sums()
+
+    def ps_inputs(n_elems):
+        return {label: product_sum_inputs(
+            named, lambda _name: field((n_elems,)),
+            lambda _name: rand_field(np, torch, rng, (1,), dev, Fq))
+            for label, named in named_ps.items()}
+    for label, sums in ps_inputs(n_r).items():
+        ck.compare("field_product_sum_l12", tuple(fops.product_sums(Fq, sums)),
+                   tuple(fops.product_sums_plain(Fq, sums)))
+        cut = [s[:32] for s in sums]
+        for splits in (1, 2, 4):
+            ck.compare("field_product_sum_l12",
+                       tuple(fops._product_sums_launch(Fq, cut, (n_r,), splits=splits)),
+                       tuple(fops.product_sums_plain(Fq, cut)))
+    lap("ragged_product_sum")
+
+    # inputs of the path (made on the card before the counts are reset)
+    n22, n20 = 1 << POLY_LG, 1 << POLY_COSET_LG
+    kb, lgb = POLY_BATCH
+    x22, xb, x20 = field((1, n22)), field((kb, 1 << lgb)), field((1, n20))
+    xr = field((1, n22), Fr)
+    pre22, preb = pfft.FftPrecomputation(Fq, n22), pfft.FftPrecomputation(Fq, 1 << lgb)
+    pre20, pre_r = pfft.FftPrecomputation(Fq, n20), pfft.FftPrecomputation(Fr, n22)
+    n_ps = 1 << POLY_PS_LG
+    ps = ps_inputs(n_ps)
+    half = n20 // 2
+    q = field((half,))
+    f_zh = torch.cat([fops.neg(Fq, q), q], dim=1)          # q (X^half - 1)
+    z = int(rng.integers(2, 1 << 62)) * 0x9E3779B97F4A7C15 % Fq.p
+    z_col = fops.column(Fq, z, dev)
+    states = {lg: [field((1 << lg,)) for _ in range(4)] for lg in POLY_RESCUE}
+    mesh = default_mesh(POLY_MESH, device=dev)
+    torch.cuda.synchronize()
+    lap("inputs")
+
+    # the path, once, with the launch counts reset
+    _cuda.reset_launches()
+    flat22 = pfft.fft(pre22, x22)
+    back22 = pfft.ifft(pre22, flat22)
+    flatb = pfft.fft(preb, xb)
+    backb = pfft.ifft(preb, flatb)
+    t1 = time.perf_counter()
+    coset20 = pfft.coset_fft(pre20, x20, Fq.generator)
+    torch.cuda.synchronize()
+    seconds["coset_first_call"] = time.perf_counter() - t1   # its host table
+    coset_back = pfft.coset_ifft(pre20, coset20, Fq.generator)
+    t1 = time.perf_counter()
+    tw22 = pfft.four_step_twiddles(Fq, n22, POLY_FOUR_STEP_N1, device=dev)
+    torch.cuda.synchronize()
+    seconds["four_step_table"] = time.perf_counter() - t1
+    four22 = pfft.fft_four_step(Fq, x22, tw22, POLY_FOUR_STEP_N1)
+    ps_out = {label: fops.product_sums(Fq, sums) for label, sums in ps.items()}
+    quo = ppoly.divide_by_z_h(Fq, f_zh, half)
+    ev_q = ppoly.eval_at_dyn(Fq, q, z_col)
+    ev_f = ppoly.eval_at_dyn(Fq, f_zh, z_col)
+    perms = {lg: hr.rescue_permutation(Fq, st, 128) for lg, st in states.items()}
+    sharded = fft_sharded_domain(mesh, Fq, x22)
+    flat_r = pfft.fft(pre_r, xr)
+    back_r = pfft.ifft(pre_r, flat_r)
+    torch.cuda.synchronize()
+    lap("path")
+    path = dict(_cuda.LAUNCHES)
+    missing = [f"{k}_l12" for k in BLS_POLY_PATH if not path[f"{k}_l12"]]
+    if missing:
+        raise AssertionError(f"the BLS12-377 polynomial path launched {path}: "
+                             f"none of {missing}")
+    out["path_launches"] = {k: v for k, v in path.items() if v}
+
+    # what came out
+    checks = {}
+    for name, x, back in (("[1, 2^22]", x22, back22),
+                          (f"[{kb}, 2^{lgb}]", xb, backb),
+                          ("coset [1, 2^20]", x20, coset_back),
+                          ("Fr [1, 2^22]", xr, back_r)):
+        if not torch.equal(back, x):
+            raise AssertionError(f"ifft(fft(x)) != x at {name}")
+    checks["round_trips"] = "every lane"
+    checks["host_k"] = {
+        "[1, 2^22]": ntt_host_check(np, torch, Fq, pre22, x22, flat22, rng),
+        f"[{kb}, 2^{lgb}] rows 0, {kb - 1}": [
+            ntt_host_check(np, torch, Fq, preb, xb[:, j].contiguous(),
+                           flatb[:, j].contiguous(), rng) for j in (0, kb - 1)],
+        "Fr [1, 2^22]": ntt_host_check(np, torch, Fr, pre_r, xr, flat_r, rng)}
+    lap("checks_host")
+    if not torch.equal(four22, flat22):
+        raise AssertionError("fft_four_step at 2^22 differs from the flat fft")
+    if not torch.equal(sharded, flat22):
+        raise AssertionError("fft_sharded_domain at 2^22 differs from the flat fft")
+    lanes = [0, 1, 2, 3, n_ps // 3, n_ps - 1]
+    for label, sums in ps.items():
+        ck.compare("field_product_sum_l12", tuple(ps_out[label]),
+                   tuple(fops.product_sums_plain(Fq, sums)))
+        terms = [(ints(Fq, a, [0] if a.shape[1] == 1 else lanes),
+                  None if b is None else ints(Fq, b, lanes), sign)
+                 for a, b, sign in sums[0]]
+        want = [sum(sign * (a[0] if len(a) == 1 else a[j]) * (1 if b is None else b[j])
+                    for a, b, sign in terms) % Fq.p for j in range(len(lanes))]
+        if ints(Fq, ps_out[label][0], lanes) != want:
+            raise AssertionError(f"product_sums ({label}) differ from python ints")
+    lap("checks_ntt_product_sum")
+    if not (torch.equal(quo[:, :half], q) and not quo[:, half:].any()):
+        raise AssertionError("divide_by_z_h: the quotient times Z_H is not the input")
+    q_host = [int(v) for v in fops.to_ints(Fq, q)]
+    want_q = 0
+    for c in reversed(q_host):
+        want_q = (want_q * z + c) % Fq.p
+    want_f = want_q * (pow(z, half, Fq.p) - 1) % Fq.p
+    if (int(fops.to_ints(Fq, ev_q)), int(fops.to_ints(Fq, ev_f))) != (want_q, want_f):
+        raise AssertionError("eval_at_dyn differs from the host's Horner")
+    rescue_plain_s = {}
+    for lg, st in states.items():
+        # at 2^16 (the plain version takes ~100 s on the whole batch) one
+        # lane in every 64, at a different place in each run of 64 so that
+        # every block and every thread's place mod 64 is held, and the last 3
+        n = 1 << lg
+        lanes_held = (slice(None) if lg == POLY_RESCUE[0] else torch.tensor(
+            [k * 64 + (7 * k) % 64 for k in range(n // 64)] + [n - 3, n - 2, n - 1],
+            device=dev))
+        t1 = time.perf_counter()
+        plain = hr.rescue_permutation_plain(
+            Fq, [t[:, lanes_held].contiguous() for t in st], 128)
+        torch.cuda.synchronize()
+        rescue_plain_s[lg] = time.perf_counter() - t1
+        ck.compare("rescue_permutation_l12",
+                   tuple(o[:, lanes_held] for o in perms[lg]), tuple(plain))
+        del plain
+        r_lanes = [0, 1, 2, (1 << lg) // 2, (1 << lg) - 1]
+        ins = [ints(Fq, t, r_lanes) for t in st]
+        got = [ints(Fq, o, r_lanes) for o in perms[lg]]
+        for j, lane in enumerate(r_lanes):
+            if [g[j] for g in got] != hr.rescue_permutation_host(
+                    Fq, [i[j] for i in ins], 128):
+                raise AssertionError(f"rescue_permutation at 2^{lg} differs from "
+                                     f"the host permutation at lane {lane}")
+    checks["rescue_vs_plain"] = ("every lane at 2^14; at 2^16 lane 64 k + 7 k mod 64 "
+                                 "for every k, and the last 3")
+    checks["rescue_lanes_vs_host"] = "0, 1, 2, N / 2, N - 1"
+    lap("checks_rescue")
+
+    # the 2^22 transposes against their plain versions, and timed
+    r1 = 1 << POLY_FOUR_STEP_N1
+    xt = field((1, r1, n22 // r1))
+    tt_by = []
+    for table in (None, tw22):
+        ck.compare("ntt_twiddle_transpose_l12", pfft.twiddle_transpose(Fq, xt, table),
+                   pfft.twiddle_transpose_plain(Fq, xt, table))
+        tt_by.append({"shape": [nl, 1, r1, n22 // r1], "twiddles": table is not None,
+                      **ck.measure(
+            lambda table=table: pfft.twiddle_transpose(Fq, xt, table),
+            lambda table=table: pfft.twiddle_transpose_plain(Fq, xt, table),
+            (3 if table is not None else 2) * 4 * nl * n22,
+            mul_ops(nl) * n22 if table is not None else 0, reps=10, plain_reps=1),
+            # without twiddles the function is one PyTorch call
+            "library_ms": None if table is not None else ck.queued_ms(
+                lambda: xt.transpose(-1, -2).contiguous(), 10)})
+    ck.record("ntt_twiddle_transpose_l12", {
+        "main": f"[12, 1, 2^{POLY_FOUR_STEP_N1}, 2^{POLY_LG - POLY_FOUR_STEP_N1}] "
+                "with twiddles (fft_four_step at 2^22)",
+        "checked": ["[12, 3, 2^5, 2^7]", "[12, 2, 33, 65]", "[12, 1, 2^11, 2^11]",
+                    "fft_four_step at 2^22 = fft"]},
+        by_shape=tt_by, measured=tt_by[1])
+    lap("timing_transpose")
+
+    # the NTT at the path's shapes, each output of the path held against
+    # the plain version on the same input: the call that times it, or at
+    # [9, 2^20] (43 GB of the plain version's digit columns at once) three
+    # calls of POLY_HOLD_ROWS rows, their times summed
+    ntt_by = []
+    for label, pre, x, got, inverse, shift in (
+            ("fft [1, 2^22]", pre22, x22, flat22, False, None),
+            ("ifft [1, 2^22]", pre22, flat22, back22, True, None),
+            (f"fft [{kb}, 2^{lgb}]", preb, xb, flatb, False, None),
+            (f"ifft [{kb}, 2^{lgb}]", preb, flatb, backb, True, None),
+            ("coset_fft [1, 2^20]", pre20, x20, coset20, False, Fq.generator),
+            ("coset_ifft [1, 2^20]", pre20, coset20, coset_back, True,
+             Fq.generator)):
+        batch = x.reshape(nl, -1, pre.n).shape[1]
+        nb, nops = ntt_work(batch, pre.lg_n, inverse, shift is not None, nl)
+        big = batch * pre.n > n22
+        torch.cuda.empty_cache()
+        want = {}
+
+        def plain(pre=pre, x=x, inverse=inverse, shift=shift):
+            want["out"] = pfft.ntt_plain(pre, x, inverse, shift)
+        m = ck.measure(lambda pre=pre, x=x, inverse=inverse, shift=shift:
+                       pfft.ntt(pre, x, inverse, shift),
+                       (lambda: None) if big else plain,
+                       nb, nops, reps=5, plain_reps=1)
+        if big:
+            plain_s = 0.0
+            for j in range(0, batch, POLY_HOLD_ROWS):
+                rows = slice(j, j + POLY_HOLD_ROWS)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                want_rows = pfft.ntt_plain(pre, x[:, rows].contiguous(), inverse,
+                                           shift)
+                torch.cuda.synchronize()
+                plain_s += time.perf_counter() - t1
+                ck.compare("ntt_pass_l12", got[:, rows], want_rows)
+                del want_rows
+                torch.cuda.empty_cache()
+            m["plain_ms"] = plain_s * 1e3
+        else:
+            ck.compare("ntt_pass_l12", got, want.pop("out"))
+        ntt_by.append({"shape": label, "B": batch, "n": pre.n,
+                       "passes": len(pfft.pass_plan(pre.lg_n)), **m,
+                       "share": share(m)})
+    ck.record("ntt_pass_l12", {
+        "main": "fft [1, 2^22]", "checked": [
+            "[3, 2^11], [5, 2^10] x fft, ifft, coset pair vs plain",
+            "the path's fft, ifft at [1, 2^22] and [9, 2^20] (3 rows a call) "
+            "and coset pair at [1, 2^20] vs plain",
+            "round trips on every lane",
+            "host points at 2^22, [9, 2^20], Fr 2^22"]},
+        by_shape=ntt_by, measured=ntt_by[0])
+    lap("timing_ntt")
+
+    # the product sums at 2^20
+    ps_by = []
+    for label, sums in ps.items():
+        nb, nops = product_sum_work(named_ps[label], n_ps, nl)
+        m = ck.measure(lambda sums=sums: fops.product_sums(Fq, sums),
+                       lambda sums=sums: fops.product_sums_plain(Fq, sums),
+                       nb, nops, reps=5, plain_reps=1)
+        ps_by.append({"shape": label, "N": n_ps,
+                      **product_sum_counts(named_ps[label]), **m, "share": share(m)})
+    ck.record("field_product_sum_l12", {
+        "main": "9 terms, N = 2^20", "checked": [
+            f"N = 2^10 + 3 and 2^20 x {list(POLY_PS_TERMS)} terms, signed, "
+            "an [12, 1] operand", "splits 1, 2, 4", "python ints at 6 lanes"]},
+        by_shape=ps_by, measured=ps_by[1])
+    lap("timing_product_sum")
+
+    # Rescue at 2^14 and 2^16
+    r_by = []
+    for lg, st in states.items():
+        nb, nops = rescue_work(Fq, 128, 1 << lg)
+        m = ck.measure(lambda st=st: hr.rescue_permutation(Fq, st, 128),
+                       lambda: None, nb, nops, reps=5, plain_reps=1)
+        # the plain call held above (at 2^16 on 2^10 + 3 lanes only)
+        m["plain_ms"] = rescue_plain_s[lg] * 1e3 if lg == POLY_RESCUE[0] else None
+        r_by.append({"N": 1 << lg, "security_bits": 128,
+                     "plain_held_ms": rescue_plain_s[lg] * 1e3,
+                     "perms_per_s": (1 << lg) / (m["ms"] * 1e-3), **m,
+                     "share": share(m)})
+    ck.record("rescue_permutation_l12", {
+        "main": "2^14, Bls12377Base, 128 bits", "checked": [
+            "N = 67 at 64 bits (phase_bls12_377)",
+            "N = 2^14 at 128 bits, every lane vs plain",
+            "N = 2^16 at 128 bits, 2^10 + 3 lanes (one in every 64, and the "
+            "last 3) vs plain",
+            "5 lanes a size vs host"]},
+        by_shape=r_by, measured=r_by[0])
+    lap("timing_rescue")
+    out.update({"checks": checks, "seconds": seconds,
+                "rescue_perms_per_s": {str(r["N"]): r["perms_per_s"] for r in r_by}})
+    emit(out)
+    return {f"{k}_l12": path[f"{k}_l12"] for k in BLS_POLY_PATH}
 
 
 def pinned_random():
@@ -3346,6 +3737,8 @@ def main() -> int:
     timed("kernels", phase_kernels, ck, torch, np, dev)
     rescue_launches = timed("rescue", phase_rescue, ck, torch, np, dev, name_power)
     bls_launches = timed("bls12_377", phase_bls12_377, ck, torch, np, dev, name_power)
+    poly_launches = timed("bls12_377_poly", phase_bls12_377_poly, ck, torch, np, dev,
+                          name_power)
     probe_launches = timed("probe", phase_probe, ck, torch, np, dev, name_power)
     parallel_launches = timed("parallel", phase_parallel, ck, torch, np, dev,
                               name_power)
@@ -3359,6 +3752,7 @@ def main() -> int:
     timed("plookup", phase_plookup, ck, torch, np, name_power)
     launches["rescue_permutation"] = rescue_launches
     launches.update(bls_launches)
+    launches.update(poly_launches)
     launches.update(probe_launches)
     launches.update(parallel_launches)
     emit({"phase": "seconds", "build_s": build_s, **seconds,

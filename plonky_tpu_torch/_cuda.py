@@ -4,10 +4,10 @@ The kernels live in ``csrc/*.cu`` with a plain C interface.  At first use
 on a CUDA tensor each source is compiled by its own ``nvcc`` process (all
 started together; the curve and MSM sources one process a kernel) for
 ``sm_90a``, the objects are linked into one shared
-library under ``_build/``, and the library is loaded with ctypes.  The
-sources of K1, K2 and K4 (WIDE_SOURCES) are compiled twice: for 8-limb
-fields, and with ``-DPT_LIMBS=12`` for 12-limb ones, whose C entries and
-launch counts carry the suffix ``_l12`` (`kernel`).  Every C entry
+library under ``_build/``, and the library is loaded with ctypes.  Every
+source is compiled twice: for 8-limb fields, and with ``-DPT_LIMBS=12``
+for 12-limb ones, whose C entries and launch counts carry the suffix
+``_l12`` (`kernel`).  Every C entry
 launches one kernel on the stream it is given and returns
 ``cudaGetLastError()``; `launch` raises when that is not 0 and counts the
 launch under the kernel's name and its card.  A launch runs on the card
@@ -34,12 +34,13 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("field_kernels.cu", "curve_kernels.cu", "ntt_kernels.cu",
            "msm_kernels.cu", "rescue_kernels.cu")
-# Sources built a second time for 12-limb fields (-DPT_LIMBS=12).
+KERNELS = ("field_add", "field_sub", "field_mul", "field_product_sum",
+           "curve_add", "curve_double", "curve_horner", "ntt_pass",
+           "ntt_twiddle_transpose", "msm_bucket_accumulate",
+           "msm_bucket_accumulate_signed", "msm_bucket_reduce",
+           "rescue_permutation")
+# Every source is built a second time for 12-limb fields (-DPT_LIMBS=12).
 WIDE_LIMBS = 12
-WIDE_SOURCES = ("field_kernels.cu", "curve_kernels.cu", "msm_kernels.cu")
-WIDE_KERNELS = ("field_add", "field_sub", "field_mul", "curve_add",
-                "curve_double", "curve_horner", "msm_bucket_accumulate",
-                "msm_bucket_accumulate_signed", "msm_bucket_reduce")
 # Sources built one object a kernel (their kernel count): one object of
 # either at 12 limbs took nvcc 35-41 s on the H100's machine, the whole
 # build's long pole (csrc/field.cuh:PT_ONLY).
@@ -55,13 +56,9 @@ def width_name(name: str, limbs: int) -> str:
     return name if limbs == 8 else f"{name}_l{limbs}"
 
 
-# Launches per kernel, counted by the wrappers (reset with reset_launches).
-LAUNCHES = {name: 0 for name in (
-    "field_add", "field_sub", "field_mul", "field_product_sum",
-    "curve_add", "curve_double", "curve_horner", "ntt_pass",
-    "ntt_twiddle_transpose", "msm_bucket_accumulate",
-    "msm_bucket_accumulate_signed", "msm_bucket_reduce", "rescue_permutation",
-    *(width_name(k, WIDE_LIMBS) for k in WIDE_KERNELS))}
+# Launches per kernel and width, counted by the wrappers (reset with
+# reset_launches).
+LAUNCHES = {width_name(k, limbs): 0 for limbs in (8, WIDE_LIMBS) for k in KERNELS}
 
 # Launches per card index, counted with LAUNCHES (reset with reset_launches).
 DEVICE_LAUNCHES = collections.Counter()
@@ -100,13 +97,14 @@ _SIGNATURES = {
     "pt_rescue_permutation": [_P, _P, _I64, _P, _I32, _P],
 }
 _SIGNATURES.update({"pt_" + width_name(k, WIDE_LIMBS): _SIGNATURES["pt_" + k]
-                    for k in WIDE_KERNELS})
+                    for k in KERNELS})
 
 
 def kernel(name: str, limbs: int) -> tuple:
-    """(launch count name, C entry) of kernel `name` at a field width;
-    raises where the kernel has no build at that width."""
-    if limbs != 8 and (limbs != WIDE_LIMBS or name not in WIDE_KERNELS):
+    """(launch count name, C entry) of kernel `name` at a field width
+    (every kernel has a build at 8 and at 12 limbs); raises at another
+    width."""
+    if limbs not in (8, WIDE_LIMBS) or name not in KERNELS:
         raise NotImplementedError(f"{name} has no {limbs}-limb build")
     wide = width_name(name, limbs)
     return wide, "pt_" + wide
@@ -133,14 +131,13 @@ def _stale(lib_path: str) -> bool:
 
 def objects():
     """(label, source, extra nvcc flags) of every object of the library:
-    each source at 8 limbs, then WIDE_SOURCES at 12 (label `*_l12`); a
+    each source at 8 limbs, then again at 12 (label `*_l12`); a
     source of SPLIT_SOURCES gives one object a kernel (-DPT_ONLY=k, label
     `*_k`), so that its kernels compile in parallel."""
     objs = []
-    for srcs, suffix, flags in ((SOURCES, "", []),
-                                (WIDE_SOURCES, f"_l{WIDE_LIMBS}",
-                                 [f"-DPT_LIMBS={WIDE_LIMBS}"])):
-        for src in srcs:
+    for suffix, flags in (("", []),
+                          (f"_l{WIDE_LIMBS}", [f"-DPT_LIMBS={WIDE_LIMBS}"])):
+        for src in SOURCES:
             label = src.replace(".cu", suffix)
             parts = SPLIT_SOURCES.get(src)
             if parts is None:

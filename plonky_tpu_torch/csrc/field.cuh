@@ -9,10 +9,11 @@
 // Inputs and outputs are canonical; no Montgomery form is visible outside a
 // kernel.  A single product (field_mul) is one Barrett reduction on carry
 // chains (cc_mul_mod, below); the NTT's twiddle products are one Montgomery
-// product against twiddles held as w 2^256 mod p (cc_mont_mul).  A product
-// sum  sum_i +-a_i b_i  (field_product_sum, 8 limbs only) adds its products
-// straight into a 17-limb accumulator on the same carry chains and reduces
-// ONCE, by Barrett with mu = floor(2^544 / p) (cc_acc_product, cc_sum_mod).
+// product against twiddles held as w 2^(32 L) mod p (cc_mont_mul).  A
+// product sum  sum_i +-a_i b_i  (field_product_sum) adds its products
+// straight into a (2L + 1)-limb accumulator on the same carry chains and
+// reduces ONCE, by Barrett with mu = floor(2^(32 (2L + 1)) / p)
+// (cc_acc_product, cc_sum_mod).
 #pragma once
 
 #include <cstdint>
@@ -219,18 +220,14 @@ __device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a_in
 // ---------------------------------------------------------------------------
 
 #define PT_MU_LIMBS (PT_LIMBS + 1)
-#if PT_LIMBS == 8
-#define PT_MU_SUM_LIMBS 10
-#endif
+#define PT_MU_SUM_LIMBS (PT_LIMBS + 2)
 
-// K1's constants: the field's, field_mul's Barrett factor and, at 8 limbs,
-// the product sum's.
+// K1's constants: the field's and the Barrett factors of a product and of a
+// product sum.
 struct MulConsts {
   FieldConsts f;
   uint32_t mu[PT_MU_LIMBS];           // floor(2^(64 L) / p)
-#if PT_LIMBS == 8
-  uint32_t mu_sum[PT_MU_SUM_LIMBS];   // floor(2^544 / p)
-#endif
+  uint32_t mu_sum[PT_MU_SUM_LIMBS];   // floor(2^(32 (2L + 1)) / p)
 };
 
 // From the host buffer [p, -p^-1 mod 2^32, mu (L + 1 limbs), mu_sum (L + 2
@@ -239,10 +236,8 @@ static inline MulConsts mul_consts_from(const uint32_t* host) {
   MulConsts c;
   c.f = field_consts_from(host);
   for (int k = 0; k < PT_MU_LIMBS; k++) c.mu[k] = host[PT_FIELD_WORDS + k];
-#if PT_LIMBS == 8
   for (int k = 0; k < PT_MU_SUM_LIMBS; k++)
     c.mu_sum[k] = host[PT_FIELD_WORDS + PT_MU_LIMBS + k];
-#endif
   return c;
 }
 
@@ -467,49 +462,53 @@ __device__ __forceinline__ void cc_mont_mul(uint32_t r[PT_LIMBS], const uint32_t
   cc_csub(r, c);
 }
 
-#if PT_LIMBS == 8
 // ---------------------------------------------------------------------------
-// Product sums (field_product_sum, 8 limbs only; the 12-limb build leaves
-// this section out): S = sum_t x_t y_t + sum_s z_s over at
+// Product sums (field_product_sum): S = sum_t x_t y_t + sum_s z_s over at
 // most PT_MAX_TERMS terms of canonical operands.  A negative product
 // -a b enters as a (p - b), a negative single -z as p - z (the same
 // residues; p - b <= p), so every term is a nonnegative integer below p^2
-// and S < 32 p^2 < 2^515.
+// and S < 32 p^2 < 2^(64 L + 3): below 2^515 at 8 limbs, 2^759 at 12
+// (p < 2^377).
 //
-// The terms go straight into a 16-limb accumulator acc[0..15] on carry
-// chains, with no 512-bit temporary: row i of a product adds the low
-// halves of x_i y into acc[i .. i+7] on one chain and the high halves into
-// acc[i+1 .. i+8] on a second; each chain's carry out (into limb i + 8 or
-// i + 9) is counted in cnt[i] or cnt[i + 1] (cnt[k]: carries into limb
-// 8 + k) instead of rippling through the limbs above.  A single adds into
-// acc[0..7], its carry into cnt[0].  A term adds at most 2 to a counter,
-// so cnt[k] <= 64, and acc + sum_k cnt[k] 2^(32 (8 + k)) is S exactly.
-// cc_acc_fold adds the counters in once, into 17 limbs (S < 2^544: no
-// carry leaves limb 16).
+// The terms go straight into a 2L-limb accumulator acc[0..2L-1] on carry
+// chains, with no 64L-bit temporary: row i of a product adds the low
+// halves of x_i y into acc[i .. i+L-1] on one chain and the high halves
+// into acc[i+1 .. i+L] on a second; each chain's carry out (into limb
+// i + L or i + L + 1) is counted in cnt[i] or cnt[i + 1] (cnt[k]: carries
+// into limb L + k, L + 1 counters) instead of rippling through the limbs
+// above.  A single adds into acc[0..L-1], its carry into cnt[0].  A term
+// adds at most 2 to a counter, so cnt[k] <= 64, and acc + sum_k cnt[k]
+// 2^(32 (L + k)) is S exactly.  cc_acc_fold adds the counters in once,
+// into 2L + 1 limbs (S < 2^(32 (2L + 1)): no carry leaves the top limb).
 //
-// Then ONE Barrett reduction (cc_sum_mod), cc_mul_mod's for 17 limbs:
-//   q1 = floor(S / 2^224)                  (10 limbs, S's limbs 7..16)
-//   q3 = floor(q1 mu / 2^320), mu = floor(2^544 / p)   (10 limbs)
-//   r  = (S - q3 p) mod 2^256
-// where q1 mu skips the limb products of columns 0..7 (their sum is below
-// 8 2^288 (1 + 2^-31) < 2^292, against the 2^320 that q3 divides by), and
-// only columns 8..20 are formed.  Every truncation rounds down, so
-// q3 <= floor(S / p).  Before q3's own floor, the truncated q1 mu / 2^320
-// falls short of S / p by less than
-//   S / 2^544 + 2^224 / p + 2^-28 < 2^-29 + 2^-2 + 2^-28 < 1
-// (for 2^226 < p < 2^255 and S < 2^515; for the Tweedle fields, p > 2^254,
-// below 2^-27), and the floor loses less than 1 more, so S / p - q3 < 2:
-// q3 is floor(S / p) or one less, r = S - q3 p < 2p < 2^256, and exactly
-// one conditional subtraction of p makes it canonical.  Only q3's low 8
-// limbs (columns 10..17) enter r.  The Python model of these steps, with
-// every bound asserted, is tests/test_torch_product_sum.py.
+// Then ONE Barrett reduction (cc_sum_mod), cc_mul_mod's for 2L + 1 limbs:
+//   q1 = floor(S / 2^(32 (L - 1)))              (L + 2 limbs, S's limbs L-1..2L)
+//   q3 = floor(q1 mu / 2^(32 (L + 2))), mu = floor(2^(32 (2L + 1)) / p)
+//   r  = (S - q3 p) mod 2^(32 L)
+// where q1 mu skips the limb products of columns 0..L-1 (their sum is
+// below L 2^(32 (L + 1)) (1 + 2^-31), against the 2^(32 (L + 2)) that q3
+// divides by: 2^292 against 2^320 at 8 limbs, 2^420 against 2^448 at 12),
+// and only columns L..2L+4 are formed.  Every truncation rounds down, so
+// q3 <= floor(S / p).  Before q3's own floor, the truncated q1 mu /
+// 2^(32 (L + 2)) falls short of S / p by less than
+//   S / 2^(32 (2L + 1)) + 2^(32 (L - 1)) / p + L 2^-32 < 1:
+// at 8 limbs for 2^226 < p < 2^255 (2^-29 + 2^-2 + 2^-29; below 2^-27 for
+// the Tweedle fields, p > 2^254), at 12 limbs for 2^354 < p < 2^383
+// (2^-29 + 2^-2 + 2^-28; BLS12-377's 2^376 < p < 2^377 gives below
+// 2^-23), the ranges of field_mul's Barrett reduction
+// (fields/spec.py:BARRETT_RANGE).  The floor loses less than 1 more, so
+// S / p - q3 < 2: q3 is floor(S / p) or one less, r = S - q3 p < 2p <
+// 2^(32 L), and exactly one conditional subtraction of p makes it
+// canonical.  Only q3's low L limbs (columns L+2..2L+1) enter r.  The
+// Python model of these steps at both widths, with every bound asserted,
+// is tests/test_torch_product_sum.py.
 // ---------------------------------------------------------------------------
 
 #define PT_MAX_TERMS 32
-#define PT_ACC_LIMBS 16    // acc[0..15]; the counters hold limbs 8..16
-#define PT_ACC_CARRIES 9
+#define PT_ACC_LIMBS (2 * PT_LIMBS)       // acc[0..2L-1]; the counters hold limbs L..2L
+#define PT_ACC_CARRIES (PT_LIMBS + 1)
 
-// acc[I .. I+8] += x y[0..7], carries out counted (see above).
+// acc[I .. I+L] += x y[0..L-1], carries out counted (see above).
 template <int I>
 __device__ __forceinline__ void cc_acc_row(uint32_t acc[PT_ACC_LIMBS],
                                            uint32_t cnt[PT_ACC_CARRIES], uint32_t x,
@@ -525,22 +524,27 @@ __device__ __forceinline__ void cc_acc_row(uint32_t acc[PT_ACC_LIMBS],
   cnt[I + 1] = cc_addc_end(cnt[I + 1], zero);
 }
 
-// acc += x y for x, y below 2^256.
+// Rows I .. L-1 of cc_acc_product.
+template <int I>
+__device__ __forceinline__ void cc_acc_rows(uint32_t acc[PT_ACC_LIMBS],
+                                            uint32_t cnt[PT_ACC_CARRIES],
+                                            const uint32_t x[PT_LIMBS],
+                                            const uint32_t y[PT_LIMBS]) {
+  if constexpr (I < PT_LIMBS) {
+    cc_acc_row<I>(acc, cnt, x[I], y);
+    cc_acc_rows<I + 1>(acc, cnt, x, y);
+  }
+}
+
+// acc += x y for x, y below 2^(32 L).
 __device__ __forceinline__ void cc_acc_product(uint32_t acc[PT_ACC_LIMBS],
                                                uint32_t cnt[PT_ACC_CARRIES],
                                                const uint32_t x[PT_LIMBS],
                                                const uint32_t y[PT_LIMBS]) {
-  cc_acc_row<0>(acc, cnt, x[0], y);
-  cc_acc_row<1>(acc, cnt, x[1], y);
-  cc_acc_row<2>(acc, cnt, x[2], y);
-  cc_acc_row<3>(acc, cnt, x[3], y);
-  cc_acc_row<4>(acc, cnt, x[4], y);
-  cc_acc_row<5>(acc, cnt, x[5], y);
-  cc_acc_row<6>(acc, cnt, x[6], y);
-  cc_acc_row<7>(acc, cnt, x[7], y);
+  cc_acc_rows<0>(acc, cnt, x, y);
 }
 
-// acc += z for z below 2^256.
+// acc += z for z below 2^(32 L).
 __device__ __forceinline__ void cc_acc_single(uint32_t acc[PT_ACC_LIMBS],
                                               uint32_t cnt[PT_ACC_CARRIES],
                                               const uint32_t z[PT_LIMBS]) {
@@ -559,7 +563,7 @@ __device__ __forceinline__ void cc_negate(uint32_t x[PT_LIMBS], const FieldConst
   x[PT_LIMBS - 1] = cc_subc_end(c.p[PT_LIMBS - 1], x[PT_LIMBS - 1]);
 }
 
-// s[0..16] = acc + the counted carries (the sum S, below 2^515).
+// s[0..2L] = acc + the counted carries (the sum S, below 2^(32 (2L + 1))).
 __device__ __forceinline__ void cc_acc_fold(uint32_t s[PT_ACC_LIMBS + 1],
                                             const uint32_t acc[PT_ACC_LIMBS],
                                             const uint32_t cnt[PT_ACC_CARRIES]) {
@@ -571,47 +575,53 @@ __device__ __forceinline__ void cc_acc_fold(uint32_t s[PT_ACC_LIMBS + 1],
   s[PT_ACC_LIMBS] = cc_addc_end(cnt[PT_LIMBS], 0u);
 }
 
-// s += t over 17 limbs (two partial sums whose total is below 2^544).
-__device__ __forceinline__ void cc_add17(uint32_t s[PT_ACC_LIMBS + 1],
-                                         const uint32_t t[PT_ACC_LIMBS + 1]) {
+// s += t over 2L + 1 limbs (two partial sums whose total is below
+// 2^(32 (2L + 1))).
+__device__ __forceinline__ void cc_add_acc(uint32_t s[PT_ACC_LIMBS + 1],
+                                           const uint32_t t[PT_ACC_LIMBS + 1]) {
   s[0] = cc_add(s[0], t[0]);
 #pragma unroll
   for (int k = 1; k < PT_ACC_LIMBS; k++) s[k] = cc_addc(s[k], t[k]);
   s[PT_ACC_LIMBS] = cc_addc_end(s[PT_ACC_LIMBS], t[PT_ACC_LIMBS]);
 }
 
-// r = s mod p for s[0..16] < 2^515: one Barrett reduction (see above).
+// u += the columns L and up of q1 mu, rows I .. L + 1, q1 = s[L-1 .. 2L],
+// u[k] column L + k: row I <= L multiplies q1's limb I by mu's limbs from
+// L - I up (columns 0..L-1 skipped), into the window u[0 .. I + 3]; row
+// L + 1 multiplies q1's top limb by all of mu, one limb up.  Each row's
+// window holds the running sum (below 2^(32 (I + 1)) mu <
+// 2^(32 (I + L + 3)), the window's top).  At 8 limbs:
+// cc_mac_row<2>(u, s[7], mu + 8), <3>(u, s[8], mu + 7), ...,
+// <10>(u, s[15], mu), then <10>(u + 1, s[16], mu).
+template <int I>
+__device__ __forceinline__ void cc_sum_rows(uint32_t* u, const uint32_t* s,
+                                            const uint32_t* mu) {
+  if constexpr (I <= PT_LIMBS) {
+    cc_mac_row<I + 2>(u, s[PT_LIMBS - 1 + I], mu + (PT_LIMBS - I));
+    cc_sum_rows<I + 1>(u, s, mu);
+  } else {
+    cc_mac_row<PT_MU_SUM_LIMBS>(u + 1, s[2 * PT_LIMBS], mu);
+  }
+}
+
+// r = s mod p for s[0..2L] < 2^(32 (2L + 1)) and below 32 p^2: one Barrett
+// reduction (see above).
 __device__ __forceinline__ void cc_sum_mod(uint32_t r[PT_LIMBS],
                                            const uint32_t s[PT_ACC_LIMBS + 1],
                                            const MulConsts& c) {
-  // q1 = s[7..16]; u[k] is column 8 + k of q1 mu.  Row i multiplies q1's
-  // limb i by mu's limbs from 8 - i up (columns 0..7 skipped); row 9 one
-  // limb up.  Each row's window holds the running sum (below
-  // 2^(32 (i + 1)) mu < 2^(32 (i + 11)), the window's top).
-  const uint32_t* mu = c.mu_sum;
-  uint32_t u[13];
+  uint32_t u[PT_LIMBS + 5];
 #pragma unroll
-  for (int k = 0; k < 13; k++) u[k] = 0;
-  cc_mac_row<2>(u, s[7], mu + 8);
-  cc_mac_row<3>(u, s[8], mu + 7);
-  cc_mac_row<4>(u, s[9], mu + 6);
-  cc_mac_row<5>(u, s[10], mu + 5);
-  cc_mac_row<6>(u, s[11], mu + 4);
-  cc_mac_row<7>(u, s[12], mu + 3);
-  cc_mac_row<8>(u, s[13], mu + 2);
-  cc_mac_row<9>(u, s[14], mu + 1);
-  cc_mac_row<10>(u, s[15], mu);
-  cc_mac_row<10>(u + 1, s[16], mu);
-  // q3's low limbs = columns 10..17 = u[2..9]
+  for (int k = 0; k < PT_LIMBS + 5; k++) u[k] = 0;
+  cc_sum_rows<0>(u, s, c.mu_sum);
+  // q3's low limbs = columns L+2..2L+1 = u[2..L+1]
   cc_barrett_finish(r, s, u + 2, c.f);
 }
-#endif  // PT_LIMBS == 8
 
 // ---------------------------------------------------------------------------
-// Separated Montgomery products (K5 at 8 limbs; at 12 the point kernels'
-// mf_mul, dense rows only): the 64L-bit product or square first
-// (cc_product, cc_square), then one Montgomery reduction of it (cc_redc),
-// r = T / 2^(32 L) mod p.  A square forms each cross product a_i a_j
+// Separated Montgomery products (K5 at both widths, its sparse rows at 8
+// limbs only; at 12 also the point kernels' mf_mul): the 64L-bit product
+// or square first (cc_product, cc_square), then one Montgomery reduction
+// of it (cc_redc), r = T / 2^(32 L) mod p.  A square forms each cross product a_i a_j
 // (i < j) once and doubles the sum, then adds the L diagonal products: 36
 // limb products where a product takes 64 (at 8 limbs).
 //
@@ -823,17 +833,17 @@ __device__ __forceinline__ void cc_redc(uint32_t r[PT_LIMBS], uint32_t e[PT_PROD
   }
 }
 
-#if PT_LIMBS == 8
 // The lazy products of an exponent chain (K5's S-boxes): no conditional
-// subtraction, r = a b / 2^256 (mod p) below (a b + (2^256 - 1) p) /
-// 2^256.  From inputs below p, a chain of n such products stays below the
-// bound B_n, B_0 = p, B_(k+1) = (B_k - 1)^2 / 2^256 + p; where B_n <= 2p
+// subtraction, r = a b / R (mod p) below (a b + (R - 1) p) / R, R =
+// 2^(32 L).  From inputs below p, a chain of n such products stays below
+// the bound B_n, B_0 = p, B_(k+1) = (B_k - 1)^2 / R + p; where B_n <= 2p
 // one cc_csub after the chain makes it canonical.  Both Tweedle base
 // fields (p = 2^254 (1 + 2^-132)) keep B_n below 2p for more than 10^5
-// products, and any p < 2^254 for every n; the host checks a field's
-// chains (hashing/rescue.py:lazy_chain_bound).
+// products, and any p < R / 4 (every other 8-limb field of the port, and
+// BLS12-377's base field, p < 2^377 at R = 2^384) for every n; the host
+// checks a field's chains (hashing/rescue.py:lazy_chain_bound).
 
-// r = a b / 2^256 (mod p), lazily (above).
+// r = a b / R (mod p), lazily (above).
 template <bool SPARSE>
 __device__ __forceinline__ void cc_mont_mul_sos(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                                 const uint32_t b[PT_LIMBS], const FieldConsts& c) {
@@ -842,7 +852,7 @@ __device__ __forceinline__ void cc_mont_mul_sos(uint32_t r[PT_LIMBS], const uint
   cc_redc<SPARSE>(r, e, o, c);
 }
 
-// r = a^2 / 2^256 (mod p), lazily (above).
+// r = a^2 / R (mod p), lazily (above).
 template <bool SPARSE>
 __device__ __forceinline__ void cc_mont_sqr(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                             const FieldConsts& c) {
@@ -852,7 +862,6 @@ __device__ __forceinline__ void cc_mont_sqr(uint32_t r[PT_LIMBS], const uint32_t
   for (int k = 0; k < PT_PRODUCT_LIMBS; k++) zero[k] = 0;
   cc_redc<SPARSE>(r, t, zero, c);
 }
-#endif  // PT_LIMBS == 8
 
 #if PT_LIMBS == 12
 // The point kernels' Montgomery product at 12 limbs (K2 and K4 over

@@ -18,16 +18,18 @@
 // 32-bit multiplies in its machine code, where the product / REDC /
 // multiply by F / REDC it replaced took about twice that); every limb stays
 // in registers and limbs are read coalesced.  A product sum adds its
-// products straight into a 17-limb accumulator on the same chains and
-// reduces once, by Barrett; one launch evaluates several sums over one
+// products straight into a (2L + 1)-limb accumulator on the same chains
+// and reduces once, by Barrett; one launch evaluates several sums over one
 // batch (the grid's y), and where the batch is too small to fill the card
 // a sum's terms are dealt out among 2 or 4 threads an element.
 //
 // Built twice (_cuda.py): at 8 limbs, and at 12 (-DPT_LIMBS=12, BLS12-377's
-// base field), where add, sub and mul are the same code over 12 limbs
-// (entries pt_field_add_l12, ...; a product is 144 limb products and one
-// 12-limb Barrett reduction, >= 588 IMAD slots against 264) and the product
-// sum is left out (still to port, ROADMAP B2).
+// base field), where every kernel is the same code over 12 limbs (entries
+// pt_field_add_l12, ..., pt_field_product_sum_l12; a product is 144 limb
+// products and one 12-limb Barrett reduction, >= 588 IMAD slots against
+// 264; a product sum's term adds 144 limb products to a 25-limb
+// accumulator).  The 12-limb product sum is bound by operations: a term
+// reads 96 B and needs 288 IMAD slots, about six times the bytes' time.
 #include "field.cuh"
 
 PT_NAMESPACE_BEGIN
@@ -60,12 +62,15 @@ __global__ void field_binary_kernel(int32_t* out, const int32_t* a, int a_bcast,
   fe_store(out, n, i, r);
 }
 
-#if PT_LIMBS == 8
 // The term table of one product-sum launch, passed by value in the
 // kernel's parameter space (no copy to the device): sum s has the terms
 // first[s] .. first[s + 1] - 1.  A term is a b, or a alone when b is null;
-// its flags mark an [8, 1] operand read with a zero batch stride and a
-// negative sign.  fields/ops.py defines the same limits and flags.
+// its flags mark an [L, 1] operand read with a zero batch stride and a
+// negative sign.  The table takes 1,608 B (64 terms of 24 B, 17 sum
+// starts, padding) at either width, beside MulConsts (112 B at 8 limbs,
+// 160 at 12), inside the 4 KB of kernel parameters a launch takes
+// without CUDA 12.1's larger space.  fields/ops.py defines the same
+// limits and flags.
 #define PS_MAX_SUMS 16
 #define PS_MAX_ENTRIES 64
 #define PS_MAX_SPLITS 4
@@ -133,7 +138,7 @@ field_product_sum_kernel(int32_t* out, const __grid_constant__ PsTable tab, int6
       uint32_t t[PT_ACC_LIMBS + 1];
 #pragma unroll
       for (int k = 0; k <= PT_ACC_LIMBS; k++) t[k] = part[k][threadIdx.x + g * per_block];
-      cc_add17(s, t);
+      cc_add_acc(s, t);
     }
   }
   if (i >= n) return;
@@ -141,7 +146,6 @@ field_product_sum_kernel(int32_t* out, const __grid_constant__ PsTable tab, int6
   cc_sum_mod(r, s, c);
   fe_store(out + (int64_t)sum * PT_LIMBS * n, n, i, r);
 }
-#endif  // PT_LIMBS == 8
 
 template <int OP>
 static int launch_binary(void* out, const void* a, int a_bcast, const void* b,
@@ -171,14 +175,14 @@ int PT_ENTRY(pt_field_mul)(void* out, const void* a, int a_bcast, const void* b,
   return launch_binary<2>(out, a, a_bcast, b, b_bcast, n, consts, stream);
 }
 
-#if PT_LIMBS == 8
-// n_sums sums over one batch of n into out [n_sums, 8, n]; the host arrays
+// n_sums sums over one batch of n into out [n_sums, L, n]; the host arrays
 // a_ptrs / b_ptrs (device pointers, b may hold 0) and flags (int32) hold
 // the terms of every sum in turn, first (int32, n_sums + 1 entries) where
 // each sum's terms start; splits (1, 2 or 4) threads share an element.
-int pt_field_product_sum(void* out, const void* a_ptrs, const void* b_ptrs,
-                         const void* flags, const void* first, int n_sums,
-                         int splits, int64_t n, const void* consts, void* stream) {
+int PT_ENTRY(pt_field_product_sum)(void* out, const void* a_ptrs, const void* b_ptrs,
+                                   const void* flags, const void* first, int n_sums,
+                                   int splits, int64_t n, const void* consts,
+                                   void* stream) {
   const int32_t* fs = (const int32_t*)first;
   if (n_sums < 1 || n_sums > PS_MAX_SUMS || fs[0] != 0 || fs[n_sums] > PS_MAX_ENTRIES ||
       splits < 1 || splits > PS_MAX_SPLITS || (splits & (splits - 1)))
@@ -204,7 +208,6 @@ int pt_field_product_sum(void* out, const void* a_ptrs, const void* b_ptrs,
       (int32_t*)out, tab, n, splits, c);
   return (int)cudaGetLastError();
 }
-#endif  // PT_LIMBS == 8
 
 }  // extern "C"
 

@@ -36,7 +36,19 @@
 // NTT_BLOCK_ELEMS elements (256 threads, one butterfly each a layer, at
 // most 20 KB of static shared memory), the best of a sweep of block sizes
 // and layers a pass on the H100 (PERF.md).
+//
+// Built twice (_cuda.py): at 8 limbs, and at 12 (-DPT_LIMBS=12, BLS12-377's
+// base field; entries pt_ntt_pass_l12 and pt_ntt_twiddle_transpose_l12),
+// the same code over 12 limbs with twiddles and tables held as v 2^384
+// mod p.  There a twiddle product is 144 + 156 limb products (>= 588 IMAD
+// slots against 264) while a pass moves 1.5 times the bytes, so the
+// operations bound leads by more; a block's groups take 30 KB of static
+// shared memory, and the transpose's tile (50.7 KB, over the 48 KB static
+// limit) is dynamic shared memory.  The block shapes are the 8-limb
+// sweep's, not retuned for 12 limbs.
 #include "field.cuh"
+
+PT_NAMESPACE_BEGIN
 
 // The same values as poly/fft.py's NTT_MAX_LAYERS and NTT_BLOCK_ELEMS
 // (tests/test_torch_fft.py holds them equal).
@@ -50,10 +62,10 @@ __device__ __forceinline__ uint32_t bit_reverse(uint32_t v, int bits) {
   return bits == 0 ? 0u : __brev(v) >> (32 - bits);
 }
 
-// x, y: [8, batch, n] (limb stride batch n; y may be x after the first
-// pass).  tw: [8, n - 1] Montgomery twiddles, layer of half-size m at column
-// m - 1.  pre: [8, n] Montgomery coset table or null (first pass only).
-// post: [8, n] or, with post_bcast, [8, 1] Montgomery scale, or null (last
+// x, y: [L, batch, n] (limb stride batch n; y may be x after the first
+// pass).  tw: [L, n - 1] Montgomery twiddles, layer of half-size m at column
+// m - 1.  pre: [L, n] Montgomery coset table or null (first pass only).
+// post: [L, n] or, with post_bcast, [L, 1] Montgomery scale, or null (last
 // pass only).  A block holds G = 2^lg_groups groups; groups gi >= batch Q
 // of the last block are skipped.
 __global__ void __launch_bounds__(NTT_THREADS)
@@ -163,7 +175,7 @@ ntt_pass_kernel(int32_t* y, const int32_t* x, const int32_t* tw, const int32_t* 
 
 // ntt_twiddle_transpose: the four-step FFT's middle and outer steps
 // (poly/fft.py:fft_four_step), y[b, j, i] = x[b, i, j] (times tw[i, j]
-// when tw is given), x [8, B, r, s] -> y [8, B, s, r].
+// when tw is given), x [L, B, r, s] -> y [L, B, s, r].
 //
 // Replaces, in plonky_tpu/poly/fft.py:fft_four_step (:237-262), the
 // twiddle product fops.mul(spec, inner, tw) (the TPU kernel
@@ -182,19 +194,28 @@ ntt_pass_kernel(int32_t* y, const int32_t* x, const int32_t* tw, const int32_t* 
 // as ntt_pass holds its twiddles), and write the tile's columns along r.
 // The tile's eight limb planes are padded to TT_TILE + 1 words a row, so
 // neither the row-wise writes nor the column-wise reads share a bank
-// (33.8 KB of static shared memory).  Tiles at the edges are guarded, so r
-// and s need not be multiples of TT_TILE and B may be any count.
+// (33.8 KB of static shared memory at 8 limbs; at 12 the tile's 50.7 KB
+// is dynamic shared memory, which the C entry allows the kernel first).
+// Tiles at the edges are guarded, so r and s need not be multiples of
+// TT_TILE and B may be any count.
 #define TT_TILE 32
 #define TT_ROWS 8     // threads down a tile: each moves TT_TILE / TT_ROWS elements
+#define TT_TILE_BYTES (PT_LIMBS * TT_TILE * (TT_TILE + 1) * 4)
 
-// x: [8, batch, r, s] (limb stride batch r s); y: [8, batch, s, r]; tw:
-// [8, r, s] Montgomery twiddles or null.  Block t covers row b = t /
+// x: [L, batch, r, s] (limb stride batch r s); y: [L, batch, s, r]; tw:
+// [L, r, s] Montgomery twiddles or null.  Block t covers row b = t /
 // (tiles_r tiles_s) of the batch and the tile at (r0, s0).
 __global__ void __launch_bounds__(TT_TILE * TT_ROWS)
 ntt_twiddle_transpose_kernel(int32_t* y, const int32_t* x, const int32_t* tw, int64_t batch,
                              int64_t r, int64_t s, int64_t tiles_s, int64_t per_row,
                              FieldConsts c) {
+#if PT_LIMBS == 8
   __shared__ uint32_t tile[PT_LIMBS][TT_TILE][TT_TILE + 1];
+#else
+  extern __shared__ uint32_t tt_dynamic[];     // TT_TILE_BYTES
+  uint32_t(*tile)[TT_TILE][TT_TILE + 1] =
+      reinterpret_cast<uint32_t(*)[TT_TILE][TT_TILE + 1]>(tt_dynamic);
+#endif
   const int64_t b = blockIdx.x / per_row;
   const int64_t t = blockIdx.x - b * per_row;
   const int64_t r0 = t / tiles_s * TT_TILE, s0 = t % tiles_s * TT_TILE;
@@ -230,15 +251,24 @@ extern "C" {
 
 // y = x transposed over its last two axes [r, s], times tw when it is not
 // null; consts: FieldSpec.kernel_consts.
-int pt_ntt_twiddle_transpose(void* y, const void* x, const void* tw, int64_t batch, int64_t r,
-                             int64_t s, const void* consts, void* stream) {
+int PT_ENTRY(pt_ntt_twiddle_transpose)(void* y, const void* x, const void* tw, int64_t batch,
+                                       int64_t r, int64_t s, const void* consts,
+                                       void* stream) {
   if (batch < 1 || r < 1 || s < 1) return (int)cudaErrorInvalidValue;
   const int64_t tiles_r = (r + TT_TILE - 1) / TT_TILE;
   const int64_t tiles_s = (s + TT_TILE - 1) / TT_TILE;
   const int64_t blocks = batch * tiles_r * tiles_s;
   if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   FieldConsts c = field_consts_from((const uint32_t*)consts);
-  ntt_twiddle_transpose_kernel<<<(unsigned int)blocks, dim3(TT_TILE, TT_ROWS), 0,
+#if PT_LIMBS == 8
+  const size_t smem = 0;
+#else
+  const size_t smem = TT_TILE_BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      ntt_twiddle_transpose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+#endif
+  ntt_twiddle_transpose_kernel<<<(unsigned int)blocks, dim3(TT_TILE, TT_ROWS), smem,
                                  (cudaStream_t)stream>>>(
       (int32_t*)y, (const int32_t*)x, (const int32_t*)tw, batch, r, s, tiles_s,
       tiles_r * tiles_s, c);
@@ -246,9 +276,9 @@ int pt_ntt_twiddle_transpose(void* y, const void* x, const void* tw, int64_t bat
 }
 
 // One pass of 2^lg_groups groups per block; consts: FieldSpec.kernel_consts.
-int pt_ntt_pass(void* y, const void* x, const void* tw, const void* pre, const void* post,
-                int post_bcast, int64_t batch, int lg, int l0, int kp, int lg_groups,
-                const void* consts, void* stream) {
+int PT_ENTRY(pt_ntt_pass)(void* y, const void* x, const void* tw, const void* pre,
+                          const void* post, int post_bcast, int64_t batch, int lg, int l0,
+                          int kp, int lg_groups, const void* consts, void* stream) {
   if (kp < 1 || kp > NTT_MAX_LAYERS || l0 < 0 || l0 + kp > lg || lg_groups < 0 ||
       (1 << (kp + lg_groups)) > NTT_BLOCK_ELEMS)
     return (int)cudaErrorInvalidValue;
@@ -265,3 +295,5 @@ int pt_ntt_pass(void* y, const void* x, const void* tw, const void* pre, const v
 }
 
 }  // extern "C"
+
+PT_NAMESPACE_END

@@ -49,10 +49,22 @@
 // 128 threads a block, a __launch_bounds__ minimum of blocks, and one
 // thread a permutation running its 4 elements' chains side by side were
 // all slower.
+//
+// Built twice (_cuda.py): at 8 limbs, and at 12 (-DPT_LIMBS=12, BLS12-377's
+// base field, entry pt_rescue_permutation_l12), the same code over 12
+// limbs with R = 2^384: the dense instance only (no 12-limb field has the
+// sparse shape; the entry refuses the flag), 78 limb products a square and
+// 144 a multiply, each with a 12-row REDC, and the MDS accumulator of
+// 2L + 1 = 25 limbs.  Its constants take 26.5 KB of the parameter space,
+// and its table of odd powers 60 KB of dynamic shared memory a block,
+// which the C entry allows the kernel first.  The launch shape is the
+// 8-limb sweep's, not retuned.
 #include <cstddef>
 #include <cstring>
 
 #include "field.cuh"
+
+PT_NAMESPACE_BEGIN
 
 #define RESCUE_WIDTH 4
 #define RESCUE_MAX_ROUNDS 64
@@ -61,13 +73,16 @@
 #define RESCUE_NO_SLOT 31        // a step field that names no slot
 #define RESCUE_THREADS 256
 #define RESCUE_LANES 4           // threads a permutation, one element each
-static_assert(RESCUE_THREADS * RESCUE_MAX_SLOTS * PT_LIMBS * 4 <= 48 * 1024,
-              "the table must fit the default dynamic shared memory");
+// A block's table of odd powers: 40 KB at 8 limbs, within the default
+// 48 KB of dynamic shared memory; 60 KB at 12, allowed by the C entry.
+#define RESCUE_TABLE_BYTES(slots) ((size_t)RESCUE_THREADS * (slots) * PT_LIMBS * 4)
+static_assert(RESCUE_TABLE_BYTES(RESCUE_MAX_SLOTS) <= (PT_LIMBS == 8 ? 48 : 227) * 1024,
+              "the table must fit the dynamic shared memory a block may have");
 
 // The words of hashing/rescue.py:kernel_consts, in order.
 struct RescueConsts {
   FieldConsts f;                                        // p, -p^-1 mod 2^32
-  uint32_t r2[PT_LIMBS];                                // 2^512 mod p
+  uint32_t r2[PT_LIMBS];                                // R^2 mod p, R = 2^(32 L)
   uint32_t sparse;                                      // 1: p = 2^254 + c
   uint32_t rounds;
   uint32_t slots;                                       // table slots an element
@@ -134,8 +149,8 @@ __device__ __forceinline__ void rescue_sbox(uint32_t s[PT_LIMBS], int half,
 }
 
 // y = sum_c M[r][c] x_c + rc[round][half][r] for canonical x_c: the four
-// products in one accumulator, one REDC (below 4 p^2 / 2^256 + p < 3p,
-// and below 2^256: kernel_consts refuses a field where it is not), two
+// products in one accumulator, one REDC (below 4 p^2 / R + p < 3p, and
+// below R: kernel_consts refuses a field where it is not), two
 // conditional subtractions.
 template <bool SPARSE>
 __device__ __forceinline__ void rescue_mds_row(uint32_t y[PT_LIMBS], const uint32_t x[RESCUE_WIDTH][PT_LIMBS],
@@ -172,8 +187,8 @@ __device__ __forceinline__ void rescue_mds_add(uint32_t s[PT_LIMBS], int r, int 
   rescue_mds_row<SPARSE>(s, x, r, round, half, cs);
 }
 
-// state and out: [4, 8, n] int32, element r of permutation i, limb k at
-// (r 8 + k) n + i.  RESCUE_LANES threads a permutation (see the top).
+// state and out: [4, L, n] int32, element r of permutation i, limb k at
+// (r L + k) n + i.  RESCUE_LANES threads a permutation (see the top).
 template <bool SPARSE>
 __global__ void __launch_bounds__(RESCUE_THREADS)
 rescue_permutation_kernel(int32_t* out, const int32_t* state, int64_t n,
@@ -228,12 +243,12 @@ static bool rescue_steps_valid(const RescueConsts& cs) {
 
 extern "C" {
 
-// out, state: [4, 8, n] int32 device tensors; consts: the host buffer
+// out, state: [4, L, n] int32 device tensors; consts: the host buffer
 // hashing/rescue.py:kernel_consts of n_words uint32 words (its header and
 // its round constants), passed to the kernel by value.  The buffer's
 // sparse word picks the kernel's instance.
-int pt_rescue_permutation(void* out, const void* state, int64_t n, const void* consts,
-                          int n_words, void* stream) {
+int PT_ENTRY(pt_rescue_permutation)(void* out, const void* state, int64_t n,
+                                    const void* consts, int n_words, void* stream) {
   const uint32_t* words = (const uint32_t*)consts;
   if (n_words < RESCUE_HEADER_WORDS) return (int)cudaErrorInvalidValue;
   const uint32_t rounds = words[RESCUE_ROUNDS_WORD];
@@ -244,8 +259,18 @@ int pt_rescue_permutation(void* out, const void* state, int64_t n, const void* c
   memcpy(&cs, consts, 4 * (size_t)n_words);
   if (!rescue_steps_valid(cs) || (cs.sparse && !rescue_sparse_shape(cs.f)))
     return (int)cudaErrorInvalidValue;
+#if PT_LIMBS == 8
   auto kernel = cs.sparse ? rescue_permutation_kernel<true> : rescue_permutation_kernel<false>;
-  const size_t smem = (size_t)RESCUE_THREADS * cs.slots * PT_LIMBS * 4;
+#else
+  if (cs.sparse) return (int)cudaErrorInvalidValue;
+  auto kernel = rescue_permutation_kernel<false>;
+#endif
+  const size_t smem = RESCUE_TABLE_BYTES(cs.slots);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int64_t threads = RESCUE_LANES * n;
   const unsigned int blocks = (unsigned int)((threads + RESCUE_THREADS - 1) / RESCUE_THREADS);
   kernel<<<blocks, RESCUE_THREADS, smem, (cudaStream_t)stream>>>(
@@ -254,3 +279,5 @@ int pt_rescue_permutation(void* out, const void* state, int64_t n, const void* c
 }
 
 }  // extern "C"
+
+PT_NAMESPACE_END

@@ -8,10 +8,9 @@ with a zero batch stride by the kernels.
 K1, the field kernel (csrc/field_kernels.cu), computes `add`, `sub`, `mul`
 and `product_sum` / `product_sums` on CUDA tensors (`mul`: one Barrett
 reduction per product, on PTX carry chains; `product_sums`: several sums
-over one batch in one launch, each reduced once).  `add`, `sub` and `mul`
-have a build for each width (the 12-limb launches count as
-`field_add_l12`, ...); `product_sums` has only the 8-limb one and raises
-for a 12-limb field on the card.  Beside each sits its plain PyTorch
+over one batch in one launch, each reduced once).  Each has a build for
+each width (the 12-limb launches count as `field_add_l12`, ...,
+`field_product_sum_l12`).  Beside each sits its plain PyTorch
 version (`add_plain`, ...), which computes the same canonical result with
 16-bit digits in int64 so that every partial product stays exact: the CPU
 runs it, and the chip check compares the kernel with it.  A wrapper takes
@@ -29,7 +28,7 @@ import torch
 from .. import _cuda
 from ..device import resolve
 from .host import kth_root_exponent
-from .spec import LIMB_BITS, MAX_TERMS, FieldSpec, int_to_limbs, require_eight_limbs
+from .spec import LIMB_BITS, MAX_TERMS, FieldSpec, int_to_limbs
 
 _M16 = 0xFFFF
 
@@ -363,8 +362,10 @@ def _splits(threads: int, most_terms: int, fill: int) -> int:
 
 
 def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
-    """One launch of field_product_sum for up to PS_MAX_SUMS sums of at
-    most MAX_TERMS terms each (PS_MAX_ENTRIES in all) over `batch`."""
+    """One launch of field_product_sum (at the field's width) for up to
+    PS_MAX_SUMS sums of at most MAX_TERMS terms each (PS_MAX_ENTRIES in
+    all) over `batch`."""
+    name, entry = _cuda.kernel("field_product_sum", spec.limbs)
     dev = sums[0][0][0].device
     out = torch.empty((len(sums), spec.limbs, *batch), dtype=torch.int32,
                       device=dev)
@@ -375,7 +376,7 @@ def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
     for terms in sums:
         for a, b, sign in terms:
             ta, fa = _operand(a, batch)
-            _cuda.check("field_product_sum", ta, spec.limbs)
+            _cuda.check(name, ta, spec.limbs)
             keep.append(ta)
             a_ptrs.append(ta.data_ptr())
             flag = (PS_A_BCAST if fa else 0) | (PS_NEG if sign < 0 else 0)
@@ -383,7 +384,7 @@ def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
                 b_ptrs.append(0)
             else:
                 tb, fb = _operand(b, batch)
-                _cuda.check("field_product_sum", tb, spec.limbs)
+                _cuda.check(name, tb, spec.limbs)
                 keep.append(tb)
                 b_ptrs.append(tb.data_ptr())
                 flag |= PS_B_BCAST if fb else 0
@@ -395,7 +396,7 @@ def _product_sums_launch(spec: FieldSpec, sums, batch, splits=None) -> list:
     bufs = [_cuda.host_array(a_ptrs, np.uint64),
             _cuda.host_array(b_ptrs, np.uint64),
             _cuda.host_array(flags, np.int32), _cuda.host_array(first, np.int32)]
-    _cuda.launch("field_product_sum", "pt_field_product_sum", (out, *keep),
+    _cuda.launch(name, entry, (out, *keep),
                  out.data_ptr(), *[buf.ctypes.data for buf in bufs], len(sums),
                  splits, n, spec.mul_consts.ctypes.data)
     return list(out)
@@ -405,13 +406,11 @@ def product_sums(spec: FieldSpec, sums) -> list:
     """[sum_i sign_i a_i b_i mod p for each term list of `sums`] over one
     batch (b None: the term is sign_i a_i): as many sums as fit in one
     launch (PS_MAX_SUMS sums, PS_MAX_ENTRIES terms), each reduced once per
-    MAX_TERMS terms.  sums: list of lists of (a, b, sign).  The kernel has
-    an 8-limb build only: a 12-limb field on the card raises."""
+    MAX_TERMS terms.  sums: list of lists of (a, b, sign)."""
     sums = [list(terms) for terms in sums]
     batch = _sums_batch(sums)
     if not _dispatch(sums[0][0][0]):
         return product_sums_plain(spec, sums)
-    require_eight_limbs(spec, "field_product_sum")
     chunks = [(k, terms[i:i + MAX_TERMS]) for k, terms in enumerate(sums)
               for i in range(0, len(terms), MAX_TERMS)]
     out = [None] * len(sums)

@@ -13,9 +13,8 @@ every partial product and column sum stays exact.
 A single product (K1's field_mul) over L limbs is a 64L-bit schoolbook
 product and one Barrett reduction by ``mu = floor(2^(64 L) / p)``; a
 product sum (of at most MAX_TERMS terms) reduces its accumulator once, by
-Barrett with ``floor(2^(32 (2L + 1)) / p)`` (its kernel has an 8-limb
-build only).  Either way the result is canonical, with no Montgomery form
-visible outside a kernel.
+Barrett with ``floor(2^(32 (2L + 1)) / p)``.  Either way the result is
+canonical, with no Montgomery form visible outside a kernel.
 """
 
 from __future__ import annotations
@@ -29,11 +28,18 @@ LIMBS = 8                 # 32-bit limbs of the fields below 2^255
 WIDE_LIMBS = 12           # 32-bit limbs of the fields below 2^383
 LIMB_BITS = 32
 MAX_TERMS = 32            # terms of one reduced product sum (< 32 p^2)
-MU_SUM_LIMBS = LIMBS + 2  # limbs of the product sum kernel's floor(2^544 / p)
 
-# The Barrett range of field_mul at each width (csrc/field.cuh,
-# cc_mul_mod): lo < p < hi, as exponents of two (see FieldSpec.barrett_mu).
+# The Barrett range of field_mul and of the product sum at each width
+# (csrc/field.cuh, cc_mul_mod and cc_sum_mod): lo < p < hi, as exponents
+# of two (see FieldSpec.barrett_mu and FieldSpec.sum_mu).
 BARRETT_RANGE = {LIMBS: (226, 255), WIDE_LIMBS: (354, 383)}
+
+
+def mu_sum_limbs(limbs: int) -> int:
+    """Limbs of the product sum's Barrett factor floor(2^(32 (2L + 1)) /
+    p) at L limbs (csrc/field.cuh: PT_MU_SUM_LIMBS): L + 2, as p >
+    2^(32 (L - 1))."""
+    return limbs + 2
 
 
 def int_to_limbs(v: int, n: int = LIMBS) -> np.ndarray:
@@ -43,12 +49,15 @@ def int_to_limbs(v: int, n: int = LIMBS) -> np.ndarray:
 
 
 def require_eight_limbs(spec: "FieldSpec", what: str) -> None:
-    """Raise for a field wider than 8 limbs: `what` runs only on 8-limb
-    fields (its kernels have no 12-limb build yet, ROADMAP B2)."""
+    """Raise for a field wider than 8 limbs: `what` (the circuit build,
+    the prover and the verifier) takes an 8-limb scalar field.  Every
+    kernel has a 12-limb build; a 12-limb scalar field is what no curve of
+    the port has (BLS12-377's is 8-limb), so these entries refuse one
+    (ROADMAP B2)."""
     if spec.limbs != LIMBS:
         raise NotImplementedError(
-            f"{what}: {spec.name} takes {spec.limbs} limbs; only 8-limb "
-            "fields are ported here (ROADMAP B2)")
+            f"{what}: {spec.name} takes {spec.limbs} limbs; the circuit, "
+            "prover and verifier take 8-limb scalar fields (ROADMAP B2)")
 
 
 @dataclass(frozen=True)
@@ -120,7 +129,7 @@ class FieldSpec:
     @property
     def mu_sum_limbs(self) -> int:
         """Limbs of the product sum's floor(2^(32 (2L + 1)) / p): L + 2."""
-        return self.limbs + 2
+        return mu_sum_limbs(self.limbs)
 
     def _check_barrett_range(self) -> None:
         lo, hi = BARRETT_RANGE[self.limbs]
@@ -149,10 +158,19 @@ class FieldSpec:
     @functools.cached_property
     def sum_mu(self) -> int:
         """floor(2^(32 (2L + 1)) / p), the Barrett factor of a product sum
-        (csrc/field.cuh, cc_sum_mod, 8 limbs; the plain version,
-        fields/ops.py:_reduce_columns, at both widths): for sums below
-        2^515 and p in barrett_mu's 8-limb range the kernel's quotient is
-        floor(S / p) or one less."""
+        (csrc/field.cuh, cc_sum_mod; the plain version,
+        fields/ops.py:_reduce_columns).  For a sum S < 32 p^2 (MAX_TERMS
+        terms below p^2, so S < 2^(64 L + 3)), q1 = floor(S / 2^(32 (L -
+        1))) and q3 = floor(q1 mu / 2^(32 (L + 2))) with the limb products
+        of columns 0 .. L - 1 of q1 mu skipped (below L 2^-32 (1 + 2^-31)
+        of a unit of q3), the truncated q1 mu / 2^(32 (L + 2)) falls short
+        of S / p by less than
+          S / 2^(32 (2L + 1)) + 2^(32 (L - 1)) / p + L 2^-32 (1 + 2^-31) < 1:
+        2^-29 + 2^-2 + 2^-29 at 8 limbs, 2^-29 + 2^-2 + 2^-28 at 12, for p
+        in BARRETT_RANGE at either width (asserted).  So q3 is floor(S /
+        p) or one less, S - q3 p < 2p, and one conditional subtraction
+        suffices.  tests/test_torch_product_sum.py models these steps limb
+        by limb at both widths."""
         self._check_barrett_range()
         return (1 << (LIMB_BITS * (2 * self.limbs + 1))) // self.p
 

@@ -8,11 +8,12 @@ does (reference: src/rescue.rs:97-121).
 Two implementations:
 * host (python ints): the sequential Fiat-Shamir challenger, the sponge and
   the gates' round constants.
-* device (canonical limb tensors [LIMBS, *batch], one tensor per state
-  element): a batch of permutations.  On a CUDA tensor `rescue_permutation`
-  launches K5 (csrc/rescue_kernels.cu), which runs every round of a
-  permutation in registers; on a CPU tensor it runs
-  `rescue_permutation_plain`, the same rounds over the plain field ops.
+* device (canonical limb tensors [L, *batch], L = spec.limbs, one tensor
+  per state element): a batch of permutations.  On a CUDA tensor
+  `rescue_permutation` launches K5 (csrc/rescue_kernels.cu, its 8- or
+  12-limb build), which runs every round of a permutation in registers; on
+  a CPU tensor it runs `rescue_permutation_plain`, the same rounds over
+  the plain field ops.
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ import torch
 from .. import _cuda
 from ..fields import host
 from ..fields import ops as fops
-from ..fields.spec import (LIMB_BITS, LIMBS, FieldSpec, int_to_limbs,
-                           require_eight_limbs)
+from ..fields.spec import LIMB_BITS, FieldSpec, int_to_limbs
 from .chacha import ChaCha8Rng
 
 RESCUE_SPONGE_WIDTH = 4
@@ -138,10 +138,9 @@ def _check_state(state) -> None:
 def rescue_permutation_plain(spec: FieldSpec, state, security_bits: int):
     """K5's plain version: the rounds of `rescue_permutation_host` over the
     plain field ops, on tensors of any device, with the 4 elements stacked
-    into one [LIMBS, 4, *batch] tensor.  Each S-box is a left-to-right
+    into one [L, 4, *batch] tensor.  Each S-box is a left-to-right
     square-and-multiply; each MDS row and its round constant is one
     product sum."""
-    require_eight_limbs(spec, "rescue_permutation_plain")
     _check_state(state)
     batch = fops.batch_shape(*state)
     dev = state[0].device
@@ -241,13 +240,13 @@ def kernel_schedule(e: int) -> tuple:
                key=lambda steps: sum(schedule_counts(steps)))
 
 
-def lazy_chain_bound(p: int, n: int) -> int:
+def lazy_chain_bound(p: int, n: int, limbs: int = 8) -> int:
     """A strict bound on the values of a chain of n lazy Montgomery products
     (csrc/field.cuh: cc_mont_sqr, cc_mont_mul_sos, no conditional
-    subtraction; R = 2^256) from inputs below p: B_0 = p, B_(k+1) =
+    subtraction; R = 2^(32 limbs)) from inputs below p: B_0 = p, B_(k+1) =
     floor(((B_k - 1)^2 + (R - 1) p) / R) + 1.  K5 makes a chain canonical
     with one subtraction, so it needs B_n <= 2p."""
-    r = 1 << (LIMB_BITS * LIMBS)
+    r = 1 << (LIMB_BITS * limbs)
     b = p
     for _ in range(n):
         b = ((b - 1) ** 2 + (r - 1) * p) // r + 1
@@ -265,27 +264,27 @@ def sparse_prime(spec: FieldSpec) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def kernel_consts(spec: FieldSpec, security_bits: int) -> np.ndarray:
-    """K5's constant buffer (csrc/rescue_kernels.cu, RescueConsts), uint32
-    words: the field's [p, -p^-1 mod 2^32] (FieldSpec.kernel_consts),
-    R^2 = 2^512 mod p (R = 2^256), the sparse flag (sparse_prime: the
-    kernel's instance), the round count, the table slots an element, the
-    two S-boxes' step counts and their chains (kernel_schedule,
-    x^(1/alpha) first, KERNEL_MAX_STEPS words each, step_word), the MDS matrix
-    [row][column] and the round constants [round][half][element], these
-    two in Montgomery form (v R mod p).  The MDS mix reduces a sum of four
-    products once, to below 4 p^2 / R + p, which must fit 256 bits, and
-    each chain's values must stay below 2p (lazy_chain_bound)."""
-    require_eight_limbs(spec, "rescue_permutation")
-    p = spec.p
+    """K5's constant buffer (csrc/rescue_kernels.cu, RescueConsts, at the
+    field's width L), uint32 words: the field's [p, -p^-1 mod 2^32]
+    (FieldSpec.kernel_consts), R^2 mod p (R = 2^(32 L)), the sparse flag
+    (sparse_prime: the kernel's instance), the round count, the table
+    slots an element, the two S-boxes' step counts and their chains
+    (kernel_schedule, x^(1/alpha) first, KERNEL_MAX_STEPS words each,
+    step_word), the MDS matrix [row][column] and the round constants
+    [round][half][element], these two in Montgomery form (v R mod p).
+    The MDS mix reduces a sum of four products once, to below 4 p^2 / R +
+    p, which must fit 32 L bits, and each chain's values must stay below
+    2p (lazy_chain_bound)."""
+    p, nl = spec.p, spec.limbs
     width = RESCUE_SPONGE_WIDTH
     consts = rescue_constants(spec, width, security_bits)
     if len(consts) > KERNEL_MAX_ROUNDS:
         raise ValueError(f"rescue_permutation: {len(consts)} rounds, the "
                          f"kernel takes at most {KERNEL_MAX_ROUNDS}")
-    mont = 1 << (LIMB_BITS * LIMBS)
+    mont = 1 << (LIMB_BITS * nl)
     if 4 * p * p + p * mont >= mont * mont:
         raise ValueError(f"rescue_permutation: {spec.name}'s MDS sums "
-                         "overflow 256 bits")
+                         f"overflow {LIMB_BITS * nl} bits")
     chains = [kernel_schedule(e) for e in
               (host.kth_root_exponent(spec, spec.alpha), spec.alpha)]
     if max(map(len, chains)) > KERNEL_MAX_STEPS:
@@ -295,7 +294,8 @@ def kernel_consts(spec: FieldSpec, security_bits: int) -> np.ndarray:
     if slots > KERNEL_MAX_SLOTS:
         raise ValueError(f"rescue_permutation: the chains need {slots} table "
                          f"slots, the kernel has {KERNEL_MAX_SLOTS}")
-    if lazy_chain_bound(p, max(sum(schedule_counts(c)) for c in chains)) > 2 * p:
+    if lazy_chain_bound(p, max(sum(schedule_counts(c)) for c in chains),
+                        nl) > 2 * p:
         raise ValueError(f"rescue_permutation: {spec.name}'s exponent chains "
                          "may leave [0, 2p) without reductions")
     steps = np.zeros((2, KERNEL_MAX_STEPS), dtype=np.uint32)
@@ -303,11 +303,11 @@ def kernel_consts(spec: FieldSpec, security_bits: int) -> np.ndarray:
         steps[half, :len(chain)] = [step_word(st) for st in chain]
 
     def limbs(values):
-        return [int_to_limbs(v * mont % p) for v in values]
+        return [int_to_limbs(v * mont % p, nl) for v in values]
     mds = [v for row in mds_matrix(spec, width) for v in row]
     rc = [v for step_a, step_b in consts for v in (*step_a, *step_b)]
     return np.concatenate([
-        spec.kernel_consts, int_to_limbs(mont * mont % p),
+        spec.kernel_consts, int_to_limbs(mont * mont % p, nl),
         np.array([int(sparse_prime(spec)), len(consts), slots, *map(len, chains)],
                  dtype=np.uint32),
         steps.reshape(-1), *limbs(mds), *limbs(rc)])
@@ -315,22 +315,21 @@ def kernel_consts(spec: FieldSpec, security_bits: int) -> np.ndarray:
 
 def rescue_permutation(spec: FieldSpec, state, security_bits: int):
     """A batch of Rescue permutations: state is a list of 4 canonical
-    tensors [LIMBS, *batch] (broadcast to one batch), the result the list
-    of the 4 permuted elements, [LIMBS, *batch] each.  On a CUDA tensor it
-    launches K5 (one launch) or raises; on a CPU tensor it runs
-    rescue_permutation_plain."""
-    require_eight_limbs(spec, "rescue_permutation")
+    tensors [L, *batch] (broadcast to one batch), the result the list
+    of the 4 permuted elements, [L, *batch] each.  On a CUDA tensor it
+    launches K5 at the field's width (one launch) or raises; on a CPU
+    tensor it runs rescue_permutation_plain."""
     _check_state(state)
     if not fops._dispatch(state[0]):
         return rescue_permutation_plain(spec, state, security_bits)
+    name, entry = _cuda.kernel("rescue_permutation", spec.limbs)
     batch = fops.batch_shape(*state)
     stacked = torch.stack([fops._expand(x, batch) for x in state]).contiguous()
-    _cuda.check("rescue_permutation", stacked[0], LIMBS)
+    _cuda.check(name, stacked[0], spec.limbs)
     out = torch.empty_like(stacked)
     n = stacked[0, 0].numel()
     if n:
         consts = kernel_consts(spec, security_bits)
-        _cuda.launch("rescue_permutation", "pt_rescue_permutation",
-                     (out, stacked), out.data_ptr(), stacked.data_ptr(), n,
-                     consts.ctypes.data, consts.size)
+        _cuda.launch(name, entry, (out, stacked), out.data_ptr(),
+                     stacked.data_ptr(), n, consts.ctypes.data, consts.size)
     return list(out)

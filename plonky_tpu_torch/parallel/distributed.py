@@ -126,7 +126,7 @@ def msm_sharded(mesh: HybridMesh, curve: CurveSpec, sharded_basis,
 def fft_sharded_domain(mesh: HybridMesh, spec: FieldSpec,
                        coeffs: torch.Tensor) -> torch.Tensor:
     """`pfft.fft_sharded_domain` over the whole mesh: every process passes
-    the same coeffs [8, *B, n] and runs the rows of its own shards; the
+    the same coeffs [L, *B, n] and runs the rows of its own shards; the
     blocks cross processes in one all-to-all (the local entries of a
     process share one device), and
     every process receives the whole result in natural order on coeffs'

@@ -1,6 +1,7 @@
 """Mesh-sharded FFTs (the JAX package's plonky_tpu/parallel/fft.py).
 
-`fft_sharded_batch` splits the polynomial axis of [8, k, n] into one
+Both run at either field width (8 or 12 limbs, K3 and K1 at the field's
+width).  `fft_sharded_batch` splits the polynomial axis of [L, k, n] into one
 contiguous block a mesh entry (JAX's P(None, "dp", None)); each shard runs
 the port's `fft` (K3's ntt_pass) on its entry's device.
 
@@ -29,7 +30,7 @@ import torch
 
 from ..fields import host as fhost
 from ..fields import ops as fops
-from ..fields.spec import LIMBS, FieldSpec
+from ..fields.spec import FieldSpec
 from ..poly.fft import FftPrecomputation, fft, powers_dyn
 from ..utils import is_power_of_two, log2_strict
 from .mesh import Mesh
@@ -37,7 +38,7 @@ from .mesh import Mesh
 
 def fft_sharded_batch(mesh: Mesh, pre: FftPrecomputation,
                       coeffs: torch.Tensor) -> torch.Tensor:
-    """`fft(pre, coeffs)` of coeffs [8, k, n], k a multiple of the mesh
+    """`fft(pre, coeffs)` of coeffs [L, k, n], k a multiple of the mesh
     size: shard i transforms polynomials [i k / m, (i + 1) k / m) on its
     entry's device; the result is gathered on coeffs' device."""
     if coeffs.dim() != 3 or coeffs.shape[-1] != pre.n:
@@ -66,9 +67,9 @@ def domain_split(n: int, m: int) -> int:
 def row_twiddles(spec: FieldSpec, n: int, lg_n1: int, rows: tuple,
                  device: torch.device) -> torch.Tensor:
     """Rows `rows` of `four_step_twiddles(spec, n, lg_n1)`, w_n^(i1 k2) for
-    i1 in rows and k2 < n2, as [8, len(rows), n2] on `device`: the powers
+    i1 in rows and k2 < n2, as [L, len(rows), n2] on `device`: the powers
     of the bases w_n^i1 (`powers_dyn`), so that a device builds the rows
-    of its own shards and not the [8, n1, n2] table.  The eight latest are
+    of its own shards and not the [L, n1, n2] table.  The eight latest are
     cached."""
     g = fhost.primitive_root_of_unity(spec, log2_strict(n))
     bases = fops.from_ints(spec, [pow(g, i1, spec.p) for i1 in rows], device)
@@ -77,9 +78,9 @@ def row_twiddles(spec: FieldSpec, n: int, lg_n1: int, rows: tuple,
 
 def stage_one(spec: FieldSpec, coeffs: torch.Tensor, lg_n1: int, i1: int,
               tw: torch.Tensor) -> torch.Tensor:
-    """Shard i1's row before the exchange, [8, *B, n2] on tw's device: its
+    """Shard i1's row before the exchange, [L, *B, n2] on tw's device: its
     row c[i1 + n1 i2] transformed over i2, times its twiddle row tw
-    [8, n2], w_n^(i1 k2)."""
+    [L, n2], w_n^(i1 k2)."""
     n1 = 1 << lg_n1
     inner = fft(FftPrecomputation(spec, coeffs.shape[-1] >> lg_n1),
                 coeffs[..., i1::n1].to(tw.device))
@@ -88,14 +89,14 @@ def stage_one(spec: FieldSpec, coeffs: torch.Tensor, lg_n1: int, i1: int,
 
 def stage_two(spec: FieldSpec, blocks) -> torch.Tensor:
     """Shard j's output from its block of k2 of every row i1 (each
-    [8, *B, b], on one device): [8, *B, b, n1], at [k2, k1] the value
+    [L, *B, b], on one device): [L, *B, b, n1], at [k2, k1] the value
     X[k2 + n2 k1] for the block's k2."""
     cols = torch.stack(list(blocks), dim=-1)
     return fft(FftPrecomputation(spec, len(blocks)), cols)
 
 
 def natural_order(outs, device, shape) -> torch.Tensor:
-    """The shards' stage_two outputs, in shard order, as one [8, *B, n]
+    """The shards' stage_two outputs, in shard order, as one [L, *B, n]
     tensor in natural order (index k1 n2 + k2) on `device`."""
     out = torch.cat([o.to(device) for o in outs], dim=-2)     # [.., n2, n1]
     return out.transpose(-1, -2).reshape(shape)
@@ -103,10 +104,10 @@ def natural_order(outs, device, shape) -> torch.Tensor:
 
 def fft_sharded_domain(mesh: Mesh, spec: FieldSpec,
                        coeffs: torch.Tensor) -> torch.Tensor:
-    """`fft` of coeffs [8, *B, n] with its domain sharded over the mesh
+    """`fft` of coeffs [L, *B, n] with its domain sharded over the mesh
     (n1 = mesh size, n2 = n / n1), gathered in natural order on coeffs'
     device."""
-    if coeffs.shape[0] != LIMBS:
+    if coeffs.shape[0] != spec.limbs:
         raise ValueError(f"fft_sharded_domain: coeffs {tuple(coeffs.shape)}")
     m = mesh.size
     lg_n1 = domain_split(coeffs.shape[-1], m)

@@ -1,9 +1,9 @@
 """Batched radix-2 FFT over prime fields (the reference's src/fft.rs).
 
-Values are [LIMBS, ..., n] tensors with the domain axis last.  A transform
-is the input in bit-reversed order followed by lg n butterfly layers; layer
-ell (half-size m = 2^ell) maps the pair (pos, pos + m), j = pos mod m, to
-(e + o w_m^j, e - o w_m^j).
+Values are [L, ..., n] tensors (L = spec.limbs, 8 or 12) with the domain
+axis last.  A transform is the input in bit-reversed order followed by
+lg n butterfly layers; layer ell (half-size m = 2^ell) maps the pair
+(pos, pos + m), j = pos mod m, to (e + o w_m^j, e - o w_m^j).
 
 K3, the NTT kernel (csrc/ntt_kernels.cu), runs a whole transform on CUDA
 tensors in len(pass_plan(lg n)) launches of `ntt_pass`: each pass runs up
@@ -14,7 +14,9 @@ scale.  `ntt_plain` is its plain PyTorch version: the same passes, groups,
 positions and twiddle indices (`_pass_groups`, `_twiddle_index`), with
 canonical twiddles where the kernel holds them in Montgomery form.  `fft`,
 `ifft`, `lde`, `coset_fft` and `coset_ifft` take the plain version only
-for CPU tensors.
+for CPU tensors.  Both kernels have a build at each width: a 12-limb field
+(BLS12-377's base field) launches `ntt_pass_l12` and
+`ntt_twiddle_transpose_l12`, with tables held as v 2^384 mod p.
 
 `fft_four_step` is the JAX package's single-chip four-step FFT
 (plonky_tpu/poly/fft.py:198-262): n = n1 n2, two batched K3 transforms of
@@ -36,7 +38,7 @@ from .. import _cuda
 from ..device import resolve
 from ..fields import host as fhost
 from ..fields import ops as fops
-from ..fields.spec import LIMBS, FieldSpec, require_eight_limbs
+from ..fields.spec import FieldSpec
 from ..utils import log2_strict
 
 # Layers of one ntt_pass launch, and elements of one block's groups: the
@@ -50,14 +52,13 @@ NTT_BLOCK_ELEMS = 512
 class FftPrecomputation:
     """Twiddle and scale tables for a size-n FFT over `spec` (n a power of
     two); the reference's FftPrecomputation (src/fft.rs:28-59).  Tables are
-    made once per device and form, canonical or Montgomery (v 2^256 mod p,
-    one K1 multiply on the card): the twiddles on the device by K1 (a
+    made once per device and form, canonical or Montgomery (v 2^(32 L) mod
+    p, one K1 multiply on the card): the twiddles on the device by K1 (a
     Python-int build of both directions' [8, n - 1] tables and their first
     transforms took 15 s at n = 2^22 on the host of an H100 machine), the
     coset and inverse scales on the host."""
 
     def __init__(self, spec: FieldSpec, n: int):
-        require_eight_limbs(spec, "FftPrecomputation")
         self.spec = spec
         self.n = n
         self.lg_n = log2_strict(n)
@@ -67,7 +68,7 @@ class FftPrecomputation:
         self._tables = {}
 
     def _table(self, key, device, montgomery: bool, make):
-        """The canonical [LIMBS, len] table `make(device)`, or its
+        """The canonical [L, len] table `make(device)`, or its
         Montgomery form when asked; both cached by card (a bare "cuda"
         names the current one)."""
         device = resolve(device)
@@ -96,14 +97,14 @@ class FftPrecomputation:
 
     def twiddles(self, device, inverse: bool = False,
                  montgomery: bool = False) -> torch.Tensor:
-        """[LIMBS, n - 1]: layer ell (half-size m = 2^ell) holds [w^j, j <
+        """[L, n - 1]: layer ell (half-size m = 2^ell) holds [w^j, j <
         m], w = g^(n / 2m), from column m - 1.  Built on `device` from the
         powers g^i, i < n / 2 (`powers_dyn`, lg n - 1 doubling steps of
         K1), of which layer m takes every (n / 2m)-th."""
         def make(device):
             half = self.n // 2
             if half == 0:
-                return torch.zeros((LIMBS, 0), dtype=torch.int32, device=device)
+                return fops.zeros(self.spec, (0,), device)
             root = self.g_inv if inverse else self.g
             pw = powers_dyn(self.spec, fops.column(self.spec, root, device), half)
             return torch.cat([pw[:, ::half >> ell] for ell in range(self.lg_n)],
@@ -112,14 +113,14 @@ class FftPrecomputation:
 
     def coset_powers(self, device, shift: int,
                      montgomery: bool = False) -> torch.Tensor:
-        """[LIMBS, n]: shift^i, the coset transform's input scale."""
+        """[L, n]: shift^i, the coset transform's input scale."""
         return self._table(("coset", shift % self.spec.p), device, montgomery,
                            self._powers(shift))
 
     def inverse_scale(self, device, shift=None,
                       montgomery: bool = False) -> torch.Tensor:
-        """The inverse transform's output scale: n^-1 as [LIMBS, 1], or
-        n^-1 shift^-i as [LIMBS, n] for the inverse coset transform."""
+        """The inverse transform's output scale: n^-1 as [L, 1], or
+        n^-1 shift^-i as [L, n] for the inverse coset transform."""
         if shift is None:
             return self._table(("n_inv",), device, montgomery,
                                lambda d: fops.column(self.spec, self.n_inv, d))
@@ -202,7 +203,7 @@ def ntt_plain(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
     spec, n, lg = pre.spec, pre.n, pre.lg_n
     assert x.shape[-1] == n, (x.shape, n)
     shape, dev = x.shape, x.device
-    y = x.reshape(LIMBS, -1, n)
+    y = x.reshape(spec.limbs, -1, n)
     if lg == 0 or y.shape[1] == 0:
         return y.clone().reshape(shape)
     tw = pre.twiddles(dev, inverse)
@@ -212,7 +213,7 @@ def ntt_plain(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
     plan = pass_plan(lg, max_layers)
     for i, (l0, kp) in enumerate(plan):
         src, dst = _pass_groups(lg, l0, kp, dev)
-        v = y[:, :, src]                               # [LIMBS, B, Q, S]
+        v = y[:, :, src]                               # [L, B, Q, S]
         if i == 0 and pre_tab is not None:
             v = fops.mul_plain(spec, v, pre_tab[:, None, src])
         for d in range(kp):
@@ -235,15 +236,16 @@ def ntt_plain(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
 def ntt(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
         shift=None) -> torch.Tensor:
     """K3 on the card: the transform of `ntt_plain` in one ntt_pass launch
-    per pass of pass_plan, into a new tensor."""
+    (at the field's width) per pass of pass_plan, into a new tensor."""
     if not fops._dispatch(x):
         return ntt_plain(pre, x, inverse, shift)
     spec, n, lg = pre.spec, pre.n, pre.lg_n
     if x.shape[-1] != n:
         raise ValueError(f"ntt: x {tuple(x.shape)} for n = {n}")
+    name, entry = _cuda.kernel("ntt_pass", spec.limbs)
     shape, dev = x.shape, x.device
-    x3 = x.reshape(LIMBS, -1, n).contiguous()
-    _cuda.check("ntt_pass", x3, LIMBS)
+    x3 = x.reshape(spec.limbs, -1, n).contiguous()
+    _cuda.check(name, x3, spec.limbs)
     batch = x3.shape[1]
     if lg == 0 or batch == 0:
         return x3.clone().reshape(shape)
@@ -258,7 +260,7 @@ def ntt(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
         lg_groups = block_groups(batch, lg, kp)
         last = i == len(plan) - 1
         _cuda.launch(
-            "ntt_pass", "pt_ntt_pass", (y, src, tw, pre_tab, post), y.data_ptr(),
+            name, entry, (y, src, tw, pre_tab, post), y.data_ptr(),
             src.data_ptr(), tw.data_ptr(),
             pre_tab.data_ptr() if i == 0 and pre_tab is not None else None,
             post.data_ptr() if last and post is not None else None,
@@ -293,9 +295,8 @@ def lde(pre: FftPrecomputation, coeffs: torch.Tensor) -> torch.Tensor:
 
 
 def powers_dyn(spec: FieldSpec, base_col: torch.Tensor, n: int) -> torch.Tensor:
-    """[base^0 .. base^(n-1)] as [LIMBS, *B, n] from [LIMBS, *B, 1] device
+    """[base^0 .. base^(n-1)] as [L, *B, n] from [L, *B, 1] device
     bases: a doubling construction, log2(n) batched multiplies."""
-    require_eight_limbs(spec, "powers_dyn")
     acc = fops.constant(spec, 1, base_col.shape[1:], base_col.device).contiguous()
     top = base_col   # invariant: top = base^(width of acc)
     while acc.shape[-1] < n:
@@ -321,8 +322,8 @@ def coset_ifft(pre: FftPrecomputation, values: torch.Tensor,
 
 class Twiddles(NamedTuple):
     """A table of the four-step FFT's middle step in both forms: `canonical`
-    [8, r, s], the API's and the plain version's, and `montgomery` (w 2^256
-    mod p), which ntt_twiddle_transpose reads."""
+    [L, r, s], the API's and the plain version's, and `montgomery` (w
+    2^(32 L) mod p), which ntt_twiddle_transpose reads."""
     canonical: torch.Tensor
     montgomery: torch.Tensor
 
@@ -335,7 +336,6 @@ class Twiddles(NamedTuple):
 @functools.lru_cache(maxsize=8)
 def _four_step_table(spec: FieldSpec, n: int, lg_n1: int, inverse: bool,
                      device: torch.device) -> Twiddles:
-    require_eight_limbs(spec, "four_step_twiddles")
     n1 = 1 << lg_n1
     n2 = n // n1
     if n1 * n2 != n or n2 < 1:
@@ -343,8 +343,8 @@ def _four_step_table(spec: FieldSpec, n: int, lg_n1: int, inverse: bool,
     g = fhost.primitive_root_of_unity(spec, log2_strict(n))
     if inverse:
         g = pow(g, -1, spec.p)
-    bases = powers_dyn(spec, fops.column(spec, g, device), n1)      # [8, n1]
-    acc = fops.constant(spec, 1, (n1, 1), device).contiguous()       # [8, n1, 1]
+    bases = powers_dyn(spec, fops.column(spec, g, device), n1)      # [L, n1]
+    acc = fops.constant(spec, 1, (n1, 1), device).contiguous()       # [L, n1, 1]
     top = bases[..., None]           # invariant: top = base^(width of acc)
     while acc.shape[-1] < n2:
         acc = torch.cat([acc, fops.mul(spec, acc, top)], dim=-1)
@@ -355,19 +355,19 @@ def _four_step_table(spec: FieldSpec, n: int, lg_n1: int, inverse: bool,
 
 def four_step_twiddles(spec: FieldSpec, n: int, lg_n1: int,
                        inverse: bool = False, device=None) -> Twiddles:
-    """The four-step FFT's middle table w_n^(+-i1 k2), [8, n1, n2] (n1 =
+    """The four-step FFT's middle table w_n^(+-i1 k2), [L, n1, n2] (n1 =
     2^lg_n1, n2 = n / n1); plonky_tpu/poly/fft.py:204-225.  Built on
     `device` (the card unless the CPU is asked for) by the same doubling:
     the bases w_n^i1 (`powers_dyn`), then lg n2 batched K1 multiplies
     along k2.  The eight latest tables are cached (256 MiB a table on the
-    card at n = 2^22)."""
+    card at n = 2^22 and 8 limbs, 384 MiB at 12)."""
     return _four_step_table(spec, n, lg_n1, bool(inverse), resolve(device))
 
 
 def twiddle_transpose_plain(spec: FieldSpec, x: torch.Tensor,
                             tw: Twiddles | None = None) -> torch.Tensor:
-    """x [8, *B, r, s] (times tw [8, r, s] when given) with its last two
-    axes swapped: [8, *B, s, r]."""
+    """x [L, *B, r, s] (times tw [L, r, s] when given) with its last two
+    axes swapped: [L, *B, s, r]."""
     if tw is not None:
         x = fops.mul_plain(spec, x, tw.canonical)
     return x.transpose(-1, -2).contiguous()
@@ -375,29 +375,29 @@ def twiddle_transpose_plain(spec: FieldSpec, x: torch.Tensor,
 
 def twiddle_transpose(spec: FieldSpec, x: torch.Tensor,
                       tw: Twiddles | None = None) -> torch.Tensor:
-    """`twiddle_transpose_plain` in one ntt_twiddle_transpose launch on the
-    card (tw read in its Montgomery form)."""
+    """`twiddle_transpose_plain` in one ntt_twiddle_transpose launch (at the
+    field's width) on the card (tw read in its Montgomery form)."""
     if not fops._dispatch(x):
         return twiddle_transpose_plain(spec, x, tw)
-    require_eight_limbs(spec, "ntt_twiddle_transpose")
+    name, entry = _cuda.kernel("ntt_twiddle_transpose", spec.limbs)
+    nl = spec.limbs
     if x.dim() < 3:
-        raise ValueError(f"ntt_twiddle_transpose: x {tuple(x.shape)}")
+        raise ValueError(f"{name}: x {tuple(x.shape)}")
     r, s = x.shape[-2], x.shape[-1]
-    x4 = x.reshape(LIMBS, -1, r, s).contiguous()
-    _cuda.check("ntt_twiddle_transpose", x4, LIMBS)
-    y = torch.empty((LIMBS, *x.shape[1:-2], s, r), dtype=torch.int32,
+    x4 = x.reshape(nl, -1, r, s).contiguous()
+    _cuda.check(name, x4, nl)
+    y = torch.empty((nl, *x.shape[1:-2], s, r), dtype=torch.int32,
                     device=x.device)
     if y.numel() == 0:
         return y
     mont = None
     if tw is not None:
         mont = tw.montgomery
-        if tuple(mont.shape) != (LIMBS, r, s):
-            raise ValueError(f"ntt_twiddle_transpose: tw {tuple(mont.shape)} "
+        if tuple(mont.shape) != (nl, r, s):
+            raise ValueError(f"{name}: tw {tuple(mont.shape)} "
                              f"for x {tuple(x.shape)}")
-        _cuda.check("ntt_twiddle_transpose", mont, LIMBS)
-    _cuda.launch("ntt_twiddle_transpose", "pt_ntt_twiddle_transpose",
-                 (y, x4, mont), y.data_ptr(), x4.data_ptr(),
+        _cuda.check(name, mont, nl)
+    _cuda.launch(name, entry, (y, x4, mont), y.data_ptr(), x4.data_ptr(),
                  None if mont is None else mont.data_ptr(), x4.shape[1], r, s,
                  spec.kernel_consts.ctypes.data)
     return y
@@ -406,7 +406,7 @@ def twiddle_transpose(spec: FieldSpec, x: torch.Tensor,
 def fft_four_step(spec: FieldSpec, x: torch.Tensor, tw: Twiddles,
                   lg_n1: int, inverse: bool = False) -> torch.Tensor:
     """The transform of `ntt` (forward, or with `inverse` the inverse) of
-    x [8, *B, n] factored as n = n1 n2 (plonky_tpu/poly/fft.py:228-262):
+    x [L, *B, n] factored as n = n1 n2 (plonky_tpu/poly/fft.py:228-262):
 
         X[k2 + n2 k1] = sum_i1 w_n1^(i1 k1) [w_n^(i1 k2)
                         sum_i2 w_n2^(i2 k2) C[i1, i2]],  C[i1, i2] = x[i1 + n1 i2]:
@@ -420,7 +420,7 @@ def fft_four_step(spec: FieldSpec, x: torch.Tensor, tw: Twiddles,
     n2 = n // n1
     if n1 * n2 != n:
         raise ValueError(f"fft_four_step: n = {n}, lg_n1 = {lg_n1}")
-    if tuple(tw.canonical.shape) != (LIMBS, n1, n2):
+    if tuple(tw.canonical.shape) != (spec.limbs, n1, n2):
         raise ValueError(f"fft_four_step: tw {tuple(tw.canonical.shape)} for "
                          f"n1 = {n1}, n2 = {n2}")
     pre1, pre2 = FftPrecomputation(spec, n1), FftPrecomputation(spec, n2)

@@ -1,9 +1,10 @@
 """Polynomial operations in coefficient form (the reference's
-src/polynomial.rs): a polynomial is a tensor [LIMBS, ..., n] with the
-coefficient axis last.  Evaluation (an inner product with the point's
-powers), the division by Z_H on a coset, FFT products, the power-series
-inverse by Newton iteration and the division with remainder built on it
-(reference: src/polynomial.rs:130, 208-227, 262-327, 330-380)."""
+src/polynomial.rs): a polynomial is a tensor [L, ..., n] (L = spec.limbs,
+8 or 12) with the coefficient axis last.  Evaluation (an inner product
+with the point's powers), the division by Z_H on a coset, FFT products,
+the power-series inverse by Newton iteration and the division with
+remainder built on it (reference: src/polynomial.rs:130, 208-227, 262-327,
+330-380)."""
 
 from __future__ import annotations
 
@@ -13,26 +14,25 @@ import torch
 
 from ..fields import host as fhost
 from ..fields import ops as fops
-from ..fields.spec import LIMBS, FieldSpec, require_eight_limbs
+from ..fields.spec import FieldSpec
 from ..utils import log2_ceil
 from .fft import (FftPrecomputation, coset_fft, coset_ifft, fft, ifft,
                   pad_to, powers_dyn)
 
 
 def eval_at(spec: FieldSpec, coeffs: torch.Tensor, point: int) -> torch.Tensor:
-    """Evaluate [LIMBS, ..., n] polynomials at a host point."""
+    """Evaluate [L, ..., n] polynomials at a host point."""
     return eval_at_dyn(spec, coeffs, fops.column(spec, point, coeffs.device))
 
 
 def eval_at_dyn(spec: FieldSpec, coeffs: torch.Tensor,
                 point_col: torch.Tensor) -> torch.Tensor:
-    """Evaluate [LIMBS, ..., n] polynomials at a [LIMBS, 1] point: the inner
+    """Evaluate [L, ..., n] polynomials at a [L, 1] point: the inner
     product with its powers (reference `eval_from_power`:
     src/polynomial.rs:130)."""
-    require_eight_limbs(spec, "eval_at_dyn")
     n = coeffs.shape[-1]
     pw = powers_dyn(spec, point_col, n)
-    pwb = pw.reshape((LIMBS,) + (1,) * (coeffs.dim() - 2) + (n,))
+    pwb = pw.reshape((spec.limbs,) + (1,) * (coeffs.dim() - 2) + (n,))
     prod = fops.mul(spec, coeffs, pwb)
     return fops.sum_reduce(spec, prod, prod.dim() - 2)
 
@@ -40,9 +40,8 @@ def eval_at_dyn(spec: FieldSpec, coeffs: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def z_h_inverses(spec: FieldSpec, n: int, big_n: int, device) -> torch.Tensor:
     """1 / ((s h)^n - 1) for h in H_{big_n}, s the field's generator, as a
-    [LIMBS, big_n] tensor: (s h)^n takes only big_n / n values, so the
+    [L, big_n] tensor: (s h)^n takes only big_n / n values, so the
     host computes that period and tiles it."""
-    require_eight_limbs(spec, "z_h_inverses")
     p = spec.p
     shift = spec.generator
     g_big = fhost.primitive_root_of_unity(spec, log2_ceil(big_n))
@@ -62,13 +61,12 @@ def divide_by_z_h(spec: FieldSpec, coeffs: torch.Tensor, n: int) -> torch.Tensor
     """Divide a polynomial (exactly divisible) by Z_H = X^n - 1: evaluate on
     the coset g*H_N (N = len(coeffs)), multiply by 1/Z_H, interpolate back
     (reference: src/polynomial.rs:330-380)."""
-    require_eight_limbs(spec, "divide_by_z_h")
     N = coeffs.shape[-1]
     shift = spec.generator
     pre = FftPrecomputation(spec, N)
     values = coset_fft(pre, coeffs, shift)
     inv = z_h_inverses(spec, n, N, coeffs.device)
-    invb = inv.reshape((LIMBS,) + (1,) * (coeffs.dim() - 2) + (N,))
+    invb = inv.reshape((spec.limbs,) + (1,) * (coeffs.dim() - 2) + (N,))
     return coset_ifft(pre, fops.mul(spec, values, invb), shift)
 
 
@@ -82,7 +80,7 @@ def mul_polys(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 
 def _const_poly(spec: FieldSpec, v: int, like: torch.Tensor, n: int) -> torch.Tensor:
-    """The constant v as [LIMBS, ..., n] coefficients (batch axes of
+    """The constant v as [L, ..., n] coefficients (batch axes of
     `like`)."""
     c = fops.constant(spec, v, tuple(like.shape[1:-1]) + (1,), like.device)
     return pad_to(c.contiguous(), n)
@@ -138,7 +136,7 @@ def polynomial_division(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
 
 
 def poly_from_ints(spec: FieldSpec, coeffs, device=None) -> torch.Tensor:
-    """Python-int coefficients as [LIMBS, n] on `device` (the card unless
+    """Python-int coefficients as [L, n] on `device` (the card unless
     told "cpu")."""
     return fops.from_ints(spec, coeffs, device)
 

@@ -43,7 +43,11 @@ def ptxas_lines(tree: str) -> dict:
             m = re.search(r"Compiling entry function '([^']+)'|Function properties "
                           r"for (\S+)", ln)
             if obj and m:
-                entry = m.group(1) or m.group(2)
+                # a function of internal linkage carries a hash of its
+                # compilation unit's path in its name (_INTERNAL_<hash>_),
+                # which differs between two trees' checkouts
+                entry = re.sub(r"_INTERNAL_[0-9a-f]+_", "_INTERNAL_",
+                               m.group(1) or m.group(2))
             if obj and re.search(r"registers|spill|stack|Compiling entry", ln):
                 out[obj].setdefault(entry, []).append(ln.strip())
     return out

@@ -8,6 +8,8 @@ of adds.  tests/test_torch_fields.py holds the other field ops and the
 digit round trip at both BLS12-377 fields.  Canonical ints and affine
 points are compared, with exact equality (ROADMAP C4)."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,9 @@ from plonky_tpu_torch.fields import (BLS12_377_BASE, BLS12_377_SCALAR,
 from plonky_tpu_torch.fields import ops as fops
 from plonky_tpu_torch.hashing import rescue
 from plonky_tpu_torch.poly import fft as pfft
-from plonky_tpu_torch.protocol.circuit import (device_points_to_host,
+from plonky_tpu_torch.protocol import generate_proof, verify_proof
+from plonky_tpu_torch.protocol.circuit import (build_circuit,
+                                               device_points_to_host,
                                                ints_to_device_matrix,
                                                points_to_device)
 
@@ -235,24 +239,34 @@ def test_summation_of_150_points():
 
 
 def test_unported_kernels_refuse_a_12_limb_field():
-    """The kernels without a 12-limb build raise for BLS12-377's base field
-    (on the CPU too, where they are 8-limb only by design); no launch
-    entry exists for them at 12 limbs."""
+    """Every kernel has a 12-limb build: `_cuda.kernel(name, 12)` names the
+    `_l12` entry of the product sum, both NTT kernels and Rescue as of the
+    others, and a width of neither 8 nor 12 limbs is refused.  What still
+    refuses a 12-limb field is the circuit build, the prover and the
+    verifier (a 12-limb scalar field, which no curve of the port has);
+    the product sum's plain version takes the field on the CPU."""
     f = BLS12_377_BASE
-    x = fops.from_ints(f, [1, 2, 3], "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        pfft.FftPrecomputation(f, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        rescue.rescue_permutation(f, [x, x, x, x], 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        pfft.powers_dyn(f, x[:, :1], 4)
-    for name in ("field_product_sum", "ntt_pass", "rescue_permutation"):
+    for name in ("field_product_sum", "ntt_pass", "ntt_twiddle_transpose",
+                 "rescue_permutation", "field_mul"):
+        assert _cuda.kernel(name, 12) == (f"{name}_l12", f"pt_{name}_l12")
+        assert _cuda.kernel(name, 8) == (name, f"pt_{name}")
+        assert _cuda.LAUNCHES[f"{name}_l12"] == 0
+        assert f"pt_{name}_l12" in _cuda._SIGNATURES
         with pytest.raises(NotImplementedError):
-            _cuda.kernel(name, 12)
-    assert _cuda.kernel("field_mul", 12) == ("field_mul_l12", "pt_field_mul_l12")
-    assert _cuda.kernel("field_mul", 8) == ("field_mul", "pt_field_mul")
+            _cuda.kernel(name, 10)
+    wide = SimpleNamespace(scalar=f)
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        build_circuit(SimpleNamespace(curve=wide), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        generate_proof(SimpleNamespace(curve=CURVE, spec=f), None)
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        verify_proof([], None, [], SimpleNamespace(curve=wide), CURVE, True,
+                     device="cpu")
     # the product sum's plain version is width-generic on the CPU
     p = f.p
+    x = fops.from_ints(f, [1, 2, 3], "cpu")
+    assert pfft.powers_dyn(f, x[:, :1], 4).shape == (12, 4)
+    assert len(rescue.kernel_consts(f, 128)) == 478 + 16 * 96
     big = fops.from_ints(f, [p - 1, p - 2, 0], "cpu")
     got = fops.product_sum(f, [(big, big, -1)] * 32 + [(big, None, -1)])
     assert _ints(fops.to_ints(f, got)) == [

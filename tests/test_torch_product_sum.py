@@ -3,10 +3,11 @@
 A Python model, limb by limb, of the kernel's accumulate-and-reduce
 (plonky_tpu_torch/csrc/field.cuh: cc_acc_product, cc_acc_single,
 cc_acc_fold, cc_sum_mod; field_kernels.cu: the split of a sum's terms among
-threads): it forms the same chains, counters and windows as the kernel,
-asserts every bound the kernel relies on, and is held against python's
-sum % p at the extremes of the widest sum and on seeded sums, for both
-Tweedle fields, reaching both outcomes of the Barrett quotient.  Then the
+threads) at L limbs: it forms the same chains, counters and windows as the
+kernel, asserts every bound the kernel relies on, and is held against
+python's sum % p at the extremes of the widest sum and on seeded sums, for
+both Tweedle fields (8 limbs) and BLS12-377's base field (12 limbs),
+reaching both outcomes of the Barrett quotient.  Then the
 port's product_sum and product_sums (their plain versions, which the CPU
 runs) against the JAX package's product_sum at each launch shape of a
 steady prove (chip_smoke.product_sum_shapes), at N = 64.
@@ -23,13 +24,14 @@ import torch
 from chip_smoke import product_sum_inputs, product_sum_shapes
 from plonky_tpu.fields import TWEEDLEDUM_BASE as J_DUM
 from plonky_tpu.fields import ops as jfops
-from plonky_tpu_torch.fields import TWEEDLEDEE_BASE, TWEEDLEDUM_BASE
+from plonky_tpu_torch.fields import (BLS12_377_BASE, TWEEDLEDEE_BASE,
+                                     TWEEDLEDUM_BASE)
 from plonky_tpu_torch.fields import ops as fops
-from plonky_tpu_torch.fields.spec import LIMBS, MAX_TERMS, MU_SUM_LIMBS
+from plonky_tpu_torch.fields.spec import MAX_TERMS, mu_sum_limbs
 
 torch.set_num_threads(1)
 
-SPECS = [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE]
+SPECS = [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE, BLS12_377_BASE]
 B32 = 1 << 32
 M32 = B32 - 1
 CSRC = Path(fops.__file__).resolve().parents[1] / "csrc"
@@ -54,85 +56,94 @@ def _chain(acc, lo: int, width: int, add: int) -> int:
     return carry
 
 
-def accumulate(terms, p: int):
+def accumulate(terms, p: int, nl: int):
     """cc_acc_product / cc_acc_single over terms (a, b or None, sign) of
-    canonical ints: returns (acc[0..15], cnt[0..8], S)."""
-    acc, cnt = [0] * 16, [0] * 9
+    canonical ints at L = nl limbs: returns (acc[0..2L-1], cnt[0..L],
+    S)."""
+    acc, cnt = [0] * (2 * nl), [0] * (nl + 1)
     total = 0
     for a, b, sign in terms:
         if b is None:
             z = p - a if sign < 0 else a              # cc_negate
-            cnt[0] += _chain(acc, 0, LIMBS, z)
+            cnt[0] += _chain(acc, 0, nl, z)
             total += z
             continue
         y = p - b if sign < 0 else b                  # cc_negate
         assert y <= p
-        xl, yl = _limbs(a, LIMBS), _limbs(y, LIMBS)
-        for i in range(LIMBS):                        # cc_acc_row<i>
+        xl, yl = _limbs(a, nl), _limbs(y, nl)
+        for i in range(nl):                           # cc_acc_row<i>
             prods = [xl[i] * yk for yk in yl]
             lo = sum((pr & M32) << (32 * k) for k, pr in enumerate(prods))
             hi = sum((pr >> 32) << (32 * k) for k, pr in enumerate(prods))
-            cnt[i] += _chain(acc, i, LIMBS, lo)       # carry into limb i + 8
-            cnt[i + 1] += _chain(acc, i + 1, LIMBS, hi)   # into limb i + 9
+            cnt[i] += _chain(acc, i, nl, lo)          # carry into limb i + L
+            cnt[i + 1] += _chain(acc, i + 1, nl, hi)  # into limb i + L + 1
         total += a * y
     # acc plus the counted carries is the sum exactly
-    assert _value(acc) + sum(c << (32 * (8 + k)) for k, c in enumerate(cnt)) == total
+    assert _value(acc) + sum(c << (32 * (nl + k)) for k, c in enumerate(cnt)) == total
     assert max(cnt) <= 2 * len(terms) <= 2 * MAX_TERMS
     return acc, cnt, total
 
 
 def fold(acc, cnt) -> list:
-    """cc_acc_fold: the 17 limbs of acc + the counters (no carry out)."""
-    hi = _value(acc[8:]) + _value(cnt)
-    assert hi < B32 ** 9
-    return acc[:8] + _limbs(hi, 9)
+    """cc_acc_fold: the 2L + 1 limbs of acc + the counters (no carry
+    out)."""
+    nl = len(cnt) - 1
+    hi = _value(acc[nl:]) + _value(cnt)
+    assert hi < B32 ** (nl + 1)
+    return acc[:nl] + _limbs(hi, nl + 1)
 
 
 def reduce_model(s, spec) -> dict:
-    """cc_sum_mod on the 17 limbs s: q1 = s[7..16], the rows of q1 mu from
-    mu limb 8 - i up (row 9 one limb up) into u = columns 8..20, q3's low
-    limbs = u[2..9], r = (x - q3 p) mod 2^256, one conditional
-    subtraction."""
-    p, mu = spec.p, spec.sum_mu
+    """cc_sum_mod on the 2L + 1 limbs s: q1 = s[L-1..2L], the rows of q1
+    mu from mu limb L - i up (row L + 1 one limb up) into u = columns
+    L..2L+4, q3's low limbs = u[2..L+1], r = (x - q3 p) mod 2^(32 L), one
+    conditional subtraction.  At 8 limbs: q1 = s[7..16], u = columns
+    8..20, r mod 2^256."""
+    p, mu, nl = spec.p, spec.sum_mu, spec.limbs
+    nm = mu_sum_limbs(nl)
+    assert nm == spec.mu_sum_limbs and mu < B32 ** nm
     x = _value(s)
-    assert x < 1 << 515
-    mul = _limbs(mu, MU_SUM_LIMBS)
+    assert x < 32 * p * p < 1 << (64 * nl + 3)        # 2^515 at 8 limbs
+    mul = _limbs(mu, nm)
     u = 0
-    for i in range(10):
-        j0 = max(0, 8 - i)
-        off = max(0, i + j0 - 8)
-        width = (MU_SUM_LIMBS - j0) + 2               # cc_mac_row<N> window
-        win = (u >> (32 * off)) + s[7 + i] * _value(mul[j0:]) * (
-            B32 ** (i + j0 - 8 - off))
+    for i in range(nl + 2):                           # cc_sum_rows<i>
+        j0 = max(0, nl - i)
+        off = max(0, i + j0 - nl)
+        width = (nm - j0) + 2                         # cc_mac_row<N> window
+        assert width == (i + 2 if i <= nl else nm) + 2
+        win = (u >> (32 * off)) + s[nl - 1 + i] * _value(mul[j0:]) * (
+            B32 ** (i + j0 - nl - off))
         assert win < B32 ** width, "carry out of a cc_mac_row window"
         u = (u & (B32 ** off - 1)) | (win << (32 * off))
-    assert u < B32 ** 13
-    # the truncated product is q1 mu less the skipped columns 0..7
-    q1 = x >> 224
-    skipped = sum(s[7 + i] * mul[j] << (32 * (i + j))
-                  for i in range(10) for j in range(MU_SUM_LIMBS) if i + j < 8)
-    assert skipped < 1 << 292
-    assert u << 256 == q1 * mu - skipped
+    assert u < B32 ** (nl + 5)                        # u[0 .. L+4]
+    # the truncated product is q1 mu less the skipped columns 0..L-1
+    q1 = x >> (32 * (nl - 1))
+    skipped = sum(s[nl - 1 + i] * mul[j] << (32 * (i + j))
+                  for i in range(nl + 2) for j in range(nm) if i + j < nl)
+    assert skipped < nl * (1 << (32 * (nl + 1))) * (1 + 2 ** -31)
+    assert u << (32 * nl) == q1 * mu - skipped
     # before q3's floor, u / 2^64 falls short of x / p by less than 1
     assert 0 <= (x << 64) - u * p < p << 64
     q3_full = u >> 64
     q = x // p
     assert q - 1 <= q3_full <= q, (q, q3_full)
-    q3 = q3_full & (B32 ** LIMBS - 1)                 # u[2..9]
-    v = q3 * p % B32 ** LIMBS                         # cc_barrett_finish
-    r = (x - v) % B32 ** LIMBS
+    q3 = q3_full & (B32 ** nl - 1)                    # u[2..L+1]
+    v = q3 * p % B32 ** nl                            # cc_barrett_finish
+    r = (x - v) % B32 ** nl
     assert r == x - q3_full * p and r < 2 * p
     return {"out": r - p if r >= p else r, "q": q, "q3": q3_full, "r": r}
 
 
 def kernel_model(terms, spec, splits: int = 1) -> dict:
     """The whole kernel for one element: thread group g of `splits` takes
-    terms g, g + splits, ...; the groups' folded sums are added over 17
-    limbs (cc_add17), then reduced once."""
-    parts = [fold(*accumulate(terms[g::splits], spec.p)[:2]) for g in range(splits)]
+    terms g, g + splits, ...; the groups' folded sums are added over 2L + 1
+    limbs (cc_add_acc), then reduced once."""
+    nl = spec.limbs
+    parts = [fold(*accumulate(terms[g::splits], spec.p, nl)[:2])
+             for g in range(splits)]
     total = sum(_value(s) for s in parts)
-    assert total < B32 ** 17
-    m = reduce_model(_limbs(total, 17), spec)
+    assert total < B32 ** (2 * nl + 1)
+    m = reduce_model(_limbs(total, 2 * nl + 1), spec)
     want = sum((a * b if b is not None else a) * (1 if sg >= 0 else -1)
                for a, b, sg in terms) % spec.p
     assert m["out"] == want
@@ -170,7 +181,7 @@ def test_model_seeded_and_both_quotients(spec):
     rng = np.random.default_rng(21)
 
     def elem():
-        return int.from_bytes(rng.bytes(40), "little") % p
+        return int.from_bytes(rng.bytes(4 * spec.limbs + 8), "little") % p
     seen = set()
     for trial in range(60):
         count = 1 + trial % MAX_TERMS
@@ -187,14 +198,18 @@ def test_model_seeded_and_both_quotients(spec):
 
 def test_kernel_limits_match_the_wrapper():
     """The limits and flags that field_kernels.cu / field.cuh define equal
-    fields/ops.py's and fields/spec.py's."""
+    fields/ops.py's and fields/spec.py's (the product sum's Barrett factor
+    takes L + 2 limbs at either width)."""
     text = (CSRC / "field_kernels.cu").read_text() + (CSRC / "field.cuh").read_text()
-    defined = dict(re.findall(r"#define (PS_\w+|PT_MAX_TERMS|PT_MU_SUM_LIMBS) (\d+)", text))
+    defined = dict(re.findall(r"#define (PS_\w+|PT_MAX_TERMS) (\d+)", text))
     assert {k: int(v) for k, v in defined.items()} == {
         "PS_MAX_SUMS": fops.PS_MAX_SUMS, "PS_MAX_ENTRIES": fops.PS_MAX_ENTRIES,
         "PS_MAX_SPLITS": fops.PS_MAX_SPLITS, "PS_A_BCAST": fops.PS_A_BCAST,
         "PS_B_BCAST": fops.PS_B_BCAST, "PS_NEG": fops.PS_NEG,
-        "PT_MAX_TERMS": MAX_TERMS, "PT_MU_SUM_LIMBS": MU_SUM_LIMBS}
+        "PT_MAX_TERMS": MAX_TERMS}
+    assert "#define PT_MU_SUM_LIMBS (PT_LIMBS + 2)" in text
+    assert [mu_sum_limbs(nl) for nl in (8, 12)] == [10, 14]
+    assert [s.mu_sum_limbs for s in SPECS] == [10, 10, 14]
     fill = 1 << 16
     assert [fops._splits(1 << 14, t, fill) for t in (30, 9, 3, 1)] == [4, 4, 4, 1]
     assert fops._splits(2 << 14, 2, fill) == 1

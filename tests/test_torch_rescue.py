@@ -27,9 +27,9 @@ from plonky_tpu.fields import ops as jfops
 from plonky_tpu.hashing import pseudorandom as jprf
 from plonky_tpu_torch import hashing as phash
 from plonky_tpu_torch.curves import TWEEDLEDEE, TWEEDLEDUM
-from plonky_tpu_torch.fields import (BLS12_377_SCALAR, PALLAS_BASE,
-                                     TWEEDLEDEE_BASE, TWEEDLEDUM_BASE,
-                                     VESTA_BASE)
+from plonky_tpu_torch.fields import (BLS12_377_BASE, BLS12_377_SCALAR,
+                                     PALLAS_BASE, TWEEDLEDEE_BASE,
+                                     TWEEDLEDUM_BASE, VESTA_BASE)
 from plonky_tpu_torch.fields import ops as fops
 from plonky_tpu_torch.fields.spec import LIMBS
 from plonky_tpu_torch.hashing import pseudorandom as pprf
@@ -122,10 +122,12 @@ def test_rescue_permutation_broadcasts_and_checks_width():
 # ---------------------------------------------------------------------------
 
 # Every field K5 runs: both Tweedle and both Pasta base fields (the sparse
-# reduction) and BLS12-377's scalar field (alpha = 11, the dense one).
+# reduction), BLS12-377's scalar field (alpha = 11, the dense one) and, at
+# 12 limbs, BLS12-377's base field (alpha = 5, dense, R = 2^384).
 KERNEL_FIELDS = {"dee": TWEEDLEDEE_BASE, "dum": TWEEDLEDUM_BASE,
                  "pallas": PALLAS_BASE, "vesta": VESTA_BASE,
-                 "bls_scalar": BLS12_377_SCALAR}
+                 "bls_scalar": BLS12_377_SCALAR, "bls_base": BLS12_377_BASE}
+DENSE = ("bls_scalar", "bls_base")
 KERNEL_CASES = [(name, bits) for name in KERNEL_FIELDS for bits in (128, 64)]
 KERNEL_IDS = [f"{name}-{bits}" for name, bits in KERNEL_CASES]
 
@@ -160,38 +162,40 @@ def run_schedule(steps, x, mul, sqr):
     return s
 
 
-def buffer_layout(words) -> dict:
-    """The fields of a RescueConsts buffer, read at the kernel's offsets:
-    p and -p^-1 (9 words), R^2 (8), sparse, rounds, slots, the two step
-    counts, the two chains (KERNEL_MAX_STEPS words each), the MDS matrix
-    (16 x 8) and the round constants (8 x 8 a round)."""
-    steps_at = 9 + 8 + 5
+def buffer_layout(words, nl: int = LIMBS) -> dict:
+    """The fields of a RescueConsts buffer at L = nl limbs, read at the
+    kernel's offsets: p and -p^-1 (L + 1 words), R^2 (L), sparse, rounds,
+    slots, the two step counts, the two chains (KERNEL_MAX_STEPS words
+    each), the MDS matrix (16 x L) and the round constants (8 x L a
+    round)."""
+    steps_at = 2 * nl + 1 + 5
     max_steps = prescue.KERNEL_MAX_STEPS
     head = steps_at + 2 * max_steps
-    n_steps = [int(words[20]), int(words[21])]
+    n_steps = [int(words[steps_at - 2]), int(words[steps_at - 1])]
     return {
-        "p": _word_value(words[:8]), "pinv": int(words[8]),
-        "r2": _word_value(words[9:17]), "sparse": int(words[17]),
-        "rounds": int(words[18]), "slots": int(words[19]),
+        "p": _word_value(words[:nl]), "pinv": int(words[nl]),
+        "r2": _word_value(words[nl + 1:2 * nl + 1]),
+        "sparse": int(words[2 * nl + 1]), "rounds": int(words[2 * nl + 2]),
+        "slots": int(words[2 * nl + 3]),
         "chains": [tuple(decode_step(int(w)) for w in
                          words[steps_at + h * max_steps:
                                steps_at + h * max_steps + n_steps[h]])
                    for h in range(2)],
-        "mds": [[_word_value(words[head + 8 * (4 * r + c):head + 8 * (4 * r + c + 1)])
+        "mds": [[_word_value(words[head + nl * (4 * r + c):head + nl * (4 * r + c + 1)])
                  for c in range(4)] for r in range(4)],
-        "rc_at": head + 128, "header_words": head + 128}
+        "rc_at": head + 16 * nl, "header_words": head + 16 * nl}
 
 
 def kernel_model(spec, words, state):
     """rescue_permutation_kernel's rounds on python ints, every constant read
     from the buffer `words` at the RescueConsts offsets: Montgomery form
-    (R = 2^256) in and out, each S-box the chain of steps read from the
+    (R = 2^(32 L)) in and out, each S-box the chain of steps read from the
     buffer (load a slot, square, multiply by a slot, store to a slot) over
     a table of `slots` slots, each MDS row one reduction of the sum of the
     four products, then the round constant."""
-    p = spec.p
-    r_inv = pow(1 << 256, -1, p)
-    lay = buffer_layout(words)
+    p, nl = spec.p, spec.limbs
+    r_inv = pow(1 << (32 * nl), -1, p)
+    lay = buffer_layout(words, nl)
     assert lay["p"] == p
 
     def mont(a, b):
@@ -212,8 +216,8 @@ def kernel_model(spec, words, state):
         return s
 
     def rc(rnd, half, r):
-        k = lay["rc_at"] + 8 * (8 * rnd + 4 * half + r)
-        return _word_value(words[k:k + 8])
+        k = lay["rc_at"] + nl * (8 * rnd + 4 * half + r)
+        return _word_value(words[k:k + nl])
 
     s = [mont(v, lay["r2"]) for v in state]
     for rnd in range(lay["rounds"]):
@@ -227,11 +231,12 @@ def kernel_model(spec, words, state):
 @pytest.mark.parametrize("name,bits", KERNEL_CASES, ids=KERNEL_IDS)
 def test_kernel_model_matches_host(name, bits):
     spec = KERNEL_FIELDS[name]
+    nl = spec.limbs
     words = prescue.kernel_consts(spec, bits)
     rounds = prescue.recommended_rounds(4, bits)
     assert words.dtype == np.uint32
-    assert words.size == buffer_layout(words)["header_words"] + rounds * 8 * LIMBS
-    assert buffer_layout(words)["sparse"] == int(name != "bls_scalar")
+    assert words.size == buffer_layout(words, nl)["header_words"] + rounds * 8 * nl
+    assert buffer_layout(words, nl)["sparse"] == int(name not in DENSE)
     rng = np.random.default_rng(bits)
     for state in ([0, 0, 0, 0], [spec.p - 1] * 4, _values(spec, rng, 4)):
         assert kernel_model(spec, words, state) == \
@@ -252,14 +257,22 @@ def test_kernel_limits_match_the_wrapper():
     assert d["RESCUE_NO_SLOT"] == prescue.NO_SLOT
     assert d["RESCUE_WIDTH"] == prescue.RESCUE_SPONGE_WIDTH
     assert d["RESCUE_THREADS"] % 32 == 0 and d["RESCUE_LANES"] == 4
-    # the table (RESCUE_THREADS columns of slots) in the default 48 KB
+    # the table (RESCUE_THREADS columns of slots) in the default 48 KB at 8
+    # limbs; at 12 (60 KB) within the 227 KB a block may have
     assert d["RESCUE_THREADS"] * d["RESCUE_MAX_SLOTS"] * LIMBS * 4 <= 48 * 1024
+    assert 48 * 1024 < d["RESCUE_THREADS"] * d["RESCUE_MAX_SLOTS"] * 12 * 4 <= 227 * 1024
     spec = TWEEDLEDUM_BASE
     words = prescue.kernel_consts(spec, 128)
     header = buffer_layout(words)["header_words"]
     # PT_FIELD_WORDS + PT_LIMBS + 5 + 2 RESCUE_MAX_STEPS + 16 PT_LIMBS
     assert header == 9 + 8 + 5 + 2 * d["RESCUE_MAX_STEPS"] + 16 * LIMBS
     assert 4 * (header + d["RESCUE_MAX_ROUNDS"] * 8 * LIMBS) <= 32764
+    # the 12-limb build's RescueConsts, 26,488 B at RESCUE_MAX_ROUNDS
+    wide = prescue.kernel_consts(BLS12_377_BASE, 128)
+    header12 = buffer_layout(wide, 12)["header_words"]
+    assert header12 == 13 + 12 + 5 + 2 * d["RESCUE_MAX_STEPS"] + 16 * 12
+    assert 4 * (header12 + d["RESCUE_MAX_ROUNDS"] * 8 * 12) == 26488 <= 32764
+    assert wide.size == header12 + 16 * 8 * 12 and int(wide[13 + 12 + 1]) == 16
     assert int(words[9 + 8 + 1]) == 16      # RESCUE_ROUNDS_WORD
     assert int(prescue.kernel_consts(spec, 64)[18]) == 10
     assert buffer_layout(words)["slots"] == 1 + (1 << (prescue.KERNEL_WINDOW - 1))
@@ -308,8 +321,8 @@ def test_host_schedule_is_the_counted_chain(name):
         assert chip_smoke.sbox_ops(spec, e) == min(costs)
     _bytes, ops = chip_smoke.rescue_work(spec, 128, 3)
     assert ops == 3 * 16 * (4 * sum(chip_smoke.sbox_ops(spec, e) for e in exps)
-                            + 8 * (4 * chip_smoke.PRODUCT_OPS + redc_c))
-    assert redc_c == (48 if name != "bls_scalar" else 136)
+                            + 8 * (4 * chip_smoke.product_ops(spec.limbs) + redc_c))
+    assert redc_c == {"bls_scalar": 136, "bls_base": 300}.get(name, 48)
 
 
 @pytest.mark.parametrize("name", list(KERNEL_FIELDS))
@@ -327,7 +340,7 @@ def test_sbox_bound_counts_a_real_chain(name):
     p = spec.p
     sqr_c, mul_c, _redc = rescue_costs(spec)
     e = kth_root_exponent(spec, spec.alpha)
-    chains = buffer_layout(prescue.kernel_consts(spec, 64))["chains"]
+    chains = buffer_layout(prescue.kernel_consts(spec, 64), spec.limbs)["chains"]
     rng = np.random.default_rng(7)
     for exp, chain in zip((e, spec.alpha), chains):
         assert chain == prescue.kernel_schedule(exp)
