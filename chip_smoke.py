@@ -69,6 +69,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import operator
 import os
 import subprocess
 import sys
@@ -1380,6 +1381,11 @@ MSM_PROBE = ((8, False), (8, True), (9, True), (10, True), (12, True),
 EVAL_CLASSES = 1 << 12
 
 
+# Coefficients of ntt_host_check's Horner steps between two reductions mod p
+# (a power of two, so it divides every n checked: 2^20 and up).
+HORNER_STEP = 64
+
+
 def ntt_host_check(np, torch, spec, pre, x, flat, rng) -> list:
     """flat = ntt(pre, x) at sampled points X[k] = sum_i x_i g^(i k), on the
     host: k = 0, n / 2, 3 n / 4 and a random odd multiple of n / 2^12 from
@@ -1403,10 +1409,18 @@ def ntt_host_check(np, torch, spec, pre, x, flat, rng) -> list:
         want[k] = acc
     k = int(rng.integers(1, n))
     z = pow(pre.g, k, p)
-    coeffs = np.ascontiguousarray(limbs.T).view(np.uint8).reshape(n, 4 * nl)
+    # Horner from the top coefficient, HORNER_STEP coefficients a reduction;
+    # each coefficient read as 4 nl big-endian bytes (int.from_bytes's
+    # default order), so that map converts and multiplies without a Python
+    # step an element
+    assert n % HORNER_STEP == 0, n
+    rows = np.ascontiguousarray(limbs[::-1, ::-1].T.astype(">u4"))
+    coeffs = list(map(int.from_bytes, rows.view(np.dtype((np.void, 4 * nl))).ravel().tolist()))
+    zs = [pow(z, j, p) for j in range(HORNER_STEP - 1, -1, -1)]
+    z_step = pow(z, HORNER_STEP, p)
     acc = 0
-    for row in coeffs[::-1]:
-        acc = (acc * z + int.from_bytes(row.tobytes(), "little")) % p
+    for i in range(0, n, HORNER_STEP):
+        acc = (acc * z_step + sum(map(operator.mul, coeffs[i:i + HORNER_STEP], zs))) % p
     want[k] = acc
     got = fops.to_ints(spec, flat.reshape(nl, n)[:, list(want)])
     for (k, w), v in zip(want.items(), got):
@@ -2289,14 +2303,29 @@ def poly_product_sums() -> dict:
     return out
 
 
+def ntt_l12_edges() -> list:
+    """(B, lg n) of the 12-limb NTT's edge holds in phase_bls12_377_poly:
+    every lg n from 1 to 13 at B = 3, B = 5 at 2^12, and B = 1 on both
+    sides of each lg n where len(pass_plan(lg n, limbs=12)) grows, up to
+    2^22, and at 2^21 and 2^22."""
+    from plonky_tpu_torch.poly import fft as pfft
+    cases = {(3, lg) for lg in range(1, 14)} | {(5, 12), (1, POLY_LG - 1), (1, POLY_LG)}
+    for lg in range(14, POLY_LG + 1):     # below, B = 3 holds both sides
+        if len(pfft.pass_plan(lg, limbs=12)) > len(pfft.pass_plan(lg - 1, limbs=12)):
+            cases |= {(1, lg - 1), (1, lg)}
+    return sorted(cases, key=lambda c: (c[1], c[0]))
+
+
 def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
     """The 12-limb NTT (ntt_pass_l12, ntt_twiddle_transpose_l12), product
     sum (field_product_sum_l12) and Rescue (rescue_permutation_l12) over
     BLS12-377's base field Fq.  First each held against its plain version
-    at ragged shapes: the four transforms at [3, 2^11] and [5, 2^10], the
-    transpose at [12, 3, 2^5, 2^7] and [12, 2, 33, 65] with and without a
-    table, the product sums at N = 2^10 + 3 (2, 9, 30, 33 terms, splits 1,
-    2, 4 forced); Rescue's ragged hold is phase_bls12_377's (67
+    at ragged shapes: the four transforms at [3, 2^11] and [5, 2^10] and
+    at the 12-limb plan's edges (ntt_l12_edges; at 2^22 the coset pair
+    here, fft and ifft on the path's outputs below), the transpose at
+    [12, 3, 2^5, 2^7] and [12, 2, 33, 65] with and without a table, the
+    product sums at N = 2^10 + 3 (2, 9, 30, 33 terms, splits 1, 2, 4
+    forced); Rescue's ragged hold is phase_bls12_377's (67
     permutations at 64 bits).  Then the path once, with the launch counts
     reset, through the entry points: fft and ifft at [1, 2^22] and [9, 2^20], coset_fft and
     coset_ifft at [1, 2^20], fft_four_step at 2^22 (lg n1 = 11, its table
@@ -2367,6 +2396,24 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
             ck.compare("ntt_twiddle_transpose_l12", pfft.twiddle_transpose(Fq, x, table),
                        pfft.twiddle_transpose_plain(Fq, x, table))
     lap("ragged_ntt")
+    # the 12-limb plan's edges (ntt_l12_edges): plans of one and more
+    # passes, blocks of several groups, a batch that is not a power of two,
+    # where the pass count changes, and the four transforms at each (at
+    # 2^22 the path's own fft and ifft are held below); a row of p - 1
+    # where the batch has two, the lazy butterflies' largest inputs
+    for batch, lg in ntt_l12_edges():
+        pre = pfft.FftPrecomputation(Fq, 1 << lg)
+        x = field((batch, 1 << lg))
+        if batch > 1:
+            x[:, 1] = fops.column(Fq, Fq.p - 1, dev)
+        for inverse in (False, True):
+            for shift in (None, Fq.generator):
+                if lg == POLY_LG and shift is None:
+                    continue
+                ck.compare("ntt_pass_l12", pfft.ntt(pre, x, inverse, shift),
+                           pfft.ntt_plain(pre, x, inverse, shift))
+        del x
+    lap("edges_ntt")
     n_r = (1 << 10) + 3
     named_ps = poly_product_sums()
 
@@ -2574,11 +2621,14 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
         else:
             ck.compare("ntt_pass_l12", got, want.pop("out"))
         ntt_by.append({"shape": label, "B": batch, "n": pre.n,
-                       "passes": len(pfft.pass_plan(pre.lg_n)), **m,
+                       "passes": len(pfft.pass_plan(pre.lg_n, limbs=nl)), **m,
                        "share": share(m)})
     ck.record("ntt_pass_l12", {
         "main": "fft [1, 2^22]", "checked": [
             "[3, 2^11], [5, 2^10] x fft, ifft, coset pair vs plain",
+            "the 12-limb plan's edges x the four transforms vs plain, a row of "
+            f"p - 1 where B > 1: {ntt_l12_edges()} (at 2^22 the coset pair; "
+            "fft and ifft on the path's outputs)",
             "the path's fft, ifft at [1, 2^22] and [9, 2^20] (3 rows a call) "
             "and coset pair at [1, 2^20] vs plain",
             "round trips on every lane",
@@ -3060,7 +3110,7 @@ class PathRecorder:
             batch = x[0].numel() // pre.n
             coset = shift is not None
             self._note(("ntt_pass", pre.spec.name, batch, pre.lg_n, inverse, coset),
-                       len(pfft.pass_plan(pre.lg_n)),
+                       len(pfft.pass_plan(pre.lg_n, limbs=pre.spec.limbs)),
                        lambda: orig["ntt"](pre, x, inverse, shift),
                        lambda: pfft.ntt_plain(pre, x, inverse, shift),
                        lambda: ntt_work(batch, pre.lg_n, inverse, coset), out.device)

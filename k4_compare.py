@@ -35,8 +35,12 @@ c = 8; `_bls_rows`): both accumulate entries on one 2^16 slice, the reduce
 at that slice's 32 rows and at the 2,048 rows of all 64 slices of 2^22
 points (L2 warm and flushed), and whole `msm_chunked` calls at 2^22,
 unsigned and signed (median seconds of three, host clock to a
-synchronize), each result hashed as affine points; then chip_smoke.py's
-pinned prove line.  Last, one line compares the trees: every hash must
+synchronize), each result hashed as affine points; the Fq transforms at
+12 limbs of chip_smoke.py's `bls12_377_poly` path (FQ_TRANSFORMS: fft and
+ifft at [1, 2^22] and [9, 2^20], the coset pair at [1, 2^20],
+fft_four_step at 2^22; device ms of the whole call, however many launches
+it makes, L2 warm and flushed, and the sha256 of each output); then
+chip_smoke.py's pinned prove line.  Last, one line compares the trees: every hash must
 agree (the pinned proof's too), or the exit code is not 0.
 """
 
@@ -320,6 +324,52 @@ def _bls_rows(smoke, ck, np, torch, dev):
     return rows
 
 
+# (label, function, B, lg n, inverse) of the Fq transforms timed; the coset
+# pair scales by the field's generator, fft_four_step splits 2^22 as
+# 2^11 x 2^11 as the path does.
+FQ_TRANSFORMS = (("fft [1, 2^22]", "fft", 1, 22, False),
+                 ("ifft [1, 2^22]", "ifft", 1, 22, True),
+                 ("fft [9, 2^20]", "fft", 9, 20, False),
+                 ("ifft [9, 2^20]", "ifft", 9, 20, True),
+                 ("coset_fft [1, 2^20]", "coset_fft", 1, 20, False),
+                 ("coset_ifft [1, 2^20]", "coset_ifft", 1, 20, True),
+                 ("fft_four_step [1, 2^22]", "fft_four_step", 1, 22, False))
+
+
+def _fq_rows(smoke, ck, np, torch, dev):
+    """The FQ_TRANSFORMS over BLS12-377's base field: device ms of a whole
+    call (queued behind a sleep, L2 warm and flushed) and the sha256 of
+    its output."""
+    from plonky_tpu_torch.fields import BLS12_377_BASE as Fq
+    from plonky_tpu_torch.poly import fft as pfft
+    rng = np.random.default_rng(3771)
+    flush = ck.flush.zero_
+    rows = []
+    for label, fn_name, batch, lg, inverse in FQ_TRANSFORMS:
+        x = smoke.rand_field(np, torch, rng, (batch, 1 << lg), dev, Fq)
+        pre = pfft.FftPrecomputation(Fq, 1 << lg)
+        if fn_name == "fft_four_step":
+            tw = pfft.four_step_twiddles(Fq, 1 << lg, smoke.POLY_FOUR_STEP_N1,
+                                         device=dev)
+
+            def call(x=x, tw=tw):
+                return pfft.fft_four_step(Fq, x, tw, smoke.POLY_FOUR_STEP_N1)
+        elif fn_name.startswith("coset"):
+            def call(fn=getattr(pfft, fn_name), pre=pre, x=x):
+                return fn(pre, x, Fq.generator)
+        else:
+            def call(fn=getattr(pfft, fn_name), pre=pre, x=x):
+                return fn(pre, x)
+        digest = hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest()
+        rows.append({"name": fn_name, "shape": label, "sha256": digest,
+                     "ms": ck.queued_ms(call, 5),
+                     "cold_ms": (ck.queued_ms(lambda call=call: (flush(), call()), 5)
+                                 - ck.queued_ms(flush, 5))})
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_tree(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
@@ -376,7 +426,8 @@ def run_tree(root: str) -> int:
                 "k1_k3": _k1_k3_rows(smoke, ck, np, torch, dev),
                 "product_sum": _product_sum_rows(smoke, ck, np, torch, dev),
                 "k5": _k5_rows(smoke, ck, np, torch, dev),
-                "bls12_377": _bls_rows(smoke, ck, np, torch, dev)})
+                "bls12_377": _bls_rows(smoke, ck, np, torch, dev),
+                "fq": _fq_rows(smoke, ck, np, torch, dev)})
     smoke.phase_prove(torch, want_sha256=smoke.PROOF_2E14_SHA256,
                       check_launches=False)
     return 0
@@ -404,6 +455,7 @@ def main(argv) -> int:
                                    + rec["k5"]})
                 hashes[-1].update({("bls12_377", r["name"], str(r["rows"])): r["sha256"]
                                    for r in rec["bls12_377"]})
+                hashes[-1].update({("fq", r["shape"]): r["sha256"] for r in rec["fq"]})
     equal = len(hashes) == len(argv or [HERE]) and all(h == hashes[0] for h in hashes)
     print(json.dumps({"phase": "k4_compare_trees", "trees": len(hashes),
                       "hashes_equal": equal}), flush=True)

@@ -6,17 +6,21 @@ lg n butterfly layers; layer ell (half-size m = 2^ell) maps the pair
 (pos, pos + m), j = pos mod m, to (e + o w_m^j, e - o w_m^j).
 
 K3, the NTT kernel (csrc/ntt_kernels.cu), runs a whole transform on CUDA
-tensors in len(pass_plan(lg n)) launches of `ntt_pass`: each pass runs up
-to NTT_MAX_LAYERS consecutive layers on groups of elements held in shared
-memory, the first pass loading through the bit reversal (and multiplying
-by shift^i for a coset transform), the last multiplying by the inverse's
+tensors in len(pass_plan(lg n, limbs=L)) launches of `ntt_pass`: each
+pass runs up to the width's layers a pass (NTT_MAX_LAYERS at 8 limbs,
+NTT_L12_MAX_LAYERS at 12) on groups of elements held in shared memory,
+the first pass loading through the bit reversal (and multiplying by
+shift^i for a coset transform), the last multiplying by the inverse's
 scale.  `ntt_plain` is its plain PyTorch version: the same passes, groups,
-positions and twiddle indices (`_pass_groups`, `_twiddle_index`), with
-canonical twiddles where the kernel holds them in Montgomery form.  `fft`,
-`ifft`, `lde`, `coset_fft` and `coset_ifft` take the plain version only
-for CPU tensors.  Both kernels have a build at each width: a 12-limb field
-(BLS12-377's base field) launches `ntt_pass_l12` and
-`ntt_twiddle_transpose_l12`, with tables held as v 2^384 mod p.
+positions and twiddle indices (`_pass_groups`, `_twiddle_index`) at the
+field's width, with canonical twiddles where the kernel holds them in
+Montgomery form, and canonical values throughout where the 12-limb kernel
+keeps them lazily below 2p (lg n + 1) inside a transform (its outputs are
+canonical: `lazy_ntt_fits`).  `fft`, `ifft`, `lde`, `coset_fft` and
+`coset_ifft` take the plain version only for CPU tensors.  Both kernels
+have a build at each width: a 12-limb field (BLS12-377's base field)
+launches `ntt_pass_l12` and `ntt_twiddle_transpose_l12`, with tables held
+as v 2^384 mod p.
 
 `fft_four_step` is the JAX package's single-chip four-step FFT
 (plonky_tpu/poly/fft.py:198-262): n = n1 n2, two batched K3 transforms of
@@ -41,11 +45,37 @@ from ..fields import ops as fops
 from ..fields.spec import FieldSpec
 from ..utils import log2_strict
 
-# Layers of one ntt_pass launch, and elements of one block's groups: the
-# best of a sweep on the H100 (PERF.md).  csrc/ntt_kernels.cu defines the
-# same two values and sizes its shared memory by them.
+# Layers of one ntt_pass launch, and elements of one block's groups, from a
+# sweep on the H100 at each width (PERF.md; ntt_sweep.py at 12 limbs).
+# csrc/ntt_kernels.cu defines the same values (NTT_* at 8 limbs, NTT_L12_*
+# at 12) and checks each launch against them.
 NTT_MAX_LAYERS = 7
 NTT_BLOCK_ELEMS = 512
+NTT_L12_MAX_LAYERS = 7
+NTT_L12_BLOCK_ELEMS = 1024
+
+
+def ntt_shape(limbs: int = 8) -> tuple:
+    """(layers a pass at most, elements a block at most) of ntt_pass at a
+    field width."""
+    if limbs == 8:
+        return NTT_MAX_LAYERS, NTT_BLOCK_ELEMS
+    if limbs == 12:
+        return NTT_L12_MAX_LAYERS, NTT_L12_BLOCK_ELEMS
+    raise NotImplementedError(f"ntt_pass has no {limbs}-limb build")
+
+
+def lazy_ntt_fits(spec: FieldSpec, lg: int) -> bool:
+    """Whether the 12-limb ntt_pass can run a transform of 2^lg points
+    over `spec` (csrc/ntt_kernels.cu, its 12-limb section): its values stay
+    below 2p (lg + 1) inside a transform, which must fit 384 bits, and its
+    last store reduces them with a quotient from p's top limb p_11, which
+    must be large: 2 (lg + 1) (p_11 + 1) <= 2^32 and p_11 >= 2^17.  Every
+    8-limb field fits (that kernel reduces every value)."""
+    if spec.limbs == 8:
+        return True
+    top = spec.p >> (32 * (spec.limbs - 1))
+    return top >= 1 << 17 and 2 * (lg + 1) * (top + 1) <= 1 << 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,10 +83,10 @@ class FftPrecomputation:
     """Twiddle and scale tables for a size-n FFT over `spec` (n a power of
     two); the reference's FftPrecomputation (src/fft.rs:28-59).  Tables are
     made once per device and form, canonical or Montgomery (v 2^(32 L) mod
-    p, one K1 multiply on the card): the twiddles on the device by K1 (a
+    p, one K1 multiply on the card), all on the device by K1: a
     Python-int build of both directions' [8, n - 1] tables and their first
-    transforms took 15 s at n = 2^22 on the host of an H100 machine), the
-    coset and inverse scales on the host."""
+    transforms took 15 s at n = 2^22 on the host of an H100 machine, and
+    of one 12-limb coset table 1.24 s at n = 2^20."""
 
     def __init__(self, spec: FieldSpec, n: int):
         self.spec = spec
@@ -84,15 +114,15 @@ class FftPrecomputation:
 
     def _powers(self, base: int, scale: int = 1):
         """A maker of the table [scale base^i, i < n] mod p, built on the
-        host."""
-        p = self.spec.p
+        device by K1 (`powers_dyn`, then one product by the scale's
+        column where it is not 1)."""
+        spec = self.spec
 
         def make(device):
-            out, cur = [], scale % p
-            for _ in range(self.n):
-                out.append(cur)
-                cur = cur * base % p
-            return fops.from_ints(self.spec, out, device)
+            pw = powers_dyn(spec, fops.column(spec, base, device), self.n)
+            if scale % spec.p != 1:
+                pw = fops.mul(spec, pw, fops.column(spec, scale, device))
+            return pw
         return make
 
     def twiddles(self, device, inverse: bool = False,
@@ -134,10 +164,13 @@ class FftPrecomputation:
         return fhost.cyclic_subgroup_known_order(self.spec, self.g, self.n)
 
 
-def pass_plan(lg: int, max_layers: int = NTT_MAX_LAYERS):
+def pass_plan(lg: int, max_layers: int | None = None, limbs: int = 8):
     """The passes of a transform of 2^lg points: [(first layer, layer
-    count)], as few as max_layers allows, the layers spread evenly (the
-    earlier passes take the extra one)."""
+    count)], as few as max_layers (by default the width's layers a pass,
+    ntt_shape) allows, the layers spread evenly (the earlier passes take
+    the extra one)."""
+    if max_layers is None:
+        max_layers = ntt_shape(limbs)[0]
     if lg == 0:
         return []
     count = -(-lg // max_layers)
@@ -150,12 +183,12 @@ def pass_plan(lg: int, max_layers: int = NTT_MAX_LAYERS):
     return plan
 
 
-def block_groups(batch: int, lg: int, kp: int) -> int:
+def block_groups(batch: int, lg: int, kp: int, limbs: int = 8) -> int:
     """lg of the groups of 2^kp elements one ntt_pass block holds: as many
-    as NTT_BLOCK_ELEMS allows, and no more than the pass's batch 2^(lg - kp)
-    groups round up to."""
+    as the width's elements a block (ntt_shape) allow, and no more than the
+    pass's batch 2^(lg - kp) groups round up to."""
     groups = batch << (lg - kp)
-    return max(0, min(log2_strict(NTT_BLOCK_ELEMS) - kp,
+    return max(0, min(log2_strict(ntt_shape(limbs)[1]) - kp,
                       (groups - 1).bit_length()))
 
 
@@ -196,10 +229,11 @@ def _twiddle_index(l0: int, d: int, q_count: int, size: int, device):
 
 
 def ntt_plain(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
-              shift=None, max_layers: int = NTT_MAX_LAYERS) -> torch.Tensor:
-    """The transform of `ntt`, pass by pass as the kernel runs it, with the
-    plain field ops: fft (shift None) or coset_fft, or with `inverse`,
-    ifft or coset_ifft."""
+              shift=None, max_layers: int | None = None) -> torch.Tensor:
+    """The transform of `ntt`, pass by pass as the kernel runs it (the
+    field width's plan unless max_layers is given), with the plain field
+    ops: fft (shift None) or coset_fft, or with `inverse`, ifft or
+    coset_ifft."""
     spec, n, lg = pre.spec, pre.n, pre.lg_n
     assert x.shape[-1] == n, (x.shape, n)
     shape, dev = x.shape, x.device
@@ -210,7 +244,7 @@ def ntt_plain(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
     pre_tab = (pre.coset_powers(dev, shift)
                if shift is not None and not inverse else None)
     post = pre.inverse_scale(dev, shift) if inverse else None
-    plan = pass_plan(lg, max_layers)
+    plan = pass_plan(lg, max_layers, spec.limbs)
     for i, (l0, kp) in enumerate(plan):
         src, dst = _pass_groups(lg, l0, kp, dev)
         v = y[:, :, src]                               # [L, B, Q, S]
@@ -236,12 +270,17 @@ def ntt_plain(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
 def ntt(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
         shift=None) -> torch.Tensor:
     """K3 on the card: the transform of `ntt_plain` in one ntt_pass launch
-    (at the field's width) per pass of pass_plan, into a new tensor."""
+    (at the field's width) per pass of pass_plan, into a new tensor.
+    Raises where the 12-limb kernel's lazy values would not fit
+    (`lazy_ntt_fits`)."""
     if not fops._dispatch(x):
         return ntt_plain(pre, x, inverse, shift)
     spec, n, lg = pre.spec, pre.n, pre.lg_n
     if x.shape[-1] != n:
         raise ValueError(f"ntt: x {tuple(x.shape)} for n = {n}")
+    if not lazy_ntt_fits(spec, lg):
+        raise ValueError(f"ntt: {spec.name} at n = 2^{lg} leaves the 12-limb "
+                         "kernel's lazy bound")
     name, entry = _cuda.kernel("ntt_pass", spec.limbs)
     shape, dev = x.shape, x.device
     x3 = x.reshape(spec.limbs, -1, n).contiguous()
@@ -255,9 +294,9 @@ def ntt(pre: FftPrecomputation, x: torch.Tensor, inverse: bool = False,
     post = pre.inverse_scale(dev, shift, montgomery=True) if inverse else None
     y = torch.empty_like(x3)
     src = x3
-    plan = pass_plan(lg)
+    plan = pass_plan(lg, limbs=spec.limbs)
     for i, (l0, kp) in enumerate(plan):
-        lg_groups = block_groups(batch, lg, kp)
+        lg_groups = block_groups(batch, lg, kp, spec.limbs)
         last = i == len(plan) - 1
         _cuda.launch(
             name, entry, (y, src, tw, pre_tab, post), y.data_ptr(),

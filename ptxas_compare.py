@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
 """Compare ptxas's register, stack and spill lines of two trees' kernels,
 entry function by entry function within each object
-(plonky_tpu_torch/_build/build.log, one "== object" section each), to
-show that a change left a build's machine code as it was.
+(plonky_tpu_torch/_build/build.log, one "== object" section each), and
+the sha256 of each function's machine code (cuobjdump -sass), to show
+that a change left a build's machine code as it was.
 
-    python3 ptxas_compare.py OLD NEW
+    python3 ptxas_compare.py OLD NEW [--changed OBJECT:FUNCTION ...]
 
 Builds each tree's kernels in a process of its own (from the tree's
 directory; OLD is an unpacked earlier commit, e.g. under the gitignored
 .cache/), prints one JSON line per object of OLD (equal or not, with both
-sides' lines of each entry that differs) and one for every object or
-entry only NEW has, then the card's nvidia-smi name/power line.  Exits 1
-unless every entry of OLD has the same lines in NEW (an entry NEW adds
-beside them is reported, not counted against it).  Needs nvcc; the card
-is not used.
+sides' lines of each entry that differs, both SASS digests and
+instruction counts of the object and of each function whose SASS
+differs) and one for every object or entry only NEW has, then the card's
+nvidia-smi name/power line.  Exits 1 unless every entry of OLD has the
+same lines in NEW and every function of OLD the same SASS (an entry NEW
+adds beside them is reported, not counted against it), except the
+functions named after --changed (OBJECT:FUNCTION, FUNCTION a part of the
+mangled name, e.g. ntt_kernels_l12:ntt_pass_kernel for a kernel that the
+change redesigns), which are reported and not counted.  Needs
+nvcc and cuobjdump; the card is not used.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
 import subprocess
 import sys
+
+# A function of internal linkage carries a hash of its compilation unit's
+# path in its name (_INTERNAL_<hash>_), which differs between two trees'
+# checkouts.
+INTERNAL = re.compile(r"_INTERNAL_[0-9a-f]+_")
 
 
 def ptxas_lines(tree: str) -> dict:
@@ -43,29 +55,68 @@ def ptxas_lines(tree: str) -> dict:
             m = re.search(r"Compiling entry function '([^']+)'|Function properties "
                           r"for (\S+)", ln)
             if obj and m:
-                # a function of internal linkage carries a hash of its
-                # compilation unit's path in its name (_INTERNAL_<hash>_),
-                # which differs between two trees' checkouts
-                entry = re.sub(r"_INTERNAL_[0-9a-f]+_", "_INTERNAL_",
-                               m.group(1) or m.group(2))
+                entry = INTERNAL.sub("_INTERNAL_", m.group(1) or m.group(2))
             if obj and re.search(r"registers|spill|stack|Compiling entry", ln):
                 out[obj].setdefault(entry, []).append(ln.strip())
     return out
 
 
+def sass(tree: str, obj: str) -> dict:
+    """function -> (sha256, instructions) of its SASS listing in an object
+    (cuobjdump -sass), the headers left out and internal names' hashes
+    dropped, and "*" -> the same over the whole object; {} where the tree
+    has no such object."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    path = os.path.join(tree, "plonky_tpu_torch", "_build", obj + ".o")
+    if not os.path.exists(path):     # the log's link section
+        return {}
+    text = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    bodies, fn = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = INTERNAL.sub("_INTERNAL_", m.group(1))
+            bodies[fn] = []
+        elif fn and ln.strip() and not re.search(r"\.headerflags|code for sm|Fatbin|"
+                                                 r"arch =|code version|host =|"
+                                                 r"compile_size|identifier", ln):
+            bodies[fn].append(INTERNAL.sub("_INTERNAL_", ln))
+    bodies["*"] = [ln for f in sorted(bodies) for ln in [f] + bodies[f]]
+
+    def digest(body):
+        count = sum(1 for ln in body if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln))
+        return hashlib.sha256("\n".join(body).encode()).hexdigest()[:16], count
+    return {f: digest(b) for f, b in bodies.items()}
+
+
 def main() -> int:
-    old_tree, new_tree = (os.path.abspath(a) for a in sys.argv[1:3])
+    args = sys.argv[1:]
+    changed = ([tuple(c.split(":", 1)) for c in args[args.index("--changed") + 1:]]
+               if "--changed" in args else [])
+    old_tree, new_tree = (os.path.abspath(a) for a in args[:2])
     old, new = ptxas_lines(old_tree), ptxas_lines(new_tree)
     same = True
     for obj, entries in old.items():
+        def exempt(fn, obj=obj):
+            return any(o == obj and e in fn for o, e in changed)
         now = new.get(obj, {})
         differ = {e: {"old": lines, "new": now.get(e)}
                   for e, lines in entries.items() if now.get(e) != lines}
-        same &= not differ
-        rec = {"object": obj, "equal": not differ, "entries": len(entries),
+        sass_old, sass_new = sass(old_tree, obj), sass(new_tree, obj)
+        sass_differ = {f: {"old": d, "new": sass_new.get(f)} for f, d in sass_old.items()
+                       if f != "*" and sass_new.get(f) != d}
+        same &= not any(not exempt(f) for f in list(differ) + list(sass_differ))
+        rec = {"object": obj, "equal": not differ, "sass_equal": not sass_differ,
+               "sass_old": sass_old.get("*"), "sass_new": sass_new.get("*"),
+               "changed": sorted(f for f in list(differ) + list(sass_differ) if exempt(f)),
+               "entries": len(entries),
                "lines": sum(len(v) for v in entries.values())}
         if differ:
             rec["differ"] = differ
+        if sass_differ:
+            rec["sass_differ"] = sass_differ
         added = sorted(now.keys() - entries.keys())
         if added:
             rec["only_new"] = {e: now[e] for e in added}

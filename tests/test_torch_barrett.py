@@ -391,8 +391,16 @@ def redc_model(t: int, spec, sparse: bool, o_value: int = 0) -> dict:
                    for k in range(8))
     assert top < B32 ** nl, "the result leaves 32 L bits"
     r = top % B32 ** nl
-    assert (r == (total + _value(ms) * p) >> (32 * nl)
-            and r < total // B32 ** nl + p)
+    big_r = B32 ** nl
+    assert _value(ms) < big_r and r == (total + _value(ms) * p) >> (32 * nl)
+    # r < floor(T / R) + p, but where T mod R is a non-zero multiple k p of
+    # p: there M = R - k and r = floor(T / R) + p (the lazy NTT's inputs
+    # reach that case, canonical ones never do)
+    low = total % big_r
+    if low and low % p == 0:
+        assert _value(ms) == big_r - low // p and r == total // big_r + p
+    else:
+        assert r < total // big_r + p
     return {"r": r, "m": ms, "products": products}
 
 

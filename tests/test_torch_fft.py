@@ -164,35 +164,58 @@ def test_pass_plan(max_layers):
     assert pfft.pass_plan(17) == [(0, 6), (6, 6), (12, 5)]
     assert pfft.pass_plan(14) == [(0, 7), (7, 7)]
     assert pfft.pass_plan(6) == [(0, 6)]
+    # the 12-limb kernel's own plan (NTT_L12_MAX_LAYERS layers a pass)
+    assert pfft.pass_plan(22, limbs=12) == [(0, 6), (6, 6), (12, 5), (17, 5)]
+    assert pfft.pass_plan(20, limbs=12) == [(0, 7), (7, 7), (14, 6)]
+    assert pfft.pass_plan(14, limbs=12) == [(0, 7), (7, 7)]
+    assert pfft.pass_plan(7, limbs=12) == [(0, 7)]
+    assert pfft.pass_plan(22, max_layers, limbs=12) == pfft.pass_plan(22, max_layers)
 
 
-def _kernel_defines():
+def _kernel_defines(limbs: int = 8):
+    """ntt_kernels.cu's limits of ntt_pass at a field width (NTT_* at 8
+    limbs, NTT_L12_* at 12), without the prefix."""
     import os
     import re
     path = os.path.join(os.path.dirname(pfft.__file__), "..", "csrc", "ntt_kernels.cu")
     with open(path) as f:
-        return {k: int(v) for k, v in
-                re.findall(r"^#define (NTT_\w+) (\d+)$", f.read(), re.M)}
+        found = re.findall(r"^#define (NTT_\w+) (\d+)$", f.read(), re.M)
+    if limbs == 8:
+        return {k[len("NTT_"):]: int(v) for k, v in found if not k.startswith("NTT_L")}
+    prefix = f"NTT_L{limbs}_"
+    return {k[len(prefix):]: int(v) for k, v in found if k.startswith(prefix)}
 
 
-@pytest.mark.parametrize("batch", [1, 3, 9])
-def test_ntt_launches_fit_the_kernel(batch):
-    """ntt_kernels.cu sizes its static shared memory by the same two limits
-    as fft.py, and every pass that ntt() launches (n = 2 .. 2^22) stays
-    inside them: at most NTT_MAX_LAYERS layers, a block's groups at most
-    NTT_BLOCK_ELEMS elements and, with their padding, at most the shared
-    array; no block beyond the groups but the last one's tail; a launch's
-    blocks within the grid's 2^31 - 1."""
-    defines = _kernel_defines()
-    assert defines["NTT_MAX_LAYERS"] == pfft.NTT_MAX_LAYERS
-    assert defines["NTT_BLOCK_ELEMS"] == pfft.NTT_BLOCK_ELEMS
-    smem_elems = pfft.NTT_BLOCK_ELEMS + (1 << pfft.NTT_MAX_LAYERS)
+# The kernel's shared memory a block at 12 limbs (dynamic, allowed by the C
+# entry up to the H100's 227 KB a block).
+SMEM_L12_MAX = 232448
+
+
+@pytest.mark.parametrize("limbs,batch", [(8, 1), (8, 3), (8, 9), (12, 1), (12, 3),
+                                         (12, 9)],
+                         ids=["1", "3", "9", "l12-1", "l12-3", "l12-9"])
+def test_ntt_launches_fit_the_kernel(limbs, batch):
+    """ntt_kernels.cu's limits at each width are fft.py's, and every pass
+    that ntt() launches (n = 2 .. 2^22) stays inside them: at most the
+    width's layers a pass, a block's groups at most its elements a block
+    and, with their padding, at most the shared memory (the static array
+    at 8 limbs; at 12 the dynamic allowance, 48 B an element, and the
+    threads at most NTT_L12_THREADS, a multiple of 32); no block beyond the
+    groups but the last one's tail; a launch's blocks within the grid's
+    2^31 - 1."""
+    defines = _kernel_defines(limbs)
+    max_layers, block_elems = pfft.ntt_shape(limbs)
+    assert (defines["MAX_LAYERS"], defines["BLOCK_ELEMS"]) == (max_layers, block_elems)
+    smem_elems = (block_elems + (1 << max_layers) if limbs == 8
+                  else SMEM_L12_MAX // (4 * limbs))
+    if limbs == 12:
+        assert defines["THREADS"] % 32 == 0 and defines["MIN_BLOCKS"] >= 1
     for lg in range(1, 23):
-        for _l0, kp in pfft.pass_plan(lg):
-            lg_groups = pfft.block_groups(batch, lg, kp)
+        for _l0, kp in pfft.pass_plan(lg, limbs=limbs):
+            lg_groups = pfft.block_groups(batch, lg, kp, limbs)
             size, groups = 1 << kp, 1 << lg_groups
-            assert kp <= defines["NTT_MAX_LAYERS"]
-            assert size * groups <= defines["NTT_BLOCK_ELEMS"]
+            assert kp <= defines["MAX_LAYERS"]
+            assert size * groups <= defines["BLOCK_ELEMS"]
             assert size * (groups + 1) <= smem_elems
             assert groups < 2 * (batch << (lg - kp))
             assert -(-(batch << (lg - kp)) // groups) < 1 << 31
