@@ -37,7 +37,10 @@ for byte, proves and verifies the gadget circuits and the 2^10 BufferGate
 circuit, each at the JAX package's sha256, then builds, proves (twice) and
 verifies the 2^14-gate BufferGate circuit with the random source pinned,
 checks the steady proof's sha256, and shows that the steady prove launched
-every kernel of the main path (curve_add and curve_double, checked here,
+every kernel of the main path (field_exp once per exp_const call, which
+phase_kernels holds on 0, 1 and at N = 1, 2^14 + 3 and 2^17, and
+phase_bls12_377 at 12 limbs at N = 1, 2^16 + 3 and 2^16, where the path's
+to_affine makes exactly one; curve_add and curve_double, checked here,
 are off it: the MSM's Horner runs in curve_horner; rescue_permutation,
 the 12-limb kernels, the signed accumulate and ntt_twiddle_transpose have
 their own paths), and last drives the reference's recursion workload
@@ -145,6 +148,8 @@ KERNELS = {
                   "field_binary_kernel<2>"),
     "field_product_sum": (_CSRC + "field_kernels.cu", _PK + ":68",
                           "field_product_sum_kernel"),
+    "field_exp": (_CSRC + "field_kernels.cu", "plonky_tpu/fields/ops.py:598",
+                  "field_exp_kernel"),
     "curve_add": (_CSRC + "curve_kernels.cu", "plonky_tpu/curves/ops.py:93",
                   "curve_add_kernel"),
     "curve_double": (_CSRC + "curve_kernels.cu", "plonky_tpu/curves/ops.py:93",
@@ -176,8 +181,9 @@ KERNELS.update({f"{k}_l12": (source, replaces, "pt_l12::" + symbol)
                 for k, (source, replaces, symbol) in list(KERNELS.items())})
 # The kernels of the unsigned BLS12-377 G1 path (phase_bls12_377's path
 # run); the signed accumulate has a run of its own there.
-BLS_PATH = ("field_add", "field_sub", "field_mul", "curve_add", "curve_double",
-            "curve_horner", "msm_bucket_accumulate", "msm_bucket_reduce")
+BLS_PATH = ("field_add", "field_sub", "field_mul", "field_exp", "curve_add",
+            "curve_double", "curve_horner", "msm_bucket_accumulate",
+            "msm_bucket_reduce")
 # The 12-limb kernels of the polynomial path over BLS12-377's base field
 # (phase_bls12_377_poly): the NTT, the four-step transpose, the product
 # sum and Rescue.
@@ -219,28 +225,17 @@ def sqr_ops(nl: int) -> int:
     return nl * (nl + 1) // 2 * WIDE + redc_ops(nl)   # 208, 456
 
 
-def add_ops(nl: int) -> int:
-    return 12 * mul_ops(nl)     # RCB15 Alg. 7 (a = 0): 12 M + 2 by b3
-
-
-def dbl_ops(nl: int) -> int:
-    return 6 * mul_ops(nl) + 2 * sqr_ops(nl)    # Alg. 9: 6 M + 2 S + 1 by b3
-
-
 REDC_OPS = redc_ops(8)
 PRODUCT_OPS = product_ops(8)
-MUL_OPS = mul_ops(8)
-SQR_OPS = sqr_ops(8)
-ADD_OPS = add_ops(8)
-DBL_OPS = dbl_ops(8)
 # The reduction for p = 2^254 + c, c < 2^128, p = 1 mod 2^32 (both Tweedle
 # base fields; csrc/field.cuh, cc_redc's SPARSE rows): -p^-1 = -1 mod
 # 2^32, so a row's quotient digit m is a negation, not a multiply, and m p
 # is m + m c1 2^32 + m c2 2^64 + m c3 2^96 + m 2^254, three wide products
 # and a shift: 8 rows of 3 wide products, 48 slots where the dense
 # reduction takes 136.  A multiply is then 128 + 48 = 176 slots, a square
-# 72 + 48 = 120.  The other kernels' bounds keep the dense reduction on
-# these fields, which overstates their least work.
+# 72 + 48 = 120.  Every kernel's bound over such a field counts these
+# (field_costs; the Pasta base fields have the shape too), every other
+# field's the dense ones.
 SPARSE_REDC_OPS = 8 * 3 * WIDE
 SPARSE_MUL_OPS = PRODUCT_OPS + SPARSE_REDC_OPS
 SPARSE_SQR_OPS = 8 * 9 // 2 * WIDE + SPARSE_REDC_OPS
@@ -250,7 +245,7 @@ SPARSE_SQR_OPS = 8 * 9 // 2 * WIDE + SPARSE_REDC_OPS
 # sliding-window chains of 1 to 5 bits (sbox_ops: for e, 5-bit windows,
 # 250 squares and 56 multiplies on TweedledeeBase, 55 on TweedledumBase;
 # for 5, 2 squares and 1 multiply), and the two MDS mixes (4 products and
-# one reduction an output element), at the field's costs (rescue_costs:
+# one reduction an output element), at the field's costs (field_costs:
 # 120-slot squares, 176-slot multiplies and 48-slot reductions on the
 # Tweedle base fields, ~41,400 slots an element and round; 208, 264 and
 # 136 on others); 4 elements read and written per permutation.
@@ -449,6 +444,50 @@ def with_edges(fops, spec, x):
     return x
 
 
+def exp_cases(spec) -> dict:
+    """The exponents field_exp is held at: the inverse's p - 2 and the
+    alpha-th root's (the Rescue S-box's and kth_root's exponent)."""
+    from plonky_tpu_torch.fields.host import kth_root_exponent
+    return {"p-2": spec.p - 2,
+            f"1/{spec.alpha}": kth_root_exponent(spec, spec.alpha)}
+
+
+def check_exp(ck: Checker, torch, np, rng, dev, spec, sizes, main_n: int) -> None:
+    """field_exp (or field_exp_l12) held against exp_const_plain on the
+    card: on 0, 1 and a random value at N = 1, and at each of `sizes` with
+    0, 1, p - 1 and p - 2 first, for each of exp_cases, and on a [L, 3, 5]
+    batch and an expanded [L, 1] column; timed for p - 2 at N = 1 and at
+    each of `sizes` (the record's headline at main_n)."""
+    from plonky_tpu_torch.fields import ops as fops
+    name = "field_exp" if spec.limbs == 8 else f"field_exp_l{spec.limbs}"
+    exps = exp_cases(spec)
+    e = spec.p - 2
+    ones = [fops.from_ints(spec, [v], dev) for v in (0, 1)]
+    ones.append(rand_field(np, torch, rng, (1,), dev, spec))
+    inputs = [(1, x) for x in ones] + [
+        (n, with_edges(fops, spec, rand_field(np, torch, rng, (n,), dev, spec)))
+        for n in sizes]
+    inputs.append((15, rand_field(np, torch, rng, (3, 5), dev, spec)))
+    inputs.append((7, rand_field(np, torch, rng, (1,), dev, spec).expand(spec.limbs, 7)))
+    by = []
+    for n, x in inputs:
+        timed = n in sizes or x is ones[-1]
+        for ek in exps.values():
+            if timed and ek == e:      # held and timed, the plain chain run once
+                def kernel(x=x):
+                    return fops.exp_const(spec, x, e)
+                by.append({"N": n, "e": "p-2", **ck.hold(
+                    name, kernel, lambda x=x: fops.exp_const_plain(spec, x, e),
+                    *exp_work(spec, e, n)), "call_ms": ck.time_ms(kernel, 10)})
+            else:
+                ck.compare(name, fops.exp_const(spec, x, ek),
+                           fops.exp_const_plain(spec, x, ek))
+    ck.record(name, {"main": f"N = {main_n}, e = p - 2", "exponents": list(exps),
+                     "checked": ["N = 1: 0, 1, random", *(f"N = {n}" for n in sizes),
+                                 "[3, 5]", "[1] expanded to 7"]},
+              by_shape=by, measured=next(b for b in by if b["N"] == main_n))
+
+
 def check_horner(ck: Checker, cops, cmsm, curve, ws, c):
     """The Horner steps of curves/msm.py:horner_plain through the
     elementwise K2 kernels on window sums ws [LIMBS, K, W], each step held
@@ -486,36 +525,52 @@ def horner_cases(torch, window_sums):
     return cases
 
 
-def horner_work(ws, c, nl: int = 8):
-    """Bytes and IMAD slots of curve_horner's bounds: the window sums read
-    once, one point an MSM written; (W - 1) (c doublings + 1 add) an MSM."""
+def horner_work(ws, c, f):
+    """Bytes and IMAD slots of curve_horner's bounds over base field f: the
+    window sums read once, one point an MSM written; (W - 1) (c doublings
+    + 1 add) an MSM."""
     k, n_windows = ws[0].shape[1], ws[0].shape[2]
-    return (3 * 4 * nl * k * (n_windows + 1),
-            k * (n_windows - 1) * (c * dbl_ops(nl) + add_ops(nl)))
+    add, dbl = point_costs(f)
+    return (3 * 4 * f.limbs * k * (n_windows + 1),
+            k * (n_windows - 1) * (c * dbl + add))
 
 
 def sbox_ops(spec, e: int) -> int:
     """IMAD slots of the least work for x^e: the cheapest of the sliding
-    window chains of 1 to 5 bits (hashing/rescue.py:sbox_schedule, the
-    builder of K5's own chains), its squares and multiplies at the field's
-    costs (rescue_costs)."""
-    from plonky_tpu_torch.hashing import rescue as hr
-    sqr, mul, _redc = rescue_costs(spec)
+    window chains of 1 to 5 bits (fields/chain.py:sbox_schedule, which
+    makes K5's and field_exp's chains), its squares and multiplies at the
+    field's costs (field_costs)."""
+    from plonky_tpu_torch.fields import chain
+    sqr, mul, _redc = field_costs(spec)
     return min(sq * sqr + m * mul for sq, m in
-               (hr.schedule_counts(hr.sbox_schedule(e, w))
-                for w in range(1, hr.SBOX_MAX_WINDOW + 1)))
+               (chain.schedule_counts(chain.sbox_schedule(e, w))
+                for w in range(1, chain.SBOX_MAX_WINDOW + 1)))
 
 
-def rescue_costs(spec) -> tuple:
-    """(square, multiply, reduction) in IMAD slots for K5's field: the
-    sparse REDC's where p = 2^254 + c (hashing/rescue.py:sparse_prime),
-    else the dense ones at the field's width (456, 588 and 300 at 12
-    limbs)."""
-    from plonky_tpu_torch.hashing.rescue import sparse_prime
+def field_costs(spec) -> tuple:
+    """(square, multiply, reduction) in IMAD slots over a field: the sparse
+    REDC's where p = 2^254 + c (fields/chain.py:sparse_prime: 120, 176 and
+    48), else the dense ones at the field's width (208, 264 and 136 at 8
+    limbs, 456, 588 and 300 at 12)."""
+    from plonky_tpu_torch.fields.chain import sparse_prime
     if sparse_prime(spec):
         return SPARSE_SQR_OPS, SPARSE_MUL_OPS, SPARSE_REDC_OPS
     nl = spec.limbs
     return sqr_ops(nl), mul_ops(nl), redc_ops(nl)
+
+
+def point_costs(f) -> tuple:
+    """(add, double) in IMAD slots over base field f: RCB15 Alg. 7 (a = 0)
+    12 M (+ 2 by b3), Alg. 9 6 M + 2 S (+ 1 by b3)."""
+    sqr, mul, _redc = field_costs(f)
+    return 12 * mul, 6 * mul + 2 * sqr
+
+
+def exp_work(spec, e: int, n: int):
+    """Bytes and IMAD slots of field_exp's bounds for x^e over n elements:
+    x read and x^e written once; the cheapest sliding-window chain's
+    squares and multiplies at the field's costs (sbox_ops)."""
+    return 2 * 4 * spec.limbs * n, n * sbox_ops(spec, e)
 
 
 def rescue_work(spec, security_bits: int, n: int):
@@ -523,7 +578,7 @@ def rescue_work(spec, security_bits: int, n: int):
     file), at the field's width."""
     from plonky_tpu_torch.fields.host import kth_root_exponent
     from plonky_tpu_torch.hashing.rescue import recommended_rounds
-    _sqr, _mul, redc = rescue_costs(spec)
+    _sqr, _mul, redc = field_costs(spec)
     nl = spec.limbs
     per_round = (4 * (sbox_ops(spec, kth_root_exponent(spec, spec.alpha))
                       + sbox_ops(spec, spec.alpha))
@@ -560,17 +615,17 @@ def ntt_cases():
     return cases
 
 
-def ntt_work(batch, lg, inverse, coset, nl: int = 8):
-    """Bytes and IMAD slots of a whole transform's bounds (top of file) at
-    nl limbs (an element is 4 nl bytes, a product mul_ops(nl) slots: 588
-    at 12 limbs)."""
+def ntt_work(batch, lg, inverse, coset, f):
+    """Bytes and IMAD slots of a whole transform's bounds (top of file)
+    over field f (an element is 4 L bytes, a product field_costs(f)'s
+    multiply: 176 slots on the sparse 8-limb fields, 588 at 12 limbs)."""
     n = 1 << lg
     scaled = inverse or coset
-    elem = 4 * nl
+    elem = 4 * f.limbs
     table = elem * n if coset else (elem if inverse else 0)
     return (2 * elem * batch * n + elem * max(n - 2, 0) + table,
-            mul_ops(nl) * (batch * (n // 2) * max(lg - 1, 0)
-                           + (batch * n if scaled else 0)))
+            field_costs(f)[1] * (batch * (n // 2) * max(lg - 1, 0)
+                                 + (batch * n if scaled else 0)))
 
 
 def product_sum_shapes():
@@ -665,14 +720,35 @@ def counting_product_sums(fops):
         fops._product_sums_launch = launch
 
 
-def product_sum_work(named, n, nl: int = 8):
-    """Bytes and IMAD slots of a product-sum launch's bounds at nl limbs:
+@contextlib.contextmanager
+def counting_exps(fops):
+    """While open, counts fops.exp_const's calls with an exponent above 0
+    (each one field_exp launch on the card; e = 0 stays on the host) in a
+    Counter keyed on (field, N, exponent bits)."""
+    counts = collections.Counter()
+    exp_const = fops.exp_const
+
+    def counted(spec, x, e):
+        if e > 0:
+            counts[(spec.name, x[0].numel(), e.bit_length())] += 1
+        return exp_const(spec, x, e)
+    fops.exp_const = counted
+    try:
+        yield counts
+    finally:
+        fops.exp_const = exp_const
+
+
+def product_sum_work(named, n, f):
+    """Bytes and IMAD slots of a product-sum launch's bounds over field f:
     each distinct operand read once, each sum's output written once; per
-    element and sum its products (product_ops(nl) each: 128 at 8 limbs,
-    288 at 12) and one reduction (redc_ops(nl): 136, 300)."""
+    element and sum its products (product_ops: 128 at 8 limbs, 288 at 12)
+    and one reduction (field_costs: 48 sparse, 136 dense at 8 limbs; 300
+    at 12)."""
     c = product_sum_counts(named)
+    nl = f.limbs
     return (4 * nl * (n * (c["full_operands"] + c["sums"]) + c["column_operands"]),
-            n * (c["products"] * product_ops(nl) + c["sums"] * redc_ops(nl)))
+            n * (c["products"] * product_ops(nl) + c["sums"] * field_costs(f)[2]))
 
 
 def k4_cases(np, torch, rng, dev):
@@ -725,23 +801,23 @@ def k4_inputs(torch, cmsm, sf, basis, scal, c):
     return (sub, *k4_rows(torch, cmsm, sf, scal, c))
 
 
-def k4_work(rows, starts, acc, nl: int = 8):
-    """Bytes and IMAD slots of K4's bounds for this run's digits (L = nl
-    limbs a coordinate).  Accumulation: the basis, the sorted digits, the
+def k4_work(rows, starts, acc, f):
+    """Bytes and IMAD slots of K4's bounds for this run's digits over base
+    field f (L = f.limbs limbs a coordinate).  Accumulation: the basis, the sorted digits, the
     order and the run starts read once, the buckets and carries written
     once; one add per point beyond the first of each non-empty bucket.
     Reduction: the buckets, carries and run starts read once, one point per
     row written; two adds per non-empty bucket (its running sum and its
     weighted sum)."""
     r, n = rows.shape
-    point = 12 * nl                          # bytes of X, Y, Z
+    point = 12 * f.limbs                     # bytes of X, Y, Z
+    add = point_costs(f)[0]
     live = int((rows != 0).sum().item())
     nonempty = int(((starts[:, 2:] - starts[:, 1:-1]) > 0).sum().item())
     out_bytes = 4 * sum(t.numel() for t in acc)
     acc_bytes = point * n + 8 * r * n + 4 * starts.numel() + out_bytes
     red_bytes = out_bytes + 4 * starts.numel() + point * r
-    return (acc_bytes, add_ops(nl) * (live - nonempty), red_bytes,
-            add_ops(nl) * 2 * nonempty)
+    return (acc_bytes, add * (live - nonempty), red_bytes, add * 2 * nonempty)
 
 
 def check_product_sums(ck: Checker, torch, np, dev, fops, sf) -> None:
@@ -777,7 +853,7 @@ def check_product_sums(ck: Checker, torch, np, dev, fops, sf) -> None:
         sums = inputs(named, scale * n)
         kernel, plain = calls(sums)
         ck.compare("field_product_sum", kernel(), plain())
-        nbytes, nops = product_sum_work(named, scale * n)
+        nbytes, nops = product_sum_work(named, scale * n, sf)
         by_shape.append({"shape": label, "site": site, "N": scale * n,
                          **product_sum_counts(named), **ck.measure(
                              kernel, plain, nbytes, nops, plain_reps=1)})
@@ -878,10 +954,14 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
         ck.compare("field_mul", fops.mul(sf, x, y), fops.mul_plain(sf, x, y))
         mul_by.append({"N": n, **ck.measure(
             lambda x=x, y=y: fops.mul(sf, x, y),
-            lambda x=x, y=y: fops.mul_plain(sf, x, y), 3 * 32 * n, MUL_OPS * n)})
+            lambda x=x, y=y: fops.mul_plain(sf, x, y), 3 * 32 * n,
+            field_costs(sf)[1] * n)})
     ck.record("field_mul", {**shapes, "timed_N": [b["N"] for b in mul_by]},
               by_shape=mul_by, measured=mul_by[0])
     check_product_sums(ck, torch, np, dev, fops, sf)
+    # field_exp at N = 1 (an inversion of one value), a ragged N and the
+    # prove's 8n
+    check_exp(ck, torch, np, rng, dev, sf, ((1 << 14) + 3, 1 << 17), 1 << 17)
 
     # the Pedersen basis of the 2^14 circuit: real points for K2 and K4
     g_pts, _h, _u = pedersen_bases(TWEEDLEDEE, 1 << 14)
@@ -919,7 +999,7 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
         ck.compare("ntt_pass", pfft.ntt(pre, x, inverse, shift),
                    pfft.ntt_plain(pre, x, inverse, shift))
         if label.startswith("2^14 "):
-            nb, nops = ntt_work(batch, lg, inverse, coset)
+            nb, nops = ntt_work(batch, lg, inverse, coset, sf)
             ntt_by.append({"shape": label, "B": batch, "n": n,
                            "inverse": inverse, "coset": coset,
                            "passes": len(pfft.pass_plan(lg)), **ck.measure(
@@ -959,7 +1039,8 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
                     lambda x=x, table=table: pfft.twiddle_transpose(fs, x, table),
                     lambda x=x, table=table: pfft.twiddle_transpose_plain(fs, x, table),
                     (96 if table is not None else 64) * elems,
-                    MUL_OPS * elems if table is not None else 0, plain_reps=1),
+                    field_costs(fs)[1] * elems if table is not None else 0,
+                    plain_reps=1),
                     # without twiddles the function is one PyTorch call
                     "library_ms": None if table is not None else ck.queued_ms(
                         lambda x=x: x.transpose(-1, -2).contiguous(), 20)})
@@ -985,7 +1066,8 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
                    cmsm.bucket_reduce_plain(TWEEDLEDEE, *acc, starts))
         window_sums[label] = tuple(t.reshape(8, k, -1) for t in ws)
         shape = {"shape": label, "N": n, "K": k, "c": c, "rows": rows.shape[0]}
-        acc_bytes, acc_ops, red_bytes, red_ops = k4_work(rows, starts, acc)
+        acc_bytes, acc_ops, red_bytes, red_ops = k4_work(rows, starts, acc,
+                                                         TWEEDLEDEE.base)
         acc_by.append({**shape, **ck.measure(
             lambda: cmsm.bucket_accumulate(TWEEDLEDEE, sub, digits, order, starts),
             lambda: cmsm.bucket_accumulate_plain(TWEEDLEDEE, sub, digits, order,
@@ -1026,7 +1108,7 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
         ck.compare("curve_horner", cmsm.horner(TWEEDLEDEE, ws, c),
                    cmsm.horner_plain(TWEEDLEDEE, ws, c))
         if label in ("K=9", "K=7", "K=2 ipa", "K=1"):
-            hb, hops = horner_work(ws, c)
+            hb, hops = horner_work(ws, c, TWEEDLEDEE.base)
             horner_by.append({"shape": label, "K": ws[0].shape[1],
                               "W": ws[0].shape[2], "c": c, **ck.measure(
                 lambda ws=ws: cmsm.horner(TWEEDLEDEE, ws, c),
@@ -1044,6 +1126,7 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
     # result against curve_horner's), timed there and at 2^14 + 3
     add_by, dbl_by = [], []
     timed = {}
+    add_ops, dbl_ops = point_costs(TWEEDLEDEE.base)
     for label in ("K=9", "K=7", "K=2 ipa", "K=1"):
         ws = window_sums[label]
         k = ws[0].shape[1]
@@ -1052,19 +1135,19 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
         add_by.append({"shape": [8, k], **ck.measure(
             lambda acc=acc, win=win: cops.add(TWEEDLEDEE, acc, win),
             lambda acc=acc, win=win: cops.add_plain(TWEEDLEDEE, acc, win),
-            9 * 32 * k, ADD_OPS * k)})
+            9 * 32 * k, add_ops * k)})
         dbl_by.append({"shape": [8, k], **ck.measure(
             lambda acc=acc: cops.double(TWEEDLEDEE, acc),
             lambda acc=acc: cops.double_plain(TWEEDLEDEE, acc),
-            6 * 32 * k, DBL_OPS * k)})
+            6 * 32 * k, dbl_ops * k)})
     add_by.append({"shape": [8, n2], **ck.measure(
         lambda: cops.add(TWEEDLEDEE, p1, p2),
         lambda: cops.add_plain(TWEEDLEDEE, p1, p2), 9 * 32 * n2,
-        ADD_OPS * n2)})
+        add_ops * n2)})
     dbl_by.append({"shape": [8, n2], **ck.measure(
         lambda: cops.double(TWEEDLEDEE, dbl_in),
         lambda: cops.double_plain(TWEEDLEDEE, dbl_in), 6 * 32 * n2,
-        DBL_OPS * n2)})
+        dbl_ops * n2)})
     # the headline numbers are at [8, 2], the shape of 14 of the 19 MSMs
     # of a steady prove (the IPA rounds)
     acc, win = timed[2]
@@ -1073,11 +1156,11 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
     ck.record("curve_add", shapes,
               lambda: cops.add(TWEEDLEDEE, acc, win),
               lambda: cops.add_plain(TWEEDLEDEE, acc, win), 9 * 32 * 2,
-              ADD_OPS * 2, by_shape=add_by)
+              add_ops * 2, by_shape=add_by)
     ck.record("curve_double", shapes,
               lambda: cops.double(TWEEDLEDEE, acc),
               lambda: cops.double_plain(TWEEDLEDEE, acc), 6 * 32 * 2,
-              DBL_OPS * 2, by_shape=dbl_by)
+              dbl_ops * 2, by_shape=dbl_by)
 
     # the same kernels on the Pallas/Vesta cycle's fields and curves
     t0 = time.perf_counter()
@@ -1581,7 +1664,7 @@ def phase_probe(ck: Checker, torch, np, dev, name_power: str) -> dict:
                  "N": n, "K": 1, "c": c, "signed": signed, "rows": digits.shape[0],
                  "nb": starts.shape[1] - 1,
                  "seg": cmsm.reduce_seg(starts.shape[1] - 1, digits.shape[0])}
-        acc_b, acc_ops, red_b, red_ops = k4_work(digits, starts, acc)
+        acc_b, acc_ops, red_b, red_ops = k4_work(digits, starts, acc, C.base)
         if signed:
             ck.compare("msm_bucket_accumulate_signed", acc,
                        cmsm.bucket_accumulate_plain(C, basis, digits, order, starts,
@@ -1917,13 +2000,16 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     the last of 3 bits); curve_horner on those window sums (W = 32 and
     51); the 8-limb field_mul on the scalar field at N = 2^12 + 3; and the
     12-limb product sum, NTT and Rescue on K1's operands (their path is
-    phase_bls12_377_poly's).  Timed
+    phase_bls12_377_poly's); field_exp at both widths (check_exp; the
+    8-limb dense instance on the scalar field at N = 2^12 + 3).  Timed
     at the JAX package's microbench sizes (bin/microbench.py: field ops at
     2^16 on both fields, G1 add and double at 2^14, the 150-point
-    summation) and K4 and the Horner at one slice of the ladder (N = 2^16,
-    K = 1, c = 8).  Then the path once, with the launch counts reset (K1 at
-    2^16, K2 at 2^14, the summation, msm_chunked at 2^16 and its affine
-    value): every 12-limb kernel launched, no other kernel.  Then the
+    summation; the multiply and field_exp_l12 also at N = 1) and K4 and
+    the Horner at one slice of the ladder (N = 2^16, K = 1, c = 8).  Then
+    the path once, with the launch counts reset (K1 at 2^16, K2 at 2^14,
+    the summation, msm_chunked at 2^16 and its affine value): every
+    kernel of BLS_PATH launched at 12 limbs, no other kernel, and exactly
+    one field_exp_l12 and three field_mul_l12 launches.  Then the
     ladder: msm_chunked at 2^16 .. 2^22 points (slices of 2^16, c = 8), a
     warm call and three timed ones (median, ended by a synchronize), each
     result held against ((a sum_i s_i 2^(i mod 2^12)) mod r) G on the host
@@ -1973,6 +2059,9 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     xs, ys = field_pair(sf, n1)
     for u, v in ((xs, ys), (ys, ys)):
         ck.compare("field_mul", fops.mul(sf, u, v), fops.mul_plain(sf, u, v))
+    # the 8-limb field_exp's dense instance on the scalar field
+    for e in exp_cases(sf).values():
+        ck.compare("field_exp", fops.exp_const(sf, xs, e), fops.exp_const_plain(sf, xs, e))
 
     # K2 at [12, 2^10 + 3]: chain points plus the identity, P + P, P + (-P)
     n2 = (1 << 10) + 3
@@ -2024,18 +2113,30 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
                      "2,048 and 2,112 rows (2^22)",
                "curve_horner": "K = 1, 3, 64, W = 32, 33 (c = 8), 51 (c = 5)"}
 
-    # timed at the microbench sizes: K1 at 2^16 on both fields
+    # timed at the microbench sizes: K1 at 2^16 on both fields, and the
+    # multiply also at N = 1 (the shape of the Fermat inverse's products
+    # before field_exp)
     nf = 1 << 16
     x, y = field_pair(bf, nf)
+    x1, y1 = field_pair(bf, 1)
     for name, fn, plain in ops:
         ck.compare(f"{name}_l12", fn(bf, x, y), plain(bf, x, y))
+        by = []
+        for n, u, v in ((nf, x, y), (1, x1, y1))[:2 if name == "field_mul" else 1]:
+            ck.compare(f"{name}_l12", fn(bf, u, v), plain(bf, u, v))
+            by.append({"N": n, **ck.measure(
+                lambda fn=fn, u=u, v=v: fn(bf, u, v),
+                lambda plain=plain, u=u, v=v: plain(bf, u, v), 3 * 4 * nl * n,
+                field_costs(bf)[1] * n if name == "field_mul" else 0)})
         ck.record(f"{name}_l12", {"main": "N = 2^16", "checked": checked["K1"]},
-                  lambda fn=fn: fn(bf, x, y), lambda plain=plain: plain(bf, x, y),
-                  3 * 4 * nl * nf, mul_ops(nl) * nf if name == "field_mul" else 0)
+                  by_shape=by, measured=by[0])
+    # field_exp_l12 at N = 1 (to_affine's inverse of one point), a ragged N
+    # and the microbench's 2^16
+    check_exp(ck, torch, np, rng, dev, bf, ((1 << 16) + 3, nf), nf)
     xs, ys = field_pair(sf, nf)
     out["scalar_field_2e16"] = {name: ck.measure(
         lambda fn=fn: fn(sf, xs, ys), lambda plain=plain: plain(sf, xs, ys),
-        3 * 32 * nf, MUL_OPS * nf if name == "field_mul" else 0)
+        3 * 32 * nf, field_costs(sf)[1] * nf if name == "field_mul" else 0)
         for name, fn, plain in ops}
     # K2 at 2^14: chain points plus the chain rotated by one
     nc = 1 << 14
@@ -2046,10 +2147,10 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     ck.compare("curve_double_l12", cops.double(C, sc), cops.double_plain(C, sc))
     ck.record("curve_add_l12", {"main": [nl, nc], "checked": checked["K2"]},
               lambda: cops.add(C, pa, pb), lambda: cops.add_plain(C, pa, pb),
-              9 * 4 * nl * nc, add_ops(nl) * nc)
+              9 * 4 * nl * nc, point_costs(bf)[0] * nc)
     ck.record("curve_double_l12", {"main": [nl, nc], "checked": checked["K2"]},
               lambda: cops.double(C, sc), lambda: cops.double_plain(C, sc),
-              6 * 4 * nl * nc, dbl_ops(nl) * nc)
+              6 * 4 * nl * nc, point_costs(bf)[1] * nc)
     # the 150-point summation (bin/microbench.py:134-171): 150 chain points
     # padded with the identity to 256, a halving tree of adds
     ps = tuple(torch.cat([t[:, :150], i.expand(nl, 106)], 1).contiguous()
@@ -2079,7 +2180,7 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     ck.compare("msm_bucket_reduce_l12", ws,
                cmsm.bucket_reduce_plain(C, *acc, starts))
     ws = tuple(t.reshape(nl, 1, -1) for t in ws)
-    acc_b, acc_ops, red_b, red_ops = k4_work(rows, starts, acc, nl)
+    acc_b, acc_ops, red_b, red_ops = k4_work(rows, starts, acc, bf)
     shape = {"main": f"N = 2^16, K = 1, c = {BLS_WINDOW}", "checked": checked["K4"]}
     slices22 = 1 << (BLS_LADDER[-1] - BLS_CHUNK_LOG)   # the top call's slices
     ck.record("msm_bucket_accumulate_l12", shape,
@@ -2108,7 +2209,7 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
                                             signs=s_signs))
     ck.compare("msm_bucket_reduce_l12", cmsm.bucket_reduce(C, *s_acc, s_starts),
                cmsm.bucket_reduce_plain(C, *s_acc, s_starts))
-    s_b, s_ops, _rb, _ro = k4_work(s_digits, s_starts, s_acc, nl)
+    s_b, s_ops, _rb, _ro = k4_work(s_digits, s_starts, s_acc, bf)
     ck.record("msm_bucket_accumulate_signed_l12",
               {"main": f"N = 2^16, K = 1, c = {BLS_WINDOW} signed",
                "checked": "k4_sweep (12 limbs)"},
@@ -2120,7 +2221,7 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     del s_acc
     ck.compare("curve_horner_l12", cmsm.horner(C, ws, BLS_WINDOW),
                cmsm.horner_plain(C, ws, BLS_WINDOW))
-    hb, hops = horner_work(ws, BLS_WINDOW, nl)
+    hb, hops = horner_work(ws, BLS_WINDOW, bf)
     hor1 = ck.measure(lambda: cmsm.horner(C, ws, BLS_WINDOW),
                       lambda: cmsm.horner_plain(C, ws, BLS_WINDOW), hb, hops, 10, 1)
     ck.record("curve_horner_l12", {"main": f"K = 1, W = {ws[0].shape[2]}, "
@@ -2146,9 +2247,12 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     missing = [f"{k}_l12" for k in BLS_PATH if not path[f"{k}_l12"]]
     off = {k: v for k, v in path.items()
            if v and (not k.endswith("_l12") or k.startswith("msm_bucket_accumulate_signed"))}
-    if missing or off:
+    # to_affine: one field_exp (the Fermat inverse) and two products; one
+    # more product in the K1 loop
+    exact = {"field_exp_l12": 1, "field_mul_l12": 3}
+    if missing or off or any(path[k] != v for k, v in exact.items()):
         raise AssertionError(f"the BLS12-377 path launched {path}: none of "
-                             f"{missing}, and {off} off it")
+                             f"{missing}, {off} off it, and not {exact}")
     want16 = chost.mul(g, chain_oracle(np, sf.p, _limbs, a))
     affine_is(res, want16, "msm_chunked at 2^16")
     out["path_launches"] = {k: v for k, v in path.items() if v}
@@ -2212,13 +2316,13 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
         tag = "(signed=True)" if signed else ""
         res, (bk, cr, st), ws = spied(fn)
         affine_is(res, want, f"msm_chunked{tag} at 2^{lg} (its reduce and Horner held)")
-        rb, rops = reduce_work(st, (bk, cr), nl)
+        rb, rops = reduce_work(st, (bk, cr), bf)
         red = ck.hold("msm_bucket_reduce_l12", lambda: cmsm.bucket_reduce(C, bk, cr, st),
                       lambda: cmsm.bucket_reduce_plain(C, bk, cr, st), rb, rops)
         ck.records["msm_bucket_reduce_l12"]["by_shape"].append(
             {"rows": st.shape[0], "seg": cmsm.reduce_seg(st.shape[1] - 1, st.shape[0]),
              "signed": signed, **red})
-        hb, hops = horner_work(ws, BLS_WINDOW, nl)
+        hb, hops = horner_work(ws, BLS_WINDOW, bf)
         hor = ck.hold("curve_horner_l12", lambda: cmsm.horner(C, ws, BLS_WINDOW),
                       lambda: cmsm.horner_plain(C, ws, BLS_WINDOW), hb, hops)
         ck.records["curve_horner_l12"]["by_shape"].append(
@@ -2567,7 +2671,8 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
             lambda table=table: pfft.twiddle_transpose(Fq, xt, table),
             lambda table=table: pfft.twiddle_transpose_plain(Fq, xt, table),
             (3 if table is not None else 2) * 4 * nl * n22,
-            mul_ops(nl) * n22 if table is not None else 0, reps=10, plain_reps=1),
+            field_costs(Fq)[1] * n22 if table is not None else 0, reps=10,
+            plain_reps=1),
             # without twiddles the function is one PyTorch call
             "library_ms": None if table is not None else ck.queued_ms(
                 lambda: xt.transpose(-1, -2).contiguous(), 10)})
@@ -2593,7 +2698,7 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
             ("coset_ifft [1, 2^20]", pre20, coset20, coset_back, True,
              Fq.generator)):
         batch = x.reshape(nl, -1, pre.n).shape[1]
-        nb, nops = ntt_work(batch, pre.lg_n, inverse, shift is not None, nl)
+        nb, nops = ntt_work(batch, pre.lg_n, inverse, shift is not None, Fq)
         big = batch * pre.n > n22
         torch.cuda.empty_cache()
         want = {}
@@ -2639,7 +2744,7 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
     # the product sums at 2^20
     ps_by = []
     for label, sums in ps.items():
-        nb, nops = product_sum_work(named_ps[label], n_ps, nl)
+        nb, nops = product_sum_work(named_ps[label], n_ps, Fq)
         m = ck.measure(lambda sums=sums: fops.product_sums(Fq, sums),
                        lambda sums=sums: fops.product_sums_plain(Fq, sums),
                        nb, nops, reps=5, plain_reps=1)
@@ -2936,9 +3041,10 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
     OFF_PATH, curve_horner once per MSM, ntt_pass once per pass of each
     transform (len(pass_plan(lg n)) = ceil(lg n / NTT_MAX_LAYERS)), and
     field_product_sum at each shape of product_sum_shapes as often as it
-    says, counted by shape (counting_product_sums).  Returns the steady
-    prove's launches by kernel and, with `check_launches`, its product-sum
-    launches by label of product_sum_shapes."""
+    says, counted by shape (counting_product_sums), and field_exp once per
+    exp_const call (counting_exps).  Returns the steady prove's launches by
+    kernel and, with `check_launches`, its product-sum launches by label of
+    product_sum_shapes."""
     import hashlib
 
     import plonky_tpu_torch.circuit.builder as builder_mod
@@ -2979,7 +3085,8 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
         _cuda.reset_launches()
         t0 = time.perf_counter()
         try:
-            with record_phases() as phases, counting as ps_counts:
+            with record_phases() as phases, counting as ps_counts, \
+                    counting_exps(fops) as exp_counts:
                 proof = generate_proof(circuit, witness, old_proofs=[],
                                        blinding=True)
             torch.cuda.synchronize()
@@ -2992,6 +3099,7 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
     launches = dict(_cuda.LAUNCHES)
     out["phases_s"] = phases
     out["launches"] = launches
+    out["exp_const_calls"] = [[*k, v] for k, v in sorted(exp_counts.items())]
     if check_launches:
         out["ntt_transforms"] = len(transforms)
         out["ntt_passes_expected"] = sum(len(pfft.pass_plan(t)) for t in transforms)
@@ -3028,6 +3136,9 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
             raise AssertionError("one curve_horner launch per MSM expected, got "
                                  f"{launches['curve_horner']} for "
                                  f"{launches['msm_bucket_reduce']} MSMs")
+        if launches["field_exp"] != sum(exp_counts.values()):
+            raise AssertionError(f"{launches['field_exp']} field_exp launches for "
+                                 f"{sum(exp_counts.values())} exp_const calls")
         if launches["field_product_sum"] != out["product_sum_launches_expected"]:
             raise AssertionError(f"{launches['field_product_sum']} field_product_sum "
                                  "launches, expected "
@@ -3046,8 +3157,8 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
 
 class PathRecorder:
     """While open, wraps the kernel wrappers a prove runs (K1's elementwise
-    launch and its product sums, a whole NTT, K4's two stages and the
-    Horner) and counts their calls by shape under `level`; the first call
+    launch, its product sums and field_exp, a whole NTT, K4's two stages
+    and the Horner) and counts their calls by shape under `level`; the first call
     of each shape keeps its arguments, so that `hold` can run it again
     beside its plain version.  A shape is the kernel, the field or curve and
     every size the launch takes."""
@@ -3068,7 +3179,7 @@ class PathRecorder:
         from plonky_tpu_torch.fields import ops as fops
         from plonky_tpu_torch.poly import fft as pfft
         wrapped = ((fops, "_launch_binary"), (fops, "_product_sums_launch"),
-                   (pfft, "ntt"), (cmsm, "bucket_accumulate"),
+                   (fops, "_launch_exp"), (pfft, "ntt"), (cmsm, "bucket_accumulate"),
                    (cmsm, "bucket_reduce"), (cmsm, "horner"),
                    (cops, "_launch_point"))
         self.saved = [(m, name, getattr(m, name)) for m, name in wrapped]
@@ -3083,8 +3194,9 @@ class PathRecorder:
             self._note((kernel, spec.name, *("full" if f else "col" for f in full), n), 1,
                        lambda: orig["_launch_binary"](kernel, spec, a, b),
                        lambda: plain_binary[kernel](spec, a, b),
-                       lambda: (32 * (n * (1 + sum(full)) + 2 - sum(full)),
-                                MUL_OPS * n if kernel == "field_mul" else 0),
+                       lambda: (4 * spec.limbs * (n * (1 + sum(full)) + 2 - sum(full)),
+                                field_costs(spec)[1] * n if kernel == "field_mul"
+                                else 0),
                        out.device)
             return out
 
@@ -3100,9 +3212,20 @@ class PathRecorder:
             self._note(key, 1,
                        lambda: tuple(orig["_product_sums_launch"](spec, sums, batch, splits)),
                        lambda: tuple(fops.product_sums_plain(spec, sums)),
-                       lambda: (32 * (n * (full + len(sums)) + len(operands) - full),
-                                n * (products * PRODUCT_OPS + len(sums) * REDC_OPS)),
+                       lambda: (4 * spec.limbs * (n * (full + len(sums))
+                                                  + len(operands) - full),
+                                n * (products * product_ops(spec.limbs)
+                                     + len(sums) * field_costs(spec)[2])),
                        out[0].device)
+            return out
+
+        def exp(spec, x, e):
+            out = orig["_launch_exp"](spec, x, e)
+            n = out[0].numel()
+            self._note(("field_exp", spec.name, n, "p-2" if e == spec.p - 2 else hex(e)),
+                       1, lambda: orig["_launch_exp"](spec, x, e),
+                       lambda: fops.exp_const_plain(spec, x, e),
+                       lambda: exp_work(spec, e, n), out.device)
             return out
 
         def ntt(pre, x, inverse=False, shift=None):
@@ -3113,7 +3236,8 @@ class PathRecorder:
                        len(pfft.pass_plan(pre.lg_n, limbs=pre.spec.limbs)),
                        lambda: orig["ntt"](pre, x, inverse, shift),
                        lambda: pfft.ntt_plain(pre, x, inverse, shift),
-                       lambda: ntt_work(batch, pre.lg_n, inverse, coset), out.device)
+                       lambda: ntt_work(batch, pre.lg_n, inverse, coset, pre.spec),
+                       out.device)
             return out
 
         def accumulate(curve, basis, digits, order, starts, signs=None):
@@ -3124,7 +3248,8 @@ class PathRecorder:
                                                          starts, signs),
                        lambda: cmsm.bucket_accumulate_plain(curve, basis, digits, order,
                                                             starts, signs=signs),
-                       lambda: k4_work(digits, starts, out)[:2], out[0].device)
+                       lambda: k4_work(digits, starts, out, curve.base)[:2],
+                       out[0].device)
             return out
 
         def reduce(curve, buckets, carries, starts):
@@ -3132,7 +3257,8 @@ class PathRecorder:
             self._note(("msm_bucket_reduce", curve.name, *starts.shape), 1,
                        lambda: orig["bucket_reduce"](curve, buckets, carries, starts),
                        lambda: cmsm.bucket_reduce_plain(curve, buckets, carries, starts),
-                       lambda: reduce_work(starts, (buckets, carries)), out[0].device)
+                       lambda: reduce_work(starts, (buckets, carries), curve.base),
+                       out[0].device)
             return out
 
         def horner(curve, ws, c):
@@ -3140,7 +3266,7 @@ class PathRecorder:
             self._note(("curve_horner", curve.name, *ws[0].shape[1:], c), 1,
                        lambda: orig["horner"](curve, ws, c),
                        lambda: cmsm.horner_plain(curve, ws, c),
-                       lambda: horner_work(ws, c), out[0].device)
+                       lambda: horner_work(ws, c, curve.base), out[0].device)
             return out
 
         def point(kernel, curve, coords):
@@ -3152,12 +3278,12 @@ class PathRecorder:
                        lambda: (cops.add_plain(curve, coords[:3], coords[3:]) if add
                                 else cops.double_plain(curve, coords)),
                        lambda: (4 * nl * n * (len(coords) + 3),
-                                n * (add_ops(nl) if add else dbl_ops(nl))),
+                                n * point_costs(curve.base)[0 if add else 1]),
                        out[0].device)
             return out
 
-        for (m, name), fn in zip(wrapped, (binary, product_sums, ntt, accumulate,
-                                           reduce, horner, point)):
+        for (m, name), fn in zip(wrapped, (binary, product_sums, exp, ntt,
+                                           accumulate, reduce, horner, point)):
             setattr(m, name, fn)
         return self
 
@@ -3189,13 +3315,14 @@ class PathRecorder:
         return out
 
 
-def reduce_work(starts, acc, nl: int = 8):
+def reduce_work(starts, acc, f):
     """Bytes and IMAD slots of msm_bucket_reduce's bounds (k4_work's
-    reduction) from the run starts and the accumulation's output."""
+    reduction) over base field f from the run starts and the
+    accumulation's output."""
     nonempty = int(((starts[:, 2:] - starts[:, 1:-1]) > 0).sum().item())
     out_bytes = 4 * sum(t.numel() for t in acc)
-    return (out_bytes + 4 * starts.numel() + 12 * nl * starts.shape[0],
-            add_ops(nl) * 2 * nonempty)
+    return (out_bytes + 4 * starts.numel() + 12 * f.limbs * starts.shape[0],
+            point_costs(f)[0] * 2 * nonempty)
 
 
 def hold_path(ck: Checker, rec: PathRecorder, path: str, levels) -> None:
@@ -3238,10 +3365,17 @@ def recursion_path_kernels() -> set:
     return {k for k in KERNELS if k not in OFF_PATH}
 
 
-def check_path_launches(launches: dict, what: str) -> None:
-    missing = sorted(k for k in recursion_path_kernels() if not launches[k])
+def check_path_launches(launches: dict, what: str, unused=()) -> None:
+    """Every kernel of the main path launched, none off it; the kernels
+    `unused` (of the main path, which this prove has no use for) not at
+    all."""
+    missing = sorted(k for k in recursion_path_kernels() - set(unused)
+                     if not launches[k])
     if missing:
         raise AssertionError(f"{what} launched no {missing}")
+    used = {k: launches[k] for k in unused if launches[k]}
+    if used:
+        raise AssertionError(f"{what} launched {used}, which it has no use for")
     off = {k: launches[k] for k in OFF_PATH if launches[k]}
     if off:
         raise AssertionError(f"{what} launched {off} off its path")
@@ -3440,11 +3574,11 @@ def phase_recursion(ck: Checker, torch) -> None:
                                  f"{out['proof_sha256']}, pinned {want}")
 
 
-def path_prove(torch, rec: PathRecorder, level: str, fn, what: str):
+def path_prove(torch, rec: PathRecorder, level: str, fn, what: str, unused=()):
     """fn() (a prove) with the launch counts reset just before it and
     read just after, its shapes recorded under `level`: (its result, its
-    seconds, its phases, its launches); every kernel of the main path
-    must have launched."""
+    seconds, its phases, its launches); every kernel of the main path but
+    `unused` must have launched, and those not (check_path_launches)."""
     from plonky_tpu_torch import _cuda
     from plonky_tpu_torch.utils.timing import record_phases
 
@@ -3457,15 +3591,16 @@ def path_prove(torch, rec: PathRecorder, level: str, fn, what: str):
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
-    check_path_launches(launches, what)
+    check_path_launches(launches, what, unused)
     return out, seconds, phases, launches
 
 
 def pasta_kernel_checks(ck: Checker, torch, np, dev) -> dict:
     """K1 and K3 on both Pasta base fields and K2 and K4 on both Pasta
     curves against their plain versions at ragged shapes: K1's add, sub
-    and mul at N = 9 2^14 + 1 (full and column operands) and a product sum
-    with negative terms and singles; the card's twiddle tables at 2^17
+    and mul at N = 9 2^14 + 1 (full and column operands), a product sum
+    with negative terms and singles, and field_exp at N = 1000 (exp_cases,
+    the edge values first); the card's twiddle tables at 2^17
     against the host; K3 at B = 3 and 5 (n = 2 and 2^10) in all four kinds
     and [1, 2^17] on a coset; K2's add and double at the 2^12 + 5 points of
     sweep_basis (P + P, P + (-P) and the identity among them); K4 (k4_sweep,
@@ -3494,6 +3629,9 @@ def pasta_kernel_checks(ck: Checker, torch, np, dev) -> dict:
         terms = [(col, a, 1), (b, c, -1), (a, None, 1), (c, None, -1)]
         ck.compare("field_product_sum", fops.product_sum(sf, terms),
                    fops.product_sum_plain(sf, terms))
+        for e in exp_cases(sf).values():
+            ck.compare("field_exp", fops.exp_const(sf, a[:, :1000], e),
+                       fops.exp_const_plain(sf, a[:, :1000], e))
 
         check_twiddle_tables(torch, sf, 17, dev)
         ntt_shapes = [(bt, lg, inv, cos) for bt, lg in ((3, 1), (5, 10))
@@ -3699,7 +3837,7 @@ def phase_plookup(ck: Checker, torch, np, name_power: str) -> None:
         FftPrecomputation.cache_clear()
         proof, out["prove_s"], phases, out["launches"] = path_prove(
             torch, rec, "plookup", lambda: plookup.prove(TWEEDLEDEE, f, t),
-            "the plookup prove")
+            "the plookup prove", unused=("field_exp",))   # no inverse on the card
         out["prove_phases_s"] = phases
         out["host_setup_s"] = {k: phases[f"plookup.{k}"] for k in
                                ("sort", "grand_product", "vanishing_consts")}

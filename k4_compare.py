@@ -39,7 +39,12 @@ synchronize), each result hashed as affine points; the Fq transforms at
 12 limbs of chip_smoke.py's `bls12_377_poly` path (FQ_TRANSFORMS: fft and
 ifft at [1, 2^22] and [9, 2^20], the coset pair at [1, 2^20],
 fft_four_step at 2^22; device ms of the whole call, however many launches
-it makes, L2 warm and flushed, and the sha256 of each output); then
+it makes, L2 warm and flushed, and the sha256 of each output); the
+probe's bucket accumulation (Tweedledee, 2^18 points, chip_smoke.MSM_PROBE:
+unsigned and signed windows, L2 warm and flushed, its buckets hashed);
+`fops.inverse` at EXP_SHAPES (one field_exp launch, or in a tree without
+it exp_const's chain of field_mul launches; device ms of the whole call,
+L2 warm and flushed, and the call back to back, host included) and the 12-limb field_mul at N = 1 and 2^16; then
 chip_smoke.py's pinned prove line.  Last, one line compares the trees: every hash must
 agree (the pinned proof's too), or the exit code is not 0.
 """
@@ -370,6 +375,87 @@ def _fq_rows(smoke, ck, np, torch, dev):
     return rows
 
 
+def _probe_rows(smoke, ck, np, torch, dev):
+    """The bucket accumulation of the probe's MSM (chip_smoke.phase_probe:
+    Tweedledee, 2^18 points of a doubling chain, K = 1) at each window of
+    chip_smoke.MSM_PROBE, signed and unsigned: device ms of a launch, L2
+    warm and flushed, and the sha256 of its buckets and carries (Montgomery
+    form, canonical: equal word for word between trees whose products
+    agree)."""
+    from plonky_tpu_torch.curves import TWEEDLEDEE as C
+    from plonky_tpu_torch.curves import msm as cmsm
+    flush = ck.flush.zero_
+    rng = np.random.default_rng(1818)
+    n = 1 << smoke.MSM_PROBE_LOG
+    _chain, chain_dev = smoke.doubling_chain(C, int(rng.integers(2, 1 << 62)), dev)
+    basis = cmsm.precompute_base(C, tuple(t.repeat(1, n // smoke.BLS_CHAIN)
+                                          for t in chain_dev))
+    scal, _limbs = smoke.bls_scalars(np, torch, rng, C.scalar, n, dev)
+    rows = []
+    for c, signed in smoke.MSM_PROBE:
+        digits, order, starts, signs, _w = cmsm.window_rows(C, scal, c, signed)
+
+        def acc(digits=digits, order=order, starts=starts, signs=signs):
+            return cmsm.bucket_accumulate(C, basis, digits, order, starts, signs)
+        rows.append({"name": "accumulate" + (" signed" if signed else ""),
+                     "shape": f"2^{smoke.MSM_PROBE_LOG} c={c}",
+                     "sha256": hashlib.sha256(torch.cat([t.reshape(-1) for t in acc()])
+                                              .cpu().numpy().tobytes()).hexdigest(),
+                     "ms": ck.queued_ms(acc, 10),
+                     "cold_ms": (ck.queued_ms(lambda acc=acc: (flush(), acc()), 10)
+                                 - ck.queued_ms(flush, 10))})
+    return rows
+
+
+# (field, N) of the exponentiations timed: the 8-limb inversions at N = 1,
+# a ragged N and the prove's 8n; the 12-limb one of to_affine's single
+# point, a ragged N and 2^16.
+EXP_SHAPES = (("TweedledumBase", 1), ("TweedledumBase", (1 << 14) + 3),
+              ("TweedledumBase", 1 << 17), ("Bls12377Base", 1),
+              ("Bls12377Base", (1 << 16) + 3), ("Bls12377Base", 1 << 16))
+
+
+def _exp_rows(smoke, ck, np, torch, dev):
+    """fops.inverse (x^(p - 2): one field_exp launch where the tree has
+    the kernel, else exp_const's chain of field_mul launches) at
+    EXP_SHAPES, and the 12-limb field_mul at N = 1 and 2^16: device ms of
+    the whole call (queued behind a sleep, L2 warm and flushed), the
+    inverse's call ms back to back (host included), and the sha256 of
+    its output."""
+    from plonky_tpu_torch.fields import BLS12_377_BASE, TWEEDLEDUM_BASE
+    from plonky_tpu_torch.fields import ops as fops
+    fields = {f.name: f for f in (TWEEDLEDUM_BASE, BLS12_377_BASE)}
+    flush = ck.flush.zero_
+    rng = np.random.default_rng(1616)
+    rows = []
+    for name, n in EXP_SHAPES:
+        spec = fields[name]
+        x = smoke.with_edges(fops, spec, smoke.rand_field(np, torch, rng, (n,), dev, spec))
+
+        def call(spec=spec, x=x):
+            return fops.inverse(spec, x)
+        # one call a timing: the parent's chain queues ~330-560 launches,
+        # and the launch queue takes ~1,000
+        rows.append({"name": "inverse", "shape": [spec.limbs, n],
+                     "sha256": hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest(),
+                     "ms": ck.queued_ms(call, 1),
+                     "cold_ms": (ck.queued_ms(lambda call=call: (flush(), call()), 1)
+                                 - ck.queued_ms(flush, 1)),
+                     "call_ms": ck.time_ms(call, 3)})
+    spec = BLS12_377_BASE
+    for n in (1, 1 << 16):
+        a, b = (smoke.rand_field(np, torch, rng, (n,), dev, spec) for _ in range(2))
+
+        def mul(a=a, b=b):
+            return fops.mul(spec, a, b)
+        rows.append({"name": "field_mul", "shape": [spec.limbs, n],
+                     "sha256": hashlib.sha256(mul().cpu().numpy().tobytes()).hexdigest(),
+                     "ms": ck.queued_ms(mul, 50),
+                     "cold_ms": (ck.queued_ms(lambda mul=mul: (flush(), mul()), 50)
+                                 - ck.queued_ms(flush, 50))})
+    return rows
+
+
 def run_tree(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
@@ -427,7 +513,9 @@ def run_tree(root: str) -> int:
                 "product_sum": _product_sum_rows(smoke, ck, np, torch, dev),
                 "k5": _k5_rows(smoke, ck, np, torch, dev),
                 "bls12_377": _bls_rows(smoke, ck, np, torch, dev),
-                "fq": _fq_rows(smoke, ck, np, torch, dev)})
+                "fq": _fq_rows(smoke, ck, np, torch, dev),
+                "probe": _probe_rows(smoke, ck, np, torch, dev),
+                "exp": _exp_rows(smoke, ck, np, torch, dev)})
     smoke.phase_prove(torch, want_sha256=smoke.PROOF_2E14_SHA256,
                       check_launches=False)
     return 0
@@ -456,6 +544,8 @@ def main(argv) -> int:
                 hashes[-1].update({("bls12_377", r["name"], str(r["rows"])): r["sha256"]
                                    for r in rec["bls12_377"]})
                 hashes[-1].update({("fq", r["shape"]): r["sha256"] for r in rec["fq"]})
+                hashes[-1].update({(r["name"], str(r["shape"])): r["sha256"]
+                                   for r in rec["probe"] + rec["exp"]})
     equal = len(hashes) == len(argv or [HERE]) and all(h == hashes[0] for h in hashes)
     print(json.dumps({"phase": "k4_compare_trees", "trees": len(hashes),
                       "hashes_equal": equal}), flush=True)

@@ -35,7 +35,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("field_kernels.cu", "curve_kernels.cu", "ntt_kernels.cu",
            "msm_kernels.cu", "rescue_kernels.cu")
 KERNELS = ("field_add", "field_sub", "field_mul", "field_product_sum",
-           "curve_add", "curve_double", "curve_horner", "ntt_pass",
+           "field_exp", "curve_add", "curve_double", "curve_horner", "ntt_pass",
            "ntt_twiddle_transpose", "msm_bucket_accumulate",
            "msm_bucket_accumulate_signed", "msm_bucket_reduce",
            "rescue_permutation")
@@ -82,6 +82,7 @@ _SIGNATURES = {
     "pt_field_sub": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
     "pt_field_mul": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
     "pt_field_product_sum": [_P, _P, _P, _P, _P, _I32, _I32, _I64, _P, _P],
+    "pt_field_exp": [_P, _P, _I64, _P, _P],
     "pt_curve_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "pt_curve_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "pt_curve_horner": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P],

@@ -25,10 +25,12 @@ static __constant__ MontCurveConsts c_curve;
 
 // Sets c_curve on `stream` ahead of a launch from the host buffer
 // [p, -p^-1 mod 2^32, b3 (L limbs), 2^(64 L) mod p (L limbs)]
-// (curves/ops.py:_consts_host); b3 must fit one limb.
+// (curves/ops.py:_consts_host); b3 must fit one limb, and at 8 limbs p
+// must have the sparse shape (field.cuh: mf_mul).
 static int curve_set_consts(const uint32_t* host, cudaStream_t stream) {
   MontCurveConsts c;
   c.f = field_consts_from(host);
+  if (PT_LIMBS == 8 && !sparse_shape(c.f)) return (int)cudaErrorInvalidValue;
   c.b3 = host[PT_FIELD_WORDS];
   for (int k = 1; k < PT_LIMBS; k++)
     if (host[PT_FIELD_WORDS + k] != 0) return (int)cudaErrorInvalidValue;
@@ -78,33 +80,24 @@ __device__ __forceinline__ void mpt_from_mont(Point& r, const MontCurveConsts& c
   mf_mul(r.z, r.z, one, cc.f);
 }
 
-// The point formulas' additions and subtractions: at 12 limbs on carry
-// chains (cc_add_mod, cc_sub_mod: branch-free, one PTX instruction a limb
-// and step, fewer instructions than fe_add / fe_sub's 64-bit adds, which
-// made the 12-limb accumulation faster on the H100), at 8 fe_add / fe_sub,
-// whose machine code the 8-limb kernels keep.
+// The point formulas' additions and subtractions, on carry chains
+// (cc_add_mod, cc_sub_mod: branch-free, one PTX instruction a limb and
+// step, fewer instructions than fe_add / fe_sub's 64-bit adds, which made
+// the accumulation faster on the H100 at both widths: PERF.md §6,
+// msm_sweep.py).
 __device__ __forceinline__ void pt_fadd(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                         const uint32_t b[PT_LIMBS], const FieldConsts& c) {
-#if PT_LIMBS == 12
   cc_add_mod(r, a, b, c);
-#else
-  fe_add(r, a, b, c);
-#endif
 }
 
 __device__ __forceinline__ void pt_fsub(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                         const uint32_t b[PT_LIMBS], const FieldConsts& c) {
-#if PT_LIMBS == 12
   cc_sub_mod(r, a, b, c);
-#else
-  fe_sub(r, a, b, c);
-#endif
 }
 
 // r = k a for a small constant k >= 1 (double and add over k's bits).
 __device__ __forceinline__ void pt_mul_small(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                              uint32_t k, const FieldConsts& c) {
-#if PT_LIMBS == 12
   uint32_t x[PT_LIMBS];
   fe_copy(x, a);
 #pragma unroll 1
@@ -113,9 +106,6 @@ __device__ __forceinline__ void pt_mul_small(uint32_t r[PT_LIMBS], const uint32_
     if ((k >> bit) & 1) cc_add_mod(x, x, a, c);
   }
   fe_copy(r, x);
-#else
-  mf_mul_small(r, a, k, c);
-#endif
 }
 
 // RCB15 Algorithm 7 (a = 0): one Montgomery product per multiply, the two
@@ -160,14 +150,15 @@ __device__ __forceinline__ void mpt_add(Point& r, const Point& p, const Point& q
   pt_fadd(r.z, v, t2, c);          // Z3 = z3p t4 + t0_3 t3
 }
 
-// RCB15 Algorithm 9 (a = 0), as mpt_add.  r may alias p.
+// RCB15 Algorithm 9 (a = 0), as mpt_add, its two squares on mf_sqr.  r
+// may alias p.
 __device__ __forceinline__ void mpt_double(Point& r, const Point& p,
                                            const MontCurveConsts& cc) {
   const FieldConsts& c = cc.f;
   uint32_t t0[PT_LIMBS], t1[PT_LIMBS], t2[PT_LIMBS], txy[PT_LIMBS];
-  mf_mul(t0, p.y, p.y, c);
+  mf_sqr(t0, p.y, c);
   mf_mul(t1, p.y, p.z, c);
-  mf_mul(t2, p.z, p.z, c);
+  mf_sqr(t2, p.z, c);
   mf_mul(txy, p.x, p.y, c);
   uint32_t z3p[PT_LIMBS], x3p[PT_LIMBS], u[PT_LIMBS];
   pt_fadd(z3p, t0, t0, c);

@@ -135,12 +135,15 @@ __device__ __forceinline__ void fe_sub(uint32_t r[PT_LIMBS], const uint32_t a[PT
 }
 
 // ---------------------------------------------------------------------------
-// Montgomery form (R = 2^(32 L)), used inside the point kernels only (K2,
-// K4; curve.cuh): an element x is held as x R mod p, canonical in [0, p).
-// Additions are the canonical ones.  At 8 limbs a product is one CIOS
+// Montgomery form (R = 2^(32 L)), used inside the point kernels (K2, K4;
+// curve.cuh) and K5: an element x is held as x R mod p, canonical in
+// [0, p).  Additions are the canonical ones.  The point kernels' product,
+// mf_mul, is the unrolled product and REDC of the carry-chain section (at
+// the end of this file): at 8 limbs with the sparse REDC rows, for
+// p = 2^254 + c only; at 12 with the dense ones.  K5's conversions in and
+// out of the form take mf_mul_any, any field: at 8 limbs one CIOS
 // Montgomery multiply (one L x L limb product interleaved with one REDC),
-// kept rolled; at 12 it is the unrolled product and REDC of the carry-chain
-// section (mf_mul at the end of this file).
+// kept rolled; at 12 the point kernels' mf_mul.
 // ---------------------------------------------------------------------------
 
 #if PT_LIMBS == 8
@@ -150,8 +153,8 @@ __device__ __forceinline__ void fe_sub(uint32_t r[PT_LIMBS], const uint32_t a[PT
 // limb per round, so every index stays static and a stays in registers):
 // ~70 instructions of machine code at 8 limbs instead of the ~600 an
 // unrolled product takes.
-__device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a_in[PT_LIMBS],
-                                       const uint32_t b[PT_LIMBS], const FieldConsts& c) {
+__device__ __forceinline__ void mf_mul_any(uint32_t r[PT_LIMBS], const uint32_t a_in[PT_LIMBS],
+                                           const uint32_t b[PT_LIMBS], const FieldConsts& c) {
   uint32_t a[PT_LIMBS], t[PT_LIMBS];
 #pragma unroll
   for (int k = 0; k < PT_LIMBS; k++) {
@@ -646,8 +649,8 @@ __device__ __forceinline__ void cc_sum_mod(uint32_t r[PT_LIMBS],
 // the sum below 2p is exact mod 2^(32 L).)
 //
 // The sparse rows (SPARSE, 8 limbs) are for p = 2^254 + c with c < 2^128 and
-// p = 1 mod 2^32 (the Tweedle base fields: limbs [1, c1, c2, c3, 0, 0, 0,
-// 2^30]; the host checks the shape, hashing/rescue.py:sparse_prime).
+// p = 1 mod 2^32 (the Tweedle and Pasta base fields: limbs [1, c1, c2, c3,
+// 0, 0, 0, 2^30]; the host checks the shape, fields/chain.py:sparse_prime).
 // Then limb I + m p_0 = limb I + m is 0 mod 2^32 with a carry unless limb I
 // is 0, and m p's other limbs are the three products m c1, m c2, m c3: a
 // row takes 3 limb products where the dense one takes 8.  The rows' m
@@ -833,15 +836,16 @@ __device__ __forceinline__ void cc_redc(uint32_t r[PT_LIMBS], uint32_t e[PT_PROD
   }
 }
 
-// The lazy products of an exponent chain (K5's S-boxes): no conditional
-// subtraction, r = a b / R (mod p) below (a b + (R - 1) p) / R, R =
-// 2^(32 L).  From inputs below p, a chain of n such products stays below
+// The lazy products of an exponent chain (K5's S-boxes, field_exp; with
+// one cc_csub after each, the point kernels' mf_mul and mf_sqr): no
+// conditional subtraction, r = a b / R (mod p) below (a b + (R - 1) p) / R,
+// R = 2^(32 L).  From inputs below p, a chain of n such products stays below
 // the bound B_n, B_0 = p, B_(k+1) = (B_k - 1)^2 / R + p; where B_n <= 2p
 // one cc_csub after the chain makes it canonical.  Both Tweedle base
 // fields (p = 2^254 (1 + 2^-132)) keep B_n below 2p for more than 10^5
 // products, and any p < R / 4 (every other 8-limb field of the port, and
 // BLS12-377's base field, p < 2^377 at R = 2^384) for every n; the host
-// checks a field's chains (hashing/rescue.py:lazy_chain_bound).
+// checks a field's chains (fields/chain.py:lazy_chain_bound).
 
 // r = a b / R (mod p), lazily (above).
 template <bool SPARSE>
@@ -863,29 +867,124 @@ __device__ __forceinline__ void cc_mont_sqr(uint32_t r[PT_LIMBS], const uint32_t
   cc_redc<SPARSE>(r, t, zero, c);
 }
 
-#if PT_LIMBS == 12
-// The point kernels' Montgomery product at 12 limbs (K2 and K4 over
-// BLS12-377's base field): r = a b / 2^384 mod p for a, b < p, canonical.
-// The rolled CIOS loop of the 8-limb build is one long chain of dependent
-// 64-bit steps (~140 a product, each an IMAD.WIDE and 64-bit adds on the
-// previous carry), which left the MSM's accumulate at 28% of its bound and
-// its reduce and Horner bound by that chain's latency.  Here the 144 limb
-// products run as pairs on two carry chains (even and odd limbs, one
-// IMAD.WIDE.U32.X each), then the 12 dense REDC rows, then one conditional
-// subtraction (cc_redc's result is below 2p): more code than the rolled
-// loop, far shorter chains of dependent steps.  r may alias a or b (both
-// are read into e and o first).
+// An exponent chain (K5's S-boxes, field_exp): the host's sliding-window
+// chain for x^e (fields/chain.py:sbox_schedule), one step a word: load
+// slot bits 0-4, multiply slot 5-9, store slot 10-14, squares 16-31 (a
+// field of PT_NO_SLOT names no slot).  A step is "s = slot[load], square
+// s `squares` times, s = s slot[mul], slot[store] = s", the same for every
+// thread, so the loop is uniform across the warp and has no per-bit select.
+// The table of odd powers x, x^3, ... and x^2 holds one column a thread,
+// limb k of slot j at tab[(j L + k) stride] (a block's threads side by
+// side: stride = its thread count).
+#define PT_NO_SLOT 31
+
+__device__ __forceinline__ void slot_load(uint32_t v[PT_LIMBS], const uint32_t* tab,
+                                          uint32_t slot, int stride) {
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS; k++) v[k] = tab[(slot * PT_LIMBS + k) * stride];
+}
+
+__device__ __forceinline__ void slot_store(uint32_t* tab, uint32_t slot,
+                                           const uint32_t v[PT_LIMBS], int stride) {
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS; k++) tab[(slot * PT_LIMBS + k) * stride] = v[k];
+}
+
+// s = s^e by the chain steps[0 .. n_steps - 1] (Montgomery form, canonical
+// in and out): one square site and one multiply site, both lazy (below 2p
+// while the host's lazy_chain_bound holds), and one conditional
+// subtraction at the end.
+template <bool SPARSE>
+__device__ __forceinline__ void exp_chain(uint32_t s[PT_LIMBS], const uint32_t* steps,
+                                          int n_steps, const FieldConsts& f, uint32_t* tab,
+                                          int stride) {
+#pragma unroll 1
+  for (int j = 0; j < n_steps; j++) {
+    const uint32_t step = steps[j];
+    const uint32_t load = step & 31, mul = (step >> 5) & 31, store = (step >> 10) & 31;
+    const uint32_t squares = step >> 16;
+    if (load != PT_NO_SLOT) slot_load(s, tab, load, stride);
+#pragma unroll 1
+    for (uint32_t q = 0; q < squares; q++) cc_mont_sqr<SPARSE>(s, s, f);
+    if (mul != PT_NO_SLOT) {
+      uint32_t y[PT_LIMBS];
+      slot_load(y, tab, mul, stride);
+      cc_mont_mul_sos<SPARSE>(s, s, y, f);
+    }
+    if (store != PT_NO_SLOT) slot_store(tab, store, s, stride);
+  }
+  cc_csub(s, f);
+}
+
+// Every step of a chain names table slots below `slots`, or none (host
+// code: the C entries check a chain before they launch it).
+static inline bool chain_steps_valid(const uint32_t* steps, uint32_t n_steps,
+                                     uint32_t slots) {
+  for (uint32_t j = 0; j < n_steps; j++)
+    for (int shift = 0; shift < 15; shift += 5) {
+      const uint32_t slot = (steps[j] >> shift) & 31;
+      if (slot != PT_NO_SLOT && slot >= slots) return false;
+    }
+  return true;
+}
+
+// p = 2^254 + c, c < 2^128, p = 1 mod 2^32 (32-bit limbs [1, c1, c2, c3, 0,
+// 0, 0, 2^30]): the shape of cc_redc's sparse rows (host code; no 12-limb
+// field has it).
+static inline bool sparse_shape(const FieldConsts& f) {
+#if PT_LIMBS == 8
+  return f.p[0] == 1u && f.p[4] == 0u && f.p[5] == 0u && f.p[6] == 0u &&
+         f.p[7] == (1u << 30) && f.pinv == 0xffffffffu;
+#else
+  (void)f;
+  return false;
+#endif
+}
+
+// The point kernels' Montgomery product (K2 and K4): r = a b / R mod p for
+// a, b < p, canonical.  The rolled CIOS loop (mf_mul_any at 8 limbs) is one
+// long chain of dependent 64-bit steps (~140 a product, each an IMAD.WIDE
+// and 64-bit adds on the previous carry), which left the MSM's accumulate
+// at 26-28% of its bound and its reduce and Horner bound by that chain's
+// latency.  Here the L^2 limb products run as pairs on two carry chains
+// (even and odd limbs, one IMAD.WIDE.U32.X each), then the L REDC rows,
+// then one conditional subtraction (cc_redc's result is below 2p): more
+// code than the rolled loop, far shorter chains of dependent steps.  At 8
+// limbs the rows are the sparse ones (3 limb products a row), so the 8-limb
+// point kernels take a curve whose base field is p = 2^254 + c, c < 2^128,
+// p = 1 mod 2^32 (every 8-limb curve of the port: the Tweedle and Pasta
+// base fields; curve_set_consts refuses another); at 12 (BLS12-377's base
+// field) the dense ones.  r may alias a or b (both are read into e and o
+// first).
 __device__ __forceinline__ void mf_mul(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                        const uint32_t b[PT_LIMBS], const FieldConsts& c) {
-  uint32_t e[PT_PRODUCT_LIMBS], o[PT_PRODUCT_LIMBS];
-  cc_product(e, o, a, b);
-  cc_redc<false>(r, e, o, c);
+  cc_mont_mul_sos<PT_LIMBS == 8>(r, a, b, c);
   cc_csub(r, c);
 }
-#endif  // PT_LIMBS == 12
+
+// r = a^2 / R mod p for a < p, canonical: at 8 limbs cc_square's 36 limb
+// products and the sparse rows; at 12 the product mf_mul, whose machine
+// code the 12-limb kernels keep.
+__device__ __forceinline__ void mf_sqr(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                       const FieldConsts& c) {
+#if PT_LIMBS == 8
+  cc_mont_sqr<true>(r, a, c);
+  cc_csub(r, c);
+#else
+  mf_mul(r, a, a, c);
+#endif
+}
+
+#if PT_LIMBS == 12
+// K5's conversions at 12 limbs: the point kernels' product (dense rows).
+__device__ __forceinline__ void mf_mul_any(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                           const uint32_t b[PT_LIMBS], const FieldConsts& c) {
+  mf_mul(r, a, b, c);
+}
+#endif
 
 // r = k a for a small constant k >= 1 (double and add over k's bits; the
-// multiply by b3 = 3b in the point formulas).
+// Horner's multiply by b3 = 3b, curve_kernels.cu).
 __device__ __forceinline__ void mf_mul_small(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
                                              uint32_t k, const FieldConsts& c) {
   uint32_t x[PT_LIMBS];

@@ -30,6 +30,21 @@
 // 264; a product sum's term adds 144 limb products to a 25-limb
 // accumulator).  The 12-limb product sum is bound by operations: a term
 // reads 96 B and needs 288 IMAD slots, about six times the bytes' time.
+//
+// field_exp (both widths) computes x^e for a host exponent e > 0 in one
+// launch, where fields/ops.py:exp_const ran one field_mul launch a square
+// or multiply (a Fermat inverse: ~300 launches at 8 limbs, ~560 at 12).
+// It replaces the same TPU kernels under plonky_tpu/fields/ops.py:exp_const
+// (a lax.scan of square-and-multiply steps through fused_composite).  One
+// thread an element: into Montgomery form by a product with R^2, the
+// host's sliding-window chain (fields/chain.py:exp_schedule, windows of 1
+// to 5 bits) through field.cuh's exp_chain, K5's runner, its table of odd
+// powers in dynamic shared memory, the products lazy (below 2p) with the
+// sparse REDC rows where p = 2^254 + c, then a product with 1 and one
+// conditional subtraction.  Bound by operations: the chain's ~250-380
+// squares and ~50-80 multiplies against 2 L words an element.
+#include <cstring>
+
 #include "field.cuh"
 
 PT_NAMESPACE_BEGIN
@@ -147,6 +162,49 @@ field_product_sum_kernel(int32_t* out, const __grid_constant__ PsTable tab, int6
   fe_store(out + (int64_t)sum * PT_LIMBS * n, n, i, r);
 }
 
+// field_exp's limits: steps of a chain, table slots an element (windows up
+// to 5 bits: x, x^3, ..., x^31 and x^2), threads a block (fewer, a
+// multiple of 32, for a batch below it: one warp for N = 1).
+#define EXP_MAX_STEPS 128
+#define EXP_MAX_SLOTS 17
+#define EXP_THREADS 128
+#define EXP_MAX_BLOCKS (1 << 20)
+
+// The words of fields/chain.py:exp_consts, in order.
+struct ExpConsts {
+  FieldConsts f;                  // p, -p^-1 mod 2^32
+  uint32_t r2[PT_LIMBS];          // R^2 mod p, R = 2^(32 L)
+  uint32_t sparse;                // 1: p = 2^254 + c (cc_redc's sparse rows)
+  uint32_t slots;                 // table slots an element
+  uint32_t n_steps;
+  uint32_t steps[EXP_MAX_STEPS];  // exp_chain's step words
+};
+static_assert(sizeof(ExpConsts) == 4 * (2 * PT_LIMBS + 4 + EXP_MAX_STEPS),
+              "ExpConsts must match the host buffer's word layout");
+
+// out = x^e for canonical x [L, n] (out may be x), a thread an element,
+// grid-stride; thread t's column of the table at exp_table + t.
+template <bool SPARSE>
+__global__ void __launch_bounds__(EXP_THREADS)
+field_exp_kernel(int32_t* out, const int32_t* x, int64_t n,
+                 const __grid_constant__ ExpConsts cs) {
+  extern __shared__ uint32_t exp_table[];
+  uint32_t* tab = exp_table + threadIdx.x;
+  const FieldConsts& f = cs.f;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    uint32_t s[PT_LIMBS], one[PT_LIMBS];
+    fe_load(s, x, n, i);
+    cc_mont_mul_sos<SPARSE>(s, s, cs.r2, f);   // x R, below 2p
+    cc_csub(s, f);
+    exp_chain<SPARSE>(s, cs.steps, (int)cs.n_steps, f, tab, (int)blockDim.x);
+    fe_set_small(one, 1);
+    cc_mont_mul_sos<SPARSE>(s, s, one, f);     // x^e, at most p
+    cc_csub(s, f);
+    fe_store(out, n, i, s);
+  }
+}
+
 template <int OP>
 static int launch_binary(void* out, const void* a, int a_bcast, const void* b,
                          int b_bcast, int64_t n, const void* consts, void* stream) {
@@ -206,6 +264,35 @@ int PT_ENTRY(pt_field_product_sum)(void* out, const void* a_ptrs, const void* b_
   dim3 grid((unsigned int)((n + per_block - 1) / per_block), (unsigned int)n_sums);
   field_product_sum_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
       (int32_t*)out, tab, n, splits, c);
+  return (int)cudaGetLastError();
+}
+
+// out = x^e over n elements, x and out [L, n]; consts: the host buffer
+// fields/chain.py:exp_consts (its sparse word picks the instance).
+int PT_ENTRY(pt_field_exp)(void* out, const void* x, int64_t n, const void* consts,
+                           void* stream) {
+  ExpConsts cs;
+  memcpy(&cs, consts, sizeof(cs));
+  if (n < 1 || cs.slots < 1 || cs.slots > EXP_MAX_SLOTS || cs.n_steps < 1 ||
+      cs.n_steps > EXP_MAX_STEPS || !chain_steps_valid(cs.steps, cs.n_steps, cs.slots) ||
+      (cs.sparse && !sparse_shape(cs.f)))
+    return (int)cudaErrorInvalidValue;
+#if PT_LIMBS == 8
+  auto kernel = cs.sparse ? field_exp_kernel<true> : field_exp_kernel<false>;
+#else
+  auto kernel = field_exp_kernel<false>;
+#endif
+  const int64_t threads = n >= EXP_THREADS ? EXP_THREADS : (n + 31) / 32 * 32;
+  int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > EXP_MAX_BLOCKS) blocks = EXP_MAX_BLOCKS;
+  const size_t smem = (size_t)threads * cs.slots * PT_LIMBS * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned int)blocks, (unsigned int)threads, smem, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)x, n, cs);
   return (int)cudaGetLastError();
 }
 

@@ -35,27 +35,35 @@
 // double buffer in shared memory while the previous add runs.
 //
 // Built twice (_cuda.py): at 8 limbs, and at 12 (-DPT_LIMBS=12, BLS12-377
-// G1; entries pt_msm_bucket_accumulate_l12, ...), where mf_mul is the
-// unrolled carry-chain product (field.cuh), the formulas' additions run on
-// carry chains (curve.cuh:pt_fadd) and the accumulation inlines one add,
-// its trees taking the out-of-line one (mpt_add_call).  A thread of the
-// accumulation holds four points in static shared memory (two staged, its
-// cont and head pieces): 128 x 4 x 96 bytes = 48 KB at 8 limbs, the static
-// limit, so the 12-limb build's points of 144 bytes take 64 chunks a block
-// (36 KB; curves/msm.py:tile_for).  There a thread holds ~250 registers,
-// so an SM runs 4 blocks: 8 warps, whose chains of dependent products
-// leave the multiply pipe idle about half the time (~51% of the
-// operations bound on the H100).  Capping the registers for 5-8 blocks
-// spills and is slower, as are a CIOS product and an out-of-line add in
-// the loop.
+// G1; entries pt_msm_bucket_accumulate_l12, ...).  At both widths mf_mul
+// is the unrolled carry-chain product (field.cuh; its sparse REDC rows at
+// 8 limbs) and the formulas' additions run on carry chains
+// (curve.cuh:pt_fadd).  A thread of the accumulation holds four points in
+// static shared memory (two staged, its cont and head pieces): 128 x 4 x
+// 96 bytes = 48 KB at 8 limbs, the static limit, so an SM runs at most 4
+// blocks.  There the loop and the trees each inline an add: 200 registers
+// and no spill, 2 blocks an SM (MSM_MIN_BLOCKS); capping the registers for
+// 3 or 4 blocks spills, and the trees' out-of-line add (mpt_add_call)
+// moves its points through the stack, both slower on the H100 (PERF.md
+// §6, msm_sweep.py).  The 12-limb build's points of 144 bytes take 64
+// chunks a block (36 KB; curves/msm.py:tile_for), and its accumulation
+// inlines one add, in its loop, its trees taking the out-of-line one.
+// There a thread holds ~250 registers, so an SM runs 4 blocks: 8 warps,
+// whose chains of dependent products leave the multiply pipe idle about
+// half the time (~51% of the operations bound on the H100).  Capping the
+// registers for 5-8 blocks spills and is slower, as are a CIOS product and
+// an out-of-line add in the loop.
 #include "curve.cuh"
 
 PT_NAMESPACE_BEGIN
 
 #if PT_LIMBS == 8
 #define MSM_TILE 128        // chunks, one per thread, in an accumulate block
+#define MSM_MIN_BLOCKS 2    // accumulate blocks an SM (caps registers at 255)
+#define MSM_ACC_BOUNDS __launch_bounds__(MSM_TILE, MSM_MIN_BLOCKS)
 #else
 #define MSM_TILE 64         // the same at 12 limbs (see above)
+#define MSM_ACC_BOUNDS __launch_bounds__(MSM_TILE)
 #endif
 #define MSM_WORDS (3 * PT_LIMBS)   // a point: X, Y, Z, L limbs each
 #define MSM_WARP 32         // reduce: the fewest lanes a row
@@ -266,7 +274,7 @@ __device__ __forceinline__ void msm_bucket_accumulate_body(
 }
 
 #if PT_BUILDS(1)
-__global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
+__global__ void MSM_ACC_BOUNDS msm_bucket_accumulate_kernel(
     uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
     const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
     int64_t ntiles) {
@@ -276,7 +284,7 @@ __global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_kernel(
 #endif
 
 #if PT_BUILDS(2)
-__global__ void __launch_bounds__(MSM_TILE) msm_bucket_accumulate_signed_kernel(
+__global__ void MSM_ACC_BOUNDS msm_bucket_accumulate_signed_kernel(
     uint32_t* buckets, uint32_t* carries, const uint32_t* basis, const int32_t* digits,
     const int32_t* order, const int32_t* starts, int64_t n, int64_t nb, int64_t chunk,
     int64_t ntiles) {

@@ -21,7 +21,8 @@
 // holding state element r in Montgomery form (x 2^256 mod p, canonical
 // between S-boxes), 256 threads a block (RESCUE_THREADS).
 // - Each S-box runs the exponent chain that the host built
-//   (hashing/rescue.py:sbox_schedule): a list of steps, each "load a table
+//   (fields/chain.py:sbox_schedule) through field.cuh's exp_chain, which
+//   field_exp shares: a list of steps, each "load a table
 //   slot, square k times, multiply by a table slot, store to a slot", the
 //   same for every thread, so the loop is uniform across the warp and has
 //   no per-bit select.  The chain is a sliding window of up to 3 bits
@@ -71,6 +72,7 @@ PT_NAMESPACE_BEGIN
 #define RESCUE_MAX_STEPS 128     // steps of one S-box's chain
 #define RESCUE_MAX_SLOTS 5       // table slots an element: windows up to 3 bits
 #define RESCUE_NO_SLOT 31        // a step field that names no slot
+static_assert(RESCUE_NO_SLOT == PT_NO_SLOT, "the chains' steps are field.cuh's");
 #define RESCUE_THREADS 256
 #define RESCUE_LANES 4           // threads a permutation, one element each
 // A block's table of odd powers: 40 KB at 8 limbs, within the default
@@ -106,46 +108,14 @@ static_assert(offsetof(RescueConsts, rounds) == 4 * RESCUE_ROUNDS_WORD,
 static_assert(sizeof(RescueConsts) <= 32764,
               "RescueConsts must fit the kernel parameter space (CUDA 12.1+)");
 
-// Slot `slot` of the table: limb k of this thread's column.
-__device__ __forceinline__ void slot_load(uint32_t v[PT_LIMBS], const uint32_t* tab,
-                                          uint32_t slot) {
-#pragma unroll
-  for (int k = 0; k < PT_LIMBS; k++) v[k] = tab[(slot * PT_LIMBS + k) * RESCUE_THREADS];
-}
-
-__device__ __forceinline__ void slot_store(uint32_t* tab, uint32_t slot,
-                                           const uint32_t v[PT_LIMBS]) {
-#pragma unroll
-  for (int k = 0; k < PT_LIMBS; k++) tab[(slot * PT_LIMBS + k) * RESCUE_THREADS] = v[k];
-}
-
 // s = s^e for the S-box `half` (Montgomery form, canonical in and out):
-// the host's chain, one step a word (load slot bits 0-4, multiply slot
-// 5-9, store slot 10-14, squares 16-31), through one square site and one
-// multiply site, both lazy (below 2p, field.cuh), and one conditional
-// subtraction at the end.  tab is this thread's column of the block's
-// table.
+// the host's chain through field.cuh's exp_chain, on this thread's column
+// tab of the block's table.
 template <bool SPARSE>
 __device__ __forceinline__ void rescue_sbox(uint32_t s[PT_LIMBS], int half,
                                             const RescueConsts& cs, uint32_t* tab) {
-  const FieldConsts& f = cs.f;
-  const int n_steps = (int)cs.n_steps[half];
-#pragma unroll 1
-  for (int j = 0; j < n_steps; j++) {
-    const uint32_t step = cs.steps[half][j];
-    const uint32_t load = step & 31, mul = (step >> 5) & 31, store = (step >> 10) & 31;
-    const uint32_t squares = step >> 16;
-    if (load != RESCUE_NO_SLOT) slot_load(s, tab, load);
-#pragma unroll 1
-    for (uint32_t q = 0; q < squares; q++) cc_mont_sqr<SPARSE>(s, s, f);
-    if (mul != RESCUE_NO_SLOT) {
-      uint32_t y[PT_LIMBS];
-      slot_load(y, tab, mul);
-      cc_mont_mul_sos<SPARSE>(s, s, y, f);
-    }
-    if (store != RESCUE_NO_SLOT) slot_store(tab, store, s);
-  }
-  cc_csub(s, f);
+  exp_chain<SPARSE>(s, cs.steps[half], (int)cs.n_steps[half], cs.f, tab,
+                    RESCUE_THREADS);
 }
 
 // y = sum_c M[r][c] x_c + rc[round][half][r] for canonical x_c: the four
@@ -203,7 +173,7 @@ rescue_permutation_kernel(int32_t* out, const int32_t* state, int64_t n,
   uint32_t s[PT_LIMBS];
   if (valid) fe_load(s, state + (int64_t)r * PT_LIMBS * n, n, i);
   else fe_set_small(s, 0);
-  mf_mul(s, s, cs.r2, f);                  // into Montgomery form
+  mf_mul_any(s, s, cs.r2, f);              // into Montgomery form
   const int rounds = (int)cs.rounds;
 #pragma unroll 1
   for (int round = 0; round < rounds; round++) {
@@ -215,29 +185,17 @@ rescue_permutation_kernel(int32_t* out, const int32_t* state, int64_t n,
   }
   uint32_t one[PT_LIMBS];
   fe_set_small(one, 1);
-  mf_mul(s, s, one, f);                    // back to canonical
+  mf_mul_any(s, s, one, f);                // back to canonical
   if (valid) fe_store(out + (int64_t)r * PT_LIMBS * n, n, i, s);
-}
-
-// p = 2^254 + c, c < 2^128, p = 1 mod 2^32: the sparse REDC's shape.
-static bool rescue_sparse_shape(const FieldConsts& f) {
-  return f.p[0] == 1u && f.p[4] == 0u && f.p[5] == 0u && f.p[6] == 0u &&
-         f.p[7] == (1u << 30) && f.pinv == 0xffffffffu;
 }
 
 // Every step of both chains names slots of the table, or none.
 static bool rescue_steps_valid(const RescueConsts& cs) {
   if (cs.slots < 1 || cs.slots > RESCUE_MAX_SLOTS) return false;
-  for (int half = 0; half < 2; half++) {
-    if (cs.n_steps[half] > RESCUE_MAX_STEPS) return false;
-    for (uint32_t j = 0; j < cs.n_steps[half]; j++) {
-      const uint32_t step = cs.steps[half][j];
-      for (int shift = 0; shift < 15; shift += 5) {
-        const uint32_t slot = (step >> shift) & 31;
-        if (slot != RESCUE_NO_SLOT && slot >= cs.slots) return false;
-      }
-    }
-  }
+  for (int half = 0; half < 2; half++)
+    if (cs.n_steps[half] > RESCUE_MAX_STEPS ||
+        !chain_steps_valid(cs.steps[half], cs.n_steps[half], cs.slots))
+      return false;
   return true;
 }
 
@@ -257,7 +215,7 @@ int PT_ENTRY(pt_rescue_permutation)(void* out, const void* state, int64_t n,
     return (int)cudaErrorInvalidValue;
   RescueConsts cs = {};
   memcpy(&cs, consts, 4 * (size_t)n_words);
-  if (!rescue_steps_valid(cs) || (cs.sparse && !rescue_sparse_shape(cs.f)))
+  if (!rescue_steps_valid(cs) || (cs.sparse && !sparse_shape(cs.f)))
     return (int)cudaErrorInvalidValue;
 #if PT_LIMBS == 8
   auto kernel = cs.sparse ? rescue_permutation_kernel<true> : rescue_permutation_kernel<false>;

@@ -137,7 +137,10 @@ class MsmBasis:
 
 def precompute_base(curve: CurveSpec, points: cops.Point) -> MsmBasis:
     """Contiguous [L, N] copies of a point batch and their point-major
-    Montgomery copy as an MsmBasis."""
+    Montgomery copy as an MsmBasis.  Refuses an 8-limb curve whose base
+    field lacks the sparse shape of the kernels' product
+    (ops.require_sparse_base)."""
+    cops.require_sparse_base(curve, "precompute_base")
     x, y, z = (t.reshape(curve.base.limbs, -1).contiguous() for t in points)
     assert x.shape == y.shape == z.shape
     return MsmBasis(curve, x, y, z, pack_points(curve, (x, y, z)))

@@ -26,6 +26,7 @@ import torch
 from .. import _cuda
 from ..device import resolve
 from ..fields import ops as fops
+from ..fields.chain import sparse_prime
 from ..fields.spec import LIMB_BITS, int_to_limbs
 from .spec import CurveSpec
 
@@ -53,12 +54,28 @@ def from_affine(curve: CurveSpec, x: torch.Tensor, y: torch.Tensor,
             fops.select(keep, one, zero))
 
 
+def require_sparse_base(curve: CurveSpec, what: str) -> None:
+    """Raise for an 8-limb curve whose base field is not p = 2^254 + c,
+    c < 2^128, p = 1 mod 2^32 (fields/chain.py:sparse_prime): the 8-limb
+    point kernels' product reduces with that shape's sparse rows
+    (csrc/field.cuh: mf_mul).  Every 8-limb curve of the port has it (the
+    Tweedle and Pasta curves); BLS12-377 G1 takes the 12-limb build."""
+    f = curve.base
+    if f.limbs == 8 and not sparse_prime(f):
+        raise ValueError(
+            f"{what}: {curve.name}'s base field {f.name} is not 2^254 + c "
+            "with c < 2^128 and p = 1 mod 2^32, the shape the 8-limb point "
+            "kernels reduce by")
+
+
 @functools.lru_cache(maxsize=None)
 def _consts_host(curve: CurveSpec) -> np.ndarray:
     """The point kernels' constant buffer (csrc/curve.cuh:curve_set_consts):
     the field constants (FieldSpec.kernel_consts), b3 = 3b mod p, and
     R^2 mod p with R = 2^(32 L), the factor into Montgomery form (all at
-    the base field's L limbs)."""
+    the base field's L limbs).  Refuses an 8-limb curve whose base field
+    lacks the sparse shape (require_sparse_base)."""
+    require_sparse_base(curve, "the point kernels' constants")
     f = curve.base
     return np.concatenate([f.kernel_consts,
                            int_to_limbs(3 * curve.b % f.p, f.limbs),

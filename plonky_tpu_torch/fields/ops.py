@@ -8,9 +8,10 @@ with a zero batch stride by the kernels.
 K1, the field kernel (csrc/field_kernels.cu), computes `add`, `sub`, `mul`
 and `product_sum` / `product_sums` on CUDA tensors (`mul`: one Barrett
 reduction per product, on PTX carry chains; `product_sums`: several sums
-over one batch in one launch, each reduced once).  Each has a build for
-each width (the 12-limb launches count as `field_add_l12`, ...,
-`field_product_sum_l12`).  Beside each sits its plain PyTorch
+over one batch in one launch, each reduced once), and `exp_const` (and so
+`inverse` and `kth_root`) as one `field_exp` launch that runs the whole
+exponent chain.  Each has a build for each width (the 12-limb launches
+count as `field_add_l12`, ..., `field_exp_l12`).  Beside each sits its plain PyTorch
 version (`add_plain`, ...), which computes the same canonical result with
 16-bit digits in int64 so that every partial product stays exact: the CPU
 runs it, and the chip check compares the kernel with it.  A wrapper takes
@@ -27,6 +28,7 @@ import torch
 
 from .. import _cuda
 from ..device import resolve
+from .chain import exp_consts
 from .host import kth_root_exponent
 from .spec import LIMB_BITS, MAX_TERMS, FieldSpec, int_to_limbs
 
@@ -493,18 +495,42 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.where(mask.to(torch.bool)[None], a, b)
 
 
+def exp_const_plain(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
+    """field_exp's plain version: x^e for e > 0, left-to-right square and
+    multiply over the plain products (reference semantics:
+    src/field/field.rs:309-331 `exp`)."""
+    acc = x
+    for bit in bin(e)[3:]:
+        acc = mul_plain(spec, acc, acc)
+        if bit == "1":
+            acc = mul_plain(spec, acc, x)
+    return acc
+
+
+def _launch_exp(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
+    """One launch of field_exp (at the field's width): x^e for e > 0 over
+    the whole batch of x, the chain of fields/chain.py:exp_consts."""
+    name, entry = _cuda.kernel("field_exp", spec.limbs)
+    xin = x.reshape(spec.limbs, -1).contiguous()
+    _cuda.check(name, xin, spec.limbs)
+    out = torch.empty_like(xin)
+    n = xin.shape[1]
+    if n:
+        consts = exp_consts(spec, e)
+        _cuda.launch(name, entry, (out, xin), out.data_ptr(), xin.data_ptr(), n,
+                     consts.ctypes.data)
+    return out.reshape(x.shape)
+
+
 def exp_const(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
-    """x^e for a python-int exponent, left-to-right square and multiply
-    (reference semantics: src/field/field.rs:309-331 `exp`)."""
+    """x^e for a python-int exponent: 1 for e = 0 (made on the host); else
+    one field_exp launch on a CUDA tensor, exp_const_plain on a CPU one."""
     assert e >= 0
     if e == 0:
         return constant(spec, 1, x.shape[1:], x.device).contiguous()
-    acc = x
-    for bit in bin(e)[3:]:
-        acc = square(spec, acc)
-        if bit == "1":
-            acc = mul(spec, acc, x)
-    return acc
+    if not _dispatch(x):
+        return exp_const_plain(spec, x, e)
+    return _launch_exp(spec, x, e)
 
 
 def exp_dyn(spec: FieldSpec, x: torch.Tensor, e_bits: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,9 @@ import torch
 from .. import _cuda
 from ..fields import host
 from ..fields import ops as fops
+from ..fields.chain import (NO_SLOT, SBOX_MAX_WINDOW, lazy_chain_bound,  # noqa: F401
+                            sbox_schedule, schedule_counts, schedule_slots,
+                            sparse_prime, step_word)
 from ..fields.spec import LIMB_BITS, FieldSpec, int_to_limbs
 from .chacha import ChaCha8Rng
 
@@ -33,17 +36,13 @@ RESCUE_SPONGE_WIDTH = 4
 RESCUE_SPONGE_RATE = 3
 # Rounds K5 takes (csrc/rescue_kernels.cu, RESCUE_MAX_ROUNDS): 512 bits.
 KERNEL_MAX_ROUNDS = 64
-# K5's exponent chains (sbox_schedule, csrc/rescue_kernels.cu): the widest
-# window the kernel's chains take, steps an S-box (RESCUE_MAX_STEPS), table
-# slots an element (RESCUE_MAX_SLOTS: x, x^3, x^5, x^7 and x^2), and the
-# field of a step that names no slot (RESCUE_NO_SLOT).
+# K5's exponent chains (fields/chain.py:sbox_schedule,
+# csrc/rescue_kernels.cu): the widest window the kernel's chains take,
+# steps an S-box (RESCUE_MAX_STEPS) and table slots an element
+# (RESCUE_MAX_SLOTS: x, x^3, x^5, x^7 and x^2).
 KERNEL_WINDOW = 3
 KERNEL_MAX_STEPS = 128
 KERNEL_MAX_SLOTS = 1 + (1 << (KERNEL_WINDOW - 1))
-NO_SLOT = 31
-# The widest window sbox_schedule builds: a w-bit window's table takes
-# slots 0 .. 2^(w-1), which must stay below NO_SLOT.
-SBOX_MAX_WINDOW = 5
 
 
 def recommended_rounds(width: int, security_bits: int) -> int:
@@ -170,67 +169,6 @@ def rescue_permutation_plain(spec: FieldSpec, state, security_bits: int):
     return list(s.unbind(1))
 
 
-def sbox_schedule(e: int, w: int) -> tuple:
-    """x^e by a left-to-right sliding window of up to w bits, as K5 runs it:
-    a tuple of steps (load, squares, mul, store), each applied to the
-    running value s as: s = slot[load], then `squares` squares, then
-    s = s slot[mul], then slot[store] = s (NO_SLOT: the part is skipped).
-    s starts as x.  The table: slot 0 is x and, for w > 1, slots 1 ..
-    n - 1 (n = 2^(w-1)) x^3, x^5, ..., x^(2n - 1), built by one square
-    (x^2, kept in slot n) and n - 1 multiplies.  Then the first window is
-    loaded from the table, and every later bit costs a square and every
-    later window a multiply.  w is at most SBOX_MAX_WINDOW: a wider
-    window's table would name the slot NO_SLOT."""
-    if not 1 <= w <= SBOX_MAX_WINDOW:
-        raise ValueError(f"sbox_schedule: a {w}-bit window; windows of 1 "
-                         f"to {SBOX_MAX_WINDOW} bits keep every table slot "
-                         f"below NO_SLOT = {NO_SLOT}")
-    bits = bin(e)[2:]
-    n = 1 << (w - 1)
-    steps = [(NO_SLOT, 0, NO_SLOT, 0)]
-    if n > 1:
-        steps += [(NO_SLOT, 1, NO_SLOT, n), (NO_SLOT, 0, 0, 1)]
-        steps += [(NO_SLOT, 0, n, j) for j in range(2, n)]
-    load, squares, i = None, 0, 0
-    while i < len(bits):
-        if bits[i] == "0":
-            squares, i = squares + 1, i + 1
-            continue
-        j = min(i + w, len(bits))
-        while bits[j - 1] == "0":
-            j -= 1
-        slot = int(bits[i:j], 2) >> 1
-        if load is None:
-            load = slot
-        else:
-            steps.append((load, squares + j - i, slot, NO_SLOT))
-            load, squares = NO_SLOT, 0
-        i = j
-    if load != NO_SLOT or squares:
-        steps.append((load, squares, NO_SLOT, NO_SLOT))
-    return tuple(steps)
-
-
-def schedule_counts(steps) -> tuple:
-    """(squares, multiplies) of a chain of sbox_schedule's steps."""
-    return (sum(sq for _l, sq, _m, _s in steps),
-            sum(m != NO_SLOT for _l, _sq, m, _s in steps))
-
-
-def schedule_slots(steps) -> int:
-    """Table slots a chain uses (1 + the highest slot it names)."""
-    return 1 + max(v for step in steps for v in (step[0], step[2], step[3])
-                   if v != NO_SLOT)
-
-
-def step_word(step) -> int:
-    """One step as the kernel reads it: load slot in bits 0-4, multiply
-    slot 5-9, store slot 10-14, squares 16-31."""
-    load, squares, m, store = step
-    assert all(0 <= v <= NO_SLOT for v in (load, m, store)) and squares < 1 << 16
-    return load | m << 5 | store << 10 | squares << 16
-
-
 def kernel_schedule(e: int) -> tuple:
     """The chain K5 runs for x^e: sbox_schedule's with the fewest squares
     and multiplies over windows of 1 to KERNEL_WINDOW bits (the smaller
@@ -238,28 +176,6 @@ def kernel_schedule(e: int) -> tuple:
     x^5."""
     return min((sbox_schedule(e, w) for w in range(1, KERNEL_WINDOW + 1)),
                key=lambda steps: sum(schedule_counts(steps)))
-
-
-def lazy_chain_bound(p: int, n: int, limbs: int = 8) -> int:
-    """A strict bound on the values of a chain of n lazy Montgomery products
-    (csrc/field.cuh: cc_mont_sqr, cc_mont_mul_sos, no conditional
-    subtraction; R = 2^(32 limbs)) from inputs below p: B_0 = p, B_(k+1) =
-    floor(((B_k - 1)^2 + (R - 1) p) / R) + 1.  K5 makes a chain canonical
-    with one subtraction, so it needs B_n <= 2p."""
-    r = 1 << (LIMB_BITS * limbs)
-    b = p
-    for _ in range(n):
-        b = ((b - 1) ** 2 + (r - 1) * p) // r + 1
-    return b
-
-
-def sparse_prime(spec: FieldSpec) -> bool:
-    """p = 2^254 + c with c < 2^128 and p = 1 mod 2^32 (32-bit limbs [1,
-    c1, c2, c3, 0, 0, 0, 2^30]): the shape whose REDC K5 runs with 3 limb
-    products a row (csrc/field.cuh, cc_redc's SPARSE rows).  Both Tweedle
-    base fields have it."""
-    c = spec.p - (1 << 254)
-    return 0 <= c < 1 << 128 and spec.p % (1 << LIMB_BITS) == 1
 
 
 @functools.lru_cache(maxsize=None)

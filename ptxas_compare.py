@@ -61,16 +61,16 @@ def ptxas_lines(tree: str) -> dict:
     return out
 
 
-def sass(tree: str, obj: str) -> dict:
-    """function -> (sha256, instructions) of its SASS listing in an object
-    (cuobjdump -sass), the headers left out and internal names' hashes
-    dropped, and "*" -> the same over the whole object; {} where the tree
-    has no such object."""
+def sass(tree: str, obj: str) -> tuple:
+    """(function -> (sha256, instructions), function -> lines) of its SASS
+    listing in an object (cuobjdump -sass), the headers left out, internal
+    names' hashes dropped and runs of spaces collapsed, and "*" -> the same
+    over the whole object; ({}, {}) where the tree has no such object."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     path = os.path.join(tree, "plonky_tpu_torch", "_build", obj + ".o")
     if not os.path.exists(path):     # the log's link section
-        return {}
+        return {}, {}
     text = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
     bodies, fn = {}, None
@@ -82,13 +82,23 @@ def sass(tree: str, obj: str) -> dict:
         elif fn and ln.strip() and not re.search(r"\.headerflags|code for sm|Fatbin|"
                                                  r"arch =|code version|host =|"
                                                  r"compile_size|identifier", ln):
-            bodies[fn].append(INTERNAL.sub("_INTERNAL_", ln))
+            # runs of spaces collapsed: cuobjdump pads the instruction
+            # column to the object's longest instruction
+            bodies[fn].append(" ".join(INTERNAL.sub("_INTERNAL_", ln).split()))
     bodies["*"] = [ln for f in sorted(bodies) for ln in [f] + bodies[f]]
 
     def digest(body):
-        count = sum(1 for ln in body if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln))
+        count = sum(1 for ln in body if re.match(r"/\*[0-9a-f]{4,}\*/", ln))
         return hashlib.sha256("\n".join(body).encode()).hexdigest()[:16], count
-    return {f: digest(b) for f, b in bodies.items()}
+    return {f: digest(b) for f, b in bodies.items()}, bodies
+
+
+def first_diff(old: list, new: list) -> list:
+    """The first line pair at which two SASS listings differ."""
+    for k, (a, b) in enumerate(zip(old, new)):
+        if a != b:
+            return [k, a.strip(), b.strip()]
+    return [min(len(old), len(new)), "(end)", "(end)"]
 
 
 def main() -> int:
@@ -104,9 +114,10 @@ def main() -> int:
         now = new.get(obj, {})
         differ = {e: {"old": lines, "new": now.get(e)}
                   for e, lines in entries.items() if now.get(e) != lines}
-        sass_old, sass_new = sass(old_tree, obj), sass(new_tree, obj)
-        sass_differ = {f: {"old": d, "new": sass_new.get(f)} for f, d in sass_old.items()
-                       if f != "*" and sass_new.get(f) != d}
+        (sass_old, body_old), (sass_new, body_new) = sass(old_tree, obj), sass(new_tree, obj)
+        sass_differ = {f: {"old": d, "new": sass_new.get(f), **({} if exempt(f) else {
+            "first_diff": first_diff(body_old[f], body_new.get(f, []))})}
+            for f, d in sass_old.items() if f != "*" and sass_new.get(f) != d}
         same &= not any(not exempt(f) for f in list(differ) + list(sass_differ))
         rec = {"object": obj, "equal": not differ, "sass_equal": not sass_differ,
                "sass_old": sass_old.get("*"), "sass_new": sass_new.get("*"),

@@ -13,6 +13,7 @@ from fractions import Fraction
 
 import numpy as np
 import pytest
+import torch
 
 try:   # the property tests need hypothesis; the seeded sweeps do not
     from hypothesis import given, settings
@@ -21,7 +22,8 @@ except ImportError:
     given = None
 
 from plonky_tpu_torch.fields import (BLS12_377_BASE, BLS12_377_SCALAR,
-                                     TWEEDLEDEE_BASE, TWEEDLEDUM_BASE)
+                                     PALLAS_BASE, TWEEDLEDEE_BASE,
+                                     TWEEDLEDUM_BASE, VESTA_BASE)
 from plonky_tpu_torch.fields.spec import BARRETT_RANGE, FieldSpec
 
 SPECS = [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE, BLS12_377_BASE, BLS12_377_SCALAR]
@@ -416,7 +418,7 @@ def _mont_inputs(p: int, rng, n: int):
 def test_mont_sqr_model_matches_python(spec):
     """cc_mont_sqr = cc_square + cc_redc, lazy: a^2 2^-256 (mod p), below
     2p, at 0, 1, p - 1, the other edges and random values below 2p, by the
-    field's REDC (sparse where hashing/rescue.py:sparse_prime); one
+    field's REDC (sparse where fields/chain.py:sparse_prime); one
     conditional subtraction makes it canonical."""
     from plonky_tpu_torch.hashing.rescue import sparse_prime
     p = spec.p
@@ -431,7 +433,7 @@ def test_mont_sqr_model_matches_python(spec):
 
 @pytest.mark.parametrize("spec", RESCUE_SPECS, ids=lambda s: s.name)
 def test_lazy_chains_stay_below_2p(spec):
-    """hashing/rescue.py:lazy_chain_bound is the REDC's own bound applied
+    """fields/chain.py:lazy_chain_bound is the REDC's own bound applied
     step by step (r <= (T + (2^256 - 1) p) / 2^256, T below the square of
     the last bound), it stays at most 2p over 10^4 products on every
     field K5 runs (its chains take ~320) and over K5's chains, which
@@ -543,6 +545,66 @@ def test_mont_product_at_12_limbs():
         assert m["r"] < 2 * p and m["products"] == [nl] * nl
         r = m["r"] - p if m["r"] >= p else m["r"]
         assert r == a * b * r_inv % p
+
+
+POINT_SPECS = [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE, PALLAS_BASE, VESTA_BASE]
+
+
+@pytest.mark.parametrize("spec", POINT_SPECS, ids=lambda s: s.name)
+def test_point_product_at_8_limbs(spec):
+    """The 8-limb point kernels' mf_mul (field.cuh: cc_product, the sparse
+    cc_redc rows, cc_csub) and mf_sqr (cc_square instead of the product)
+    give a b 2^-256 mod p, canonical, on every sparse base field of the
+    port's 8-limb curves, for the edge operands 0, 1, p - 1 and R mod p
+    (and the rest of _edges) pairwise and for seeded values below p; the
+    value before the subtraction below 2p, three limb products a row."""
+    from plonky_tpu_torch.fields.chain import sparse_prime
+    p = spec.p
+    assert spec.limbs == 8 and sparse_prime(spec)
+    r_inv = pow(1 << 256, -1, p)
+    rng = np.random.default_rng(16)
+    vals = [(1 << 256) % p] + _edges(p) + [
+        int.from_bytes(rng.bytes(40), "little") % p for _ in range(30)]
+    pairs = [(a, b) for a in vals[:14] for b in vals[:14]]
+    pairs += [(vals[rng.integers(len(vals))], vals[rng.integers(len(vals))])
+              for _ in range(150)]
+    for a, b in pairs:
+        e, o = product_model(a, b)
+        m = redc_model(e, spec, True, o)
+        assert m["r"] < 2 * p and m["products"] == [3] * 8
+        r = m["r"] - p if m["r"] >= p else m["r"]
+        assert r == a * b * r_inv % p
+    for a in vals:
+        m = redc_model(square_model(a), spec, True)
+        assert m["r"] < 2 * p
+        assert (m["r"] - p if m["r"] >= p else m["r"]) == a * a * r_inv % p
+
+
+def test_point_kernels_take_sparse_base_fields():
+    """Every 8-limb curve of the port has a base field of the sparse shape
+    (fields/chain.py:sparse_prime), which the 8-limb point kernels' product
+    needs; precompute_base and the point kernels' constants refuse a
+    made-up 8-limb curve over a field without it (BLS12-377's scalar
+    field), and take BLS12-377 G1 (12 limbs, the dense rows)."""
+    import dataclasses
+
+    from plonky_tpu_torch.curves import ALL_CURVES, BLS12_377
+    from plonky_tpu_torch.curves import msm as cmsm
+    from plonky_tpu_torch.curves import ops as cops
+    from plonky_tpu_torch.fields.chain import sparse_prime
+    eight = [c for c in ALL_CURVES if c.base.limbs == 8]
+    assert sorted(c.name for c in eight) == ["Pallas", "Tweedledee", "Tweedledum", "Vesta"]
+    assert all(sparse_prime(c.base) for c in eight)
+    for c in ALL_CURVES:
+        cops.require_sparse_base(c, "test")
+        assert len(cops._consts_host(c)) == 1 + 3 * c.base.limbs
+    dense = dataclasses.replace(BLS12_377, name="Dense8", base=BLS12_377_SCALAR)
+    assert dense.base.limbs == 8 and not sparse_prime(dense.base)
+    pts = tuple(torch.zeros((8, 4), dtype=torch.int32) for _ in range(3))
+    with pytest.raises(ValueError, match="2\\^254 \\+ c"):
+        cmsm.precompute_base(dense, pts)
+    with pytest.raises(ValueError, match="2\\^254 \\+ c"):
+        cops._consts_host(dense)
 
 
 if given is not None:

@@ -142,7 +142,7 @@ def _word_value(words) -> int:
 
 
 def decode_step(word: int) -> tuple:
-    """One step word of a chain (hashing/rescue.py:step_word) as (load,
+    """One step word of a chain (fields/chain.py:step_word) as (load,
     squares, mul, store)."""
     return (word & 31, word >> 16, (word >> 5) & 31, (word >> 10) & 31)
 
@@ -289,7 +289,7 @@ def test_host_schedule_is_the_counted_chain(name):
     and the squares and multiplies it runs are those schedule_counts
     reports; the bound
     (chip_smoke.sbox_ops) is the cheapest of those chains at the field's
-    costs (chip_smoke.rescue_costs), and rescue_work adds them up."""
+    costs (chip_smoke.field_costs), and rescue_work adds them up."""
     import chip_smoke
     from plonky_tpu_torch.fields.host import kth_root_exponent
 
@@ -297,7 +297,7 @@ def test_host_schedule_is_the_counted_chain(name):
     p = spec.p
     rng = np.random.default_rng(5)
     exps = (kth_root_exponent(spec, spec.alpha), spec.alpha)
-    sqr_c, mul_c, redc_c = chip_smoke.rescue_costs(spec)
+    sqr_c, mul_c, redc_c = chip_smoke.field_costs(spec)
     for e in exps:
         costs = []
         with pytest.raises(ValueError, match="window"):
@@ -333,12 +333,12 @@ def test_sbox_bound_counts_a_real_chain(name):
     kernel_schedule's (windows of up to KERNEL_WINDOW bits), cost no less
     than the bound's, and the inverse one is cheaper than the
     square-and-multiply of the kernel before them."""
-    from chip_smoke import rescue_costs, sbox_ops
+    from chip_smoke import field_costs, sbox_ops
     from plonky_tpu_torch.fields.host import kth_root_exponent
 
     spec = KERNEL_FIELDS[name]
     p = spec.p
-    sqr_c, mul_c, _redc = rescue_costs(spec)
+    sqr_c, mul_c, _redc = field_costs(spec)
     e = kth_root_exponent(spec, spec.alpha)
     chains = buffer_layout(prescue.kernel_consts(spec, 64), spec.limbs)["chains"]
     rng = np.random.default_rng(7)
