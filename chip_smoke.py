@@ -74,6 +74,7 @@ import contextlib
 import json
 import operator
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2056,6 +2057,9 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     for name, fn, plain in ops:
         for u, v in ((x, y), (col, y), (y, col), (y, y)):
             ck.compare(f"{name}_l12", fn(bf, u, v), plain(bf, u, v))
+    # (p - 1)^2 on every lane: field_mul_l12's largest pair-layout product
+    top = fops.column(bf, bf.p - 1, dev).expand(nl, n1).contiguous()
+    ck.compare("field_mul_l12", fops.mul(bf, top, top), fops.mul_plain(bf, top, top))
     xs, ys = field_pair(sf, n1)
     for u, v in ((xs, ys), (ys, ys)):
         ck.compare("field_mul", fops.mul(sf, u, v), fops.mul_plain(sf, u, v))
@@ -2107,7 +2111,8 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     state = [t[:, :67] for t in (x, y, x.flip(1), y.flip(1))]
     ck.compare("rescue_permutation_l12", tuple(hr.rescue_permutation(bf, state, 64)),
                tuple(hr.rescue_permutation_plain(bf, state, 64)))
-    checked = {"K1": "N = 2^12 + 3, edges, [12, 1] either side, squares",
+    checked = {"K1": "N = 2^12 + 3, edges, [12, 1] either side, squares; "
+                     "the multiply also at (p - 1)^2 on every lane",
                "K2": "[12, 2^10 + 3], identity, P + P, P + (-P)",
                "K4": "N = 2^12 + 5, K = 1, 3, c = 8, 5; the reduce also at "
                      "2,048 and 2,112 rows (2^22)",
@@ -2407,6 +2412,22 @@ def poly_product_sums() -> dict:
     return out
 
 
+def poly_product_sum_extremes(torch, fops, spec, n, dev) -> list:
+    """The 32-term sums at the extremes of the 12-limb product sum's lazy
+    pair accumulate (tests/test_torch_product_sum.py models them), over
+    [12, n]: (p - 1)^2 all positive, all negative and alternating; the
+    same with a single p - 1 among them and an [12, 1] operand of p - 1 on
+    either side; and (p - 1) 0 negated, the largest terms (p - 1) p."""
+    col = fops.column(spec, spec.p - 1, dev)
+    top = col.expand(spec.limbs, n).contiguous()
+    zero = torch.zeros_like(top)
+    pos, neg = (top, top, 1), (top, top, -1)
+    return [[pos] * 32, [neg] * 32, [pos, neg] * 16,
+            [pos, (col, top, -1)] * 8 + [(top, None, 1)]
+            + [(top, col, -1), pos] * 7 + [neg],
+            [(top, zero, -1)] * 32]
+
+
 def ntt_l12_edges() -> list:
     """(B, lg n) of the 12-limb NTT's edge holds in phase_bls12_377_poly:
     every lg n from 1 to 13 at B = 3, B = 5 at 2^12, and B = 1 on both
@@ -2429,7 +2450,8 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
     here, fft and ifft on the path's outputs below), the transpose at
     [12, 3, 2^5, 2^7] and [12, 2, 33, 65] with and without a table, the
     product sums at N = 2^10 + 3 (2, 9, 30, 33 terms, splits 1, 2, 4
-    forced); Rescue's ragged hold is phase_bls12_377's (67
+    forced, and the lazy accumulate's extremes of
+    poly_product_sum_extremes); Rescue's ragged hold is phase_bls12_377's (67
     permutations at 64 bits).  Then the path once, with the launch counts
     reset, through the entry points: fft and ifft at [1, 2^22] and [9, 2^20], coset_fft and
     coset_ifft at [1, 2^20], fft_four_step at 2^22 (lg n1 = 11, its table
@@ -2444,9 +2466,9 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
     one, the product sums against their plain versions and against python
     ints at sampled lanes, the division by multiplying back, the
     evaluation against the host's Horner, Rescue against its plain
-    version on every lane at 2^14 and on the last 2^10 + 3 lanes at 2^16
-    (the plain version at 12 limbs took 27 s at 2^14 and 96 s at 2^16 on
-    the H100), and against the host permutation at sampled lanes; the
+    version on every lane at 2^14 and on 2^10 + 3 lanes at 2^16, one plain
+    call for both (the plain version at 12 limbs took 27 s at 2^14 and 96 s
+    at 2^16 on the H100, the host's launches most of it), and against the host permutation at sampled lanes; the
     coset pair and the 2^22 transposes against their plain versions.  Then
     each kernel timed at the path's shapes beside its bound.  Returns the
     path's launches of the four kernels."""
@@ -2534,6 +2556,13 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
             ck.compare("field_product_sum_l12",
                        tuple(fops._product_sums_launch(Fq, cut, (n_r,), splits=splits)),
                        tuple(fops.product_sums_plain(Fq, cut)))
+    # the lazy pair accumulate's extremes, one sum a launch, splits 1, 2, 4
+    for sum_ in poly_product_sum_extremes(torch, fops, Fq, n_r, dev):
+        want = tuple(fops.product_sums_plain(Fq, [sum_]))
+        for splits in (1, 2, 4):
+            ck.compare("field_product_sum_l12",
+                       tuple(fops._product_sums_launch(Fq, [sum_], (n_r,), splits=splits)),
+                       want)
     lap("ragged_product_sum")
 
     # inputs of the path (made on the card before the counts are reset)
@@ -2629,23 +2658,28 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
     want_f = want_q * (pow(z, half, Fq.p) - 1) % Fq.p
     if (int(fops.to_ints(Fq, ev_q)), int(fops.to_ints(Fq, ev_f))) != (want_q, want_f):
         raise AssertionError("eval_at_dyn differs from the host's Horner")
-    rescue_plain_s = {}
+    # the held lanes of both sizes through ONE plain call (its time is
+    # the host's launches, about the same for 2^14 lanes as for 2^10 + 3):
+    # every lane at 2^14; at 2^16 (the plain version takes ~100 s on the
+    # whole batch) one lane in every 64, at a different place in each run
+    # of 64 so that every block and every thread's place mod 64 is held,
+    # and the last 3
+    held = {lg: torch.arange(1 << lg, device=dev) if lg == POLY_RESCUE[0] else
+            torch.tensor([k * 64 + (7 * k) % 64 for k in range((1 << lg) // 64)]
+                         + [(1 << lg) - 3, (1 << lg) - 2, (1 << lg) - 1], device=dev)
+            for lg in states}
+    t1 = time.perf_counter()
+    plain = hr.rescue_permutation_plain(
+        Fq, [torch.cat([st[k][:, held[lg]] for lg, st in states.items()], 1)
+             for k in range(4)], 128)
+    torch.cuda.synchronize()
+    rescue_plain_s = time.perf_counter() - t1
+    start = 0
     for lg, st in states.items():
-        # at 2^16 (the plain version takes ~100 s on the whole batch) one
-        # lane in every 64, at a different place in each run of 64 so that
-        # every block and every thread's place mod 64 is held, and the last 3
-        n = 1 << lg
-        lanes_held = (slice(None) if lg == POLY_RESCUE[0] else torch.tensor(
-            [k * 64 + (7 * k) % 64 for k in range(n // 64)] + [n - 3, n - 2, n - 1],
-            device=dev))
-        t1 = time.perf_counter()
-        plain = hr.rescue_permutation_plain(
-            Fq, [t[:, lanes_held].contiguous() for t in st], 128)
-        torch.cuda.synchronize()
-        rescue_plain_s[lg] = time.perf_counter() - t1
-        ck.compare("rescue_permutation_l12",
-                   tuple(o[:, lanes_held] for o in perms[lg]), tuple(plain))
-        del plain
+        width = held[lg].numel()
+        ck.compare("rescue_permutation_l12", tuple(o[:, held[lg]] for o in perms[lg]),
+                   tuple(t[:, start:start + width] for t in plain))
+        start += width
         r_lanes = [0, 1, 2, (1 << lg) // 2, (1 << lg) - 1]
         ins = [ints(Fq, t, r_lanes) for t in st]
         got = [ints(Fq, o, r_lanes) for o in perms[lg]]
@@ -2654,6 +2688,7 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
                     Fq, [i[j] for i in ins], 128):
                 raise AssertionError(f"rescue_permutation at 2^{lg} differs from "
                                      f"the host permutation at lane {lane}")
+    del plain
     checks["rescue_vs_plain"] = ("every lane at 2^14; at 2^16 lane 64 k + 7 k mod 64 "
                                  "for every k, and the last 3")
     checks["rescue_lanes_vs_host"] = "0, 1, 2, N / 2, N - 1"
@@ -2753,7 +2788,10 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
     ck.record("field_product_sum_l12", {
         "main": "9 terms, N = 2^20", "checked": [
             f"N = 2^10 + 3 and 2^20 x {list(POLY_PS_TERMS)} terms, signed, "
-            "an [12, 1] operand", "splits 1, 2, 4", "python ints at 6 lanes"]},
+            "an [12, 1] operand", "splits 1, 2, 4",
+            "N = 2^10 + 3, 32 terms of (p - 1)^2 all +, all -, alternating, with a "
+            "single and an [12, 1] operand; of (p - 1) 0 all -; splits 1, 2, 4",
+            "python ints at 6 lanes"]},
         by_shape=ps_by, measured=ps_by[1])
     lap("timing_product_sum")
 
@@ -2763,10 +2801,12 @@ def phase_bls12_377_poly(ck: Checker, torch, np, dev, name_power: str) -> dict:
         nb, nops = rescue_work(Fq, 128, 1 << lg)
         m = ck.measure(lambda st=st: hr.rescue_permutation(Fq, st, 128),
                        lambda: None, nb, nops, reps=5, plain_reps=1)
-        # the plain call held above (at 2^16 on 2^10 + 3 lanes only)
-        m["plain_ms"] = rescue_plain_s[lg] * 1e3 if lg == POLY_RESCUE[0] else None
+        # the plain call held above: every 2^14 lane and the 2^16 rows'
+        # 2^10 + 3 held lanes in one call
+        m["plain_ms"] = rescue_plain_s * 1e3 if lg == POLY_RESCUE[0] else None
         r_by.append({"N": 1 << lg, "security_bits": 128,
-                     "plain_held_ms": rescue_plain_s[lg] * 1e3,
+                     "plain_held_ms": rescue_plain_s * 1e3,
+                     "plain_held_lanes": sum(h.numel() for h in held.values()),
                      "perms_per_s": (1 << lg) / (m["ms"] * 1e-3), **m,
                      "share": share(m)})
     ck.record("rescue_permutation_l12", {
@@ -3882,6 +3922,46 @@ def card(torch):
     return name_power, clock_hz, sms, 64.0 * sms * clock_hz
 
 
+def ptxas_entries(log_path: str) -> dict:
+    """The build log's kernels by object: object label -> [(mangled entry,
+    registers, spill store bytes)] from ptxas's -v lines."""
+    out, obj, entry = {}, None, None
+    with open(log_path) as f:
+        for ln in f:
+            m = re.match(r"== (\S+)", ln)
+            if m:
+                obj, entry = m.group(1), None
+                out[obj] = []
+                continue
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                entry = [m.group(1), None, 0]
+                out[obj].append(entry)
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            if m and entry is not None:
+                entry[2] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and entry is not None:
+                entry[1] = int(m.group(1))
+    return {k: [tuple(e) for e in v] for k, v in out.items()}
+
+
+def kernel_registers(entries: dict, name: str) -> list:
+    """[{entry, registers, spill_stores}] of kernel `name`'s entries (every
+    instance of a template) in its source's objects at its width."""
+    source, _replaces, symbol = KERNELS[name]
+    stem = os.path.basename(source).replace(".cu", "")
+    label = stem + ("_l12" if name.endswith("_l12") else "")
+    base = symbol.split("::")[-1]
+    fn, _, arg = base.partition("<")
+    want = f"{len(fn)}{fn}" + (f"ILi{arg.rstrip('>')}E" if arg else "")
+    return [{"entry": e, "registers": r, "spill_stores": sp}
+            for obj, ents in entries.items()
+            if obj == label or (obj.startswith(label + "_")
+                                and obj[len(label) + 1:].isdigit())
+            for e, r, sp in ents if want in e]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3945,8 +4025,10 @@ def main() -> int:
     launches.update(parallel_launches)
     emit({"phase": "seconds", "build_s": build_s, **seconds,
           "total_s": time.perf_counter() - t_start})
+    entries = ptxas_entries(_cuda.BUILD_LOG) if os.path.exists(_cuda.BUILD_LOG) else {}
     for name, rec in ck.records.items():
         rec["launches"] = launches[name]
+        rec["registers"] = kernel_registers(entries, name)
     for row in ck.records["field_product_sum"]["by_shape"]:
         row["launches_per_prove"] = ps_by_label[row["shape"]]
     emit({"kernels": list(ck.records.values())})

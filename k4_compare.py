@@ -39,8 +39,9 @@ synchronize), each result hashed as affine points; the Fq transforms at
 12 limbs of chip_smoke.py's `bls12_377_poly` path (FQ_TRANSFORMS: fft and
 ifft at [1, 2^22] and [9, 2^20], the coset pair at [1, 2^20],
 fft_four_step at 2^22; device ms of the whole call, however many launches
-it makes, L2 warm and flushed, and the sha256 of each output); the
-probe's bucket accumulation (Tweedledee, 2^18 points, chip_smoke.MSM_PROBE:
+it makes, L2 warm and flushed, and the sha256 of each output) and the
+product sums of that path (2, 9, 30 and 33 terms at [12, 2^20], one
+`product_sums` call each); the probe's bucket accumulation (Tweedledee, 2^18 points, chip_smoke.MSM_PROBE:
 unsigned and signed windows, L2 warm and flushed, its buckets hashed);
 `fops.inverse` at EXP_SHAPES (one field_exp launch, or in a tree without
 it exp_const's chain of field_mul launches; device ms of the whole call,
@@ -342,10 +343,12 @@ FQ_TRANSFORMS = (("fft [1, 2^22]", "fft", 1, 22, False),
 
 
 def _fq_rows(smoke, ck, np, torch, dev):
-    """The FQ_TRANSFORMS over BLS12-377's base field: device ms of a whole
-    call (queued behind a sleep, L2 warm and flushed) and the sha256 of
-    its output."""
+    """The FQ_TRANSFORMS over BLS12-377's base field, then the product sums
+    of the same path (chip_smoke.poly_product_sums at 2^20): device ms of a
+    whole call (queued behind a sleep, L2 warm and flushed) and the sha256
+    of its output."""
     from plonky_tpu_torch.fields import BLS12_377_BASE as Fq
+    from plonky_tpu_torch.fields import ops as fops
     from plonky_tpu_torch.poly import fft as pfft
     rng = np.random.default_rng(3771)
     flush = ck.flush.zero_
@@ -371,6 +374,24 @@ def _fq_rows(smoke, ck, np, torch, dev):
                      "cold_ms": (ck.queued_ms(lambda call=call: (flush(), call()), 5)
                                  - ck.queued_ms(flush, 5))})
         del x
+        torch.cuda.empty_cache()
+    # the product sums of the same path (chip_smoke.poly_product_sums): one
+    # sum of 2, 9, 30 or 33 terms over [12, 2^20], one call each
+    n = 1 << smoke.POLY_PS_LG
+    for label, named in smoke.poly_product_sums().items():
+        sums = smoke.product_sum_inputs(
+            named, lambda _name: smoke.rand_field(np, torch, rng, (n,), dev, Fq),
+            lambda _name: smoke.rand_field(np, torch, rng, (1,), dev, Fq))
+
+        def call(sums=sums):
+            return fops.product_sums(Fq, sums)
+        rows.append({"name": "product_sums", "shape": f"{label} [12, 2^{smoke.POLY_PS_LG}]",
+                     "sha256": hashlib.sha256(torch.cat(call()).cpu().numpy().tobytes())
+                     .hexdigest(),
+                     "ms": ck.queued_ms(call, 10),
+                     "cold_ms": (ck.queued_ms(lambda call=call: (flush(), call()), 10)
+                                 - ck.queued_ms(flush, 10))})
+        del sums
         torch.cuda.empty_cache()
     return rows
 

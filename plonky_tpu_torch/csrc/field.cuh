@@ -11,8 +11,9 @@
 // chains (cc_mul_mod, below); the NTT's twiddle products are one Montgomery
 // product against twiddles held as w 2^(32 L) mod p (cc_mont_mul).  A
 // product sum  sum_i +-a_i b_i  (field_product_sum) adds its products
-// straight into a (2L + 1)-limb accumulator on the same carry chains and
-// reduces ONCE, by Barrett with mu = floor(2^(32 (2L + 1)) / p)
+// straight into a (2L + 1)-limb accumulator on the same carry chains (at
+// 12 limbs into two lazy accumulators in the pair layout, cc_pairs_product)
+// and reduces ONCE, by Barrett with mu = floor(2^(32 (2L + 1)) / p)
 // (cc_acc_product, cc_sum_mod).
 #pragma once
 
@@ -425,24 +426,8 @@ __device__ __forceinline__ void cc_barrett_rows(uint32_t* u, const uint32_t* w,
   }
 }
 
-// r = a b mod p for canonical a, b: the 64L-bit product and one Barrett
-// reduction (see the top of this section).
-__device__ __forceinline__ void cc_mul_mod(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
-                                           const uint32_t b[PT_LIMBS], const MulConsts& c) {
-  // x = a b in w[0..2L-1]; w[2L..2L+1] stay zero (room for cc_mac_row).
-  uint32_t w[2 * PT_LIMBS + 2];
-#pragma unroll
-  for (int k = 0; k < 2 * PT_LIMBS + 2; k++) w[k] = 0;
-#pragma unroll
-  for (int i = 0; i < PT_LIMBS; i++) cc_mac_row<PT_LIMBS>(w + i, a[i], b);
-  // q1 = w[L-1..2L-1]; u[k] is column L - 1 + k of q1 mu.
-  uint32_t u[PT_LIMBS + 4];
-#pragma unroll
-  for (int k = 0; k < PT_LIMBS + 4; k++) u[k] = 0;
-  cc_barrett_rows<0>(u, w, c.mu);
-  // q3 = columns L+1..2L = u[2..L+1] (< p: one limb short of mu's L + 1)
-  cc_barrett_finish(r, w, u + 2, c.f);
-}
+// cc_mul_mod, field_mul's product and reduction, follows the pair-layout
+// product (below).
 
 // r = a b / 2^(32 L) mod p for canonical a, b (CIOS Montgomery, unrolled,
 // on carry chains): with b = w 2^(32 L) mod p, r = a w mod p exactly.  The
@@ -723,6 +708,168 @@ __device__ __forceinline__ void cc_product(uint32_t e[PT_PRODUCT_LIMBS],
   cc_product_rows<0>(e, o, a, b);
 }
 
+// The 12-limb product sum's accumulate (field_product_sum_l12): each
+// term's product is formed in cc_product_rows' pair layout, straight into
+// two lazy accumulators e[0 .. 2L-1] and o[0 .. 2L-1] (o[0] and o[2L-1]
+// stay 0) that persist across all the sum's terms, and merged once at the
+// sum's end (cc_pairs_fold), where the 8-limb accumulate (cc_acc_product)
+// runs a row's low and high halves on two chains of cc_mac_row.
+//
+// Row I of x y runs two chains (cc_mac_pairs) of L / 2 products each: one
+// over the limbs I .. I + L - 1 of e (I even) or o (I odd), x_I y_j for even
+// j, the other over the limbs I + 1 .. I + L of the other accumulator, x_I
+// y_j for odd j.  A chain adds sum_k x_I y_(2k + s) 2^(64 k) < 2^(32 L) to an
+// L-limb window below 2^(32 L) (s = 0 or 1), so its carry out is 0 or 1,
+// and it lands on the limb just above the window, I + L or I + L + 1,
+// which earlier terms have filled: it is counted in cnt[I] or cnt[I + 1]
+// instead (cnt[k]: carries into limb L + k), for chains that start at an
+// even limb and at an odd one alike.  Every limb a chain covers is one of
+// e[0 .. 2L-1] (2L - 1 by row L - 1's chain over L .. 2L - 1) or
+// o[1 .. 2L-2], so no carry leaves a limb unseen.  A product adds at most
+// 2 to cnt[k] (rows k - 1 and k), a single (cc_acc_single on e) 1 to
+// cnt[0], so at PT_MAX_TERMS = 32 terms every counter is at most 64, and
+//   e + o + sum_k cnt[k] 2^(32 (L + k)) = S < 32 p^2 < 2^(64 L + 3)
+// exactly (S as in the product-sum section; p < 2^377 at 12 limbs).
+// tests/test_torch_product_sum.py models it limb by limb, with these
+// bounds asserted at the extremes.
+
+template <int I>
+__device__ __forceinline__ void cc_pairs_rows(uint32_t* e, uint32_t* o, uint32_t* cnt,
+                                              const uint32_t* x, const uint32_t* y) {
+  if constexpr (I < PT_LIMBS) {
+    if constexpr (I % 2 == 0) {
+      cc_mac_pairs<PT_LIMBS / 2>(e + I, x[I], y, cnt[I]);
+      cc_mac_pairs<PT_LIMBS / 2>(o + I + 1, x[I], y + 1, cnt[I + 1]);
+    } else {
+      cc_mac_pairs<PT_LIMBS / 2>(e + I + 1, x[I], y + 1, cnt[I + 1]);
+      cc_mac_pairs<PT_LIMBS / 2>(o + I, x[I], y, cnt[I]);
+    }
+    cc_pairs_rows<I + 1>(e, o, cnt, x, y);
+  }
+}
+
+// (e, o, cnt) += x y for x, y below 2^(32 L).
+__device__ __forceinline__ void cc_pairs_product(uint32_t e[PT_ACC_LIMBS],
+                                                 uint32_t o[PT_ACC_LIMBS],
+                                                 uint32_t cnt[PT_ACC_CARRIES],
+                                                 const uint32_t x[PT_LIMBS],
+                                                 const uint32_t y[PT_LIMBS]) {
+  cc_pairs_rows<0>(e, o, cnt, x, y);
+}
+
+// s[0..2L] = e + o + the counted carries, the sum S (below 2^(32 (2L + 1)):
+// e + o carries at most 1 into limb 2L, and nothing leaves it).
+__device__ __forceinline__ void cc_pairs_fold(uint32_t s[PT_ACC_LIMBS + 1],
+                                              const uint32_t e[PT_ACC_LIMBS],
+                                              const uint32_t o[PT_ACC_LIMBS],
+                                              const uint32_t cnt[PT_ACC_CARRIES]) {
+  const uint32_t zero = 0;
+  s[0] = e[0];
+  s[1] = cc_add(e[1], o[1]);
+#pragma unroll
+  for (int k = 2; k < PT_ACC_LIMBS; k++) s[k] = cc_addc(e[k], o[k]);
+  s[PT_ACC_LIMBS] = cc_addc_end(zero, zero);
+  s[PT_LIMBS] = cc_add(s[PT_LIMBS], cnt[0]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS; k++) s[PT_LIMBS + k] = cc_addc(s[PT_LIMBS + k], cnt[k]);
+  s[PT_ACC_LIMBS] = cc_addc_end(s[PT_ACC_LIMBS], cnt[PT_LIMBS]);
+}
+
+// Both 12-limb Barrett reductions on the pair layout (field_mul_l12's,
+// cc_mul_mod; the 12-limb product sum's, cc_sum_mod_pairs): the same
+// truncated product q1 mu and the same q3 p mod 2^(32 L) as cc_barrett_rows
+// or cc_sum_rows and cc_qp_rows, so the same q3 and r (the bounds at the
+// top of the carry-chain and product-sum sections hold as they are), with
+// each limb product's halves on a pair of limbs of an even or an odd
+// accumulator (one IMAD.WIDE.U32.X), where a row of cc_mac_row takes an
+// IMAD and an IMAD.HI on chains of their own.  Only q3's low L limbs enter
+// r, and only u's low L + 2 limbs hold them: every window is taken mod
+// 2^(32 W), W = L + 2 for q1 mu and L for q3 p, and a product at limb W - 1
+// adds its low half alone.
+
+// acc[K0 + 2 j .. K0 + 2 j + 1] += x y[2 j] for j < NP on one chain, in a
+// window of W limbs (what leaves limb W - 1 is dropped).  A chain that ends
+// below limb W - 1 adds its carry to the limb above it, K0 + 2 NP, which
+// only earlier rows' carries have reached: a product reaches it in this
+// accumulator only at column K0 + 2 NP, and every earlier row's columns
+// end below this row's last.
+template <int K0, int NP, int W>
+__device__ __forceinline__ void cc_window_chain(uint32_t* acc, uint32_t x, const uint32_t* y) {
+#pragma unroll
+  for (int j = 0; j < NP; j++) {
+    const int k = K0 + 2 * j;
+    if (k + 1 < W) {
+      acc[k] = j == 0 ? cc_mad_lo(x, y[2 * j], acc[k]) : cc_madc_lo(x, y[2 * j], acc[k]);
+      acc[k + 1] = k + 2 < W ? cc_madc_hi(x, y[2 * j], acc[k + 1])
+                             : cc_madc_hi_end(x, y[2 * j], acc[k + 1]);
+    } else {
+      acc[k] = j == 0 ? acc[k] + x * y[2 * j] : cc_madc_lo_end(x, y[2 * j], acc[k]);
+    }
+  }
+  if constexpr (K0 + 2 * NP < W) acc[K0 + 2 * NP] = cc_addc_end(acc[K0 + 2 * NP], 0u);
+}
+
+// (ue, uo) += the columns LO .. LO + W - 1 of x y (x NX limbs, y NY), rows
+// I .. NX - 1: row I's limb products x_I y_j at column I + j >= LO (those
+// below LO are left out, as the Barrett rows leave them), at limb
+// k = I + j - LO of ue where k is even, of uo where it is odd: two chains a
+// row, columns K0, K0 + 2, ... and K0 + 1, K0 + 3, ...
+template <int I, int NX, int NY, int LO, int W>
+__device__ __forceinline__ void cc_window_rows(uint32_t* ue, uint32_t* uo, const uint32_t* x,
+                                               const uint32_t* y) {
+  if constexpr (I < NX) {
+    constexpr int J0 = LO > I ? LO - I : 0;
+    constexpr int JE = NY - 1 < W - 1 + LO - I ? NY - 1 : W - 1 + LO - I;
+    constexpr int K0 = I + J0 - LO;
+    constexpr int N = JE - J0 + 1;
+    if constexpr (N > 0) {
+      cc_window_chain<K0, (N + 1) / 2, W>(K0 % 2 == 0 ? ue : uo, x[I], y + J0);
+      if constexpr (N > 1)
+        cc_window_chain<K0 + 1, N / 2, W>(K0 % 2 == 0 ? uo : ue, x[I], y + J0 + 1);
+    }
+    cc_window_rows<I + 1, NX, NY, LO, W>(ue, uo, x, y);
+  }
+}
+
+// r = x mod p by Barrett, q1 = x[L-1 .. L+NQ-2] (NQ limbs, as mu): u =
+// columns LO .. LO + L + 1 of q1 mu (LO = L - 1 for a product, NQ = L + 1;
+// LO = L for a sum, NQ = L + 2), q3's low limbs u[2 .. L+1], r = (x - q3 p)
+// mod 2^(32 L), one conditional subtraction.
+template <int NQ, int LO>
+__device__ __forceinline__ void cc_barrett_pairs(uint32_t r[PT_LIMBS], const uint32_t* x,
+                                                 const uint32_t* mu, const FieldConsts& c) {
+  constexpr int W = PT_LIMBS + 2;
+  uint32_t ue[W], uo[W], q3[PT_LIMBS], ve[PT_LIMBS], vo[PT_LIMBS];
+#pragma unroll
+  for (int k = 0; k < W; k++) ue[k] = uo[k] = 0;
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS; k++) ve[k] = vo[k] = 0;
+  cc_window_rows<0, NQ, NQ, LO, W>(ue, uo, x + PT_LIMBS - 1, mu);
+  (void)cc_add(ue[0], uo[0]);
+  (void)cc_addc(ue[1], uo[1]);
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS - 1; k++) q3[k] = cc_addc(ue[k + 2], uo[k + 2]);
+  q3[PT_LIMBS - 1] = cc_addc_end(ue[W - 1], uo[W - 1]);
+  cc_window_rows<0, PT_LIMBS, PT_LIMBS, 0, PT_LIMBS>(ve, vo, q3, c.p);
+  r[0] = cc_sub(x[0], ve[0]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS - 1; k++) r[k] = cc_subc(x[k], ve[k]);
+  r[PT_LIMBS - 1] = cc_subc_end(x[PT_LIMBS - 1], ve[PT_LIMBS - 1]);
+  r[0] = cc_sub(r[0], vo[0]);
+#pragma unroll
+  for (int k = 1; k < PT_LIMBS - 1; k++) r[k] = cc_subc(r[k], vo[k]);
+  r[PT_LIMBS - 1] = cc_subc_end(r[PT_LIMBS - 1], vo[PT_LIMBS - 1]);
+  cc_csub(r, c);
+}
+
+// r = s mod p for the 12-limb product sum's s[0..2L] (cc_sum_mod's
+// reduction on the pair layout).
+__device__ __forceinline__ void cc_sum_mod_pairs(uint32_t r[PT_LIMBS],
+                                                 const uint32_t s[PT_ACC_LIMBS + 1],
+                                                 const MulConsts& c) {
+  cc_barrett_pairs<PT_MU_SUM_LIMBS, PT_LIMBS>(r, s, c.mu_sum, c.f);
+}
+
 // The cross products a_I a_j, j > I, split by the parity of I + j as in
 // cc_product_rows: j = I + 1, I + 3, ... into o at limb 2 I + 1, j = I + 2,
 // I + 4, ... into e at limb 2 I + 2.
@@ -758,6 +905,37 @@ __device__ __forceinline__ void cc_square(uint32_t t[PT_PRODUCT_LIMBS],
   t[2 * PT_LIMBS - 2] = cc_madc_lo(a[PT_LIMBS - 1], a[PT_LIMBS - 1], t[2 * PT_LIMBS - 2]);
   t[2 * PT_LIMBS - 1] = cc_madc_hi_end(a[PT_LIMBS - 1], a[PT_LIMBS - 1],
                                        t[2 * PT_LIMBS - 1]);
+}
+
+// r = a b mod p for canonical a, b: the 64L-bit product and one Barrett
+// reduction (the carry-chain section, above).  At 8 limbs the product and
+// the reduction run on the rows of cc_mac_row; at 12 (field_mul_l12) the
+// product is cc_product's pair layout, merged once, and the reduction
+// cc_barrett_pairs: one IMAD.WIDE.U32.X a limb product, where a row of
+// cc_mac_row takes an IMAD, an IMAD.HI and two IADD3.X for one.
+__device__ __forceinline__ void cc_mul_mod(uint32_t r[PT_LIMBS], const uint32_t a[PT_LIMBS],
+                                           const uint32_t b[PT_LIMBS], const MulConsts& c) {
+#if PT_LIMBS == 8
+  // x = a b in w[0..2L-1]; w[2L..2L+1] stay zero (room for cc_mac_row).
+  uint32_t w[2 * PT_LIMBS + 2];
+#pragma unroll
+  for (int k = 0; k < 2 * PT_LIMBS + 2; k++) w[k] = 0;
+#pragma unroll
+  for (int i = 0; i < PT_LIMBS; i++) cc_mac_row<PT_LIMBS>(w + i, a[i], b);
+  // q1 = w[L-1..2L-1]; u[k] is column L - 1 + k of q1 mu.
+  uint32_t u[PT_LIMBS + 4];
+#pragma unroll
+  for (int k = 0; k < PT_LIMBS + 4; k++) u[k] = 0;
+  cc_barrett_rows<0>(u, w, c.mu);
+  // q3 = columns L+1..2L = u[2..L+1] (< p: one limb short of mu's L + 1)
+  cc_barrett_finish(r, w, u + 2, c.f);
+#else
+  // x = a b in w[0..2L-1] (w[2L] is 0), then the pair-layout Barrett rows
+  uint32_t e[PT_PRODUCT_LIMBS], o[PT_PRODUCT_LIMBS], w[PT_PRODUCT_LIMBS];
+  cc_product(e, o, a, b);
+  cc_merge(w, e, o);
+  cc_barrett_pairs<PT_MU_LIMBS, PT_LIMBS - 1>(r, w, c.mu, c.f);
+#endif
 }
 
 // REDC rows I .. 7 over t = e + o (see the top of this section); m[I]

@@ -27,9 +27,14 @@
 // base field), where every kernel is the same code over 12 limbs (entries
 // pt_field_add_l12, ..., pt_field_product_sum_l12; a product is 144 limb
 // products and one 12-limb Barrett reduction, >= 588 IMAD slots against
-// 264; a product sum's term adds 144 limb products to a 25-limb
-// accumulator).  The 12-limb product sum is bound by operations: a term
-// reads 96 B and needs 288 IMAD slots, about six times the bytes' time.
+// 264) but for the two that the limb products bound: field_mul_l12 forms
+// its product in the pair layout (field.cuh: cc_mul_mod), and the product
+// sum has a kernel of its own at 12 limbs, each term's 144 limb products
+// formed in the pair layout straight into two lazy accumulators (one
+// IMAD.WIDE.U32.X a limb product, where the rows of cc_acc_product take an
+// IMAD, an IMAD.HI and two IADD3.X), merged once a sum.  The 12-limb
+// product sum is bound by operations: a term reads 96 B and needs 288 IMAD
+// slots, about six times the bytes' time.
 //
 // field_exp (both widths) computes x^e for a host exponent e > 0 in one
 // launch, where fields/ops.py:exp_const ran one field_mul launch a square
@@ -104,6 +109,9 @@ struct PsTable {
   int32_t first[PS_MAX_SUMS + 1];
 };
 
+#if PT_LIMBS == 8
+#define K1_SUM_THREADS K1_THREADS
+
 // One element of one sum a thread (the grid's y is the sum), or, with
 // `splits` = 2 or 4, one element of one sum per `splits` threads: thread
 // group g takes the sum's terms g, g + splits, ..., and the groups' partial
@@ -161,6 +169,80 @@ field_product_sum_kernel(int32_t* out, const __grid_constant__ PsTable tab, int6
   cc_sum_mod(r, s, c);
   fe_store(out + (int64_t)sum * PT_LIMBS * n, n, i, r);
 }
+#else
+// The 12-limb product sum's threads a block (ps_sweep.py).
+#define K1_SUM_THREADS 128
+
+// A term's operands: x = a, and y = b unless the term is a single.
+__device__ __forceinline__ void ps_load(uint32_t x[PT_LIMBS], uint32_t y[PT_LIMBS],
+                                        const PsTerm& term, int64_t n, int64_t i) {
+  load_operand(x, term.a, term.flags & PS_A_BCAST, n, i);
+  if (term.b != nullptr) load_operand(y, term.b, term.flags & PS_B_BCAST, n, i);
+}
+
+// The 8-limb kernel's sum, split and meeting, with the terms accumulated
+// in the lazy pair layout (field.cuh: cc_pairs_product, cc_acc_single on
+// e, one cc_pairs_fold a thread), each term's operands loaded while the
+// term before it is accumulated, and the reduction on the pair layout
+// (cc_sum_mod_pairs).
+__global__ void __launch_bounds__(K1_SUM_THREADS)
+field_product_sum_kernel(int32_t* out, const __grid_constant__ PsTable tab, int64_t n,
+                         int splits, const __grid_constant__ MulConsts c) {
+  const int per_block = K1_SUM_THREADS / splits;
+  const int group = threadIdx.x / per_block;
+  const int64_t i = (int64_t)blockIdx.x * per_block + threadIdx.x % per_block;
+  const int sum = blockIdx.y;
+  uint32_t e[PT_ACC_LIMBS], o[PT_ACC_LIMBS], cnt[PT_ACC_CARRIES];
+#pragma unroll
+  for (int k = 0; k < PT_ACC_LIMBS; k++) e[k] = o[k] = 0;
+#pragma unroll
+  for (int k = 0; k < PT_ACC_CARRIES; k++) cnt[k] = 0;
+  if (i < n) {
+    const int end = tab.first[sum + 1];
+    int t = tab.first[sum] + group;
+    uint32_t x[PT_LIMBS], y[PT_LIMBS];   // term t's operands, loaded ahead
+    fe_set_small(y, 0);
+    if (t < end) ps_load(x, y, tab.term[t], n, i);
+#pragma unroll 1
+    for (; t < end; t += splits) {
+      const bool single = tab.term[t].b == nullptr;
+      const bool neg = tab.term[t].flags & PS_NEG;
+      uint32_t a[PT_LIMBS], b[PT_LIMBS];
+      fe_copy(a, x);
+      fe_copy(b, y);
+      if (t + splits < end) ps_load(x, y, tab.term[t + splits], n, i);
+      if (single) {
+        if (neg) cc_negate(a, c.f);
+        cc_acc_single(e, cnt, a);
+      } else {
+        if (neg) cc_negate(b, c.f);
+        cc_pairs_product(e, o, cnt, a, b);
+      }
+    }
+  }
+  uint32_t s[PT_ACC_LIMBS + 1];
+  cc_pairs_fold(s, e, o, cnt);
+  if (splits > 1) {
+    __shared__ uint32_t part[PT_ACC_LIMBS + 1][K1_SUM_THREADS];
+    if (group > 0) {
+#pragma unroll
+      for (int k = 0; k <= PT_ACC_LIMBS; k++) part[k][threadIdx.x] = s[k];
+    }
+    __syncthreads();
+    if (group > 0) return;
+    for (int g = 1; g < splits; g++) {
+      uint32_t t[PT_ACC_LIMBS + 1];
+#pragma unroll
+      for (int k = 0; k <= PT_ACC_LIMBS; k++) t[k] = part[k][threadIdx.x + g * per_block];
+      cc_add_acc(s, t);
+    }
+  }
+  if (i >= n) return;
+  uint32_t r[PT_LIMBS];
+  cc_sum_mod_pairs(r, s, c);
+  fe_store(out + (int64_t)sum * PT_LIMBS * n, n, i, r);
+}
+#endif
 
 // field_exp's limits: steps of a chain, table slots an element (windows up
 // to 5 bits: x, x^3, ..., x^31 and x^2), threads a block (fewer, a
@@ -260,9 +342,9 @@ int PT_ENTRY(pt_field_product_sum)(void* out, const void* a_ptrs, const void* b_
   }
   for (int s = 0; s <= n_sums; s++) tab.first[s] = fs[s];
   MulConsts c = mul_consts_from((const uint32_t*)consts);
-  const int64_t per_block = K1_THREADS / splits;
+  const int64_t per_block = K1_SUM_THREADS / splits;
   dim3 grid((unsigned int)((n + per_block - 1) / per_block), (unsigned int)n_sums);
-  field_product_sum_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
+  field_product_sum_kernel<<<grid, K1_SUM_THREADS, 0, (cudaStream_t)stream>>>(
       (int32_t*)out, tab, n, splits, c);
   return (int)cudaGetLastError();
 }

@@ -48,18 +48,25 @@ def _mac_row(acc: int, width: int, x: int, y) -> int:
 
 
 def barrett_model(a: int, b: int, spec) -> dict:
-    """cc_mul_mod step by step at L = spec.limbs; returns the intermediate
-    values."""
+    """cc_mul_mod step by step at L = spec.limbs (the product and the
+    reduction's rows on the rows of cc_mac_row at 8 limbs; at 12 the
+    product in cc_product's pair layout and the rows' values also formed
+    as cc_barrett_pairs forms them); returns the intermediate values."""
     p, mu, nl, nmu = spec.p, spec.barrett_mu, spec.limbs, spec.mu_limbs
     assert nmu == nl + 1 and mu < B32 ** nmu
     mul = _limbs(mu, nmu)
-    # x = a b: row i adds a_i b into the window w[i .. i + L + 1]
-    al, bl = _limbs(a, nl), _limbs(b, nl)
-    x = 0
-    for i in range(nl):
-        win = x >> (32 * i)
-        win = _mac_row(win, nl + 2, al[i], bl)
-        x = (x & (B32 ** i - 1)) | (win << (32 * i))
+    if nl == 12:
+        # x = a b: cc_product's pair layout, merged once (cc_merge)
+        e, o = product_model(a, b, nl)
+        x = e + o
+    else:
+        # x = a b: row i adds a_i b into the window w[i .. i + L + 1]
+        al, bl = _limbs(a, nl), _limbs(b, nl)
+        x = 0
+        for i in range(nl):
+            win = x >> (32 * i)
+            win = _mac_row(win, nl + 2, al[i], bl)
+            x = (x & (B32 ** i - 1)) | (win << (32 * i))
     assert x == a * b and x < B32 ** (2 * nl)
     w = _limbs(x, 2 * nl)
     # u = columns >= L - 1 of q1 mu, q1 = w[L-1 .. 2L-1] (cc_barrett_rows):
@@ -75,6 +82,9 @@ def barrett_model(a: int, b: int, spec) -> dict:
     assert u < B32 ** (nl + 4)
     q3 = (u >> 64) & (B32 ** nl - 1)
     assert u >> (64 + 32 * nl) == 0, f"q3 wider than {nl} limbs"
+    if nl == 12:    # cc_barrett_pairs: the same u mod 2^(32 (L + 2))
+        ue, uo = window_pairs_model(w[top:], mul, top, nl + 2)
+        assert (_value(ue) + _value(uo)) % B32 ** (nl + 2) == u % B32 ** (nl + 2)
     # the truncated product equals q1 mu less the skipped columns' terms,
     # which fall below (L - 1) 2^-32 (1 + 2^-31) of a unit of q3
     q1 = x >> (32 * top)
@@ -88,6 +98,9 @@ def barrett_model(a: int, b: int, spec) -> dict:
     assert q - 1 <= q3 <= q, (q, q3)
     # r = x - q3 p mod 2^(32 L) from the low limbs only (cc_barrett_finish)
     v = (q3 * p) % B32 ** nl
+    if nl == 12:    # cc_barrett_pairs' q3 p, two accumulators
+        ve, vo = window_pairs_model(_limbs(q3, nl), _limbs(p, nl), 0, nl)
+        assert (_value(ve) + _value(vo)) % B32 ** nl == v
     r = (x - v) % B32 ** nl
     assert r == x - q3 * p and r < 2 * p
     out = r - p if r >= p else r
@@ -311,6 +324,35 @@ def product_model(a: int, b: int, nl: int = 8) -> tuple:
             _pairs_chain(o, i, al[i], bl[0::2])
     assert o[0] == 0 and _merge(e, o, nl) == a * b
     return _value(e), _value(o)
+
+
+def window_pairs_model(x, y, lo: int, w: int) -> tuple:
+    """cc_window_rows (the 12-limb Barrett rows on the pair layout): the
+    limb products x_i y_j at column i + j >= lo, each at limb k = i + j - lo
+    (its halves on limbs k, k + 1) of ue where k is even, of uo where it is
+    odd, two chains a row; each window mod 2^(32 w) (a product at limb
+    w - 1 adds its low half alone).  A chain's carry is 0 or 1 and lands on
+    the limb above it, which must hold only earlier chains' carries.
+    Returns (ue, uo) as limb lists."""
+    acc = ([0] * w, [0] * w)
+    reached = (set(), set())                 # limbs a product has reached
+    for i, xi in enumerate(x):
+        j0, je = max(0, lo - i), min(len(y) - 1, w - 1 + lo - i)
+        for first in range(j0, min(j0 + 2, je + 1)):
+            js = list(range(first, je + 1, 2))
+            k0 = i + first - lo
+            par, limbs = k0 % 2, acc[k0 % 2]
+            width = min(w, k0 + 2 * len(js)) - k0
+            v = _value(limbs[k0:k0 + width]) + sum(
+                xi * y[j] << (64 * t) for t, j in enumerate(js))
+            limbs[k0:k0 + width] = _limbs(v % B32 ** width, width)
+            reached[par].update(range(k0, k0 + width))
+            top = k0 + 2 * len(js)
+            if top < w:
+                assert width == 2 * len(js) and v >> (32 * width) in (0, 1)
+                assert top not in reached[par] and limbs[top] < len(x)
+                limbs[top] += v >> (32 * width)
+    return acc
 
 
 def square_model(a: int) -> int:
@@ -545,6 +587,22 @@ def test_mont_product_at_12_limbs():
         assert m["r"] < 2 * p and m["products"] == [nl] * nl
         r = m["r"] - p if m["r"] >= p else m["r"]
         assert r == a * b * r_inv % p
+
+
+@pytest.mark.parametrize("a_top,b_top", [(1, 1), (1, 2), (2, 1)],
+                         ids=["(p-1)^2", "(p-1)(p-2)", "(p-2)(p-1)"])
+def test_mul_l12_pair_product_extremes(a_top, b_top):
+    """field_mul_l12 (cc_mul_mod at 12 limbs): the pair-layout product of
+    the largest operands, every chain's carry kept (product_model), merged
+    below 2^768, then the Barrett rows; equal to a b mod p, the merged
+    limbs equal to the rows' product, and q3 within one of floor(x / p)."""
+    spec = BLS12_377_BASE
+    p = spec.p
+    a, b = p - a_top, p - b_top
+    e, o = product_model(a, b, 12)
+    assert e + o == a * b < B32 ** 24
+    m = barrett_model(a, b, spec)
+    assert m["out"] == a * b % p and m["q"] - 1 <= m["q3"] <= m["q"]
 
 
 POINT_SPECS = [TWEEDLEDEE_BASE, TWEEDLEDUM_BASE, PALLAS_BASE, VESTA_BASE]

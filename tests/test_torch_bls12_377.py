@@ -2,7 +2,8 @@
 versions on the CPU) against the JAX package and the host: field ops on
 both fields, point add and double (the JAX package's 50-digit results
 carried in by `interop`), `msm` at K = 1 and 3 with c = 4 and 8 against
-the JAX package's `msm_jit` (its bench's entry point), `msm_chunked`
+the JAX package's `msm_jit` (its bench's entry point; its results read
+from tests/fixtures/jax_msm.json, made again by a slow test), `msm_chunked`
 against `msm`, and the 150-point summation of bin/microbench.py as a tree
 of adds.  tests/test_torch_fields.py holds the other field ops and the
 digit round trip at both BLS12-377 fields.  Canonical ints and affine
@@ -15,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import _jax_fixtures as jaxfx
 
 from plonky_tpu.curves import BLS12_377 as J_CURVE
 from plonky_tpu.curves import msm as jmsm
@@ -174,27 +177,49 @@ def _naive(pts, row):
     return acc
 
 
-@pytest.mark.parametrize("c", [4, 8])
-@pytest.mark.parametrize("n,k", [(37, 1), (64, 3)])
-def test_msm_matches_jax(n, k, c):
-    pts, rows = _points(n, n + c), _scalars(k, n, 7 * n + k + c)
-    basis = cmsm.precompute_base(CURVE, points_to_device(CURVE, pts, "cpu"))
-    assert basis.mont.shape == (n, 36)
-    got = device_points_to_host(CURVE, cmsm.msm(
-        CURVE, basis, ints_to_device_matrix(CURVE.scalar, rows, "cpu"), c))
-
+def _jax_msm(pts, rows, c) -> list:
+    """The JAX package's msm_jit of the points and scalar rows, affine."""
     jscal = jnp.stack([jfops.from_ints(J_SCALAR, r) for r in rows], axis=1)
     jx, jy, jzero = jax.jit(lambda P, S: jcops.to_affine(
         J_CURVE, jmsm.msm_jit(J_CURVE, c)(P, S)))(_jax_points(pts), jscal)
-    want = [chost.zero_point(CURVE) if bool(z) else
+    return [chost.zero_point(CURVE) if bool(z) else
             chost.AffinePoint(CURVE, int(x), int(y))
             for x, y, z in zip(_ints(jfops.to_ints(J_BASE, jx)),
                                _ints(jfops.to_ints(J_BASE, jy)),
                                np.asarray(jzero).reshape(-1))]
-    assert got == want
+
+
+MSM_CASES = [(n, k, c) for n, k in [(37, 1), (64, 3)] for c in (4, 8)]
+MSM_IDS = [f"{n}-{k}-{c}" for n, k, c in MSM_CASES]
+
+
+def _msm_inputs(n, k, c):
+    return _points(n, n + c), _scalars(k, n, 7 * n + k + c)
+
+
+@pytest.mark.parametrize("n,k,c", MSM_CASES, ids=MSM_IDS)
+def test_msm_matches_jax(n, k, c):
+    """The port's msm against the JAX package's msm_jit on the same seeded
+    points and scalars (its affine results, tests/fixtures/jax_msm.json,
+    made by test_jax_msm_fixture) and the first row against the host."""
+    pts, rows = _msm_inputs(n, k, c)
+    basis = cmsm.precompute_base(CURVE, points_to_device(CURVE, pts, "cpu"))
+    assert basis.mont.shape == (n, 36)
+    got = device_points_to_host(CURVE, cmsm.msm(
+        CURVE, basis, ints_to_device_matrix(CURVE.scalar, rows, "cpu"), c))
+    assert jaxfx.points(got) == jaxfx.load("msm", f"bls12_377 {n} {k} {c}")
     assert got[0] == _naive(pts, rows[0])
     if k > 1:
         assert got[1] == chost.zero_point(CURVE)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n,k,c", MSM_CASES, ids=MSM_IDS)
+def test_jax_msm_fixture(n, k, c):
+    """The JAX package's msm_jit results that test_msm_matches_jax reads,
+    made again (~1-3 min a case on the CPU, the compile)."""
+    jaxfx.check("msm", f"bls12_377 {n} {k} {c}",
+                jaxfx.points(_jax_msm(*_msm_inputs(n, k, c), c)))
 
 
 def test_msm_chunked_matches_msm():

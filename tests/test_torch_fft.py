@@ -1,6 +1,8 @@
 """The port's FFTs and polynomial helpers (plonky_tpu_torch.poly, plain
 versions on the CPU) against the JAX package's plonky_tpu.poly on a [9, n]
-batch, plus the roll convention the prover's shifts rely on."""
+batch and ragged batches (the transforms' outputs held to the sha256 of
+the JAX package's, tests/fixtures/jax_fft.json, which slow tests make
+again), plus the roll convention the prover's shifts rely on."""
 
 import importlib
 
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 from plonky_tpu.fields import TWEEDLEDUM_BASE as J_SPEC
 from plonky_tpu.fields import ops as jfops
 from plonky_tpu_torch import interop
@@ -47,27 +50,56 @@ def _same(port, jax_arr):
     return [int(v) for v in got] == [int(v) for v in want]
 
 
-@pytest.mark.parametrize("n", [16, 64])
-def test_fft_family_matches_jax(n):
-    rng = np.random.default_rng(n)
-    rows = _rand(rng, (9, n))
-    low = [r[: n // 8] for r in rows]
-    pre, jpre = pfft.FftPrecomputation(SPEC, n), jfft.FftPrecomputation(J_SPEC, n)
-    shift = SPEC.generator
+FAMILY = ("fft", "ifft", "lde", "coset_fft", "coset_ifft")
+
+
+def _family_inputs(n, batch, seed):
+    rng = np.random.default_rng(seed)
+    rows = _rand(rng, (batch, n))
+    return rows, [r[: max(1, n // 8)] for r in rows]
+
+
+def _port_family(n, rows, low):
+    pre, shift = pfft.FftPrecomputation(SPEC, n), SPEC.generator
+    x, xl = _port(rows), _port(low)
+    return pre, x, (pfft.fft(pre, x), pfft.ifft(pre, x), pfft.lde(pre, xl),
+                    pfft.coset_fft(pre, x, shift), pfft.coset_ifft(pre, x, shift))
+
+
+def _jax_family(n, rows, low) -> dict:
+    """sha256 of each of the JAX package's five transforms of the rows."""
+    jpre, shift = jfft.FftPrecomputation(J_SPEC, n), SPEC.generator
 
     @jax.jit
     def reference(x, xl):
         return (jfft.fft(jpre, x), jfft.ifft(jpre, x), jfft.lde(jpre, xl),
                 jfft.coset_fft(jpre, x, shift), jfft.coset_ifft(jpre, x, shift))
-
     want = reference(_jax(rows), _jax(low))
-    x, xl = _port(rows), _port(low)
-    got = (pfft.fft(pre, x), pfft.ifft(pre, x), pfft.lde(pre, xl),
-           pfft.coset_fft(pre, x, shift), pfft.coset_ifft(pre, x, shift))
-    for name, g, w in zip(("fft", "ifft", "lde", "coset_fft", "coset_ifft"),
-                          got, want):
-        assert _same(g, w), name
+    return {name: jaxfx.digest(np.asarray(jfops.to_ints(J_SPEC, w)).reshape(-1))
+            for name, w in zip(FAMILY, want)}
+
+
+def _family_digests(got) -> dict:
+    return {name: jaxfx.digest(np.asarray(fops.to_ints(SPEC, g)).reshape(-1))
+            for name, g in zip(FAMILY, got)}
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_fft_family_matches_jax(n):
+    """fft, ifft, lde and the coset pair on [9, n] against the JAX
+    package's (the sha256 of its canonical outputs,
+    tests/fixtures/jax_fft.json, made by test_jax_fft_family_fixture), and
+    the round trip."""
+    rows, low = _family_inputs(n, 9, n)
+    pre, x, got = _port_family(n, rows, low)
+    assert _family_digests(got) == jaxfx.load("fft", f"family {n}")
     assert _same(pfft.ifft(pre, pfft.fft(pre, x)), _jax(rows))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n", [16, 64])
+def test_jax_fft_family_fixture(n):
+    jaxfx.check("fft", f"family {n}", _jax_family(n, *_family_inputs(n, 9, n)))
 
 
 def test_eval_divide_and_powers_match_jax():
@@ -120,33 +152,29 @@ def test_roll_sign_matches_jnp_roll():
                               np.asarray(jnp.roll(x, shift, axis=-1)))
 
 
-@pytest.mark.parametrize("n,batch", [(2, 1), (2, 3), (2, 9), (16, 1), (16, 3),
-                                     (64, 1), (64, 3), (1024, 1), (1024, 3),
-                                     (1024, 9)])
+BATCHES = [(2, 1), (2, 3), (2, 9), (16, 1), (16, 3), (64, 1), (64, 3),
+           (1024, 1), (1024, 3), (1024, 9)]
+
+
+@pytest.mark.parametrize("n,batch", BATCHES)
 def test_fft_family_batches_match_jax(n, batch):
     """The whole-transform plain version (ntt_plain, the CPU path of fft,
-    ifft, lde, coset_fft and coset_ifft) against the JAX package, below one
-    group of a pass (n = 2, 16, 64), across two passes (n = 2^10) and over
-    ragged batches."""
-    rng = np.random.default_rng(100 * n + batch)
-    rows = _rand(rng, (batch, n))
-    low = [r[: max(1, n // 8)] for r in rows]
-    pre, jpre = pfft.FftPrecomputation(SPEC, n), jfft.FftPrecomputation(J_SPEC, n)
-    shift = SPEC.generator
-
-    @jax.jit
-    def reference(x, xl):
-        return (jfft.fft(jpre, x), jfft.ifft(jpre, x), jfft.lde(jpre, xl),
-                jfft.coset_fft(jpre, x, shift), jfft.coset_ifft(jpre, x, shift))
-
-    want = reference(_jax(rows), _jax(low))
-    x, xl = _port(rows), _port(low)
-    got = (pfft.fft(pre, x), pfft.ifft(pre, x), pfft.lde(pre, xl),
-           pfft.coset_fft(pre, x, shift), pfft.coset_ifft(pre, x, shift))
-    for name, g, w in zip(("fft", "ifft", "lde", "coset_fft", "coset_ifft"),
-                          got, want):
+    ifft, lde, coset_fft and coset_ifft) against the JAX package (the
+    sha256 of its canonical outputs, tests/fixtures/jax_fft.json, made by
+    test_jax_fft_batches_fixture), below one group of a pass (n = 2, 16,
+    64), across two passes (n = 2^10) and over ragged batches."""
+    rows, low = _family_inputs(n, batch, 100 * n + batch)
+    _pre, _x, got = _port_family(n, rows, low)
+    for name, g in zip(FAMILY, got):
         assert g.shape == (8, batch, n), name
-        assert _same(g, w), name
+    assert _family_digests(got) == jaxfx.load("fft", f"batches {n} {batch}")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n,batch", BATCHES)
+def test_jax_fft_batches_fixture(n, batch):
+    jaxfx.check("fft", f"batches {n} {batch}",
+                _jax_family(n, *_family_inputs(n, batch, 100 * n + batch)))
 
 
 @pytest.mark.parametrize("max_layers", [1, 2, 3, 9])

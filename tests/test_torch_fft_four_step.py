@@ -1,6 +1,8 @@
 """The port's four-step FFT (plonky_tpu_torch.poly.fft.fft_four_step and
 four_step_twiddles, plain versions on the CPU) against the JAX package's
-(plonky_tpu.poly.fft, run as tests/test_fft.py runs it) and the port's flat
+(plonky_tpu.poly.fft, run as tests/test_fft.py runs it; the sha256 of its
+outputs read from tests/fixtures/jax_fft.json, made again by slow tests)
+and the port's flat
 `ntt`, forward and inverse, with and without a batch; and the plain version
 of the ntt_twiddle_transpose kernel against a direct per-element
 reference at a non-square shape.  Canonical ints are compared exactly
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 from plonky_tpu.fields import TWEEDLEDEE_BASE as J_SPEC
 from plonky_tpu.fields import ops as jfops
 from plonky_tpu_torch.fields import TWEEDLEDEE_BASE as SPEC
@@ -35,56 +38,88 @@ def _ints(x):
     return [int(v) for v in np.asarray(x).reshape(-1)]
 
 
-@pytest.mark.parametrize("lg_n,lg_n1", [(6, 3), (8, 3), (10, 5)])
+TWIDDLE_CASES = [(6, 3), (8, 3), (10, 5)]
+
+
+@pytest.mark.parametrize("lg_n,lg_n1", TWIDDLE_CASES)
 def test_four_step_twiddles_match_jax(lg_n, lg_n1):
     """[8, n1, n2] = w_n^(+-i1 k2), canonical, equal to the JAX package's
-    table; the kernel's cached copy is w 2^256 mod p."""
+    table (its sha256, tests/fixtures/jax_fft.json, made by
+    test_jax_four_step_twiddles_fixture); the kernel's cached copy is
+    w 2^256 mod p."""
     n, n1 = 1 << lg_n, 1 << lg_n1
     n2 = n // n1
     for inverse in (False, True):
         tw = pfft.four_step_twiddles(SPEC, n, lg_n1, inverse, device="cpu")
         assert tw.canonical.shape == tw.montgomery.shape == (8, n1, n2)
-        want = jfops.to_ints(J_SPEC, jfft.four_step_twiddles(
-            J_SPEC, n, lg_n1, inverse=inverse))
         got = _ints(fops.to_ints(SPEC, tw.canonical))
-        assert got == _ints(want)
+        assert jaxfx.digest(got) == jaxfx.load("fft", f"four-step twiddles {lg_n} {lg_n1} {inverse}")
         mont = _ints(fops.to_ints(SPEC, tw.montgomery))
         assert mont == [v * pow(2, 256, SPEC.p) % SPEC.p for v in got]
         assert pfft.four_step_twiddles(SPEC, n, lg_n1, inverse, "cpu") is tw
 
 
-@pytest.mark.parametrize("lg_n,lg_n1,batch", [(6, 3, None), (8, 3, 3),
-                                              (10, 5, None), (10, 5, 3)])
+@pytest.mark.slow
+@pytest.mark.parametrize("lg_n,lg_n1", TWIDDLE_CASES)
+def test_jax_four_step_twiddles_fixture(lg_n, lg_n1):
+    for inverse in (False, True):
+        want = jfops.to_ints(J_SPEC, jfft.four_step_twiddles(
+            J_SPEC, 1 << lg_n, lg_n1, inverse=inverse))
+        jaxfx.check("fft", f"four-step twiddles {lg_n} {lg_n1} {inverse}",
+                    jaxfx.digest(_ints(want)))
+
+
+FOUR_STEP_CASES = [(6, 3, None), (8, 3, 3), (10, 5, None), (10, 5, 3)]
+
+
+def _four_step_rows(lg_n, lg_n1, batch):
+    rng = np.random.default_rng(lg_n * 10 + lg_n1 + (batch or 0))
+    return [_rand(rng, 1 << lg_n) for _ in range(batch or 1)]
+
+
+@pytest.mark.parametrize("lg_n,lg_n1,batch", FOUR_STEP_CASES)
 def test_fft_four_step_matches_jax_and_flat(lg_n, lg_n1, batch):
     """Forward and inverse against the JAX package's fft_four_step (under
-    jit, as tests/test_fft.py runs it) and the port's flat ntt; the
-    inverse of the forward is the input."""
+    jit, as tests/test_fft.py runs it; the sha256 of its outputs,
+    tests/fixtures/jax_fft.json, made by test_jax_fft_four_step_fixture)
+    and the port's flat ntt; the inverse of the forward is the input."""
     n = 1 << lg_n
-    rng = np.random.default_rng(lg_n * 10 + lg_n1 + (batch or 0))
-    rows = [_rand(rng, n) for _ in range(batch or 1)]
+    rows = _four_step_rows(lg_n, lg_n1, batch)
     if batch is None:
         x = fops.from_ints(SPEC, rows[0], "cpu")
-        jx = jfops.from_ints(J_SPEC, rows[0])
     else:
         x = torch.stack([fops.from_ints(SPEC, r, "cpu") for r in rows], dim=1)
-        jx = jnp.stack([jfops.from_ints(J_SPEC, r) for r in rows], axis=1)
     pre = pfft.FftPrecomputation(SPEC, n)
     for inverse in (False, True):
         tw = pfft.four_step_twiddles(SPEC, n, lg_n1, inverse, "cpu")
         got = pfft.fft_four_step(SPEC, x, tw, lg_n1, inverse)
         assert got.shape == x.shape
-        jtw = jfft.four_step_twiddles(J_SPEC, n, lg_n1, inverse=inverse)
-        if batch is not None:     # the JAX ops broadcast from the left
-            jtw = jtw[:, None]
-        want = jax.jit(lambda v, t: jfft.fft_four_step(
-            J_SPEC, v, t, lg_n1, inverse=inverse))(jx, jtw)
-        assert _ints(fops.to_ints(SPEC, got)) == _ints(jfops.to_ints(J_SPEC, want))
+        assert jaxfx.digest(_ints(fops.to_ints(SPEC, got))) == jaxfx.load(
+            "fft", f"four-step {lg_n} {lg_n1} {batch} {inverse}")
         assert torch.equal(got, pfft.ntt(pre, x, inverse))
     fwd = pfft.fft_four_step(SPEC, x, pfft.four_step_twiddles(SPEC, n, lg_n1,
                                                               device="cpu"), lg_n1)
     back = pfft.fft_four_step(SPEC, fwd, pfft.four_step_twiddles(
         SPEC, n, lg_n1, True, "cpu"), lg_n1, inverse=True)
     assert torch.equal(back, x)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("lg_n,lg_n1,batch", FOUR_STEP_CASES)
+def test_jax_fft_four_step_fixture(lg_n, lg_n1, batch):
+    rows = _four_step_rows(lg_n, lg_n1, batch)
+    if batch is None:
+        jx = jfops.from_ints(J_SPEC, rows[0])
+    else:
+        jx = jnp.stack([jfops.from_ints(J_SPEC, r) for r in rows], axis=1)
+    for inverse in (False, True):
+        jtw = jfft.four_step_twiddles(J_SPEC, 1 << lg_n, lg_n1, inverse=inverse)
+        if batch is not None:     # the JAX ops broadcast from the left
+            jtw = jtw[:, None]
+        want = jax.jit(lambda v, t: jfft.fft_four_step(
+            J_SPEC, v, t, lg_n1, inverse=inverse))(jx, jtw)
+        jaxfx.check("fft", f"four-step {lg_n} {lg_n1} {batch} {inverse}",
+                    jaxfx.digest(_ints(jfops.to_ints(J_SPEC, want))))
 
 
 def test_twiddle_transpose_plain_is_the_direct_product():

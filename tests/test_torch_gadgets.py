@@ -11,11 +11,13 @@ its public inputs must be the values the JAX package's host arithmetic
 gives, the port's verifier must accept it with the G check, and its sha256
 must be chip_smoke.GADGET_PROOF_SHA256's, the hash chip_smoke.py asserts
 for the card's proof; the JAX package's proof of each circuit must hash to
-the same value.  The in-circuit MSM (~2^11 gates) is slow-marked as in the
+the same value (curve_double's, in the fast tier, read from
+tests/fixtures/jax_proofs.json and equal to the port's bytes).  The in-circuit MSM (~2^11 gates) is slow-marked as in the
 reference; its test proves the circuit in both packages and holds the two
 proofs' bytes equal and to the pinned hash.
 """
 
+import functools
 import hashlib
 import types
 
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 import plonky_tpu.circuit.builder as jbuilder_mod
 import plonky_tpu.protocol.halo as jhalo_mod
 import plonky_tpu_torch.circuit.builder as builder_mod
@@ -153,11 +156,12 @@ def test_builder_logic_gadgets():
 # Proofs (tests/test_prove_verify_gadgets.py)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def port_gadget_proof(name):
     """The port's proof of gadget circuit `name` on the CPU under a fresh
     gadget_random(), verified by the port's verifier with the G check:
     (proof bytes, public inputs, the JAX package's expected public
-    inputs)."""
+    inputs); made once a process (the source is pinned)."""
     def build():
         builder, inputs, _want = gadget_circuits(port_modules())[name]()
         return builder.build(device="cpu"), inputs
@@ -190,16 +194,30 @@ def jax_gadget_proof_bytes(name):
     return jax_proof_to_bytes(J_DEE, proof)
 
 
-# Each JAX proof costs 90-180 s on one CPU worker, most of it compiles: the
-# cheapest (curve_double, degree 8) runs in the fast tier, the rest are slow.
+# Each JAX proof costs 90-300 s on one CPU worker, most of it compiles: the
+# cheapest (curve_double, degree 8) runs in the fast tier from its bytes
+# in tests/fixtures/jax_proofs.json (test_jax_gadget_fixture makes them
+# again), the rest are slow.
 @pytest.mark.parametrize("name", [
     name if name == "curve_double" else pytest.param(name, marks=pytest.mark.slow)
     for name in FAST_GADGETS])
 def test_jax_gadget_proof_is_the_pinned_sha256(name):
     """The JAX package's proof of each small gadget circuit hashes to the
-    value the port's proof is held to, here and on the card."""
-    proof = jax_gadget_proof_bytes(name)
+    value the port's proof is held to, here and on the card; curve_double's
+    bytes are also the port's."""
+    if name == "curve_double":
+        proof = bytes.fromhex(jaxfx.load("proofs", "gadget curve_double"))
+        assert proof == port_gadget_proof(name)[0]
+    else:
+        proof = jax_gadget_proof_bytes(name)
     assert hashlib.sha256(proof).hexdigest() == GADGET_PROOF_SHA256[name]
+
+
+@pytest.mark.slow
+def test_jax_gadget_fixture():
+    """The JAX package's curve_double proof bytes that
+    test_jax_gadget_proof_is_the_pinned_sha256 reads, made again."""
+    jaxfx.check("proofs", "gadget curve_double", jax_gadget_proof_bytes("curve_double").hex())
 
 
 @pytest.mark.slow

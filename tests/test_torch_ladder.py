@@ -5,7 +5,9 @@ workload) is built and proved on the CPU in both packages, each with a
 fresh random source pinned as tests/test_proof_fixture.py pins it
 (np.random.default_rng(1337), for the build and the prove).  The proof and
 vk bytes must be equal, and the JAX package's verifier must accept the
-port's proof with the G check.  Rungs: 2^5 in the fast tier; 2^9 and 2^10
+port's proof with the G check.  Rungs: 2^5 in the fast tier, against the
+JAX package's bytes kept in tests/fixtures/jax_proofs.json (a slow test
+makes them again and runs the JAX verifier on them); 2^9 and 2^10
 slow-marked (each proves for minutes on the CPU in either package).  The
 2^10 rung's proof also hashes to chip_smoke.PROOF_2E10_SHA256, the value
 chip_smoke.py asserts for the card's proof.  The slow 2^14 test reproduces chip_smoke.py's phase_prove
@@ -18,6 +20,7 @@ import hashlib
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 import plonky_tpu.circuit.builder as jbuilder_mod
 import plonky_tpu.protocol.halo as jhalo_mod
 from chip_smoke import (PROOF_2E10_SHA256, PROOF_2E14_SHA256, buffer_circuit,
@@ -80,8 +83,26 @@ def _check_rung(lg: int):
 
 def test_ladder_2e5_bytes_match_jax():
     """The rung above the fixtures' degree 8 that fits the fast tier: 32
-    gates, five IPA rounds against the fixtures' three."""
-    _check_rung(5)
+    gates, five IPA rounds against the fixtures' three.  The port's proof
+    and vk bytes equal the JAX package's (tests/fixtures/jax_proofs.json,
+    made, and its proof accepted by the JAX verifier with the G check, by
+    test_jax_ladder_2e5_fixture)."""
+    proof_bytes, vk_bytes = port_buffer_proof(5)
+    want = jaxfx.load("proofs", "buffer 2^5")
+    assert proof_bytes.hex() == want["proof"]
+    assert vk_bytes.hex() == want["vk"]
+
+
+@pytest.mark.slow
+def test_jax_ladder_2e5_fixture():
+    """The JAX package's 2^5 proof and vk that test_ladder_2e5_bytes_match_jax
+    reads, made again, and the JAX verifier's acceptance of that proof
+    with the G check (~6 min on one CPU process, the compiles)."""
+    proof_bytes, vk_bytes, pis = jax_buffer_proof(5)
+    jaxfx.check("proofs", "buffer 2^5", {"proof": proof_bytes.hex(), "vk": vk_bytes.hex()})
+    assert jax_verify_proof(pis, jax_proof_from_bytes(J_DEE, proof_bytes), [],
+                            jax_vk_from_bytes(J_DEE, vk_bytes), J_DUM,
+                            verify_g=True) is None
 
 
 @pytest.mark.slow

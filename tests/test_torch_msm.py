@@ -1,6 +1,7 @@
 """The port's MSM (plonky_tpu_torch.curves.msm, plain versions on the CPU)
 against the JAX package's plonky_tpu.curves.msm at the window the main path
-picks (commit_window_bits), and against a naive host MSM at every window
+picks (commit_window_bits; its results read from tests/fixtures/jax_msm.json,
+made again by a slow test), and against a naive host MSM at every window
 from 2 to 12 (the reduction widens its segments above c = 9)."""
 
 import jax
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 from plonky_tpu.curves import TWEEDLEDEE as J_CURVE
 from plonky_tpu.curves import msm as jmsm
 from plonky_tpu.curves import ops as jcops
@@ -53,15 +55,8 @@ def _naive(pts, row):
     return acc
 
 
-@pytest.mark.parametrize("n,k", [(37, 1), (64, 3)])
-def test_msm_matches_jax(n, k):
-    pts, rows = _points(n), _scalars(k, n, 7 * n + k)
-    c = commit_window_bits(n)
-    basis = cmsm.precompute_base(CURVE, points_to_device(CURVE, pts, "cpu"))
-    got = device_points_to_host(
-        CURVE, cmsm.msm(CURVE, basis, ints_to_device_matrix(
-            CURVE.scalar, rows, "cpu"), c))
-
+def _jax_msm(pts, rows, c) -> list:
+    """The JAX package's msm of the points and scalar rows, affine."""
     f = J_CURVE.base
     jpts = jcops.from_affine(
         J_CURVE, jfops.from_ints(f, [0 if p.zero else p.x for p in pts]),
@@ -71,13 +66,41 @@ def test_msm_matches_jax(n, k):
     jx, jy, jzero = jax.jit(lambda P, S: jcops.to_affine(
         J_CURVE, jmsm.msm(J_CURVE, P, S, window_bits=c)))(jpts, jscal)
     xs, ys = jfops.to_ints(f, jx), jfops.to_ints(f, jy)
-    want = [chost.zero_point(CURVE) if bool(z) else
+    return [chost.zero_point(CURVE) if bool(z) else
             chost.AffinePoint(CURVE, int(x), int(y))
             for x, y, z in zip(np.asarray(xs).reshape(-1),
                                np.asarray(ys).reshape(-1),
                                np.asarray(jzero).reshape(-1))]
-    assert got == want
+
+
+MSM_CASES = [(37, 1), (64, 3)]
+
+
+def _msm_inputs(n, k):
+    return _points(n), _scalars(k, n, 7 * n + k), commit_window_bits(n)
+
+
+@pytest.mark.parametrize("n,k", MSM_CASES)
+def test_msm_matches_jax(n, k):
+    """The port's msm at the main path's window against the JAX package's
+    msm (its affine results, tests/fixtures/jax_msm.json, made by
+    test_jax_msm_fixture) and the first row against the host."""
+    pts, rows, c = _msm_inputs(n, k)
+    basis = cmsm.precompute_base(CURVE, points_to_device(CURVE, pts, "cpu"))
+    got = device_points_to_host(
+        CURVE, cmsm.msm(CURVE, basis, ints_to_device_matrix(
+            CURVE.scalar, rows, "cpu"), c))
+    assert jaxfx.points(got) == jaxfx.load("msm", f"tweedledee {n} {k}")
     assert got[0] == _naive(pts, rows[0])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n,k", MSM_CASES)
+def test_jax_msm_fixture(n, k):
+    """The JAX package's results that test_msm_matches_jax reads, made
+    again (~1-2 min a case on the CPU, the compile)."""
+    pts, rows, c = _msm_inputs(n, k)
+    jaxfx.check("msm", f"tweedledee {n} {k}", jaxfx.points(_jax_msm(pts, rows, c)))
 
 
 @pytest.mark.parametrize("c", range(2, 13))

@@ -6,7 +6,8 @@ and signed windows (an odd bucket count, 2^(c-1) + 1), an empty row, runs
 that carry across tiles, a batch of rows that is not a power of two, and
 segment widths whose segment count is not a power of two.  `msm_chunked`
 over three small slices against the JAX package's `msm_chunked` (Tweedledee at
-c = 8 signed, BLS12-377 at c = 4 unsigned), as affine points, and its launches on
+c = 8 signed, BLS12-377 at c = 4 unsigned), as affine points (read from
+tests/fixtures/jax_msm.json, made again by a slow test), and its launches on
 the card (read with the launches stubbed out): each slice's accumulation,
 one reduction, one Horner and a tree of adds."""
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 from plonky_tpu import curves as jcurves
 from plonky_tpu.curves import msm as jmsm
 from plonky_tpu.curves import ops as jcops
@@ -133,38 +135,63 @@ def _scalar_rows(curve, k, n, seed):
     return rows
 
 
-@pytest.mark.parametrize("name,c,signed", [("tweedledee", 8, True),
-                                           ("bls12_377", 4, False)])
-def test_msm_chunked_matches_jax(name, c, signed):
-    """Three slices of 2^2 points, two MSMs: the port's msm_chunked (each
-    slice's buckets, one reduction over the slices' rows, one Horner, a
-    tree of adds) against the JAX package's (a jitted msm a slice, summed
-    by adds; window_group 2, as its own test runs it), as affine points;
-    the second MSM also against the host.  Each curve, window and sign
-    once: a JAX MSM compile costs 20-45 s on the CPU at these shapes, and
-    more at wider slices (chip_smoke.py's K4 sweep holds every c = 2..12,
-    signed and unsigned, at both widths, against a discrete-log oracle)."""
-    curve, jc = CURVES[name], J_CURVES[name]
-    n, chunk_log = 3 << 2, 2
-    pts, rows = _points(curve, n, c + 3 * signed), _scalar_rows(curve, 2, n, c)
-    basis = cmsm.precompute_base(curve, points_to_device(curve, pts, "cpu"))
-    got = device_points_to_host(curve, cmsm.msm_chunked(
-        curve, basis, ints_to_device_matrix(curve.scalar, rows, "cpu"),
-        window_bits=c, chunk_log=chunk_log, signed=signed))
+CHUNKED_CASES = [("tweedledee", 8, True), ("bls12_377", 4, False)]
+CHUNK_LOG = 2
 
+
+def _chunked_inputs(name, c, signed):
+    """Three slices of 2^2 points and two scalar rows."""
+    n = 3 << CHUNK_LOG
+    return _points(CURVES[name], n, c + 3 * signed), _scalar_rows(CURVES[name], 2, n, c)
+
+
+def _jax_msm_chunked(name, c, signed) -> list:
+    """The JAX package's msm_chunked of _chunked_inputs (a jitted msm a
+    slice, summed by adds; window_group 2, as its own test runs it),
+    affine."""
+    curve, jc = CURVES[name], J_CURVES[name]
+    pts, rows = _chunked_inputs(name, c, signed)
     jscal = jnp.stack([jfops.from_ints(jc.scalar, r) for r in rows], axis=1)
     res = jmsm.msm_chunked(jc, _jax_points(name, pts), jscal, window_bits=c,
-                           window_group=2, chunk_log=chunk_log, signed=signed)
+                           window_group=2, chunk_log=CHUNK_LOG, signed=signed)
     jx, jy, jzero = jax.jit(lambda p: jcops.to_affine(jc, p))(res)
-    want = [chost.zero_point(curve) if bool(z) else
+    return [chost.zero_point(curve) if bool(z) else
             chost.AffinePoint(curve, int(x), int(y))
             for x, y, z in zip(*(np.asarray(jfops.to_ints(jc.base, v)).reshape(-1)
                                  for v in (jx, jy)), np.asarray(jzero).reshape(-1))]
-    assert got == want
+
+
+@pytest.mark.parametrize("name,c,signed", CHUNKED_CASES)
+def test_msm_chunked_matches_jax(name, c, signed):
+    """Three slices of 2^2 points, two MSMs: the port's msm_chunked (each
+    slice's buckets, one reduction over the slices' rows, one Horner, a
+    tree of adds) against the JAX package's msm_chunked as affine points
+    (read from tests/fixtures/jax_msm.json, made by
+    test_jax_msm_chunked_fixture: a JAX MSM compile costs 20-45 s on the
+    CPU at these shapes), the second MSM also against the host.  Each
+    curve, window and sign once (chip_smoke.py's K4 sweep holds every
+    c = 2..12, signed and unsigned, at both widths, against a discrete-log
+    oracle)."""
+    curve = CURVES[name]
+    pts, rows = _chunked_inputs(name, c, signed)
+    basis = cmsm.precompute_base(curve, points_to_device(curve, pts, "cpu"))
+    got = device_points_to_host(curve, cmsm.msm_chunked(
+        curve, basis, ints_to_device_matrix(curve.scalar, rows, "cpu"),
+        window_bits=c, chunk_log=CHUNK_LOG, signed=signed))
+    assert jaxfx.points(got) == jaxfx.load("msm", f"{name} chunked {c} {signed}")
     acc = chost.zero_point(curve)
     for pt, s in zip(pts, rows[1]):
         acc = chost.add(acc, chost.mul(pt, s))
     assert got[1] == acc
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,c,signed", CHUNKED_CASES)
+def test_jax_msm_chunked_fixture(name, c, signed):
+    """The JAX package's results that test_msm_chunked_matches_jax reads,
+    made again."""
+    jaxfx.check("msm", f"{name} chunked {c} {signed}",
+                jaxfx.points(_jax_msm_chunked(name, c, signed)))
 
 
 @pytest.mark.parametrize("slices", [3, 4, 5])

@@ -1,7 +1,9 @@
 """The port's signed-window MSM (plonky_tpu_torch.curves.msm with
 signed=True, plain versions on the CPU) against the JAX package's
 (plonky_tpu.curves.msm, signed=True) and a naive host MSM: the recoding at
-edge scalars, `msm` at the JAX package's own cases and a multi-MSM,
+edge scalars, `msm` at the JAX package's own cases and a multi-MSM (the
+JAX package's results read from tests/fixtures/jax_msm.json, made again
+by a slow test),
 `msm_chunked`, one BLS12-377 case, the signed accumulation against direct
 signed bucket sums, the reduction at 1,025 and 2,049 buckets, and the
 reduction's segment width, which the kernel and the plain version take
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 from plonky_tpu.curves import TWEEDLEDEE as J_CURVE
 from plonky_tpu.curves import msm as jmsm
 from plonky_tpu.curves import ops as jcops
@@ -115,20 +118,39 @@ def _jax_msm(pts, rows, c):
                                np.asarray(jzero).reshape(-1))]
 
 
-@pytest.mark.parametrize("n,c,k", [(8, 4, 1), (33, 8, 1), (16, 10, 1),
-                                   (16, 8, 3)])
+SIGNED_CASES = [(8, 4, 1), (33, 8, 1), (16, 10, 1), (16, 8, 3)]
+
+
+def _signed_inputs(n, c, k):
+    return _points(CURVE, n, n + c), _scalars(CURVE, k, n, 3 * n + c + k)
+
+
+@pytest.mark.parametrize("n,c,k", SIGNED_CASES)
 def test_msm_signed_matches_jax(n, c, k):
     """tests/test_curves.py's signed cases (n, c) = (8, 4), (33, 8),
-    (16, 10), and a multi-MSM of K = 3 over one basis."""
-    pts, rows = _points(CURVE, n, n + c), _scalars(CURVE, k, n, 3 * n + c + k)
+    (16, 10), and a multi-MSM of K = 3 over one basis: against the JAX
+    package's signed msm_jit (its affine results,
+    tests/fixtures/jax_msm.json, made by test_jax_msm_signed_fixture) and
+    the host."""
+    pts, rows = _signed_inputs(n, c, k)
     basis = cmsm.precompute_base(CURVE, points_to_device(CURVE, pts, "cpu"))
     scal = ints_to_device_matrix(CURVE.scalar, rows, "cpu")
     if k == 1:
         scal = scal[:, 0]
     got = device_points_to_host(CURVE, cmsm.msm(CURVE, basis, scal, c,
                                                 signed=True))
-    assert got == _jax_msm(pts, rows, c)
+    assert jaxfx.points(got) == jaxfx.load("msm", f"tweedledee signed {n} {c} {k}")
     assert got == [_naive(CURVE, pts, r) for r in rows]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n,c,k", SIGNED_CASES)
+def test_jax_msm_signed_fixture(n, c, k):
+    """The JAX package's results that test_msm_signed_matches_jax reads,
+    made again (~1-2 min a case on the CPU, the compile)."""
+    pts, rows = _signed_inputs(n, c, k)
+    jaxfx.check("msm", f"tweedledee signed {n} {c} {k}",
+                jaxfx.points(_jax_msm(pts, rows, c)))
 
 
 def test_msm_signed_c12_matches_naive():

@@ -8,12 +8,15 @@ and makes both proofs on the CPU under its own fresh
 chip_smoke.pinned_random() (the builder's and the IPA's random source, for
 the build and both proves).  Both proofs' bytes must be equal across the
 packages, and each package's verifier must accept the other's proof B
-with the G check.
+with the G check.  The JAX package's proofs are read from
+tests/fixtures/jax_proofs.json; a slow test makes them again and runs the
+JAX verifier.
 """
 
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 import plonky_tpu.circuit.builder as jbuilder_mod
 import plonky_tpu.protocol.halo as jhalo_mod
 import plonky_tpu_torch.circuit.builder as builder_mod
@@ -73,42 +76,64 @@ def _two_proofs(CB, PW, dee, dum, prove, verify, to_bytes, vk_bytes, mods,
 
 
 @pytest.fixture(scope="module")
-def both():
-    port = _two_proofs(CircuitBuilder, PartialWitness, TWEEDLEDEE, TWEEDLEDUM,
+def port():
+    return _two_proofs(CircuitBuilder, PartialWitness, TWEEDLEDEE, TWEEDLEDUM,
                        generate_proof, verify_proof, proof_to_bytes,
                        vk_to_bytes, (builder_mod, halo_mod), device="cpu")
-    jax = _two_proofs(JCircuitBuilder, JPartialWitness, J_DEE, J_DUM,
-                      jax_generate_proof, jax_verify_proof, jax_proof_to_bytes,
-                      jax_vk_to_bytes, (jbuilder_mod, jhalo_mod))
-    return port, jax
 
 
-def test_old_proof_bytes_match_jax(both):
+def _jax_two_proofs():
+    return _two_proofs(JCircuitBuilder, JPartialWitness, J_DEE, J_DUM,
+                       jax_generate_proof, jax_verify_proof, jax_proof_to_bytes,
+                       jax_vk_to_bytes, (jbuilder_mod, jhalo_mod))
+
+
+def _record(proofs) -> dict:
+    """Proof A, proof B and the vk in hex, and A's OldProof, as JSON."""
+    a, b, vk, old = proofs
+    return {"proof_a": a.hex(), "proof_b": b.hex(), "vk": vk.hex(),
+            "halo_us": [hex(u) for u in old.halo_us],
+            "halo_g": [hex(old.halo_g.x), hex(old.halo_g.y)]}
+
+
+def test_old_proof_bytes_match_jax(port):
     """Proof A, proof B (which carries A's OldProof) and the vk: the port's
-    bytes are the JAX package's, and so is A's deferred OldProof."""
-    (pa, pb, pvk, pold), (ja, jb, jvk, jold) = both
-    assert pvk == jvk
-    assert pa == ja
-    assert pold.halo_us == jold.halo_us
-    assert (pold.halo_g.x, pold.halo_g.y) == (jold.halo_g.x, jold.halo_g.y)
-    assert pb == jb
+    bytes are the JAX package's, and so is A's deferred OldProof (the JAX
+    package's, tests/fixtures/jax_proofs.json, made by
+    test_jax_old_proofs_fixture)."""
+    assert _record(port) == jaxfx.load("proofs", "old proofs")
 
 
-def test_each_verifier_accepts_the_others_old_proof_proof(both):
-    """The JAX verifier accepts the port's proof B and the port's verifier
-    the JAX package's, each with the G check and the old proof rebuilt
-    from the other package's values."""
-    (_pa, pb, pvk, pold), (_ja, jb, jvk, jold) = both
-    j_old = JOldProof(halo_g=JAffinePoint(J_DEE, pold.halo_g.x, pold.halo_g.y),
-                      halo_us=list(pold.halo_us))
-    assert jax_verify_proof([], jax_proof_from_bytes(J_DEE, pb), [j_old],
-                            jax_vk_from_bytes(J_DEE, pvk), J_DUM,
-                            verify_g=True) is None
-    p_old = OldProof(halo_g=AffinePoint(TWEEDLEDEE, jold.halo_g.x, jold.halo_g.y),
-                     halo_us=list(jold.halo_us))
-    assert verify_proof([], proof_from_bytes(TWEEDLEDEE, jb), [p_old],
-                        vk_from_bytes(TWEEDLEDEE, jvk), TWEEDLEDUM,
-                        verify_g=True, device="cpu") is None
+def test_each_verifier_accepts_the_others_old_proof_proof(port):
+    """The port's verifier accepts the JAX package's proof B with the G
+    check and the old proof rebuilt from the JAX package's values; the
+    JAX verifier's acceptance of the port's proof B (whose bytes are the
+    JAX package's) is test_jax_old_proofs_fixture's."""
+    want = jaxfx.load("proofs", "old proofs")
+    gx, gy = (int(v, 16) for v in want["halo_g"])
+    p_old = OldProof(halo_g=AffinePoint(TWEEDLEDEE, gx, gy),
+                     halo_us=[int(u, 16) for u in want["halo_us"]])
+    assert verify_proof([], proof_from_bytes(TWEEDLEDEE, bytes.fromhex(want["proof_b"])),
+                        [p_old], vk_from_bytes(TWEEDLEDEE, bytes.fromhex(want["vk"])),
+                        TWEEDLEDUM, verify_g=True, device="cpu") is None
+    assert port[1].hex() == want["proof_b"]
+
+
+@pytest.mark.slow
+def test_jax_old_proofs_fixture():
+    """The JAX package's two proofs, vk and OldProof that the tests above
+    read, made again, and the JAX verifier's acceptance of proof B (the
+    port's bytes) with the G check and the old proof rebuilt from its
+    values."""
+    jax_proofs = _jax_two_proofs()
+    rec = _record(jax_proofs)
+    jaxfx.check("proofs", "old proofs", rec)
+    jold = jax_proofs[3]
+    j_old = JOldProof(halo_g=JAffinePoint(J_DEE, jold.halo_g.x, jold.halo_g.y),
+                      halo_us=list(jold.halo_us))
+    assert jax_verify_proof([], jax_proof_from_bytes(J_DEE, bytes.fromhex(rec["proof_b"])),
+                            [j_old], jax_vk_from_bytes(J_DEE, bytes.fromhex(rec["vk"])),
+                            J_DUM, verify_g=True) is None
 
 
 def test_old_proof_of_a_smaller_circuit_rides_a_larger_proof():

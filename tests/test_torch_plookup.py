@@ -14,7 +14,10 @@ for value (exact canonical ints and points):
 
 The JAX package's prover divides by Z_H through a call that does not fit
 its callee (ROADMAP C1); `jax_adapter` replaces that callee for the JAX
-proof only, so that the reference runs.
+proof only, so that the reference runs.  The JAX package's proof, its
+vanishing polynomial and quotient are read from
+tests/fixtures/jax_proofs.json; a slow test makes them again and runs the
+JAX verifier on both packages' proofs.
 """
 
 import copy
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 import plonky_tpu.plookup as jplookup
 import plonky_tpu.plookup.plookup as jplookup_mod
 import plonky_tpu.protocol.halo as jhalo_mod
@@ -113,29 +117,75 @@ def _recording(record, key, fn):
     return wrapped
 
 
+def _jax_run() -> dict:
+    """The JAX package's proof of the subset case under a fresh pinned
+    source and jax_adapter, and the vanishing polynomial its prover made
+    on the 4(n+1) domain."""
+    made = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jhalo_mod, "RANDOM_SOURCE", pinned_source())
+        mp.setattr(jprover_mod, "_div_zh", jax_adapter)
+        mp.setattr(jplookup_mod, "_vanishing_polynomial", _recording(
+            made, "vanishing", jplookup_mod._vanishing_polynomial))
+        made["proof"] = jplookup.prove(J_DEE, F, T)
+    return made
+
+
+OPENINGS = ("f", "t", "h1", "h2", "z", "quotient")
+POINTS = ("c_f", "c_t", "c_h1", "c_h2", "c_z", "c_quotient")
+
+
+def _record(proof, vanishing, quotient) -> dict:
+    """A port PlookupProof (points compressed, values in hex) and the ints
+    of a vanishing polynomial and its quotient, as JSON."""
+    pt = lambda q: point_to_bytes(TWEEDLEDEE, q).hex()
+    hp, o = proof.halo_proof, proof.openings
+    return {"points": [pt(getattr(proof, k)) for k in POINTS],
+            "openings": [[hex(getattr(o, k).local), hex(getattr(o, k).right)]
+                         for k in OPENINGS],
+            "halo_l": [pt(q) for q in hp.halo_l], "halo_r": [pt(q) for q in hp.halo_r],
+            "halo_g": pt(hp.halo_g),
+            "schnorr": [pt(hp.schnorr_proof.r), hex(hp.schnorr_proof.z1),
+                        hex(hp.schnorr_proof.z2)],
+            "n": proof.n, "vanishing": [hex(v) for v in vanishing],
+            "quotient": [hex(v) for v in quotient]}
+
+
+def _from_record(rec):
+    """The port PlookupProof of a _record."""
+    pt = lambda h: point_from_bytes(TWEEDLEDEE, bytes.fromhex(h))
+    r, z1, z2 = rec["schnorr"]
+    return plookup.PlookupProof(
+        **{k: pt(h) for k, h in zip(POINTS, rec["points"])},
+        openings=plookup.PlookupOpenings(*(plookup.Opening(int(a, 16), int(b, 16))
+                                           for a, b in rec["openings"])),
+        halo_proof=OpeningProof(
+            halo_l=[pt(h) for h in rec["halo_l"]], halo_r=[pt(h) for h in rec["halo_r"]],
+            halo_g=pt(rec["halo_g"]),
+            schnorr_proof=SchnorrProof(pt(r), int(z1, 16), int(z2, 16))),
+        n=rec["n"])
+
+
 @pytest.fixture(scope="module")
 def runs():
-    """The subset case's proof from each package, each under a fresh
-    pinned source, the JAX one under jax_adapter; and the vanishing
-    polynomial each prover made on the 4(n+1) domain."""
+    """The subset case's proof from the port under a fresh pinned source
+    and the vanishing polynomial its prover made on the 4(n+1) domain;
+    the JAX package's proof, vanishing polynomial and quotient (made under
+    jax_adapter) from tests/fixtures/jax_proofs.json, which
+    test_jax_plookup_fixture makes again."""
     made = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(halo_mod, "RANDOM_SOURCE", pinned_source())
         mp.setattr(plookup_mod, "_vanishing_polynomial", _recording(
             made, "port_vanishing", plookup_mod._vanishing_polynomial))
         made["port"] = plookup.prove(TWEEDLEDEE, F, T, device="cpu")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jhalo_mod, "RANDOM_SOURCE", pinned_source())
-        mp.setattr(jprover_mod, "_div_zh", jax_adapter)
-        mp.setattr(jplookup_mod, "_vanishing_polynomial", _recording(
-            made, "jax_vanishing", jplookup_mod._vanishing_polynomial))
-        made["jax"] = jplookup.prove(J_DEE, F, T)
+    made["jax"] = jaxfx.load("proofs", "plookup n = 7")
     return made
 
 
 @pytest.fixture(scope="module")
 def proofs(runs):
-    return runs["port"], runs["jax"]
+    return runs["port"], _from_record(runs["jax"])
 
 
 def test_host_functions_match_jax():
@@ -159,22 +209,19 @@ def test_host_functions_match_jax():
 def test_vanishing_and_quotient_match_jax(runs):
     """The 4(n+1)-domain identity at n = 7, as each package's prover made
     it for the subset case's proof, and its quotient by X^(n+1) - 1 (the
-    JAX package's through jax_adapter's jit, which its prove compiled)."""
+    JAX package's through jax_adapter's jit, which its prove compiled;
+    both read from the fixture)."""
     sf, n = TWEEDLEDEE.scalar, 7
-    van, j_van = runs["port_vanishing"], runs["jax_vanishing"]
+    van = runs["port_vanishing"]
     assert van.shape[-1] == 4 * (n + 1)
-    assert [int(x) for x in fops.to_ints(sf, van)] == \
-        [int(x) for x in jfops.to_ints(J_DEE.scalar, j_van)]
+    assert [hex(int(x)) for x in fops.to_ints(sf, van)] == runs["jax"]["vanishing"]
     q = divide_by_z_h(sf, van, n + 1)
-    j_q = cached_jit(jax_adapter, J_DEE.scalar, n + 1)(j_van)
-    assert [int(x) for x in fops.to_ints(sf, q)] == \
-        [int(x) for x in jfops.to_ints(J_DEE.scalar, j_q)]
+    assert [hex(int(x)) for x in fops.to_ints(sf, q)] == runs["jax"]["quotient"]
 
 
 def test_proof_matches_jax(proofs):
     """Every commitment, opening and the Halo proof, value for value."""
-    port, jax = proofs
-    conv = from_jax(jax)
+    port, conv = proofs
     assert port.n == conv.n == 7
     for name in ("c_f", "c_t", "c_h1", "c_h2", "c_z", "c_quotient"):
         assert getattr(port, name) == getattr(conv, name), name
@@ -187,10 +234,32 @@ def test_proof_matches_jax(proofs):
 
 
 def test_each_verifier_accepts_the_others_proof(proofs):
-    port, jax = proofs
+    """The port's verifier accepts its own proof and the JAX package's;
+    the JAX verifier's acceptance of the port's proof is
+    test_jax_plookup_fixture's."""
+    port, conv = proofs
     plookup.verify(TWEEDLEDEE, T, port, device="cpu")
-    plookup.verify(TWEEDLEDEE, T, from_jax(jax), device="cpu")
+    plookup.verify(TWEEDLEDEE, T, conv, device="cpu")
+
+
+@pytest.mark.slow
+def test_jax_plookup_fixture():
+    """The JAX package's n = 7 proof, vanishing polynomial and quotient
+    that the tests above read, made again (~4 min on one CPU process,
+    the compiles), and the JAX verifier's acceptance of the port's proof
+    and of its own."""
+    made = _jax_run()
+    sf, n = J_DEE.scalar, 7
+    quotient = cached_jit(jax_adapter, sf, n + 1)(made["vanishing"])
+    rec = _record(from_jax(made["proof"]),
+                  [int(x) for x in jfops.to_ints(sf, made["vanishing"])],
+                  [int(x) for x in jfops.to_ints(sf, quotient)])
+    jaxfx.check("proofs", "plookup n = 7", rec)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(halo_mod, "RANDOM_SOURCE", pinned_source())
+        port = plookup.prove(TWEEDLEDEE, F, T, device="cpu")
     jplookup.verify(J_DEE, T, to_jax(port))
+    jplookup.verify(J_DEE, T, made["proof"])
 
 
 def test_changed_opening_is_rejected(proofs):

@@ -1,10 +1,13 @@
 """K1's product sum (field_product_sum) on the CPU.
 
 A Python model, limb by limb, of the kernel's accumulate-and-reduce
-(plonky_tpu_torch/csrc/field.cuh: cc_acc_product, cc_acc_single,
-cc_acc_fold, cc_sum_mod; field_kernels.cu: the split of a sum's terms among
-threads) at L limbs: it forms the same chains, counters and windows as the
-kernel, asserts every bound the kernel relies on, and is held against
+(plonky_tpu_torch/csrc/field.cuh: at 8 limbs cc_acc_product,
+cc_acc_single, cc_acc_fold; at 12 the lazy pair layout, cc_pairs_product,
+cc_acc_single on e, cc_pairs_fold; then cc_sum_mod; field_kernels.cu: the
+split of a sum's terms among threads) at L limbs: it forms the same
+chains, counters and windows as the kernel, asserts every bound the kernel
+relies on (every counter and chain carry at 32 terms of (p - 1)^2 of
+either sign, alternating, with a single among them), and is held against
 python's sum % p at the extremes of the widest sum and on seeded sums, for
 both Tweedle fields (8 limbs) and BLS12-377's base field (12 limbs),
 reaching both outcomes of the Barrett quotient.  Then the
@@ -28,6 +31,7 @@ from plonky_tpu_torch.fields import (BLS12_377_BASE, TWEEDLEDEE_BASE,
                                      TWEEDLEDUM_BASE)
 from plonky_tpu_torch.fields import ops as fops
 from plonky_tpu_torch.fields.spec import MAX_TERMS, mu_sum_limbs
+from test_torch_barrett import window_pairs_model
 
 torch.set_num_threads(1)
 
@@ -84,6 +88,54 @@ def accumulate(terms, p: int, nl: int):
     return acc, cnt, total
 
 
+def accumulate_pairs(terms, p: int, nl: int):
+    """cc_pairs_product / cc_acc_single (on e) over terms (a, b or None,
+    sign) of canonical ints at L = nl limbs, the 12-limb kernel's lazy pair
+    layout: row i of a product runs a chain over limbs i .. i + L - 1 of e
+    (i even) or o (i odd) with x_i y_j for even j, and one over limbs
+    i + 1 .. i + L of the other with x_i y_j for odd j, each limb product's
+    halves on a pair of limbs of the accumulator of the parity of i + j; a
+    chain's carry out is counted in cnt[i] or cnt[i + 1].  Returns (e, o,
+    cnt, S)."""
+    e, o, cnt = [0] * (2 * nl), [0] * (2 * nl), [0] * (nl + 1)
+    total = 0
+    for a, b, sign in terms:
+        if b is None:
+            z = p - a if sign < 0 else a              # cc_negate
+            cnt[0] += _chain(e, 0, nl, z)
+            total += z
+            continue
+        y = p - b if sign < 0 else b                  # cc_negate
+        assert y <= p
+        xl, yl = _limbs(a, nl), _limbs(y, nl)
+        for i in range(nl):                           # cc_pairs_rows<i>
+            even = sum(xl[i] * yl[j] << (32 * j) for j in range(0, nl, 2))
+            odd = sum(xl[i] * yl[j] << (32 * (j - 1)) for j in range(1, nl, 2))
+            assert even < B32 ** nl and odd < B32 ** nl
+            first, second = (e, o) if i % 2 == 0 else (o, e)
+            cnt[i] += _chain(first, i, nl, even)      # carry into limb i + L
+            cnt[i + 1] += _chain(second, i + 1, nl, odd)   # into i + L + 1
+        total += a * y
+    # o[0] and o[2L-1] are never reached; the three are the sum exactly
+    assert o[0] == 0 and o[2 * nl - 1] == 0
+    assert (_value(e) + _value(o)
+            + sum(c << (32 * (nl + k)) for k, c in enumerate(cnt))) == total
+    assert max(cnt) <= 2 * len(terms) <= 2 * MAX_TERMS
+    return e, o, cnt, total
+
+
+def fold_pairs(e, o, cnt) -> list:
+    """cc_pairs_fold: e + o on one chain into 2L + 1 limbs (at most 1
+    carried into limb 2L), then the counters into limbs L .. 2L (no carry
+    out)."""
+    nl = len(cnt) - 1
+    s = _value(e) + _value(o)
+    assert s >> (64 * nl) <= 1
+    s += sum(c << (32 * (nl + k)) for k, c in enumerate(cnt))
+    assert s < B32 ** (2 * nl + 1)
+    return _limbs(s, 2 * nl + 1)
+
+
 def fold(acc, cnt) -> list:
     """cc_acc_fold: the 2L + 1 limbs of acc + the counters (no carry
     out)."""
@@ -97,7 +149,8 @@ def reduce_model(s, spec) -> dict:
     """cc_sum_mod on the 2L + 1 limbs s: q1 = s[L-1..2L], the rows of q1
     mu from mu limb L - i up (row L + 1 one limb up) into u = columns
     L..2L+4, q3's low limbs = u[2..L+1], r = (x - q3 p) mod 2^(32 L), one
-    conditional subtraction.  At 8 limbs: q1 = s[7..16], u = columns
+    conditional subtraction; at 12 limbs u and q3 p also as
+    cc_sum_mod_pairs forms them (windows on the pair layout).  At 8 limbs: q1 = s[7..16], u = columns
     8..20, r mod 2^256."""
     p, mu, nl = spec.p, spec.sum_mu, spec.limbs
     nm = mu_sum_limbs(nl)
@@ -116,6 +169,9 @@ def reduce_model(s, spec) -> dict:
         assert win < B32 ** width, "carry out of a cc_mac_row window"
         u = (u & (B32 ** off - 1)) | (win << (32 * off))
     assert u < B32 ** (nl + 5)                        # u[0 .. L+4]
+    if nl == 12:    # cc_sum_mod_pairs: the same u mod 2^(32 (L + 2))
+        ue, uo = window_pairs_model(s[nl - 1:], mul, nl, nl + 2)
+        assert (_value(ue) + _value(uo)) % B32 ** (nl + 2) == u % B32 ** (nl + 2)
     # the truncated product is q1 mu less the skipped columns 0..L-1
     q1 = x >> (32 * (nl - 1))
     skipped = sum(s[nl - 1 + i] * mul[j] << (32 * (i + j))
@@ -129,6 +185,9 @@ def reduce_model(s, spec) -> dict:
     assert q - 1 <= q3_full <= q, (q, q3_full)
     q3 = q3_full & (B32 ** nl - 1)                    # u[2..L+1]
     v = q3 * p % B32 ** nl                            # cc_barrett_finish
+    if nl == 12:    # cc_barrett_pairs' q3 p, two accumulators
+        ve, vo = window_pairs_model(_limbs(q3, nl), _limbs(p, nl), 0, nl)
+        assert (_value(ve) + _value(vo)) % B32 ** nl == v
     r = (x - v) % B32 ** nl
     assert r == x - q3_full * p and r < 2 * p
     return {"out": r - p if r >= p else r, "q": q, "q3": q3_full, "r": r}
@@ -136,11 +195,16 @@ def reduce_model(s, spec) -> dict:
 
 def kernel_model(terms, spec, splits: int = 1) -> dict:
     """The whole kernel for one element: thread group g of `splits` takes
-    terms g, g + splits, ...; the groups' folded sums are added over 2L + 1
-    limbs (cc_add_acc), then reduced once."""
+    terms g, g + splits, ...; the groups' folded sums (the lazy pair layout
+    at 12 limbs, the rows at 8) are added over 2L + 1 limbs (cc_add_acc),
+    then reduced once."""
     nl = spec.limbs
-    parts = [fold(*accumulate(terms[g::splits], spec.p, nl)[:2])
-             for g in range(splits)]
+    if nl == 12:
+        parts = [fold_pairs(*accumulate_pairs(terms[g::splits], spec.p, nl)[:3])
+                 for g in range(splits)]
+    else:
+        parts = [fold(*accumulate(terms[g::splits], spec.p, nl)[:2])
+                 for g in range(splits)]
     total = sum(_value(s) for s in parts)
     assert total < B32 ** (2 * nl + 1)
     m = reduce_model(_limbs(total, 2 * nl + 1), spec)
@@ -194,6 +258,88 @@ def test_model_seeded_and_both_quotients(spec):
         m = kernel_model(terms, spec, splits=1 + trial % 2)
         seen.add((m["q"] - m["q3"], m["r"] >= p))
     assert seen == {(0, False), (1, True)}
+
+
+def _pair_extremes(p: int):
+    """32-term sums at the extremes of the 12-limb kernel's pair layout."""
+    top = p - 1
+    return {
+        "32 (p-1)^2, all +": [(top, top, 1)] * 32,
+        "32 (p-1)^2, all -": [(top, top, -1)] * 32,
+        "32 (p-1)^2, alternating": [(top, top, 1), (top, top, -1)] * 16,
+        "31 (p-1)^2 alternating, a single (p-1) among them":
+            [(top, top, 1), (top, top, -1)] * 8 + [(top, None, 1)]
+            + [(top, top, -1), (top, top, 1)] * 7 + [(top, top, -1)],
+        "32 (p-1) 0, all - (the largest terms)": [(top, 0, -1)] * 32,
+        "32 singles, alternating": [(top, None, 1), (top, None, -1)] * 16,
+    }
+
+
+@pytest.mark.parametrize("splits", (1, 2, 4))
+@pytest.mark.parametrize("label", list(_pair_extremes(BLS12_377_BASE.p)))
+def test_pair_model_extremes(label, splits):
+    """The 12-limb lazy pair accumulate at its extremes, in every thread
+    split: every chain's carry is 0 or 1, every counter at most 64 (2 a
+    product, 1 a single), e + o carries at most 1 into limb 2L, the sum
+    fits 2L + 1 limbs, and the reduction gives sum % p."""
+    spec = BLS12_377_BASE
+    terms = _pair_extremes(spec.p)[label]
+    assert len(terms) == MAX_TERMS == 32
+    for g in range(splits):
+        _e, _o, cnt, total = accumulate_pairs(terms[g::splits], spec.p, 12)
+        assert max(cnt) <= 2 * MAX_TERMS and total < 32 * spec.p ** 2
+    m = kernel_model(terms, spec, splits)
+    assert m["r"] < 2 * spec.p
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_pair_model_seeded_both_quotients(seed):
+    """Seeded 12-limb sums of 1-32 terms through the lazy pair accumulate,
+    split 1, 2 or 4 ways, half of them exact multiples of p (a b - a b
+    pairs: q3 = floor(S / p) - 1 and the final subtraction), the rest
+    random (q3 = floor(S / p)): both outcomes of the quotient reached."""
+    spec = BLS12_377_BASE
+    p = spec.p
+    rng = np.random.default_rng(1700 + seed)
+
+    def elem():
+        return int.from_bytes(rng.bytes(56), "little") % p
+    seen = set()
+    for trial in range(24):
+        count = 1 + int(rng.integers(MAX_TERMS))
+        if trial % 2 == 0:
+            pairs = [(elem(), elem()) for _ in range(max(1, count // 2))]
+            terms = [(a, b, sign) for a, b in pairs for sign in (1, -1)]
+        else:
+            terms = [(elem(), None if rng.integers(4) == 0 else elem(),
+                      1 if rng.integers(2) else -1) for _ in range(count)]
+        m = kernel_model(terms, spec, splits=(1, 2, 4)[trial % 3])
+        seen.add((m["q"] - m["q3"], m["r"] >= p))
+    assert seen == {(0, False), (1, True)}
+
+
+def test_plain_extremes_with_a_column_operand():
+    """product_sums (the plain version the CPU runs) at the pair layout's
+    extremes over BLS12-377's base field, with one operand an [12, 1]
+    column of p - 1 beside full [12, N] ones, against python ints."""
+    spec = BLS12_377_BASE
+    p, n = spec.p, 5
+    top, zero = p - 1, 0
+    full = {v: fops.from_ints(spec, [v] * n, "cpu") for v in (top, zero)}
+    col = fops.from_ints(spec, [top], "cpu")
+    sums = [[(top, top, 1)] * 31 + [(col, top, 1)],
+            [(col, top, -1)] * 32,
+            [(top, col, 1), (top, top, -1)] * 15 + [(top, None, 1), (col, None, -1)],
+            [(top, zero, -1)] * 32]
+
+    def value(x):
+        return top if x is col else x
+    want = [sum(sign * value(a) * (1 if b is None else value(b)) for a, b, sign in terms) % p
+            for terms in sums]
+    got = fops.product_sums(spec, [[(a if a is col else full[a], None if b is None else
+                                     b if b is col else full[b], sign)
+                                    for a, b, sign in terms] for terms in sums])
+    assert [[int(v) for v in fops.to_ints(spec, g)] for g in got] == [[w] * n for w in want]
 
 
 def test_kernel_limits_match_the_wrapper():
