@@ -4,7 +4,9 @@
 Builds the CUDA kernels from plonky_tpu_torch/csrc, holds every kernel
 against its plain PyTorch version on the card at the main path's shapes
 (exact equality: all of it is integer arithmetic; the NTT at every
-transform shape of the prove and the fixtures), drives the batch Rescue
+transform shape of the prove and the fixtures; K1's add, sub and mul on
+every operand layout a prove hands them, read in place, and timed at the
+shapes the steady prove launches most), drives the batch Rescue
 permutation's path (K5 against its plain version on a ragged batch of both
 Tweedle base fields and BLS12-377's scalar field at 128 and 64 security
 bits, one launch for 2^14 permutations held against the host permutation
@@ -37,7 +39,9 @@ for byte, proves and verifies the gadget circuits and the 2^10 BufferGate
 circuit, each at the JAX package's sha256, then builds, proves (twice) and
 verifies the 2^14-gate BufferGate circuit with the random source pinned,
 checks the steady proof's sha256, and shows that the steady prove launched
-every kernel of the main path (field_exp once per exp_const call, which
+every kernel of the main path, add, sub and mul as often as
+PROVE_BINARY_LAUNCHES says with no operand of add or sub copied
+(field_exp once per exp_const call, which
 phase_kernels holds on 0, 1 and at N = 1, 2^14 + 3 and 2^17, and
 phase_bls12_377 at 12 limbs at N = 1, 2^16 + 3 and 2^16, where the path's
 to_affine makes exactly one; curve_add and curve_double, checked here,
@@ -421,7 +425,8 @@ class Checker:
                "library_ms": None, "checked": True, "shapes": shapes}
         if by_shape is not None:
             rec["by_shape"] = by_shape
-        self.records[name] = rec
+        # keys a path's holds added before the kernel was timed (hold_path)
+        self.records[name] = {**self.records.get(name, {}), **rec}
         emit({"phase": f"kernel:{name}", **rec})
 
 
@@ -740,6 +745,171 @@ def counting_exps(fops):
         fops.exp_const = exp_const
 
 
+BINARY_KERNELS = ("field_add", "field_sub", "field_mul")
+# The elementwise launches of one steady 2^14 prove, by kernel
+# (counting_binary; phase_prove asserts them).
+PROVE_BINARY_LAUNCHES = {"field_add": 526, "field_sub": 99, "field_mul": 509}
+# The prove's (or a path's) shapes of each elementwise kernel timed for
+# the kernels line, most launches first (hold_binary_shapes).
+BINARY_TIMED_SHAPES = 3
+
+
+def binary_layout(fops, x, batch) -> str:
+    """The layout of one operand of an elementwise launch (field_add,
+    field_sub, field_mul) broadcast to [L, *batch]: column (one element),
+    contiguous, broadcast (a batch axis of stride 0), strided, or copied
+    (the wrapper copies it before the launch: a view whose batch axes do
+    not merge into two levels, fields/ops.py:operand_layout, or, in a
+    tree from before the kernel read views in place, every view that is
+    neither contiguous nor a column)."""
+    if x[0].numel() == 1:
+        return "column"
+    view = fops._expand(x, batch)
+    if view.is_contiguous():
+        return "contiguous"
+    sizes, strides = view.shape[1:], view.stride()[1:]
+    if (not hasattr(fops, "operand_layout")
+            or fops.operand_layout(sizes, strides) is None):
+        return "copied"
+    return ("broadcast" if any(s == 0 and n > 1 for n, s in zip(sizes, strides))
+            else "strided")
+
+
+def binary_work(spec, kernel: str, a, b, n: int):
+    """Bytes and IMAD slots of an elementwise launch's bounds: each
+    distinct operand's own elements read once (a column's L words, a
+    broadcast operand's elements once however often it is broadcast), the
+    output written once; a multiply's IMAD slots per element (field_costs;
+    add and sub count none)."""
+    operands = {id(x): x for x in (a, b)}
+    elems = n + sum(x[0].numel() for x in operands.values())
+    return (4 * spec.limbs * elems,
+            field_costs(spec)[1] * n if kernel == "field_mul" else 0)
+
+
+@contextlib.contextmanager
+def counting_binary(fops, keep: bool = False):
+    """While open, counts K1's elementwise launches (one a call of
+    fops._launch_binary) in a Counter keyed on (kernel at its width, N,
+    a's layout, b's layout) (binary_layout); with `keep`, the first
+    call of each key's (kernel, spec, a, b) in a dict beside it."""
+    counts = collections.Counter()
+    calls = {}
+    launch = fops._launch_binary
+
+    def counted(kernel, spec, a, b):
+        out = launch(kernel, spec, a, b)
+        batch = out.shape[1:]
+        key = (kernel + ("" if spec.limbs == 8 else f"_l{spec.limbs}"),
+               out[0].numel(), binary_layout(fops, a, batch),
+               binary_layout(fops, b, batch))
+        counts[key] += 1
+        if keep and key not in calls:
+            calls[key] = (kernel, spec, a, b)
+        return out
+    fops._launch_binary = counted
+    try:
+        yield counts, calls
+    finally:
+        fops._launch_binary = launch
+
+
+def binary_by_shape(counts) -> list:
+    """[kernel, N, a's layout, b's layout, launches] rows, most launches
+    first."""
+    return [[*k, c] for k, c in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))]
+
+
+def hold_binary_shapes(ck: Checker, counts, calls, what: str) -> None:
+    """Each elementwise kernel at the BINARY_TIMED_SHAPES shapes and
+    layouts a path launched most (counting_binary with `keep`), held
+    against its plain version on the path's own operands and timed as a
+    whole fops.add / sub / mul call: the kernel's record, its `by_shape`
+    those rows, most launches first, its headline timing the first."""
+    from plonky_tpu_torch.fields import ops as fops
+    calls_of = {"field_add": (fops.add, fops.add_plain),
+                "field_sub": (fops.sub, fops.sub_plain),
+                "field_mul": (fops.mul, fops.mul_plain)}
+    rows = collections.defaultdict(list)
+    for name, n, la, lb, launches in binary_by_shape(counts):
+        if len(rows[name]) == BINARY_TIMED_SHAPES:
+            continue
+        kernel, spec, a, b = calls[(name, n, la, lb)]
+        fn, plain = calls_of[kernel]
+        held = ck.hold(name, lambda fn=fn, spec=spec, a=a, b=b: fn(spec, a, b),
+                       lambda plain=plain, spec=spec, a=a, b=b: plain(spec, a, b),
+                       *binary_work(spec, kernel, a, b, n))
+        rows[name].append({"N": n, "layouts": [la, lb], "launches": launches,
+                           "call_ms": ck.time_ms(lambda fn=fn, spec=spec, a=a, b=b:
+                                                 fn(spec, a, b), 20), **held})
+    for name, by in rows.items():
+        ck.record(name, {"timed": f"{what}: the {len(by)} shapes of most launches",
+                         "checked": "check_binary_layouts"}, by_shape=by,
+                  measured=by[0])
+
+
+# Elements an operand row of binary_layout_cases in check_binary_layouts.
+BINARY_LAYOUT_N = 1 << 12
+
+
+def binary_layout_cases(torch, np, rng, dev, fops, spec, n) -> list:
+    """(label, a, b) of every operand layout a prove gives the elementwise
+    kernels, from real tensors with rows of n elements, 0, 1, p - 1 and
+    p - 2 first in every row: a [L, 9, n] tensor's slices (the gate
+    evaluation's wires8[:, j]), a rolled tensor's slice, an [L, 1] column
+    on either side, an [L, 1, n] slice against an [L, 3, n] one (a
+    broadcast batch axis), the IPA's 2-D halves ([L, 3, n / 2] of a
+    [L, 3, n] slice), one tensor as both operands, views 1 and 3
+    elements past the start of their storage, and contiguous tensors."""
+    nl = spec.limbs
+    w = rand_field(np, torch, rng, (9, n), dev, spec)
+    edges = fops.from_ints(spec, [0, 1, spec.p - 1, spec.p - 2], dev)
+    k = min(4, n)
+    w[:, :, :k] = edges[:, None, :k]
+    rolled = torch.roll(w, -8, dims=-1)
+    col = rand_field(np, torch, rng, (1,), dev, spec)
+    flat = w.reshape(nl, -1)
+    half = n // 2
+    return [("slices", w[:, 3], w[:, 5]),
+            ("rolled slice", rolled[:, 2], w[:, 2]),
+            ("column left", col, w[:, 4]),
+            ("column right", w[:, 4], col),
+            ("broadcast", w[:, :1], w[:, 2:5]),
+            ("halves", w[:, :3, :half], w[:, :3, half:2 * half]),
+            ("same", w[:, 6], w[:, 6]),
+            ("offset", flat[:, 1:1 + n], flat[:, 3:3 + n]),
+            ("contiguous", w[:, 7].contiguous(), w[:, 8].contiguous())]
+
+
+def check_binary_layouts(ck: Checker, torch, np, rng, dev, fops, spec) -> None:
+    """field_add, field_sub and field_mul at spec's width held against
+    their plain versions on every case of binary_layout_cases at N =
+    BINARY_LAYOUT_N, then at N = 9 2^14 + 1 (contiguous and a column: a
+    ragged last block), 2^17 + 3 (a [L, 9, N] tensor's slices) and 1 (a
+    column against a column, an [L] value against a column)."""
+    ops = [(name if spec.limbs == 8 else f"{name}_l{spec.limbs}", fn, plain)
+           for name, fn, plain in (("field_add", fops.add, fops.add_plain),
+                                   ("field_sub", fops.sub, fops.sub_plain),
+                                   ("field_mul", fops.mul, fops.mul_plain))]
+    cases = binary_layout_cases(torch, np, rng, dev, fops, spec, BINARY_LAYOUT_N)
+    n1 = 9 << 14
+    a, b = (with_edges(fops, spec, rand_field(np, torch, rng, (n1 + 1,), dev, spec))
+            for _ in range(2))
+    col = rand_field(np, torch, rng, (1,), dev, spec)
+    cases += [("contiguous", a, b), ("column left", col, b)]
+    w = with_edges(fops, spec, rand_field(np, torch, rng, (9, (1 << 17) + 3), dev, spec))
+    cases += [("slices", w[:, 0], w[:, 8]), ("one", col, col), ("one", a[:, 0], col)]
+    seen = []
+    for label, u, v in cases:
+        batch = fops.batch_shape(u, v)
+        n = int(np.prod(batch)) if batch else 1
+        for name, fn, plain in ops:
+            ck.compare(name, fn(spec, u, v), plain(spec, u, v))
+        seen.append([label, n, *(binary_layout(fops, x, batch) for x in (u, v))])
+    emit({"phase": "binary_layouts", "field": spec.name,
+          "keys": ["case", "N", "a", "b"], "cases": seen})
+
+
 def product_sum_work(named, n, f):
     """Bytes and IMAD slots of a product-sum launch's bounds over field f:
     each distinct operand read once, each sum's output written once; per
@@ -925,40 +1095,22 @@ def phase_kernels(ck: Checker, torch, np, dev) -> None:
     rng = np.random.default_rng(2024)
     sf = TWEEDLEDEE.scalar
 
-    # K1 at the wire batch 9 n and one past it (a ragged grid)
+    # K1's elementwise kernels on every operand layout a prove gives them,
+    # at both widths (timed at the prove's own shapes: hold_binary_shapes)
+    from plonky_tpu_torch.fields import BLS12_377_BASE
+    for spec in (sf, BLS12_377_BASE):
+        check_binary_layouts(ck, torch, np, rng, dev, fops, spec)
+    # an edge check of the product sum at the wire batch 9 n and one past
+    # it (a ragged grid): column and full products, one negative, and
+    # singles of both signs
     n1 = 9 << 14
     for n in (n1 + 1, n1):
         a, b, c = (with_edges(fops, sf, rand_field(np, torch, rng, (n,), dev))
                    for _ in range(3))
         col = rand_field(np, torch, rng, (1,), dev)
-        for name, fn, plain in (("field_add", fops.add, fops.add_plain),
-                                ("field_sub", fops.sub, fops.sub_plain),
-                                ("field_mul", fops.mul, fops.mul_plain)):
-            ck.compare(name, fn(sf, a, b), plain(sf, a, b))
-            ck.compare(name, fn(sf, col, b), plain(sf, col, b))
-            ck.compare(name, fn(sf, b, b), plain(sf, b, b))
-        # an edge check of the product sum: column and full products, one
-        # negative, and singles of both signs
         terms = [(col, a, 1), (b, c, -1), (a, None, 1), (c, None, -1)]
         ck.compare("field_product_sum", fops.product_sum(sf, terms),
                    fops.product_sum_plain(sf, terms))
-    shapes = {"N": n1, "ragged_N": n1 + 1}
-    for name, fn, plain in (("field_add", fops.add, fops.add_plain),
-                            ("field_sub", fops.sub, fops.sub_plain)):
-        ck.record(name, shapes, lambda fn=fn: fn(sf, a, b),
-                  lambda plain=plain: plain(sf, a, b), 3 * 32 * n1, 0)
-    # field_mul also at the sizes most launches of a steady prove take
-    # (N = 2^14 and 2^17; N = 1 in the inversions' square-and-multiply)
-    mul_by = []
-    for n in (n1, 1 << 14, 1 << 17, 1):
-        x, y = (rand_field(np, torch, rng, (n,), dev) for _ in range(2))
-        ck.compare("field_mul", fops.mul(sf, x, y), fops.mul_plain(sf, x, y))
-        mul_by.append({"N": n, **ck.measure(
-            lambda x=x, y=y: fops.mul(sf, x, y),
-            lambda x=x, y=y: fops.mul_plain(sf, x, y), 3 * 32 * n,
-            field_costs(sf)[1] * n)})
-    ck.record("field_mul", {**shapes, "timed_N": [b["N"] for b in mul_by]},
-              by_shape=mul_by, measured=mul_by[0])
     check_product_sums(ck, torch, np, dev, fops, sf)
     # field_exp at N = 1 (an inversion of one value), a ragged N and the
     # prove's 8n
@@ -2003,14 +2155,15 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     12-limb product sum, NTT and Rescue on K1's operands (their path is
     phase_bls12_377_poly's); field_exp at both widths (check_exp; the
     8-limb dense instance on the scalar field at N = 2^12 + 3).  Timed
-    at the JAX package's microbench sizes (bin/microbench.py: field ops at
-    2^16 on both fields, G1 add and double at 2^14, the 150-point
-    summation; the multiply and field_exp_l12 also at N = 1) and K4 and
-    the Horner at one slice of the ladder (N = 2^16, K = 1, c = 8).  Then
-    the path once, with the launch counts reset (K1 at 2^16, K2 at 2^14,
-    the summation, msm_chunked at 2^16 and its affine value): every
-    kernel of BLS_PATH launched at 12 limbs, no other kernel, and exactly
-    one field_exp_l12 and three field_mul_l12 launches.  Then the
+    at the JAX package's microbench sizes (bin/microbench.py: the 8-limb
+    field ops at 2^16 on the scalar field, G1 add and double at 2^14, the
+    150-point summation; field_exp_l12 also at N = 1) and K4 and the
+    Horner at one slice of the ladder (N = 2^16, K = 1, c = 8).  Then the
+    path once, with the launch counts reset (K1 at 2^16, K2 at 2^14, the
+    summation, msm_chunked at 2^16 and its affine value): every kernel of
+    BLS_PATH launched at 12 limbs, no other kernel, and exactly one
+    field_exp_l12 and three field_mul_l12 launches; K1's 12-limb kernels
+    timed at the shapes that run launched (hold_binary_shapes).  Then the
     ladder: msm_chunked at 2^16 .. 2^22 points (slices of 2^16, c = 8), a
     warm call and three timed ones (median, ended by a synchronize), each
     result held against ((a sum_i s_i 2^(i mod 2^12)) mod r) G on the host
@@ -2111,30 +2264,15 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     state = [t[:, :67] for t in (x, y, x.flip(1), y.flip(1))]
     ck.compare("rescue_permutation_l12", tuple(hr.rescue_permutation(bf, state, 64)),
                tuple(hr.rescue_permutation_plain(bf, state, 64)))
-    checked = {"K1": "N = 2^12 + 3, edges, [12, 1] either side, squares; "
-                     "the multiply also at (p - 1)^2 on every lane",
-               "K2": "[12, 2^10 + 3], identity, P + P, P + (-P)",
+    checked = {"K2": "[12, 2^10 + 3], identity, P + P, P + (-P)",
                "K4": "N = 2^12 + 5, K = 1, 3, c = 8, 5; the reduce also at "
                      "2,048 and 2,112 rows (2^22)",
                "curve_horner": "K = 1, 3, 64, W = 32, 33 (c = 8), 51 (c = 5)"}
 
-    # timed at the microbench sizes: K1 at 2^16 on both fields, and the
-    # multiply also at N = 1 (the shape of the Fermat inverse's products
-    # before field_exp)
+    # K1 at the microbench's 2^16 (timed at the path's shapes, below), and
+    # on the scalar field
     nf = 1 << 16
     x, y = field_pair(bf, nf)
-    x1, y1 = field_pair(bf, 1)
-    for name, fn, plain in ops:
-        ck.compare(f"{name}_l12", fn(bf, x, y), plain(bf, x, y))
-        by = []
-        for n, u, v in ((nf, x, y), (1, x1, y1))[:2 if name == "field_mul" else 1]:
-            ck.compare(f"{name}_l12", fn(bf, u, v), plain(bf, u, v))
-            by.append({"N": n, **ck.measure(
-                lambda fn=fn, u=u, v=v: fn(bf, u, v),
-                lambda plain=plain, u=u, v=v: plain(bf, u, v), 3 * 4 * nl * n,
-                field_costs(bf)[1] * n if name == "field_mul" else 0)})
-        ck.record(f"{name}_l12", {"main": "N = 2^16", "checked": checked["K1"]},
-                  by_shape=by, measured=by[0])
     # field_exp_l12 at N = 1 (to_affine's inverse of one point), a ragged N
     # and the microbench's 2^16
     check_exp(ck, torch, np, rng, dev, bf, ((1 << 16) + 3, nf), nf)
@@ -2241,13 +2379,14 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
         return cmsm.msm_chunked(C, basis, scal, window_bits=BLS_WINDOW,
                                 chunk_log=BLS_CHUNK_LOG, signed=signed)
     _cuda.reset_launches()
-    for _name, fn, _plain in ops:
-        fn(bf, x, y)
-    cops.double(C, cops.add(C, pa, pb))
-    summation()
-    res = chunked(basis16, scal16[:, 0])
-    x16, _y16, _z16 = cops.to_affine(C, res)
-    torch.cuda.synchronize()
+    with counting_binary(fops, keep=True) as binary:
+        for _name, fn, _plain in ops:
+            fn(bf, x, y)
+        cops.double(C, cops.add(C, pa, pb))
+        summation()
+        res = chunked(basis16, scal16[:, 0])
+        x16, _y16, _z16 = cops.to_affine(C, res)
+        torch.cuda.synchronize()
     path = dict(_cuda.LAUNCHES)
     missing = [f"{k}_l12" for k in BLS_PATH if not path[f"{k}_l12"]]
     off = {k: v for k, v in path.items()
@@ -2261,6 +2400,8 @@ def phase_bls12_377(ck: Checker, torch, np, dev, name_power: str) -> dict:
     want16 = chost.mul(g, chain_oracle(np, sf.p, _limbs, a))
     affine_is(res, want16, "msm_chunked at 2^16")
     out["path_launches"] = {k: v for k, v in path.items() if v}
+    out["path_binary_by_shape"] = binary_by_shape(binary[0])
+    hold_binary_shapes(ck, *binary, "bls12_377 path")
     # the signed path, once, with the launch counts reset
     _cuda.reset_launches()
     res = chunked(basis16, scal16[:, 0], signed=True)
@@ -3082,9 +3223,13 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
     transform (len(pass_plan(lg n)) = ceil(lg n / NTT_MAX_LAYERS)), and
     field_product_sum at each shape of product_sum_shapes as often as it
     says, counted by shape (counting_product_sums), and field_exp once per
-    exp_const call (counting_exps).  Returns the steady prove's launches by
-    kernel and, with `check_launches`, its product-sum launches by label of
-    product_sum_shapes."""
+    exp_const call (counting_exps), the elementwise kernels as often as
+    PROVE_BINARY_LAUNCHES says, with no operand of field_add or field_sub
+    copied (counting_binary, _cuda.COPIES; field_mul's copies reported).
+    Returns the steady prove's launches by kernel and, with
+    `check_launches`, its product-sum launches by label of
+    product_sum_shapes and its elementwise launches' counts and first
+    calls by shape (counting_binary), else None."""
     import hashlib
 
     import plonky_tpu_torch.circuit.builder as builder_mod
@@ -3126,7 +3271,8 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
         t0 = time.perf_counter()
         try:
             with record_phases() as phases, counting as ps_counts, \
-                    counting_exps(fops) as exp_counts:
+                    counting_exps(fops) as exp_counts, \
+                    counting_binary(fops, keep=check_launches) as (bin_counts, bin_calls):
                 proof = generate_proof(circuit, witness, old_proofs=[],
                                        blinding=True)
             torch.cuda.synchronize()
@@ -3140,7 +3286,9 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
     out["phases_s"] = phases
     out["launches"] = launches
     out["exp_const_calls"] = [[*k, v] for k, v in sorted(exp_counts.items())]
+    out["binary_by_shape"] = binary_by_shape(bin_counts)
     if check_launches:
+        out["binary_copies"] = {k: _cuda.COPIES[k] for k in BINARY_KERNELS}
         out["ntt_transforms"] = len(transforms)
         out["ntt_passes_expected"] = sum(len(pfft.pass_plan(t)) for t in transforms)
         expected = {label: (product_sum_key(named, scale << lg),
@@ -3191,8 +3339,19 @@ def phase_prove(torch, lg: int = 14, want_sha256=None,
             raise AssertionError(f"{launches['ntt_pass']} ntt_pass launches for "
                                  f"{len(transforms)} transforms, expected "
                                  f"{out['ntt_passes_expected']}")
-        return launches, ps_by_label
-    return launches, {}
+        by_kernel = collections.Counter()
+        for key, c in bin_counts.items():
+            by_kernel[key[0]] += c
+        if (by_kernel != PROVE_BINARY_LAUNCHES
+                or any(launches[k] != v for k, v in by_kernel.items())):
+            raise AssertionError(f"elementwise launches {dict(by_kernel)} (launch "
+                                 f"counts {[launches[k] for k in BINARY_KERNELS]}), "
+                                 f"expected {PROVE_BINARY_LAUNCHES}")
+        copied = {k: out["binary_copies"][k] for k in ("field_add", "field_sub")}
+        if any(copied.values()):
+            raise AssertionError(f"the steady prove copied operands: {copied}")
+        return launches, ps_by_label, (bin_counts, bin_calls)
+    return launches, {}, None
 
 
 class PathRecorder:
@@ -3201,12 +3360,16 @@ class PathRecorder:
     and the Horner) and counts their calls by shape under `level`; the first call
     of each shape keeps its arguments, so that `hold` can run it again
     beside its plain version.  A shape is the kernel, the field or curve and
-    every size the launch takes."""
+    every size the launch takes; an elementwise launch's operand layouts
+    (binary_layout) are counted beside, in `binary_layouts`."""
 
     def __init__(self):
         self.level = None
         self.counts = collections.Counter()      # (level, key) -> calls
         self.calls = {}                          # key -> (kernel, plain, work)
+        # (level, kernel, field, N, a's layout, b's layout) -> launches of
+        # K1's elementwise kernels (binary_layout)
+        self.binary_layouts = collections.Counter()
 
     def _note(self, key, launches, kernel_fn, plain_fn, work, device):
         self.counts[(self.level, key)] += launches
@@ -3230,14 +3393,13 @@ class PathRecorder:
         def binary(kernel, spec, a, b):
             out = orig["_launch_binary"](kernel, spec, a, b)
             n = out[0].numel()
-            full = [x[0].numel() > 1 for x in (a, b)]
-            self._note((kernel, spec.name, *("full" if f else "col" for f in full), n), 1,
+            layouts = [binary_layout(fops, x, out.shape[1:]) for x in (a, b)]
+            self.binary_layouts[(self.level, kernel, spec.name, n, *layouts)] += 1
+            self._note((kernel, spec.name, *("col" if x == "column" else "full"
+                                             for x in layouts), n), 1,
                        lambda: orig["_launch_binary"](kernel, spec, a, b),
                        lambda: plain_binary[kernel](spec, a, b),
-                       lambda: (4 * spec.limbs * (n * (1 + sum(full)) + 2 - sum(full)),
-                                field_costs(spec)[1] * n if kernel == "field_mul"
-                                else 0),
-                       out.device)
+                       lambda: binary_work(spec, kernel, a, b, n), out.device)
             return out
 
         def product_sums(spec, sums, batch, splits=None):
@@ -3376,10 +3538,12 @@ def hold_path(ck: Checker, rec: PathRecorder, path: str, levels) -> None:
     held = rec.hold(ck, levels)
     emit({"phase": f"{path}_shapes", "keys": keys,
           "by_kernel": {name: [[r[k] for k in keys] for r in rows]
-                        for name, rows in held.items()}})
+                        for name, rows in held.items()},
+          "binary_layouts": [[*k, c] for k, c in sorted(rec.binary_layouts.items(),
+                                                         key=str)]})
     for name, rows in held.items():
         top = max(rows, key=lambda r: r["bound_ms"])
-        ck.records[name][path] = {
+        ck.records.setdefault(name, {})[path] = {
             "shapes": len(rows),
             **{f"launches_{lv}": sum(r[f"launches_{lv}"] for r in rows)
                for lv in levels},
@@ -4013,8 +4177,9 @@ def main() -> int:
     timed("fixtures", phase_fixtures)
     timed("gadgets", phase_gadgets)
     timed("ladder", phase_ladder)
-    launches, ps_by_label = timed("prove", phase_prove, torch,
-                                  want_sha256=PROOF_2E14_SHA256)
+    launches, ps_by_label, binary = timed("prove", phase_prove, torch,
+                                          want_sha256=PROOF_2E14_SHA256)
+    timed("prove_binary_shapes", hold_binary_shapes, ck, *binary, "prove 2^14")
     timed("recursion", phase_recursion, ck, torch)
     timed("pasta", phase_pasta, ck, torch, name_power)
     timed("plookup", phase_plookup, ck, torch, np, name_power)

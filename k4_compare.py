@@ -20,7 +20,11 @@ takes them), the device time of the Horner of the shape's window sums
 sha256 of the Horner's and the MSM's affine results (the reduce's order,
 and so the window sums' projective coordinates, may differ between trees);
 the elementwise curve_add / curve_double at two shapes; `fops.mul` at
-N = 9 2^14, 2^14, 2^17 and 1 (L2 warm and flushed) and whole `pfft.fft` /
+N = 9 2^14, 2^14, 2^17 and 1 (L2 warm and flushed); `fops.add`, `sub` and
+`mul` on every operand layout a prove gives them (chip_smoke.
+binary_layout_cases) at 2^17, and at 12 limbs at 2^16, as whole calls
+(device time, L2 warm and flushed, a tree's operand copies included:
+`_binary_rows`); whole `pfft.fft` /
 `ifft` / `lde` / `coset_fft` / `coset_ifft` calls at the 2^14 prove's
 shapes (device time of the whole call, however many launches it makes,
 where the host can queue calls ahead of the card, and a call's time back
@@ -182,6 +186,33 @@ def _k1_k3_rows(smoke, ck, np, torch, dev):
                 else (lambda fn=fn, pre=pre, x=x: fn(pre, x)))
         rows.append({"name": fn_name, "shape": label, "sha256": digest(call()),
                      "ms": queued(call, 10), "call_ms": ck.time_ms(call, 10)})
+    return rows
+
+
+def _binary_rows(smoke, ck, np, torch, dev):
+    """fops.add / sub / mul on every operand layout of
+    chip_smoke.binary_layout_cases at the steady prove's N = 2^17 (8n),
+    and at 12 limbs at 2^16: device ms of the whole call, however many
+    launches it makes (queued behind a sleep, L2 warm and flushed: a tree
+    that copies a strided operand before its launch pays the copy here),
+    and the sha256 of its output."""
+    from plonky_tpu_torch.curves import TWEEDLEDEE
+    from plonky_tpu_torch.fields import BLS12_377_BASE
+    from plonky_tpu_torch.fields import ops as fops
+    rng = np.random.default_rng(1818)
+    flush = ck.flush.zero_
+    rows = []
+    for spec, n in ((TWEEDLEDEE.scalar, 1 << 17), (BLS12_377_BASE, 1 << 16)):
+        for label, a, b in smoke.binary_layout_cases(torch, np, rng, dev, fops, spec, n):
+            for name, fn in (("add", fops.add), ("sub", fops.sub), ("mul", fops.mul)):
+                def call(fn=fn, spec=spec, a=a, b=b):
+                    return fn(spec, a, b)
+                rows.append({"name": name, "shape": [spec.limbs, n, label],
+                             "sha256": hashlib.sha256(call().cpu().numpy().tobytes())
+                             .hexdigest(),
+                             "ms": ck.queued_ms(call, 50),
+                             "cold_ms": (ck.queued_ms(lambda call=call: (flush(), call()), 50)
+                                         - ck.queued_ms(flush, 50))})
     return rows
 
 
@@ -531,6 +562,7 @@ def run_tree(root: str) -> int:
                 "shapes": rows_out, "elementwise": _elementwise_rows(
                     smoke, ck, np, torch, cops, TWEEDLEDEE, dev),
                 "k1_k3": _k1_k3_rows(smoke, ck, np, torch, dev),
+                "binary": _binary_rows(smoke, ck, np, torch, dev),
                 "product_sum": _product_sum_rows(smoke, ck, np, torch, dev),
                 "k5": _k5_rows(smoke, ck, np, torch, dev),
                 "bls12_377": _bls_rows(smoke, ck, np, torch, dev),
@@ -560,8 +592,8 @@ def main(argv) -> int:
                 hashes[-1].update({(r["name"], r["shape"][1]): r["sha256"]
                                    for r in rec["elementwise"]})
                 hashes[-1].update({(r["name"], str(r["shape"])): r["sha256"]
-                                   for r in rec["k1_k3"] + rec["product_sum"]
-                                   + rec["k5"]})
+                                   for r in rec["k1_k3"] + rec["binary"]
+                                   + rec["product_sum"] + rec["k5"]})
                 hashes[-1].update({("bls12_377", r["name"], str(r["rows"])): r["sha256"]
                                    for r in rec["bls12_377"]})
                 hashes[-1].update({("fq", r["shape"]): r["sha256"] for r in rec["fq"]})

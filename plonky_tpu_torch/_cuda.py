@@ -63,6 +63,13 @@ LAUNCHES = {width_name(k, limbs): 0 for limbs in (8, WIDE_LIMBS) for k in KERNEL
 # Launches per card index, counted with LAUNCHES (reset with reset_launches).
 DEVICE_LAUNCHES = collections.Counter()
 
+# Operands that an elementwise wrapper (field_add, field_sub, field_mul and
+# their 12-limb builds) copied before its launch because their view could
+# not be read in place (fields/ops.py:operand_layout); reset with
+# reset_launches.
+COPIES = {width_name(k, limbs): 0 for limbs in (8, WIDE_LIMBS)
+          for k in ("field_add", "field_sub", "field_mul")}
+
 # Seconds the last build took (None: the library was up to date), and
 # each object's nvcc seconds in it (the objects compile in parallel).
 BUILD_SECONDS = [None]
@@ -78,9 +85,9 @@ _I32 = ctypes.c_int
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would pass a plain int as 32 bits and cut it).
 _SIGNATURES = {
-    "pt_field_add": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
-    "pt_field_sub": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
-    "pt_field_mul": [_P, _P, _I32, _P, _I32, _I64, _P, _P],
+    "pt_field_add": [_P, _P, _I64, _P, _P],
+    "pt_field_sub": [_P, _P, _I64, _P, _P],
+    "pt_field_mul": [_P, _P, _I64, _P, _P],
     "pt_field_product_sum": [_P, _P, _P, _P, _P, _I32, _I32, _I64, _P, _P],
     "pt_field_exp": [_P, _P, _I64, _P, _P],
     "pt_curve_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
@@ -242,8 +249,9 @@ def launch(name: str, entry: str, tensors, *args) -> None:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, COPIES):
+        for k in counts:
+            counts[k] = 0
     DEVICE_LAUNCHES.clear()
 
 
@@ -253,14 +261,31 @@ def host_array(values, dtype) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(values, dtype=dtype))
 
 
-def check(name: str, t: torch.Tensor, rows: int | None = None) -> None:
-    """The checks every wrapper makes on a tensor it hands to a kernel."""
+def check(name: str, t: torch.Tensor, rows: int | None = None,
+          reads: int | None = None) -> None:
+    """The checks every wrapper makes on a tensor it hands to a kernel.
+    `reads`, for a kernel that reads t in place through its strides, is
+    the largest element offset from t's first element that the kernel
+    reads: it must lie inside t's storage, which takes the place of the
+    contiguity check."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.int32:
         raise ValueError(f"{name}: expected int32 limbs, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    if reads is None:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    else:
+        check_reads(name, t, reads)
     if rows is not None and t.shape[0] != rows:
         raise ValueError(f"{name}: expected {rows} limb rows, got "
                          f"{tuple(t.shape)}")
+
+
+def check_reads(name: str, t: torch.Tensor, reads: int) -> None:
+    """Raises unless the element at offset `reads` from t's first element
+    lies inside t's storage."""
+    last = t.storage_offset() + reads
+    if reads < 0 or (last + 1) * t.element_size() > t.untyped_storage().nbytes():
+        raise ValueError(f"{name}: the kernel would read past the tensor's "
+                         f"storage (element {last})")

@@ -9,15 +9,28 @@
 // carry flag, so one thread computes a whole 255-bit product from 32-bit
 // limbs in registers.
 //
-// What bounds it: add and sub move 3 x 32 bytes per element for ~20 integer
-// operations, so they are bound by memory bytes.  mul moves the same 96
-// bytes and needs at least 264 IMAD issue slots (an 8 x 8 limb product and
-// one reduction), so at full rate the integer pipe and the bytes take about
-// the same time.  The design: add, sub and mul run on PTX carry chains
-// (field.cuh, cc_*), mul with ONE Barrett reduction per product (290
-// 32-bit multiplies in its machine code, where the product / REDC /
-// multiply by F / REDC it replaced took about twice that); every limb stays
-// in registers and limbs are read coalesced.  A product sum adds its
+// What bounds it: add and sub (field_add, field_sub: the TPU's
+// reduce_work_pallas, pallas_kernels.py:134, under plonky_tpu/fields/
+// ops.py:388 add and :392 sub) move 3 x 32 bytes per element for ~20
+// integer operations, so they are bound by memory bytes.  mul moves the
+// same 96 bytes and needs at least 264 IMAD issue slots (an 8 x 8 limb
+// product and one reduction), so at full rate the integer pipe and the
+// bytes take about the same time.  The design: add, sub and mul run on PTX
+// carry chains (field.cuh, cc_*), mul with ONE Barrett reduction per
+// product (290 32-bit multiplies in its machine code, where the product /
+// REDC / multiply by F / REDC it replaced took about twice that); every
+// limb stays in registers and limbs are read coalesced.  The three share
+// one elementwise kernel (field_binary_kernel) that moves no byte the
+// function does not need: its strided overload reads each operand in
+// place, through a limb stride and a batch index of two levels
+// (BinaryOperand; a zero stride broadcasts), where a contiguous copy of a
+// strided slice (a gate's wire column, an IPA half) read and wrote the
+// whole operand once more, in a torch copy launch of its own; contiguous
+// operands and [L, 1] columns keep the lighter overload they had.  One
+// element a thread: a sweep on the H100 (k1_sweep.py) found 2 and 4
+// consecutive elements a thread, loaded as 8- and 16-byte vectors, no
+// faster at the prove's sizes (N = 2^17 at most, so 4 elements a thread
+// leave ~8 warps an SM) and the multiply up to 2x slower.  A product sum adds its
 // products straight into a (2L + 1)-limb accumulator on the same chains
 // and reduces once, by Barrett; one launch evaluates several sums over one
 // batch (the grid's y), and where the batch is too small to fill the card
@@ -67,6 +80,39 @@ __device__ __forceinline__ void load_operand(uint32_t r[PT_LIMBS], const int32_t
   else fe_load(r, base, n, i);
 }
 
+// One operand of an elementwise launch, read where it lies: limb k of
+// element i (row-major over the batch) at base[k * limb + (i / inner_n) *
+// outer + (i % inner_n) * inner] (fields/ops.py:operand_layout; a zero
+// stride is a broadcast, an [L, 1] column has both).
+struct BinaryOperand {
+  const int32_t* base;
+  int64_t limb, outer, inner, inner_n;
+};
+
+// The words of the host buffer fields/ops.py:_launch_binary fills, for a
+// and then b: the base pointer, the limb, outer and inner strides, the
+// inner size.
+#define K1_OPERAND_WORDS 5
+
+struct BinaryArgs {
+  BinaryOperand a, b;
+};
+
+__device__ __forceinline__ void load_strided(uint32_t r[PT_LIMBS], const BinaryOperand& o,
+                                             int64_t n, int64_t i) {
+  int64_t off = i * o.inner;
+  if (o.inner_n < n) {
+    const int64_t q = i / o.inner_n;
+    off = q * o.outer + (i - q * o.inner_n) * o.inner;
+  }
+  fe_load(r, o.base, o.limb, off);
+}
+
+// out [L, n] (contiguous) = a OP b, one element a thread, where every
+// operand is a contiguous [L, n] tensor or (bcast) a contiguous [L, 1]
+// column: the kernel as it was before views were read in place, kept for
+// those layouts (its launch is lighter by 56 bytes of parameters and its
+// loads need no offset; k1_sweep.py times both).
 template <int OP>
 __global__ void field_binary_kernel(int32_t* out, const int32_t* a, int a_bcast,
                                     const int32_t* b, int b_bcast, int64_t n,
@@ -76,6 +122,23 @@ __global__ void field_binary_kernel(int32_t* out, const int32_t* a, int a_bcast,
   uint32_t x[PT_LIMBS], y[PT_LIMBS], r[PT_LIMBS];
   load_operand(x, a, a_bcast, n, i);
   load_operand(y, b, b_bcast, n, i);
+  if (OP == 0) cc_add_mod(r, x, y, c.f);
+  else if (OP == 1) cc_sub_mod(r, x, y, c.f);
+  else cc_mul_mod(r, x, y, c);
+  fe_store(out, n, i, r);
+}
+
+// The same over operands of any layout, read in place (BinaryOperand): an
+// overload of the name, so that a kernel's SASS and its launches are found
+// under one name.
+template <int OP>
+__global__ void field_binary_kernel(int32_t* out, const BinaryArgs args, int64_t n,
+                                            MulConsts c) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[PT_LIMBS], y[PT_LIMBS], r[PT_LIMBS];
+  load_strided(x, args.a, n, i);
+  load_strided(y, args.b, n, i);
   if (OP == 0) cc_add_mod(r, x, y, c.f);
   else if (OP == 1) cc_sub_mod(r, x, y, c.f);
   else cc_mul_mod(r, x, y, c);
@@ -287,32 +350,59 @@ field_exp_kernel(int32_t* out, const int32_t* x, int64_t n,
   }
 }
 
+// An operand from its host words; false where they are not a layout the
+// kernel reads.
+static bool operand_from(BinaryOperand& o, const int64_t* w, int64_t n) {
+  o.base = (const int32_t*)w[0];
+  o.limb = w[1];
+  o.outer = w[2];
+  o.inner = w[3];
+  o.inner_n = w[4];
+  return o.limb >= 0 && o.outer >= 0 && o.inner >= 0 && o.inner_n >= 1 &&
+         (o.inner_n >= n || n % o.inner_n == 0);
+}
+
+// A contiguous [L, n] tensor or a contiguous [L, 1] column
+// (field_binary_kernel's operands).
+static bool contiguous_operand(const BinaryOperand& o, int64_t n) {
+  return o.inner_n >= n && ((o.inner == 1 && o.limb == n) || (o.inner == 0 && o.limb == 1));
+}
+
 template <int OP>
-static int launch_binary(void* out, const void* a, int a_bcast, const void* b,
-                         int b_bcast, int64_t n, const void* consts, void* stream) {
+static int launch_binary(void* out, const void* operands, int64_t n, const void* consts,
+                         void* stream) {
+  const int64_t* w = (const int64_t*)operands;
+  BinaryArgs args;
+  if (n < 1 || !operand_from(args.a, w, n) || !operand_from(args.b, w + K1_OPERAND_WORDS, n))
+    return (int)cudaErrorInvalidValue;
   MulConsts c = mul_consts_from((const uint32_t*)consts);
   const unsigned int blocks = (unsigned int)((n + K1_THREADS - 1) / K1_THREADS);
-  field_binary_kernel<OP><<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
-      (int32_t*)out, (const int32_t*)a, a_bcast, (const int32_t*)b, b_bcast, n, c);
+  if (contiguous_operand(args.a, n) && contiguous_operand(args.b, n))
+    field_binary_kernel<OP><<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, args.a.base, args.a.inner == 0, args.b.base, args.b.inner == 0, n, c);
+  else
+    field_binary_kernel<OP><<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, args, n, c);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// consts: the host buffer FieldSpec.mul_consts.
-int PT_ENTRY(pt_field_add)(void* out, const void* a, int a_bcast, const void* b,
-                           int b_bcast, int64_t n, const void* consts, void* stream) {
-  return launch_binary<0>(out, a, a_bcast, b, b_bcast, n, consts, stream);
+// out [L, n]; operands: the host buffer of both operands' words
+// (K1_OPERAND_WORDS each); consts: the host buffer FieldSpec.mul_consts.
+int PT_ENTRY(pt_field_add)(void* out, const void* operands, int64_t n, const void* consts,
+                           void* stream) {
+  return launch_binary<0>(out, operands, n, consts, stream);
 }
 
-int PT_ENTRY(pt_field_sub)(void* out, const void* a, int a_bcast, const void* b,
-                           int b_bcast, int64_t n, const void* consts, void* stream) {
-  return launch_binary<1>(out, a, a_bcast, b, b_bcast, n, consts, stream);
+int PT_ENTRY(pt_field_sub)(void* out, const void* operands, int64_t n, const void* consts,
+                           void* stream) {
+  return launch_binary<1>(out, operands, n, consts, stream);
 }
 
-int PT_ENTRY(pt_field_mul)(void* out, const void* a, int a_bcast, const void* b,
-                           int b_bcast, int64_t n, const void* consts, void* stream) {
-  return launch_binary<2>(out, a, a_bcast, b, b_bcast, n, consts, stream);
+int PT_ENTRY(pt_field_mul)(void* out, const void* operands, int64_t n, const void* consts,
+                           void* stream) {
+  return launch_binary<2>(out, operands, n, consts, stream);
 }
 
 // n_sums sums over one batch of n into out [n_sums, L, n]; the host arrays

@@ -3,7 +3,9 @@
 A value is an int32 tensor ``[L, *batch]`` of canonical elements, L =
 ``spec.limbs`` (8 or 12, see spec.py).  Operands broadcast over the batch
 like torch tensors; an ``[L, 1]`` column (a challenge, a constant) is read
-with a zero batch stride by the kernels.
+with a zero batch stride by the kernels, and `add`, `sub` and `mul` read
+any view (a slice, a broadcast) in place through its strides where its
+batch axes merge into two levels (`operand_layout`).
 
 K1, the field kernel (csrc/field_kernels.cu), computes `add`, `sub`, `mul`
 and `product_sum` / `product_sums` on CUDA tensors (`mul`: one Barrett
@@ -281,20 +283,72 @@ def _operand(x: torch.Tensor, batch) -> tuple:
     return _expand(x, batch).contiguous(), 0
 
 
+def operand_layout(sizes, strides) -> tuple | None:
+    """(outer stride, inner stride, inner size) of a batch index of at most
+    two levels that walks batch axes of `sizes` and `strides` (row-major,
+    in elements) as the elementwise kernel reads an operand in place:
+    element i at (i // inner size) * outer + (i % inner size) * inner.
+    Axes merge as TensorIterator coalesces them (an axis of size 1 drops
+    out; an axis merges into the next when its stride is the next one's
+    size times its stride, so broadcast axes merge with each other); None
+    where more than two levels remain.  Raises on a negative stride."""
+    if any(s < 0 for s in strides):
+        raise ValueError(f"negative stride in {tuple(strides)}")
+    levels = []
+    for n, s in zip(sizes, strides):
+        if n == 1:
+            continue
+        if levels and levels[-1][1] == n * s:
+            levels[-1] = (levels[-1][0] * n, s)
+        else:
+            levels.append((n, s))
+    if len(levels) > 2:
+        return None
+    if len(levels) < 2:
+        n, s = levels[0] if levels else (1, 0)
+        return 0, s, n
+    (_no, so), (ni, si) = levels
+    return so, si, ni
+
+
+def layout_reads(x: torch.Tensor, layout, n: int) -> int:
+    """The largest element offset from x's first element that the kernel
+    reads: the last limb row at the last element of n."""
+    outer, inner, inner_n = layout
+    return ((x.shape[0] - 1) * x.stride(0) + (n // inner_n - 1) * outer
+            + (inner_n - 1) * inner)
+
+
+def _binary_operand(name: str, spec: FieldSpec, x: torch.Tensor, batch,
+                    n: int) -> tuple:
+    """(tensor, layout) of one elementwise operand broadcast to [L,
+    *batch]: the view itself, read in place, or a contiguous copy (counted
+    in _cuda.COPIES) where its batch axes do not fit two levels."""
+    x = _expand(x, batch)
+    layout = operand_layout(x.shape[1:], x.stride()[1:])
+    if layout is None:
+        _cuda.COPIES[name] += 1
+        x = x.contiguous()
+        layout = operand_layout(x.shape[1:], x.stride()[1:])
+    _cuda.check(name, x, spec.limbs, reads=layout_reads(x, layout, n))
+    return x, layout
+
+
 def _launch_binary(kernel: str, spec: FieldSpec, a, b):
     """One launch of field_add / field_sub / field_mul at the field's
-    width."""
+    width, its operands read in place (_binary_operand)."""
     name, entry = _cuda.kernel(kernel, spec.limbs)
     batch = batch_shape(a, b)
     out = torch.empty((spec.limbs, *batch), dtype=torch.int32, device=a.device)
     n = out[0].numel()
     if n == 0:
         return out
-    (ta, fa), (tb, fb) = _operand(a, batch), _operand(b, batch)
-    for t in (ta, tb):
-        _cuda.check(name, t, spec.limbs)
-    _cuda.launch(name, entry, (out, ta, tb), out.data_ptr(), ta.data_ptr(), fa,
-                 tb.data_ptr(), fb, n, spec.mul_consts.ctypes.data)
+    operands = [_binary_operand(name, spec, x, batch, n) for x in (a, b)]
+    words = _cuda.host_array([w for x, layout in operands
+                              for w in (x.data_ptr(), x.stride(0), *layout)],
+                             np.int64)
+    _cuda.launch(name, entry, (out, *(x for x, _l in operands)), out.data_ptr(),
+                 words.ctypes.data, n, spec.mul_consts.ctypes.data)
     return out
 
 

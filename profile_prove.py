@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Diagnostics of plonky_tpu_torch's 2^14 prove on one NVIDIA GPU.
 
-    python3 profile_prove.py
+    python3 profile_prove.py [--root DIR] [PHASE ...]
 
 Not part of the chip check (chip_smoke.py); run it when PERF.md's
-breakdown needs renewing.  It prints JSON lines:
+breakdown needs renewing.  With no PHASE it runs them all; --root DIR
+takes the plonky_tpu_torch package of DIR (an earlier commit unpacked
+with `git archive`, say) in place of this checkout's.  It prints JSON
+lines:
 
   timing     per-launch device time of a few kernels four ways: CUDA events
              over launches queued behind a sleep (chip_smoke.py's `ms` and
@@ -15,7 +18,9 @@ breakdown needs renewing.  It prints JSON lines:
              each kernel and of everything else, and the share of the wall
              clock the card was busy;
   k1_shapes  one steady prove with K1's elementwise launches counted by
-             batch size N (field_add, field_sub, field_mul), and its
+             kernel (field_add, field_sub, field_mul), batch size N and
+             the operands' layouts (contiguous, strided, column,
+             broadcast, copied), the operands each wrapper copied, and its
              field_product_sum launches by N, sums, products, singles,
              full-column operands and negative terms;
   host       one steady prove under cProfile: the functions with the most
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import cProfile
+import importlib.util
 import os
 import pstats
 import re
@@ -33,7 +39,17 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import (KERNELS, PS_KEYS, Checker, buffer_circuit, card,
+# This checkout's chip_smoke.py, loaded by path: with --root, the other
+# tree's directory (which may hold a chip_smoke.py of its own) comes first
+# on sys.path, here and in the Pedersen hashing's spawned workers.
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "chip_smoke.py"))
+_smoke = importlib.util.module_from_spec(_spec)
+sys.modules["chip_smoke"] = _smoke
+_spec.loader.exec_module(_smoke)
+from chip_smoke import (KERNELS, PS_KEYS, Checker, binary_by_shape,  # noqa: E402
+                        buffer_circuit, card, counting_binary,
                         counting_product_sums, emit, product_sum_inputs,
                         product_sum_shapes, rand_field)
 
@@ -201,7 +217,10 @@ def phase_profile(torch) -> None:
 
 def phase_k1_shapes(torch) -> None:
     """Counts K1's launches of one steady prove: the elementwise ones by
-    kernel and batch size N, the product sums by their shape."""
+    kernel, batch size N and operand layouts (chip_smoke.binary_layout),
+    with the operands each kernel's wrapper copied first (_cuda.COPIES,
+    where the tree has it), and the product sums by their shape."""
+    from plonky_tpu_torch import _cuda
     from plonky_tpu_torch.fields import ops as fops
     from plonky_tpu_torch.protocol import generate_proof
 
@@ -209,43 +228,58 @@ def phase_k1_shapes(torch) -> None:
     witness = circuit.generate_witness(inputs)
     generate_proof(circuit, witness, old_proofs=[], blinding=True)
     torch.cuda.synchronize()
-    counts = collections.Counter()
-    launch = fops._launch_binary
-
-    def counted(name, entry, spec, a, b):
-        out = launch(name, entry, spec, a, b)
-        counts[(name, out[0].numel())] += 1
-        return out
-    fops._launch_binary = counted
-    try:
-        with counting_product_sums(fops) as sum_counts:
-            generate_proof(circuit, witness, old_proofs=[], blinding=True)
-            torch.cuda.synchronize()
-    finally:
-        fops._launch_binary = launch
-    by_kernel = {}
-    for (name, n), c in sorted(counts.items()):
-        by_kernel.setdefault(name, []).append([n, c])
-    emit({"phase": "k1_shapes", "launches_by_n": by_kernel,
+    _cuda.reset_launches()
+    with counting_binary(fops) as (counts, _calls), \
+            counting_product_sums(fops) as sum_counts:
+        generate_proof(circuit, witness, old_proofs=[], blinding=True)
+        torch.cuda.synchronize()
+    by_kernel = collections.Counter()
+    for key, c in counts.items():
+        by_kernel[key[0]] += c
+    emit({"phase": "k1_shapes", "keys": ["kernel", "N", "a", "b", "launches"],
+          "launches_by_shape": binary_by_shape(counts),
+          "launches_by_kernel": dict(by_kernel),
+          "copies": dict(getattr(_cuda, "COPIES", {})) or None,
           "product_sum_launches": sum(sum_counts.values()),
           "product_sum_by_shape": [{**dict(zip(PS_KEYS, k)), "launches": c}
                                    for k, c in sorted(sum_counts.items())]})
 
 
-def main() -> int:
+PHASES = ("timing", "profile", "k1_shapes")
+
+
+def main(argv) -> int:
+    """profile_prove.py [--root DIR] [PHASE ...]: the phases of PHASES
+    named (all when none is), with the plonky_tpu_torch package of DIR
+    (default this checkout's), e.g. an earlier commit unpacked with
+    `git archive`."""
+    if argv[:1] == ["--root"]:
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        argv = argv[2:]
+    phases = argv or list(PHASES)
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        print(f"profile_prove: no phase {unknown}; the phases: {PHASES}",
+              file=sys.stderr)
+        return 2
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("profile_prove: CUDA is not available", file=sys.stderr)
         return 2
+    import plonky_tpu_torch
     name_power, clock_hz, _sms, int_rate = card(torch)
-    emit({"phase": "env", "nvidia_smi": name_power})
+    emit({"phase": "env", "nvidia_smi": name_power,
+          "package": os.path.dirname(plonky_tpu_torch.__file__)})
     ck = Checker(torch, clock_hz, int_rate)
-    phase_timing(ck, torch, np)
-    phase_profile(torch)
-    phase_k1_shapes(torch)
+    if "timing" in phases:
+        phase_timing(ck, torch, np)
+    if "profile" in phases:
+        phase_profile(torch)
+    if "k1_shapes" in phases:
+        phase_k1_shapes(torch)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

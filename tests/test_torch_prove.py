@@ -3,14 +3,17 @@ tests/test_proof_fixture.py pins it, the port's `trivial`, `sum_pi` and
 `curve_add` proofs and vks are byte-equal to the committed fixtures; the
 port's verifier accepts them (with the G check) and rejects a changed
 opening; and the JAX package's verifier accepts the port's proof (with the
-G check)."""
+G check: tests/fixtures/jax_proofs.json records what it accepted, and a
+slow test runs it again)."""
 
+import hashlib
 import os
 
 import numpy as np
 import pytest
 import torch
 
+import _jax_fixtures as jaxfx
 import plonky_tpu_torch.circuit.builder as builder_mod
 import plonky_tpu_torch.protocol.halo as halo_mod
 from plonky_tpu.protocol import verify_proof as jax_verify_proof
@@ -126,10 +129,30 @@ def test_port_verifier_rejects_changed_opening(proofs):
                      device="cpu")
 
 
+def _verified(proof_bytes, vk_bytes, pis) -> dict:
+    """What the JAX verifier was given, as its fixture entry records it."""
+    return {"proof_sha256": hashlib.sha256(proof_bytes).hexdigest(),
+            "vk_sha256": hashlib.sha256(vk_bytes).hexdigest(),
+            "public_inputs": jaxfx.digest(pis), "verify_g": True}
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_jax_verifier_accepts_port_proof(proofs, name):
+    """The JAX package's verifier accepts the port's proof with the G
+    check: the port's proof, vk and public inputs are the ones it accepted
+    (tests/fixtures/jax_proofs.json, made by test_jax_verifier_fixture,
+    which runs the JAX verifier on them)."""
+    proof_bytes, vk_bytes, _vk, pis = proofs[name]
+    assert _verified(proof_bytes, vk_bytes, pis) == jaxfx.load(
+        "proofs", f"jax verifier {name}")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", NAMES)
+def test_jax_verifier_fixture(proofs, name):
     proof_bytes, vk_bytes, _vk, pis = proofs[name]
     proof = jax_proof_from_bytes(J_DEE, proof_bytes)
     vk = jax_vk_from_bytes(J_DEE, vk_bytes)
     assert jax_verify_proof(pis, proof, [], vk, J_DUM,
                             verify_g=True) is None
+    jaxfx.check("proofs", f"jax verifier {name}", _verified(proof_bytes, vk_bytes, pis))
